@@ -1,0 +1,90 @@
+"""Hand-written Hopper kernels, their build helper and dispatch.
+
+Each kernel package keeps the reference's trio: ``kernel.py`` binds the
+CUDA kernel, ``ref.py`` is the plain PyTorch version of the same
+function, and ``ops.py`` picks between them by the device of the
+tensors it is given (`pick`): a CPU tensor goes to the plain version,
+a CUDA tensor launches the kernel (which raises on what it cannot
+take).  Nothing falls back from the kernel to the plain version.
+
+Kernels are compiled at first use from the sources in the package, with
+``nvcc`` for ``sm_90a``, into ``build/`` at the repository root, and
+loaded through `ctypes`.  Nothing is built or imported from a GPU
+toolchain when a module is imported.
+
+`launch_counts` counts kernel launches by name: each wrapper adds one
+where it launches its kernel, and nowhere else, so a run can show that
+its main path went through the kernels.
+"""
+from __future__ import annotations
+
+import collections
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+from pathlib import Path
+from typing import Callable, Sequence
+
+import torch
+
+launch_counts: collections.Counter = collections.Counter()
+
+BUILD_DIR = Path(__file__).resolve().parents[3] / "build"
+NVCC_FLAGS = (
+    "-gencode", "arch=compute_90a,code=sm_90a",
+    "-std=c++17", "-O3",
+    # the plain versions round a*b + c twice; keep nvcc from fusing it
+    "-fmad=false",
+    "-Xptxas", "-v",
+    "-shared", "-Xcompiler", "-fPIC",
+)
+
+
+def pick(t: torch.Tensor, kernel: Callable, plain: Callable) -> Callable:
+    """The kernel for a CUDA tensor, the plain version for a CPU one."""
+    if t.device.type == "cuda":
+        return kernel
+    if t.device.type == "cpu":
+        return plain
+    raise ValueError(f"no kernel or plain version for device {t.device}")
+
+
+def _nvcc() -> str:
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    home = os.environ.get("CUDA_HOME", "/usr/local/cuda")
+    path = os.path.join(home, "bin", "nvcc")
+    if not os.path.exists(path):
+        raise RuntimeError("nvcc not found on PATH or under CUDA_HOME")
+    return path
+
+
+def library_path(name: str, sources: Sequence[Path]) -> Path:
+    """Where `build_library` puts `name`: keyed by the sources' bytes and
+    the flags, so an edit to a source builds a new library."""
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for src in sources:
+        h.update(Path(src).read_bytes())
+    return BUILD_DIR / f"lib{name}-{h.hexdigest()[:16]}.so"
+
+
+def build_library(name: str, sources: Sequence[Path]) -> ctypes.CDLL:
+    """Compile `sources` into a shared library with a plain C interface
+    (unless this content was built before) and load it.  The compiler's
+    report (registers, shared memory, spills) goes to ``<lib>.log``."""
+    out = library_path(name, sources)
+    if not out.exists():
+        BUILD_DIR.mkdir(parents=True, exist_ok=True)
+        tmp = out.with_suffix(f".{os.getpid()}.tmp")
+        cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), *map(str, sources)]
+        proc = subprocess.run(cmd, capture_output=True, text=True, check=False)
+        out.with_suffix(".log").write_text(proc.stdout + proc.stderr)
+        if proc.returncode:
+            raise RuntimeError(
+                f"nvcc failed to build {name} ({proc.returncode}):\n"
+                f"{proc.stderr}")
+        os.replace(tmp, out)
+    return ctypes.CDLL(str(out))

@@ -25,7 +25,7 @@ import os
 import shutil
 import subprocess
 from pathlib import Path
-from typing import Callable, Sequence
+from typing import Callable, Sequence, Tuple
 
 import torch
 
@@ -71,20 +71,36 @@ def library_path(name: str, sources: Sequence[Path]) -> Path:
     return BUILD_DIR / f"lib{name}-{h.hexdigest()[:16]}.so"
 
 
-def build_library(name: str, sources: Sequence[Path]) -> ctypes.CDLL:
-    """Compile `sources` into a shared library with a plain C interface
-    (unless this content was built before) and load it.  The compiler's
+def build_libraries(specs: Sequence[Tuple[str, Sequence[Path]]]) -> list:
+    """Compile each ``(name, sources)`` into a shared library with a plain
+    C interface (unless this content was built before) and load them.
+    One ``nvcc`` per library, all started together.  The compiler's
     report (registers, shared memory, spills) goes to ``<lib>.log``."""
-    out = library_path(name, sources)
-    if not out.exists():
+    procs = []
+    for name, sources in specs:
+        out = library_path(name, sources)
+        if out.exists():
+            continue
         BUILD_DIR.mkdir(parents=True, exist_ok=True)
         tmp = out.with_suffix(f".{os.getpid()}.tmp")
         cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), *map(str, sources)]
-        proc = subprocess.run(cmd, capture_output=True, text=True, check=False)
-        out.with_suffix(".log").write_text(proc.stdout + proc.stderr)
+        procs.append((name, out, tmp, subprocess.Popen(
+            cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)))
+    failed = []
+    for name, out, tmp, proc in procs:
+        stdout, stderr = proc.communicate()
+        out.with_suffix(".log").write_text(stdout + stderr)
         if proc.returncode:
-            raise RuntimeError(
-                f"nvcc failed to build {name} ({proc.returncode}):\n"
-                f"{proc.stderr}")
-        os.replace(tmp, out)
-    return ctypes.CDLL(str(out))
+            failed.append(f"nvcc failed to build {name} ({proc.returncode}):"
+                          f"\n{stderr}")
+        else:
+            os.replace(tmp, out)
+    if failed:
+        raise RuntimeError("\n".join(failed))
+    return [ctypes.CDLL(str(library_path(name, sources)))
+            for name, sources in specs]
+
+
+def build_library(name: str, sources: Sequence[Path]) -> ctypes.CDLL:
+    """`build_libraries` for one library."""
+    return build_libraries([(name, sources)])[0]

@@ -1,0 +1,90 @@
+"""ctypes binding of the Hopper flash attention kernel
+(``csrc/flash_attention.cu``).
+
+The CUDA source replaces the TPU kernel
+``repro/kernels/flash_attention/kernel.py::_kernel``; its header states
+the bound and the design.  The library is built at first use (see
+`repro_torch.kernels.build_library`).  The wrapper checks what it is
+given, allocates the output with `torch.empty`, launches on the current
+stream without synchronising, and raises on a non-zero ``cudaError_t``.
+"""
+from __future__ import annotations
+
+import ctypes
+from pathlib import Path
+
+import torch
+
+from repro_torch.kernels import build_library, launch_counts
+
+NAME = "flash_attention"
+SOURCE = Path(__file__).resolve().parent / "csrc" / "flash_attention.cu"
+HEAD_DIMS = (16, 32, 64, 128)   # the kernel's instantiations
+DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+
+_lib = None
+
+
+def library() -> ctypes.CDLL:
+    """Build (once per source content) and load the kernel library."""
+    global _lib
+    if _lib is None:
+        lib = build_library(NAME, [SOURCE])
+        ptr, i32 = ctypes.c_void_p, ctypes.c_int
+        lib.flash_attention_launch.argtypes = [
+            ptr, ptr, ptr, ptr, i32, i32, i32, i32, i32, i32, i32, i32,
+            ctypes.c_float, ptr,
+        ]
+        lib.flash_attention_launch.restype = i32
+        _lib = lib
+    return _lib
+
+
+def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+           group: int) -> None:
+    if q.dim() != 3 or k.dim() != 3 or v.dim() != 3:
+        raise ValueError("q, k, v must be (BH, S, hd)")
+    bhq, _, hd = q.shape
+    if k.shape != v.shape or k.shape[2] != hd:
+        raise ValueError(f"k {tuple(k.shape)} / v {tuple(v.shape)} do not "
+                         f"fit q {tuple(q.shape)}")
+    if group < 1 or bhq != k.shape[0] * group:
+        raise ValueError(f"BHq {bhq} != BHkv {k.shape[0]} x group {group}")
+    if hd not in HEAD_DIMS:
+        raise ValueError(f"head_dim {hd} not in {HEAD_DIMS}")
+    if not 1 <= bhq <= 65535 or q.shape[1] < 1 or k.shape[1] < 1:
+        raise ValueError(f"shapes {tuple(q.shape)}, {tuple(k.shape)} "
+                         "outside the kernel's range")
+    for name, t in (("q", q), ("k", k), ("v", v)):
+        if t.device != q.device or t.device.type != "cuda":
+            raise ValueError(f"{name} on {t.device}, expected {q.device} (CUDA)")
+        if t.dtype not in DTYPES or t.dtype != q.dtype:
+            raise TypeError(f"{name} is {t.dtype}; the kernel takes float32 "
+                            "or bfloat16, one type for q, k and v")
+        if not t.is_contiguous():
+            raise ValueError(f"{name} must be contiguous")
+
+
+def flash_attention_fwd(
+    q: torch.Tensor,   # (BHq, Sq, hd), heads folded
+    k: torch.Tensor,   # (BHkv, Sk, hd)
+    v: torch.Tensor,
+    group: int,        # Hq // Hkv: q row bh reads kv row bh // group
+    causal: bool,
+    window: int,
+) -> torch.Tensor:
+    """Attention on the card; returns o (BHq, Sq, hd) in q's dtype."""
+    _check(q, k, v, group)
+    lib = library()
+    bhq, sq, hd = q.shape
+    with torch.cuda.device(q.device):
+        o = torch.empty_like(q)
+        stream = torch.cuda.current_stream(q.device).cuda_stream
+        err = lib.flash_attention_launch(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
+            DTYPES[q.dtype], bhq, sq, k.shape[1], hd, group,
+            int(bool(causal)), int(window), hd**-0.5, stream)
+    if err:
+        raise RuntimeError(f"flash_attention launch failed: cudaError_t {err}")
+    launch_counts[NAME] += 1
+    return o

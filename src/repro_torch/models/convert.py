@@ -1,0 +1,68 @@
+"""The JAX package's parameters as the port's.
+
+`params_from_numpy(cfg, tree)` takes the parameter pytree of
+`repro.models.model.init_params` with every leaf turned into a numpy
+array (``jax.tree.map(np.asarray, params)``) and returns the port's
+`ParamTree`: the scanned ``stack/blocks/<i>`` leaves (stacked over the
+leading layer axis) are unstacked into one entry per layer in
+`StackPlan.kinds` order, every leaf keeps its ``(d_in, d_out)`` layout,
+and each is cast to its storage dtype (`layers.storage_dtype`) — the
+dtype the JAX forward casts it to at use, so the forwards agree bit for
+bit in the casts.
+"""
+from __future__ import annotations
+
+from typing import Mapping
+
+import numpy as np
+import torch
+
+from repro_torch import DeviceLike, resolve_device
+from repro_torch.configs.base import ModelConfig
+from repro_torch.models.layers import ParamTree, storage_dtype
+from repro_torch.models.transformer import stack_plan
+
+
+def _leaves(cfg: ModelConfig, tree: Mapping, dev: torch.device) -> dict:
+    out = {}
+    for name, value in tree.items():
+        if isinstance(value, Mapping):
+            out[name] = _leaves(cfg, value, dev)
+        else:
+            # a float32 copy: bf16 leaves arrive as ml_dtypes arrays, and
+            # arrays from JAX are read-only
+            arr = np.array(value, dtype=np.float32, order="C")
+            out[name] = torch.from_numpy(arr).to(
+                device=dev, dtype=storage_dtype(cfg, name))
+    return out
+
+
+def _index(tree: Mapping, i: int) -> dict:
+    return {name: (_index(v, i) if isinstance(v, Mapping) else v[i])
+            for name, v in tree.items()}
+
+
+def tree_from_flat(flat: Mapping[str, np.ndarray]) -> dict:
+    """Nested dicts from ``"a/b/c"`` keys (a pytree saved with `np.savez`
+    under its key paths)."""
+    tree: dict = {}
+    for key, value in flat.items():
+        *path, leaf = key.split("/")
+        node = tree
+        for name in path:
+            node = node.setdefault(name, {})
+        node[leaf] = value
+    return tree
+
+
+def params_from_numpy(cfg: ModelConfig, tree: Mapping,
+                      device: DeviceLike = None) -> ParamTree:
+    dev = resolve_device(device)
+    plan = stack_plan(cfg)
+    stack = tree["stack"]
+    layers = [_index(stack["blocks"][str(j)], i)
+              for i in range(plan.n_scan) for j in range(len(plan.pattern))]
+    top = {name: v for name, v in tree.items() if name != "stack"}
+    out = _leaves(cfg, top, dev)
+    out["stack"] = [_leaves(cfg, layer, dev) for layer in layers]
+    return ParamTree(out)

@@ -1,0 +1,43 @@
+"""Dense feed-forward blocks: SwiGLU / GeGLU (gated) and plain MLP.
+
+Port of `repro.models.ffn`, for the layers of dense stacks.
+"""
+from __future__ import annotations
+
+from typing import Dict
+
+import torch
+
+from repro_torch.configs.base import ModelConfig
+from repro_torch.models.layers import act_fn, dense_init, storage_dtype
+
+
+def gated(cfg: ModelConfig) -> bool:
+    return cfg.act in ("silu", "gelu")
+
+
+def init_ffn(gen: torch.Generator, cfg: ModelConfig) -> Dict:
+    d_ff = cfg.d_ff
+    dt = storage_dtype(cfg, "w_in")
+    if gated(cfg):
+        return {
+            "w_gate": dense_init(gen, cfg.d_model, d_ff, dt),
+            "w_up": dense_init(gen, cfg.d_model, d_ff, dt),
+            "w_down": dense_init(gen, d_ff, cfg.d_model, dt),
+        }
+    return {
+        "w_in": dense_init(gen, cfg.d_model, d_ff, dt),
+        "b_in": torch.zeros((d_ff,), dtype=dt, device=gen.device),
+        "w_out": dense_init(gen, d_ff, cfg.d_model, dt),
+        "b_out": torch.zeros((cfg.d_model,), dtype=dt, device=gen.device),
+    }
+
+
+def apply_ffn(p, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
+    f = act_fn(cfg.act)
+    if "w_gate" in p:
+        g = f(x @ p["w_gate"].to(x.dtype))
+        u = x @ p["w_up"].to(x.dtype)
+        return (g * u) @ p["w_down"].to(x.dtype)
+    h = f(x @ p["w_in"].to(x.dtype) + p["b_in"].to(x.dtype))
+    return h @ p["w_out"].to(x.dtype) + p["b_out"].to(x.dtype)

@@ -1,0 +1,128 @@
+"""Public model API: init, parameter count, prefill and decode forwards.
+
+Port of the serving half of `repro.models.model` (training forwards and
+the losses wait for the training slice).  Entry points take parameters
+built by `init_params` (random, from a seed, on the card by default) or
+by `models.convert.params_from_numpy` (the JAX package's parameters).
+"""
+from __future__ import annotations
+
+from typing import Dict, List, Optional, Tuple
+
+import torch
+import torch.nn.functional as F
+
+from repro_torch import DeviceLike, resolve_device
+from repro_torch.configs.base import ModelConfig
+from repro_torch.models import transformer as T
+from repro_torch.models.ffn import gated
+from repro_torch.models.layers import (
+    ParamTree,
+    apply_norm,
+    dense_init,
+    embed_init,
+    init_norm,
+    storage_dtype,
+    torch_dtype,
+)
+from repro_torch.models.moe import _no_shared
+
+
+def init_params(cfg: ModelConfig, seed: int,
+                device: DeviceLike = None) -> ParamTree:
+    """Random parameters with the JAX package's distributions, drawn on
+    `device` from a `torch.Generator` seeded with `seed`, each weight in
+    its storage dtype (`layers.storage_dtype`)."""
+    dev = resolve_device(device)
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    p = {
+        "embed": embed_init(gen, cfg.vocab_size, cfg.d_model,
+                            storage_dtype(cfg, "embed")),
+        "stack": T.init_stack(gen, cfg, T.stack_plan(cfg)),
+        "final_norm": init_norm(cfg.norm, cfg.d_model, dev),
+    }
+    if not cfg.tie_embeddings:
+        p["lm_head"] = dense_init(gen, cfg.d_model, cfg.vocab_size,
+                                  torch.float32)
+    return ParamTree(p)
+
+
+def _layer_params(cfg: ModelConfig, kind: str, active_only: bool) -> int:
+    D, hd = cfg.d_model, cfg.head_dim_
+    dq, dkv = cfg.num_heads * hd, cfg.num_kv_heads * hd
+    norm = D * (2 if cfg.norm == "layernorm" else 1)
+    attn = 2 * D * dq + 2 * D * dkv
+    attn += (dq + 2 * dkv) if cfg.qkv_bias else 0
+    attn += 2 * hd if cfg.qk_norm else 0
+    if kind == "moe":
+        _no_shared(cfg)
+        m = cfg.moe
+        per_leaf = m.num_experts * D * m.d_ff_expert
+        if active_only:  # as the JAX count: experts scaled by top_k / E
+            per_leaf = int(per_leaf * m.top_k / m.num_experts)
+        ffn = D * m.num_experts + 3 * per_leaf
+    else:
+        d_ff = cfg.d_ff
+        ffn = 3 * D * d_ff if gated(cfg) else 2 * D * d_ff + d_ff + D
+    return 2 * norm + attn + ffn
+
+
+def count_params(cfg: ModelConfig, active_only: bool = False) -> int:
+    """Analytic parameter count of the JAX package's parameter tree (no
+    allocation); `active_only` counts top_k of the routed experts."""
+    kinds = T.stack_plan(cfg).kinds
+    total = sum(_layer_params(cfg, kind, active_only) for kind in kinds)
+    total += cfg.vocab_size * cfg.d_model                       # embed
+    total += cfg.d_model * (2 if cfg.norm == "layernorm" else 1)  # final norm
+    if not cfg.tie_embeddings:
+        total += cfg.d_model * cfg.vocab_size                   # lm_head
+    return total
+
+
+def _embed(params, tokens: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
+    return params["embed"][tokens].to(torch_dtype(cfg.compute_dtype))
+
+
+def _logits(params, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
+    x = apply_norm(cfg.norm, params["final_norm"], x, upcast=cfg.norm_upcast)
+    head = params["embed"].T if cfg.tie_embeddings else params["lm_head"]
+    return x.float() @ head.float()
+
+
+def forward_prefill(
+    params,
+    batch: Dict[str, torch.Tensor],
+    cfg: ModelConfig,
+    cache_len: Optional[int] = None,
+) -> Tuple[torch.Tensor, List[Dict[str, torch.Tensor]]]:
+    """Returns (last-token logits (B, V) f32, decode caches).
+
+    With cache_len, the K/V caches are padded with zeros to that length
+    so decode steps have slots to write into."""
+    tokens = batch["tokens"]
+    S = tokens.shape[1]
+    x = _embed(params, tokens, cfg)
+    ctx = T.LayerCtx(positions=torch.arange(S, device=tokens.device),
+                     mode="prefill")
+    x, _, caches = T.apply_stack(params["stack"], x, cfg, ctx,
+                                 T.stack_plan(cfg))
+    if cache_len is not None and cache_len > S:
+        caches = [{name: F.pad(t, (0, 0, 0, cache_len - S))
+                   for name, t in c.items()} for c in caches]
+    return _logits(params, x[:, -1:], cfg)[:, 0], caches
+
+
+def forward_decode(
+    params,
+    tokens: torch.Tensor,        # (B, 1)
+    positions: torch.Tensor,     # (B,)
+    caches: List[Dict[str, torch.Tensor]],
+    cfg: ModelConfig,
+) -> Tuple[torch.Tensor, List[Dict[str, torch.Tensor]]]:
+    """One decode step; writes the caches in place.  Returns (logits
+    (B, V) f32, caches)."""
+    x = _embed(params, tokens, cfg)
+    ctx = T.LayerCtx(pos=positions, mode="decode")
+    x, _, caches = T.apply_stack(params["stack"], x, cfg, ctx,
+                                 T.stack_plan(cfg), caches=caches)
+    return _logits(params, x, cfg)[:, 0], caches

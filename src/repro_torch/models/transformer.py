@@ -1,0 +1,131 @@
+"""Transformer stacks: stack plan, per-layer init and apply.
+
+Port of `repro.models.transformer` for the uniform stacks of the ported
+architectures (``self_attn`` or ``moe`` layers); `stack_plan` raises
+`NotImplementedError` for the others.  The JAX package scans stacked superblocks with
+`lax.scan`; the port keeps the layers in an `nn.ModuleList` in
+`StackPlan.kinds` order and loops over them in Python.  Two modes, as
+serving needs them: "prefill" (full sequence, also returns the decode
+state) and "decode" (one token against the state).  Training waits for
+its slice (ROADMAP.md Queue 1).
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Dict, List, Optional, Tuple
+
+import torch
+from torch import nn
+
+from repro_torch.configs.base import ModelConfig
+from repro_torch.models import attention as A
+from repro_torch.models import ffn as F
+from repro_torch.models import moe as M
+from repro_torch.models.layers import ParamTree, apply_norm, init_norm
+
+
+@dataclasses.dataclass(frozen=True)
+class StackPlan:
+    """The JAX package's scanned superblock, `pattern` repeated `n_scan`
+    times; the ported stacks have no unrolled prefix or tail."""
+    pattern: Tuple[str, ...]
+    n_scan: int
+
+    @property
+    def kinds(self) -> Tuple[str, ...]:
+        return self.pattern * self.n_scan
+
+
+def stack_plan(cfg: ModelConfig) -> StackPlan:
+    """The JAX package's split of the stack, kept so that parameters
+    convert layer by layer.  Only uniform stacks are ported: dense
+    (``self_attn`` layers) and MoE without dense prefix layers."""
+    if cfg.family not in ("dense", "moe") or (
+            cfg.moe is not None and cfg.moe.first_dense_layers):
+        raise NotImplementedError(
+            f"the {cfg.family} stack of {cfg.name!r} is not ported yet; "
+            "see ROADMAP.md Queue 1")
+    return StackPlan((cfg.layer_kinds()[0],), cfg.num_layers)
+
+
+# --------------------------------------------------------------------------
+# per-layer init / apply
+# --------------------------------------------------------------------------
+
+
+def init_layer(gen: torch.Generator, cfg: ModelConfig, kind: str) -> Dict:
+    p = {"ln1": init_norm(cfg.norm, cfg.d_model, gen.device),
+         "attn": A.init_attention(gen, cfg),
+         "ln2": init_norm(cfg.norm, cfg.d_model, gen.device)}
+    if kind == "moe":
+        p["moe"] = M.init_moe(gen, cfg)
+    else:
+        p["ffn"] = F.init_ffn(gen, cfg)
+    return p
+
+
+@dataclasses.dataclass
+class LayerCtx:
+    positions: Optional[torch.Tensor] = None   # (S,) prefill
+    pos: Optional[torch.Tensor] = None          # (B,) decode position
+    mode: str = "prefill"                       # prefill | decode
+
+
+def apply_layer(
+    kind: str,
+    p,
+    x: torch.Tensor,
+    cfg: ModelConfig,
+    ctx: LayerCtx,
+    cache: Optional[Dict] = None,
+) -> Tuple[torch.Tensor, torch.Tensor, Dict]:
+    """Returns (x, aux_loss, new_cache)."""
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+
+    h = apply_norm(cfg.norm, p["ln1"], x, upcast=cfg.norm_upcast)
+    if ctx.mode == "decode":
+        y, nk, nv = A.attention_block_decode(
+            p["attn"], h, cfg, ctx.pos, cache["k"], cache["v"])
+        new_cache = {"k": nk, "v": nv}
+    else:
+        y, kc, vc = A.attention_block(p["attn"], h, cfg, ctx.positions,
+                                      return_kv=True)
+        new_cache = {"k": kc, "v": vc}
+    x = x + y
+
+    h = apply_norm(cfg.norm, p["ln2"], x, upcast=cfg.norm_upcast)
+    if kind == "moe":
+        y, aux = M.apply_moe(p["moe"], h, cfg)
+    else:
+        y = F.apply_ffn(p["ffn"], h, cfg)
+    return x + y, aux, new_cache
+
+
+# --------------------------------------------------------------------------
+# stack init / apply
+# --------------------------------------------------------------------------
+
+
+def init_stack(gen: torch.Generator, cfg: ModelConfig,
+               plan: StackPlan) -> nn.ModuleList:
+    return nn.ModuleList(
+        [ParamTree(init_layer(gen, cfg, kind)) for kind in plan.kinds])
+
+
+def apply_stack(
+    params: nn.ModuleList,
+    x: torch.Tensor,
+    cfg: ModelConfig,
+    ctx: LayerCtx,
+    plan: StackPlan,
+    caches: Optional[List[Dict]] = None,
+) -> Tuple[torch.Tensor, torch.Tensor, List[Dict]]:
+    """Run every layer in order.  Returns (x, total_aux, new_caches)."""
+    aux_total = torch.zeros((), dtype=torch.float32, device=x.device)
+    new_caches = []
+    for i, kind in enumerate(plan.kinds):
+        c = caches[i] if caches is not None else None
+        x, aux, nc = apply_layer(kind, params[i], x, cfg, ctx, c)
+        aux_total = aux_total + aux
+        new_caches.append(nc)
+    return x, aux_total, new_caches

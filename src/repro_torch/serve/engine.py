@@ -1,0 +1,157 @@
+"""Continuous-batching serving engine (prefill + decode over slot caches).
+
+Port of `repro.serve.engine`.  A fixed pool of slots shares one batched
+decode cache.  New requests prefill one at a time, at their own length,
+and are copied into a free slot; every engine tick runs one batched
+decode step for all slots.  As in the JAX package, the tick decodes
+every slot, idle ones included (token 0 at the slot's last position):
+their tokens take MoE capacity (T = slots), so skipping them would
+change the live slots' tokens.
+
+The cache is written in place: a prefill's K/V are copied into its slot
+and the rest of the slot is zeroed, and decode writes its K/V at each
+slot's position.  Greedy decoding is the tested path; with
+``greedy=False`` the first token of a request is drawn from its
+softmax with a `torch.Generator` seeded by the request id (the JAX
+package draws it with `jax.random.categorical`, so the bits differ),
+and later tokens are greedy, as in the JAX package.
+
+The f32 router, decode attention and head match the JAX package's f32
+dots only with TF32 off, PyTorch's default; the entry points
+(`launch.serve`, chip_smoke.py) set it so.
+
+The engine counts its prefills and decode ticks and the host seconds
+each took (each ends in a copy of the next token to the host, which
+waits for the device).
+"""
+from __future__ import annotations
+
+import dataclasses
+import time
+from typing import List, Optional
+
+import numpy as np
+import torch
+
+from repro_torch import DeviceLike, resolve_device
+from repro_torch.configs.base import ModelConfig
+from repro_torch.models.kvcache import init_cache
+from repro_torch.models.model import forward_decode, forward_prefill
+
+
+@dataclasses.dataclass
+class Request:
+    rid: int
+    prompt: np.ndarray             # (L,) int32
+    max_new_tokens: int = 16
+    eos_id: int = -1               # -1: never stop early
+    out_tokens: List[int] = dataclasses.field(default_factory=list)
+    done: bool = False
+
+
+class ServeEngine:
+    def __init__(
+        self,
+        cfg: ModelConfig,
+        params,
+        slots: int = 4,
+        max_seq: int = 128,
+        greedy: bool = True,
+        device: DeviceLike = None,
+    ):
+        self.cfg = cfg
+        self.params = params
+        self.slots = slots
+        self.max_seq = max_seq
+        self.greedy = greedy
+        self.device = resolve_device(device)
+        self.cache = init_cache(cfg, slots, max_seq, device=self.device)
+        self.pos = np.zeros(slots, np.int32)
+        self.active: List[Optional[Request]] = [None] * slots
+        self.queue: List[Request] = []
+        self.finished: List[Request] = []
+        self.prefills = 0
+        self.prefill_tokens = 0
+        self.prefill_s = 0.0
+        self.ticks = 0
+        self.decode_s = 0.0
+
+    # ---------------- request plumbing -------------------------------------
+    def submit(self, req: Request):
+        self.queue.append(req)
+
+    @torch.no_grad()
+    def _insert(self, slot: int, req: Request):
+        L = len(req.prompt)
+        if L > self.max_seq:
+            raise ValueError(f"prompt of {L} tokens > max_seq {self.max_seq}")
+        t0 = time.perf_counter()
+        tokens = torch.as_tensor(np.asarray(req.prompt, np.int64)[None, :],
+                                 device=self.device)
+        logits, pc = forward_prefill(self.params, {"tokens": tokens}, self.cfg)
+        # the single-request cache into the batched slot, zero past L
+        for layer, pre in zip(self.cache, pc):
+            for name, buf in layer.items():
+                buf[slot, :, :L] = pre[name][0].to(buf.dtype)
+                buf[slot, :, L:] = 0
+        if self.greedy:
+            tok = int(torch.argmax(logits[0]))
+        else:
+            gen = torch.Generator(device=logits.device).manual_seed(req.rid)
+            tok = int(torch.multinomial(torch.softmax(logits[0], -1), 1,
+                                        generator=gen))
+        self.prefills += 1
+        self.prefill_tokens += L
+        self.prefill_s += time.perf_counter() - t0
+        req.out_tokens.append(tok)
+        self.active[slot] = req
+        self.pos[slot] = L
+
+    def _free_slots(self) -> List[int]:
+        return [i for i, r in enumerate(self.active) if r is None]
+
+    # ---------------- engine tick -------------------------------------------
+    @torch.no_grad()
+    def step(self) -> int:
+        """Admit queued requests, run one batched decode step.  Returns the
+        number of active requests after the tick."""
+        for slot in self._free_slots():
+            if not self.queue:
+                break
+            self._insert(slot, self.queue.pop(0))
+
+        live = [i for i, r in enumerate(self.active) if r is not None]
+        if not live:
+            return 0
+        t0 = time.perf_counter()
+        toks = np.zeros((self.slots, 1), np.int64)
+        for i in live:
+            toks[i, 0] = self.active[i].out_tokens[-1]
+        logits, self.cache = forward_decode(
+            self.params, torch.as_tensor(toks, device=self.device),
+            torch.as_tensor(self.pos.astype(np.int64), device=self.device),
+            self.cache, self.cfg)
+        nxt = torch.argmax(logits, dim=-1).cpu().numpy()
+        self.ticks += 1
+        self.decode_s += time.perf_counter() - t0
+        for i in live:
+            r = self.active[i]
+            self.pos[i] += 1
+            tok = int(nxt[i])
+            r.out_tokens.append(tok)
+            if (
+                tok == r.eos_id
+                or len(r.out_tokens) >= r.max_new_tokens
+                or self.pos[i] >= self.max_seq - 1
+            ):
+                r.done = True
+                self.finished.append(r)
+                self.active[i] = None
+        return sum(r is not None for r in self.active)
+
+    def run_to_completion(self, max_ticks: int = 1000) -> List[Request]:
+        for _ in range(max_ticks):
+            self.step()
+            if not self.queue and all(r is None for r in self.active):
+                break
+        return self.finished

@@ -1,0 +1,107 @@
+"""The port's flash attention (plain version and dispatch) against the
+JAX package, on the CPU.
+
+The same seeded numpy inputs go through the JAX Pallas kernel in
+interpret mode, the JAX plain version and the port's `ops` / `ref`, at
+the sweep of tests/test_kernels.py:21-33 and its tolerances (f32 2e-5,
+bf16 2e-2), plus ragged lengths (which the port's kernel masks itself)
+and the model's `chunked_attention` (tests/test_kernels.py:106).
+"""
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.kernels.flash_attention import flash_attention as j_flash
+from repro.kernels.flash_attention import flash_attention_ref as j_ref
+from repro.models.attention import chunked_attention
+from repro_torch.kernels.flash_attention import flash_attention, flash_attention_ref
+
+SWEEP = [  # B, Hq, Hkv, Sq, Sk, hd, causal, window, bq, bk
+    (1, 2, 2, 64, 64, 32, True, 0, 32, 32),     # MHA causal
+    (2, 4, 2, 64, 64, 64, True, 0, 16, 32),     # GQA
+    (1, 8, 1, 32, 32, 32, True, 0, 16, 16),     # MQA
+    (1, 2, 2, 64, 64, 32, False, 0, 32, 32),    # bidirectional
+    (1, 2, 1, 64, 64, 32, True, 24, 16, 16),    # sliding window
+    (1, 2, 2, 32, 96, 32, True, 0, 16, 32),     # cross lens (decode-ish)
+    (1, 3, 1, 48, 48, 16, True, 0, 16, 16),     # non-pow2 heads
+]
+RAGGED = [  # B, Hq, Hkv, Sq, Sk, hd, causal, window
+    (1, 4, 2, 40, 72, 32, True, 0),     # lengths no tile divides
+    (1, 2, 1, 48, 24, 16, True, 0),     # Sq > Sk: rows with no live key
+    (2, 4, 1, 70, 70, 64, True, 20),    # window over a ragged edge
+    (1, 2, 2, 33, 65, 128, False, 0),   # qwen3's head_dim
+]
+DTYPES = {"float32": (jnp.float32, torch.float32),
+          "bfloat16": (jnp.bfloat16, torch.bfloat16)}
+
+
+def _tol(name):
+    return dict(atol=2e-2, rtol=2e-2) if name == "bfloat16" else dict(
+        atol=2e-5, rtol=2e-5)
+
+
+def _inputs(B, Hq, Hkv, Sq, Sk, hd, seed):
+    rng = np.random.default_rng(seed)
+    return (rng.normal(size=(B, Hq, Sq, hd)).astype(np.float32),
+            rng.normal(size=(B, Hkv, Sk, hd)).astype(np.float32),
+            rng.normal(size=(B, Hkv, Sk, hd)).astype(np.float32))
+
+
+def _port(arrs, dtype):
+    return [torch.from_numpy(a).to(dtype) for a in arrs]
+
+
+def _np(t):
+    return t.float().numpy()
+
+
+@pytest.mark.parametrize("dtype", list(DTYPES))
+@pytest.mark.parametrize("case", SWEEP)
+def test_matches_jax_kernel_and_ref(case, dtype):
+    B, Hq, Hkv, Sq, Sk, hd, causal, window, bq, bk = case
+    jdt, tdt = DTYPES[dtype]
+    arrs = _inputs(B, Hq, Hkv, Sq, Sk, hd, seed=Sq * Sk + Hq)
+    jq, jk, jv = [jnp.asarray(a, jdt) for a in arrs]
+    q, k, v = _port(arrs, tdt)
+    got = flash_attention(q, k, v, causal=causal, window=window)
+    assert got.dtype == tdt and got.shape == (B, Hq, Sq, hd)
+    torch.testing.assert_close(
+        got, flash_attention_ref(q, k, v, causal, window), atol=0, rtol=0)
+    kern = j_flash(jq, jk, jv, causal=causal, window=window, block_q=bq,
+                   block_k=bk, interpret=True)
+    want = j_ref(jq, jk, jv, causal=causal, window=window)
+    for ref in (kern, want):
+        np.testing.assert_allclose(_np(got), np.asarray(ref, np.float32),
+                                   **_tol(dtype))
+
+
+@pytest.mark.parametrize("case", RAGGED)
+def test_ragged_lengths_match_jax_ref(case):
+    B, Hq, Hkv, Sq, Sk, hd, causal, window = case
+    arrs = _inputs(B, Hq, Hkv, Sq, Sk, hd, seed=Sq + Sk)
+    got = flash_attention(*_port(arrs, torch.float32), causal=causal,
+                          window=window)
+    want = j_ref(*[jnp.asarray(a) for a in arrs], causal=causal, window=window)
+    np.testing.assert_allclose(_np(got), np.asarray(want), **_tol("float32"))
+
+
+def test_row_with_no_live_key_is_mean_of_v():
+    """The finite -1e30 mask: a causal row before every key averages V."""
+    q, k, v = _port(_inputs(1, 2, 1, 48, 24, 16, seed=3), torch.float32)
+    got = flash_attention(q, k, v, causal=True)
+    mean_v = v.mean(dim=2, keepdim=True).expand(1, 2, 24, 16)
+    torch.testing.assert_close(got[:, :, :24], mean_v, atol=2e-6, rtol=2e-6)
+
+
+def test_matches_model_chunked_attention():
+    """The port's attention vs the JAX model's XLA path (the function the
+    port's attention_block replaces with this op)."""
+    B, Hq, Hkv, S, hd = 1, 4, 2, 64, 32
+    arrs = _inputs(B, Hq, Hkv, S, S, hd, seed=106)
+    got = flash_attention(*_port(arrs, torch.float32), causal=True)
+    pos = jnp.arange(S, dtype=jnp.int32)
+    want = chunked_attention(*[jnp.asarray(a) for a in arrs], pos, pos,
+                             causal=True, chunk_q=16, chunk_k=16)
+    np.testing.assert_allclose(_np(got), np.asarray(want), atol=2e-5,
+                               rtol=2e-5)

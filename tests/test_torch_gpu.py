@@ -1,20 +1,28 @@
-"""The CUDA rotor slice kernel against its plain version, on the card.
+"""The CUDA kernels against their plain versions, on the card.
 
 Imports no JAX, so it runs where only the port is installed:
 ``PYTHONPATH=src python -m pytest -m gpu tests/test_torch_gpu.py``.
 Without a card every test skips.  Tolerances are chip_smoke.py's:
-state atol 1e-5, totals rtol 1e-5.
+rotor_slice state atol 1e-5, totals rtol 1e-5; flash_attention and
+moe_gmm f32 2e-5, bf16 2e-2 (tests/test_kernels.py:15-18).
 """
 import numpy as np
 import pytest
 import torch
 
 from repro_torch.core.topology import build_opera_topology
+from repro_torch.configs.base import get_config, reduced_config
 from repro_torch.kernels import launch_counts
+from repro_torch.kernels.flash_attention import flash_attention, flash_attention_ref
+from repro_torch.kernels.flash_attention.kernel import flash_attention_fwd
+from repro_torch.kernels.moe_gmm import moe_gmm, moe_gmm_ref
+from repro_torch.kernels.moe_gmm.kernel import moe_gmm_fwd
 from repro_torch.kernels.rotor_slice.kernel import rotor_slice_fwd
 from repro_torch.kernels.rotor_slice.ref import rotor_slice_ref
 from repro_torch.netsim import fluid_torch
+from repro_torch.models.model import init_params
 from repro_torch.netsim.sweep import DesignPoint, scenario_demand
+from repro_torch.serve.engine import Request, ServeEngine
 
 pytestmark = pytest.mark.gpu
 
@@ -87,3 +95,113 @@ def test_sparse_engine_counts_one_launch_per_slice(card):
         cfg, dem, max_cycles=5, topo=topo, engine="sparse", device="cpu")
     np.testing.assert_array_equal(got.slices_run, ref.slices_run)
     np.testing.assert_allclose(got.finished_frac, ref.finished_frac, atol=1e-5)
+
+
+def _tol(dtype):
+    return dict(atol=2e-2, rtol=2e-2) if dtype == torch.bfloat16 else dict(
+        atol=2e-5, rtol=2e-5)
+
+
+def _normal(shape, seed, device, dtype, scale=1.0):
+    a = np.random.default_rng(seed).normal(size=shape) * scale
+    return torch.as_tensor(a, dtype=torch.float32, device=device).to(dtype)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("case", [  # B, Hq, Hkv, Sq, Sk, hd, causal, window
+    (1, 2, 2, 64, 64, 32, True, 0), (2, 4, 2, 64, 64, 64, True, 0),
+    (1, 8, 1, 32, 32, 32, True, 0), (1, 2, 2, 64, 64, 32, False, 0),
+    (1, 2, 1, 64, 64, 32, True, 24), (1, 2, 2, 32, 96, 32, True, 0),
+    (1, 3, 1, 48, 48, 16, True, 0), (1, 4, 2, 40, 72, 128, True, 0),
+    (1, 2, 1, 48, 24, 16, True, 0), (2, 4, 1, 70, 70, 64, True, 20),
+    (1, 2, 2, 33, 65, 128, False, 0), (1, 2, 1, 100, 150, 64, False, 30),
+])
+def test_flash_attention_matches_plain_version(card, case, dtype):
+    B, Hq, Hkv, Sq, Sk, hd, causal, window = case
+    q = _normal((B, Hq, Sq, hd), 0, card, dtype)
+    k = _normal((B, Hkv, Sk, hd), 1, card, dtype)
+    v = _normal((B, Hkv, Sk, hd), 2, card, dtype)
+    launch_counts.clear()
+    got = flash_attention(q, k, v, causal=causal, window=window)
+    assert launch_counts["flash_attention"] == 1
+    want = flash_attention_ref(q, k, v, causal, window)
+    torch.cuda.synchronize()
+    assert got.dtype == dtype
+    torch.testing.assert_close(got.float(), want.float(), **_tol(dtype))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("E,C,D,F", [
+    (2, 16, 16, 32), (4, 8, 32, 64), (3, 12, 8, 24),
+    (8, 4, 64, 32), (4, 13, 300, 260), (2, 9, 2304, 96),
+])
+def test_moe_gmm_matches_plain_version(card, E, C, D, F, dtype):
+    h = _normal((E, C, D), 3, card, dtype)
+    wg = _normal((E, D, F), 4, card, dtype, D**-0.5)
+    wu = _normal((E, D, F), 5, card, dtype, D**-0.5)
+    wd = _normal((E, F, D), 6, card, dtype, F**-0.5)
+    launch_counts.clear()
+    got = moe_gmm(h, wg, wu, wd)
+    assert launch_counts["moe_gmm"] == 1
+    want = moe_gmm_ref(h, wg, wu, wd)
+    torch.cuda.synchronize()
+    assert got.dtype == dtype
+    torch.testing.assert_close(got.float(), want.float(), **_tol(dtype))
+
+
+def test_model_kernels_are_deterministic(card):
+    q = _normal((1, 4, 70, 64), 7, card, torch.bfloat16)
+    k = _normal((1, 2, 70, 64), 8, card, torch.bfloat16)
+    assert torch.equal(flash_attention(q, k, k), flash_attention(q, k, k))
+    h = _normal((4, 8, 64), 9, card, torch.bfloat16)
+    w = _normal((4, 64, 64), 10, card, torch.bfloat16, 0.125)
+    assert torch.equal(moe_gmm(h, w, w, w), moe_gmm(h, w, w, w))
+
+
+def test_model_kernel_wrappers_check_their_inputs(card):
+    q = _normal((4, 32, 64), 11, card, torch.float32)
+    k = _normal((2, 32, 64), 12, card, torch.float32)
+    with pytest.raises(TypeError):
+        flash_attention_fwd(q.double(), k.double(), k.double(), 2, True, 0)
+    with pytest.raises(TypeError):
+        flash_attention_fwd(q, k.bfloat16(), k.bfloat16(), 2, True, 0)
+    with pytest.raises(ValueError):
+        flash_attention_fwd(q, k.cpu(), k.cpu(), 2, True, 0)
+    with pytest.raises(ValueError):
+        flash_attention_fwd(q.transpose(1, 2).contiguous().transpose(1, 2),
+                            k, k, 2, True, 0)
+    with pytest.raises(ValueError):
+        flash_attention_fwd(q[..., :48].contiguous(), k[..., :48].contiguous(),
+                            k[..., :48].contiguous(), 2, True, 0)  # hd 48
+    with pytest.raises(ValueError):
+        flash_attention_fwd(q, k, k, 3, True, 0)   # 4 rows != 2 x 3
+    h = _normal((2, 8, 32), 13, card, torch.float32)
+    w = _normal((2, 32, 16), 14, card, torch.float32)
+    wd = _normal((2, 16, 32), 15, card, torch.float32)
+    with pytest.raises(TypeError):
+        moe_gmm_fwd(h.half(), w.half(), w.half(), wd.half())
+    with pytest.raises(TypeError):
+        moe_gmm_fwd(h, w.bfloat16(), w, wd)
+    with pytest.raises(ValueError):
+        moe_gmm_fwd(h, w.cpu(), w, wd)
+    with pytest.raises(ValueError):
+        moe_gmm_fwd(h, w, w, wd.transpose(1, 2).contiguous().transpose(1, 2))
+    with pytest.raises(ValueError):
+        moe_gmm_fwd(h, w, w, w)   # wd must be (E, F, D)
+
+
+def test_reduced_serve_counts_its_launches(card):
+    cfg = reduced_config(get_config("qwen3-moe-30b-a3b"))
+    params = init_params(cfg, 0, device=card)
+    eng = ServeEngine(cfg, params, slots=2, max_seq=48, device=card)
+    rng = np.random.default_rng(0)
+    for rid in range(3):
+        eng.submit(Request(rid=rid, max_new_tokens=5, prompt=rng.integers(
+            0, cfg.vocab_size, int(rng.integers(5, 20))).astype(np.int32)))
+    launch_counts.clear()
+    done = eng.run_to_completion()
+    assert len(done) == 3
+    assert all(0 <= t < cfg.vocab_size for r in done for t in r.out_tokens)
+    n = cfg.num_layers
+    assert launch_counts["flash_attention"] == n * eng.prefills == n * 3
+    assert launch_counts["moe_gmm"] == n * (eng.prefills + eng.ticks)

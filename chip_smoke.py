@@ -25,24 +25,36 @@ JSON line and any failure raising:
 4. crossover: per-slice time of the dense and the sparse engine across
    the Appendix-B grid at B = 16.
 5. flash_attention: the CUDA kernel against its plain version, f32 and
-   bf16, at the sweep of tests/test_kernels.py:21-33 and at the
-   qwen3-moe prefill shapes (B 1, Hq 32, Hkv 4, hd 128, causal, S 128 /
-   512 / 2048), at f32 2e-5 and bf16 2e-2; times the kernel (events and
-   profiler), the plain version and, as a yardstick never on the path,
-   `F.scaled_dot_product_attention(is_causal=True, enable_gqa=True)`.
+   bf16, at the sweep of tests/test_kernels.py:21-33, at the qwen3-moe
+   prefill shapes (B 1, Hq 32, Hkv 4, hd 128, causal, S 128 / 512 /
+   2048) and at recurrentgemma-2b's local attention (Hq 10, Hkv 1, hd
+   256, window 2048, S 1900 / 3300), at f32 2e-5 and bf16 2e-2; times the
+   kernel (events and profiler), the plain version and, as a yardstick
+   never on the path, `F.scaled_dot_product_attention` (causal, or with
+   the window as a boolean mask).
 6. moe_gmm: the same at tests/test_kernels.py:89-92 and at E 128, D 2048,
    F 768 with C 4 (a 4-slot decode step) and C 40 (a 512-token prefill);
    no single PyTorch call computes the fused gated FFN, so no library
    time.
-7. serve_golden: reduced qwen3-moe in f32 with the JAX package's weights
-   (src/repro_torch/data/): prefill logits at atol/rtol 1e-4 and the
-   greedy tokens of a 4-request, 2-slot `ServeEngine` run equal to the
-   JAX engine's, through both kernels.
-8. serve_full: qwen3-moe-30b-a3b at full width and depth (48 layers) in
-   bf16, seed-0 random weights on the card: `ServeEngine(slots=4,
-   max_seq=1024)` serves 8 requests (prompts of 128-512 tokens, 16 new
-   tokens each); every launch of both kernels is counted, then a
-   profiled window of decode ticks shows where a tick's time goes.
+7. mamba_scan: the same at tests/test_kernels.py:47-53 (f32 1e-4, bf16
+   2e-2) and at falcon-mamba-7b's prefill (B 1, S 512, D 8192, N 16; x
+   bf16 or f32 beside f32 dt, B, C), y and the final state h_S at 1e-4.
+8. rglru_scan: the same at tests/test_kernels.py:73-75 and at
+   recurrentgemma-2b's longest prefill (B 1, S 3300, D 2560).
+9. serve_golden, serve_golden_mamba, serve_golden_rgemma: reduced
+   qwen3-moe, falcon-mamba and recurrentgemma in f32 with the JAX
+   package's weights (src/repro_torch/data/): prefill logits at
+   atol/rtol 1e-4 and the greedy tokens of a 4-request, 2-slot
+   `ServeEngine` run equal to the JAX engine's, each kernel launched once
+   per layer of its kind per prefill (moe_gmm per decode tick too).
+10. serve_full, serve_full_falcon_mamba, serve_full_rgemma: each model at
+   full width and depth in bf16, seed-0 random weights on the card:
+   qwen3-moe-30b-a3b (48 layers) and falcon-mamba-7b (64 layers) serve 8
+   requests of 128-512 tokens at 4 slots, recurrentgemma-2b (26 layers)
+   4 requests of 3,300 / 2,600 / 1,900 / 900 tokens at 2 slots (past its
+   2,048 window), 16 new tokens each; every kernel launch is counted,
+   then a profiled window of decode ticks shows where a tick's time
+   goes.  Each phase frees the last one's weights first.
 
 Then the kernel table line, the card's name and power limit, and the
 device line.  Exits non-zero, printing no result, without a CUDA card or
@@ -136,14 +148,17 @@ def phase_build() -> dict:
     """One nvcc per kernel source, all started together."""
     from repro_torch.kernels import build_libraries, library_path
     from repro_torch.kernels.flash_attention import kernel as flash
+    from repro_torch.kernels.mamba_scan import kernel as mamba
     from repro_torch.kernels.moe_gmm import kernel as gmm
+    from repro_torch.kernels.rglru_scan import kernel as rglru
     from repro_torch.kernels.rotor_slice import kernel as rotor
 
-    specs = [("rotor_slice", [rotor.SOURCE]), (flash.NAME, [flash.SOURCE]),
-             (gmm.NAME, [gmm.SOURCE])]
+    mods = (rotor, flash, gmm, mamba, rglru)
+    specs = [("rotor_slice", [rotor.SOURCE])] + [
+        (m.NAME, [m.SOURCE]) for m in mods[1:]]
     t0 = time.perf_counter()
     build_libraries(specs)
-    for mod in (rotor, flash, gmm):
+    for mod in mods:
         mod.library()
     out = dict(phase="build", seconds=time.perf_counter() - t0)
     for name, sources in specs:
@@ -351,11 +366,12 @@ def _tol(dtype) -> float:
     return 2e-2 if dtype == torch.bfloat16 else 2e-5
 
 
-def _held(got, want, dtype, what: str) -> float:
-    """Max abs difference; fails beyond atol + rtol * |want|."""
+def _held(got, want, dtype, what: str, tol=None) -> float:
+    """Max abs difference; fails beyond atol + rtol * |want|, both `tol`
+    (by default `_tol(dtype)`)."""
     g, w = got.float(), want.float()
     err = (g - w).abs()
-    tol = _tol(dtype)
+    tol = _tol(dtype) if tol is None else tol
     worst = float((err - tol * w.abs()).max())
     _check(worst <= tol, f"{what}: |diff| {float(err.max())} beyond "
                          f"{tol} + {tol} |want|")
@@ -408,40 +424,54 @@ def phase_flash_attention() -> dict:
             sweep_err = max(sweep_err, _held(
                 got, want, dtype, f"flash sweep {(B, Hq, Hkv, Sq, Sk, hd)}"))
     rows = []
+    # qwen3-moe's prefills (causal), then recurrentgemma-2b's local
+    # attention (hd 256, MQA, window 2048) below and past the window
+    cases = [(1, 32, 4, 128, S, 0) for S in (128, 512, 2048)] + [
+        (1, 10, 1, 256, S, 2048) for S in (1900, 3300)]
     for dtype in (torch.float32, torch.bfloat16):
-        for S in (128, 512, 2048):
-            B, Hq, Hkv, hd = 1, 32, 4, 128
+        for B, Hq, Hkv, hd, S, window in cases:
             q = _randn((B, Hq, S, hd), gen, dtype)
             k = _randn((B, Hkv, S, hd), gen, dtype)
             v = _randn((B, Hkv, S, hd), gen, dtype)
             qf, kf, vf = (t.reshape(-1, S, hd) for t in (q, k, v))
-            got = flash_attention(q, k, v, causal=True)
-            want = flash_attention_ref(q, k, v, True, 0)
-            err = _held(got, want, dtype, f"flash qwen3 S={S} {dtype}")
-            again = flash_attention(q, k, v, causal=True)
-            _check(torch.equal(got, again), f"flash S={S} not deterministic")
+            got = flash_attention(q, k, v, causal=True, window=window)
+            want = flash_attention_ref(q, k, v, True, window)
+            err = _held(got, want, dtype,
+                        f"flash S={S} hd={hd} window={window} {dtype}")
+            again = flash_attention(q, k, v, causal=True, window=window)
+            _check(torch.equal(got, again),
+                   f"flash S={S} hd={hd} not deterministic")
+            del got, want, again
             reps = 20 if S <= 512 else 5
-            ms = _cuda_ms(lambda: flash_attention_fwd(qf, kf, vf, Hq // Hkv,
-                                                      True, 0), reps=reps)
+            ms = _cuda_ms(lambda: flash_attention_fwd(
+                qf, kf, vf, Hq // Hkv, True, window), reps=reps)
             device_ms = _device_ms(
-                lambda: flash_attention_fwd(qf, kf, vf, Hq // Hkv, True, 0),
+                lambda: flash_attention_fwd(qf, kf, vf, Hq // Hkv, True,
+                                            window),
                 ("flash_fwd",), reps=reps)
-            plain_ms = _cuda_ms(lambda: flash_attention_ref(q, k, v, True, 0),
-                                reps=3, warmup=1)
-            library_ms = _cuda_ms(lambda: F.scaled_dot_product_attention(
-                q, k, v, is_causal=True, enable_gqa=True), reps=reps)
-            live = int(attention_mask(S, S, True, 0).sum())
+            plain_ms = _cuda_ms(
+                lambda: flash_attention_ref(q, k, v, True, window), reps=3,
+                warmup=1)
+            mask = attention_mask(S, S, True, window, device="cuda")
+            if window:
+                library_ms = _cuda_ms(lambda: F.scaled_dot_product_attention(
+                    q, k, v, attn_mask=mask, enable_gqa=True), reps=reps)
+            else:
+                library_ms = _cuda_ms(lambda: F.scaled_dot_product_attention(
+                    q, k, v, is_causal=True, enable_gqa=True), reps=reps)
+            live = int(mask.sum())
             es = q.element_size()
             nbytes = es * (2 * B * Hq * S * hd + 2 * B * Hkv * S * hd)
             ops = 4 * B * Hq * hd * live
             bound_ms, bound_by = _bound(nbytes, ops, dtype)
             rows.append(dict(dtype=_dname(dtype), B=B, Hq=Hq, Hkv=Hkv, S=S,
-                             hd=hd, causal=True, max_abs_err=err, ms=ms,
+                             hd=hd, causal=True, window=window,
+                             max_abs_err=err, ms=ms,
                              device_ms=device_ms, plain_ms=plain_ms,
                              library_ms=library_ms, bound_ms=bound_ms,
                              bound_by=bound_by,
                              tflops=ops / (ms * 1e-3) / 1e12))
-            del q, k, v, qf, kf, vf, got, want, again
+            del q, k, v, qf, kf, vf, mask
             torch.cuda.empty_cache()
     return dict(phase="flash_attention", sweep_cases=2 * len(FLASH_SWEEP),
                 sweep_max_abs_err=sweep_err, rows=rows)
@@ -497,7 +527,167 @@ def phase_moe_gmm() -> dict:
                 sweep_max_abs_err=sweep_err, rows=rows)
 
 
-def phase_serve_golden(root: Path) -> dict:
+MAMBA_SWEEP = [(1, 16, 8, 4), (2, 32, 16, 4), (1, 24, 12, 2), (2, 16, 8, 8)]
+RGLRU_SWEEP = [(1, 32, 16), (2, 64, 8), (1, 48, 24)]   # B, S, D
+
+
+def _scan_tol(dtype) -> float:
+    """tests/test_kernels.py:66-69: f32 1e-4, bf16 2e-2, atol = rtol."""
+    import torch
+
+    return 2e-2 if dtype == torch.bfloat16 else 1e-4
+
+
+def _uniform(shape, gen, lo, hi, dtype):
+    import torch
+
+    x = torch.rand(shape, generator=gen, device="cuda", dtype=torch.float32)
+    return (lo + (hi - lo) * x).to(dtype)
+
+
+def phase_mamba_scan() -> dict:
+    """The selective scan at the sweep of tests/test_kernels.py:47-53 and
+    at falcon-mamba-7b's prefill (B 1, S 512, D 8192, N 16): the model's
+    types (x bf16; dt, B, C f32) and all f32.  y and the final state h_S
+    against the plain version; times, bound; no library call computes a
+    selective scan."""
+    import math
+
+    import torch
+
+    from repro_torch.kernels.mamba_scan.kernel import mamba_scan_fwd
+    from repro_torch.kernels.mamba_scan.ops import mamba_scan
+    from repro_torch.kernels.mamba_scan.ref import mamba_scan_ref
+
+    gen = torch.Generator(device="cuda").manual_seed(2)
+    sweep_err = 0.0
+    for dtype in (torch.float32, torch.bfloat16):
+        for B, S, D, N in MAMBA_SWEEP:
+            args = (_randn((B, S, D), gen, dtype),
+                    _uniform((B, S, D), gen, 0.01, 0.2, dtype),
+                    _randn((B, S, N), gen, dtype),
+                    _randn((B, S, N), gen, dtype),
+                    -torch.exp(_randn((D, N), gen, torch.float32)),
+                    _randn((D,), gen, torch.float32))
+            y, h = mamba_scan(*args)
+            ry, rh = mamba_scan_ref(*args)
+            what = f"mamba_scan sweep {(B, S, D, N)} {dtype}"
+            sweep_err = max(sweep_err,
+                            _held(y, ry, dtype, what, _scan_tol(dtype)),
+                            _held(h, rh, dtype, what + " h_S", _scan_tol(dtype)))
+    rows = []
+    B, S, D, N = 1, 512, 8192, 16
+    for x_dtype in (torch.bfloat16, torch.float32):
+        # the model's draws: A = -(1..N) (S4D-real), D = 1, dt = softplus
+        # of the projection plus a bias set for steps in [1e-3, 1e-1]
+        x = _randn((B, S, D), gen, x_dtype)
+        step = torch.exp(_uniform((B, S, D), gen, math.log(1e-3),
+                                  math.log(1e-1), torch.float32))
+        args = (x, step, _randn((B, S, N), gen, torch.float32),
+                _randn((B, S, N), gen, torch.float32),
+                -torch.arange(1, N + 1, device="cuda",
+                              dtype=torch.float32).repeat(D, 1),
+                torch.ones(D, device="cuda"))
+        y, h = mamba_scan(*args)
+        ry, rh = mamba_scan_ref(*args)
+        what = f"mamba_scan falcon-mamba x {x_dtype}"
+        err = max(_held(y, ry, x_dtype, what, 1e-4),
+                  _held(h, rh, x_dtype, what + " h_S", 1e-4))
+        y2, h2 = mamba_scan(*args)
+        _check(torch.equal(y, y2) and torch.equal(h, h2),
+               f"{what} not deterministic")
+        ms = _cuda_ms(lambda: mamba_scan_fwd(*args), reps=20)
+        device_ms = _device_ms(lambda: mamba_scan_fwd(*args),
+                               ("mamba_scan_fwd",), reps=20)
+        plain_ms = _cuda_ms(lambda: mamba_scan_ref(*args), reps=3, warmup=1)
+        # x, dt read once, y written once; B, C per step; A, D, h_S
+        nbytes = (B * S * D * (x.element_size() + 4 + 4) + 2 * B * S * N * 4
+                  + 4 * D * N + 4 * D + 4 * B * D * N)
+        ops = B * S * D * (7 * N + 3)   # f32, on the CUDA cores
+        bound_ms, bound_by = _bound(nbytes, ops, torch.float32)
+        rows.append(dict(x_dtype=_dname(x_dtype), p_dtype="float32", B=B,
+                         S=S, D=D, N=N, max_abs_err=err, ms=ms,
+                         device_ms=device_ms, plain_ms=plain_ms,
+                         library_ms=None, bound_ms=bound_ms,
+                         bound_by=bound_by,
+                         gbytes_per_s=nbytes / (ms * 1e-3) / 1e9))
+        del args, x, step, y, h, ry, rh, y2, h2
+        torch.cuda.empty_cache()
+    return dict(phase="mamba_scan", sweep_cases=2 * len(MAMBA_SWEEP),
+                sweep_max_abs_err=sweep_err, rows=rows)
+
+
+def phase_rglru_scan() -> dict:
+    """The RG-LRU recurrence at the sweep of tests/test_kernels.py:73-75
+    and at recurrentgemma-2b's longest prefill (B 1, S 3300, D 2560, a
+    and bx f32 as the model's gates are); no library call computes a
+    gated linear recurrence."""
+    import torch
+
+    from repro_torch.kernels.rglru_scan.kernel import rglru_scan_fwd
+    from repro_torch.kernels.rglru_scan.ops import rglru_scan
+    from repro_torch.kernels.rglru_scan.ref import rglru_scan_ref
+
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    sweep_err = 0.0
+    shapes = RGLRU_SWEEP + [(1, 3300, 2560)]
+    rows = []
+    for dtype in (torch.float32, torch.bfloat16):
+        for B, S, D in shapes:
+            a = _uniform((B, S, D), gen, 0.7, 0.999, dtype)
+            bx = _randn((B, S, D), gen, dtype)
+            h0 = _randn((B, D), gen, torch.float32)
+            got = rglru_scan(a, bx, h0)
+            err = _held(got, rglru_scan_ref(a, bx, h0), dtype,
+                        f"rglru_scan {(B, S, D)} {dtype}", _scan_tol(dtype))
+            if S < 3300:
+                sweep_err = max(sweep_err, err)
+                continue
+            _check(torch.equal(got, rglru_scan(a, bx, h0)),
+                   f"rglru_scan {dtype} not deterministic")
+            ms = _cuda_ms(lambda: rglru_scan_fwd(a, bx, h0), reps=20)
+            device_ms = _device_ms(lambda: rglru_scan_fwd(a, bx, h0),
+                                   ("rglru_scan_fwd",), reps=20)
+            plain_ms = _cuda_ms(lambda: rglru_scan_ref(a, bx, h0), reps=3,
+                                warmup=1)
+            nbytes = B * S * D * (2 * a.element_size() + 4) + 4 * B * D
+            bound_ms, bound_by = _bound(nbytes, 2 * B * S * D, torch.float32)
+            rows.append(dict(dtype=_dname(dtype), B=B, S=S, D=D,
+                             max_abs_err=err, ms=ms, device_ms=device_ms,
+                             plain_ms=plain_ms, library_ms=None,
+                             bound_ms=bound_ms, bound_by=bound_by,
+                             gbytes_per_s=nbytes / (ms * 1e-3) / 1e9))
+            del a, bx, h0, got
+            torch.cuda.empty_cache()
+    return dict(phase="rglru_scan", sweep_cases=2 * len(RGLRU_SWEEP),
+                sweep_max_abs_err=sweep_err, rows=rows)
+
+
+# Each golden run: (phase, arch, stored file, kernel launches per layer
+# of each kind per prefill and per decode tick).
+GOLDEN_RUNS = [
+    ("serve_golden", ARCH, "qwen3_moe_reduced_golden.npz",
+     {"flash_attention": ("moe", 1, 0), "moe_gmm": ("moe", 1, 1)}),
+    ("serve_golden_mamba", "falcon-mamba-7b", "falcon_mamba_reduced_golden.npz",
+     {"mamba_scan": ("ssm", 1, 0)}),
+    ("serve_golden_rgemma", "recurrentgemma-2b",
+     "recurrentgemma_reduced_golden.npz",
+     {"rglru_scan": ("rglru", 1, 0), "flash_attention": ("local_attn", 1, 0)}),
+]
+
+
+def _expected_launches(cfg, kernels: dict, prefills: int, ticks: int) -> dict:
+    """Launches each kernel must count: per layer of its kind, per prefill
+    and per decode tick."""
+    from repro_torch.models.transformer import stack_plan
+
+    kinds = stack_plan(cfg).kinds
+    return {name: kinds.count(kind) * (per_prefill * prefills + per_tick * ticks)
+            for name, (kind, per_prefill, per_tick) in kernels.items()}
+
+
+def phase_serve_golden(root: Path, phase: str, arch: str, fname: str,
+                       kernels: dict) -> dict:
     import numpy as np
     import torch
 
@@ -507,9 +697,8 @@ def phase_serve_golden(root: Path) -> dict:
     from repro_torch.models.model import forward_prefill
     from repro_torch.serve.engine import Request, ServeEngine
 
-    stored = dict(np.load(root / "src" / "repro_torch" / "data"
-                          / "qwen3_moe_reduced_golden.npz"))
-    cfg = reduced_config(get_config(ARCH)).replace(compute_dtype="float32")
+    stored = dict(np.load(root / "src" / "repro_torch" / "data" / fname))
+    cfg = reduced_config(get_config(arch)).replace(compute_dtype="float32")
     params = params_from_numpy(cfg, tree_from_flat(
         {k[len("param/"):]: v for k, v in stored.items()
          if k.startswith("param/")}), device="cuda")
@@ -524,26 +713,26 @@ def phase_serve_golden(root: Path) -> dict:
             want = torch.as_tensor(stored[f"logits/{i}"], device="cuda")
             err = (logits[0] - want).abs()
             _check(bool((err <= 1e-4 + 1e-4 * want.abs()).all()),
-                   f"golden prefill logits {i}: {float(err.max())}")
+                   f"{phase} prefill logits {i}: {float(err.max())}")
             logit_err = max(logit_err, float(err.max()))
     eng = ServeEngine(cfg, params, slots=2, max_seq=64, device="cuda")
     for rid, prompt in enumerate(prompts):
         eng.submit(Request(rid=rid, prompt=prompt, max_new_tokens=8))
     launch_counts.clear()
     done = eng.run_to_completion(max_ticks=200)
-    flash, gmm = launch_counts["flash_attention"], launch_counts["moe_gmm"]
-    _check(len(done) == n, f"golden finished {len(done)} of {n}")
+    launches = dict(launch_counts)
+    _check(len(done) == n, f"{phase} finished {len(done)} of {n}")
     for r in done:
         want = stored[f"tokens/{r.rid}"].tolist()
         _check(r.out_tokens == want,
-               f"golden tokens {r.rid}: {r.out_tokens} != {want}")
-    L = cfg.num_layers
-    _check(flash == L * eng.prefills, f"golden flash launches {flash}")
-    _check(gmm == L * (eng.prefills + eng.ticks), f"golden moe launches {gmm}")
-    return dict(phase="serve_golden", requests=n, prefills=eng.prefills,
+               f"{phase} tokens {r.rid}: {r.out_tokens} != {want}")
+    expected = _expected_launches(cfg, kernels, eng.prefills, eng.ticks)
+    _check(launches == expected, f"{phase} launches {launches} != {expected}")
+    return dict(phase=phase, arch=arch, requests=n,
+                prompt_lens=[len(p) for p in prompts], prefills=eng.prefills,
                 ticks=eng.ticks, tokens_equal=True,
                 prefill_logits_max_abs_err=logit_err,
-                flash_attention_launches=flash, moe_gmm_launches=gmm)
+                **{f"{k}_launches": v for k, v in launches.items()})
 
 
 def _decode_breakdown(eng, ticks: int) -> dict:
@@ -584,78 +773,102 @@ def _decode_breakdown(eng, ticks: int) -> dict:
                           for k, ms, c in host[:12]])
 
 
-def phase_serve_full() -> dict:
+def _free_card() -> None:
+    """Let the last phase's weights go before the next phase's arrive."""
+    import gc
+
+    import torch
+
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def phase_serve_full(phase: str, arch: str, slots: int, max_seq: int,
+                     max_new: int, lens, kernels: dict,
+                     probe_len: int = 256) -> dict:
+    """`arch` at full width and depth in bf16, seed-0 random weights on
+    the card: a `ServeEngine` serves one request per prompt length
+    (token ids numpy seed 0; `lens` None draws qwen3-moe's traffic from
+    that generator first: 8 prompts of 455, 373, 324, 231, 246, 143, 156
+    and 134 tokens), `max_new` tokens each; every kernel launch
+    is counted against `kernels` (as GOLDEN_RUNS); then `slots` fresh
+    requests of `probe_len` tokens and a profiled window of decode ticks
+    show where a tick's time goes."""
     import numpy as np
     import torch
 
     from repro_torch.configs.base import get_config
     from repro_torch.kernels import launch_counts
-    from repro_torch.models.model import count_params, init_params
+    from repro_torch.models.model import count_params, forward_prefill, init_params
     from repro_torch.serve.engine import Request, ServeEngine
 
-    cfg = get_config(ARCH)            # full width, full depth, bf16 compute
-    slots, max_seq, max_new, n_req = 4, 1024, 16, 8
-    torch.cuda.empty_cache()
+    _free_card()
+    cfg = get_config(arch)            # full width, full depth, bf16 compute
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     params = init_params(cfg, 0, device="cuda")
     torch.cuda.synchronize()
     init_s = time.perf_counter() - t0
     n_params = sum(p.numel() for p in params.parameters())
-    _check(n_params == count_params(cfg), f"params {n_params}")
+    _check(n_params == count_params(cfg), f"{phase} params {n_params}")
     param_bytes = sum(p.numel() * p.element_size() for p in params.parameters())
     eng = ServeEngine(cfg, params, slots=slots, max_seq=max_seq, device="cuda")
     rng = np.random.default_rng(0)
-    lens = rng.integers(128, 513, n_req)
+    if lens is None:
+        lens = rng.integers(128, 513, 8)
+    lens = [int(L) for L in lens]
     for rid, L in enumerate(lens):
         eng.submit(Request(rid=rid, max_new_tokens=max_new, prompt=rng.integers(
-            0, cfg.vocab_size, int(L)).astype(np.int32)))
+            0, cfg.vocab_size, L).astype(np.int32)))
     launch_counts.clear()
     t0 = time.perf_counter()
-    done = eng.run_to_completion(max_ticks=200)
+    done = eng.run_to_completion(max_ticks=400)
     wall = time.perf_counter() - t0
-    flash, gmm = launch_counts["flash_attention"], launch_counts["moe_gmm"]
+    launches = dict(launch_counts)
     peak = torch.cuda.max_memory_allocated()
-    L = cfg.num_layers
-    _check(len(done) == n_req, f"finished {len(done)} of {n_req}")
-    _check(all(len(r.out_tokens) == max_new for r in done), "short outputs")
+    n_req = len(lens)
+    _check(len(done) == n_req, f"{phase} finished {len(done)} of {n_req}")
+    _check(all(len(r.out_tokens) == max_new for r in done),
+           f"{phase} short outputs")
     _check(all(0 <= t < cfg.vocab_size for r in done for t in r.out_tokens),
-           "token out of range")
-    _check(flash == L * eng.prefills == L * n_req, f"flash launches {flash}")
-    _check(gmm == L * (eng.prefills + eng.ticks), f"moe_gmm launches {gmm}")
+           f"{phase} token out of range")
+    _check(eng.prefills == n_req, f"{phase} prefills {eng.prefills}")
+    expected = _expected_launches(cfg, kernels, eng.prefills, eng.ticks)
+    _check(launches == expected, f"{phase} launches {launches} != {expected}")
     with torch.no_grad():   # logits of the last request's prefill
-        from repro_torch.models.model import forward_prefill
-
         tokens = torch.as_tensor(done[-1].prompt[None].astype(np.int64),
                                  device="cuda")
         logits, _ = forward_prefill(params, {"tokens": tokens}, cfg)
-    _check(bool(torch.isfinite(logits).all()), "non-finite logits")
-    # a decode tick reads every weight but the embedding (all 128 experts
-    # hold capacity rows at C = 4), 4 embedding rows and the whole cache
+    _check(bool(torch.isfinite(logits).all()), f"{phase} non-finite logits")
+    # a decode tick reads every weight (all experts hold capacity rows at
+    # C = 4 for qwen3-moe), the embedding only as its `slots` rows unless
+    # it is also the (tied) head, and the whole decode state
     embed = params["embed"]
     cache_bytes = sum(t.numel() * t.element_size()
                       for c in eng.cache for t in c.values())
-    tick_bytes = (param_bytes - embed.numel() * embed.element_size()
-                  + slots * embed.shape[1] * embed.element_size() + cache_bytes)
+    tick_bytes = param_bytes + cache_bytes
+    if not cfg.tie_embeddings:
+        tick_bytes -= (embed.shape[0] - slots) * embed.shape[1] * embed.element_size()
     out = dict(
-        phase="serve_full", arch=cfg.name, layers=L, d_model=cfg.d_model,
-        params=n_params, param_bytes=param_bytes, init_s=init_s,
-        requests=n_req, prompt_lens=lens.tolist(), new_tokens=max_new,
+        phase=phase, arch=cfg.name, layers=cfg.num_layers,
+        d_model=cfg.d_model, params=n_params, param_bytes=param_bytes,
+        init_s=init_s, requests=n_req, prompt_lens=lens, new_tokens=max_new,
         slots=slots, max_seq=max_seq, wall_s=wall, prefills=eng.prefills,
         prefill_tokens=eng.prefill_tokens, prefill_s=eng.prefill_s,
         prefill_tokens_per_s=eng.prefill_tokens / eng.prefill_s,
         ticks=eng.ticks, decode_ms_per_tick=eng.decode_s / eng.ticks * 1e3,
         decode_bound_ms=tick_bytes / HBM_BYTES_PER_S * 1e3,
         decode_tick_bytes=tick_bytes, peak_bytes=peak,
-        flash_attention_launches=flash, moe_gmm_launches=gmm)
-    # where a tick goes: 4 fresh requests, then a profiled window
+        **{f"{k}_launches": v for k, v in launches.items()})
+    # where a tick goes: fresh requests in every slot, then a profiled window
     for rid in range(slots):
         eng.submit(Request(rid=100 + rid, max_new_tokens=64, prompt=rng.integers(
-            0, cfg.vocab_size, 256).astype(np.int32)))
+            0, cfg.vocab_size, probe_len).astype(np.int32)))
     eng.step()
     out["decode_breakdown"] = bd = _decode_breakdown(eng, ticks=4)
     # the unprofiled ticks above against the profiled device time
     out["idle_share"] = 1.0 - bd["device_ms_per_tick"] / out["decode_ms_per_tick"]
+    del params, eng, done, logits
     return out
 
 
@@ -695,9 +908,24 @@ def main() -> int:
     _emit(flash)
     gmm = phase_moe_gmm()
     _emit(gmm)
-    _emit(phase_serve_golden(root))
-    serve = phase_serve_full()
+    mamba = phase_mamba_scan()
+    _emit(mamba)
+    rglru = phase_rglru_scan()
+    _emit(rglru)
+    for phase, arch, fname, kernels in GOLDEN_RUNS:
+        _emit(phase_serve_golden(root, phase, arch, fname, kernels))
+    golden_kernels = {phase: k for phase, _, _, k in GOLDEN_RUNS}
+    serve = phase_serve_full("serve_full", ARCH, 4, 1024, 16, None,
+                             golden_kernels["serve_golden"])
     _emit(serve)
+    serve_mamba = phase_serve_full(
+        "serve_full_falcon_mamba", "falcon-mamba-7b", 4, 1024, 16, None,
+        golden_kernels["serve_golden_mamba"])
+    _emit(serve_mamba)
+    serve_rgemma = phase_serve_full(
+        "serve_full_rgemma", "recurrentgemma-2b", 2, 4096, 16,
+        [3300, 2600, 1900, 900], golden_kernels["serve_golden_rgemma"])
+    _emit(serve_rgemma)
 
     main_row = next(r for r in kern["rows"]
                     if r["design"] == "k64-n1024-g4" and r["vlb"])
@@ -715,14 +943,25 @@ def main() -> int:
         ms=main_row["ms"], plain_ms=main_row["plain_ms"],
         bound_ms=main_row["bound_ms"], bound_by=main_row["bound_by"],
         library_ms=None)]
+    # the main paths' shapes: falcon-mamba's 512-token prefill (x bf16),
+    # recurrentgemma's 3,300-token prefill (f32 gates)
+    mamba_row = next(r for r in mamba["rows"] if r["x_dtype"] == "bfloat16")
+    rglru_row = next(r for r in rglru["rows"] if r["dtype"] == "float32")
+    # launches: every full serving run the kernel is on, summed
+    runs = (serve, serve_mamba, serve_rgemma)
     for name, row, phase, replaces in (
             ("flash_attention", flash_row, flash,
              "src/repro/kernels/flash_attention/kernel.py:22"),
-            ("moe_gmm", gmm_row, gmm, "src/repro/kernels/moe_gmm/kernel.py:19")):
+            ("moe_gmm", gmm_row, gmm, "src/repro/kernels/moe_gmm/kernel.py:19"),
+            ("mamba_scan", mamba_row, mamba,
+             "src/repro/kernels/mamba_scan/kernel.py:21"),
+            ("rglru_scan", rglru_row, rglru,
+             "src/repro/kernels/rglru_scan/kernel.py:19")):
         kernels.append(dict(
             name=name, route="cuda",
             source=f"src/repro_torch/kernels/{name}/csrc/{name}.cu",
-            replaces=replaces, launches=serve[f"{name}_launches"],
+            replaces=replaces,
+            launches=sum(r.get(f"{name}_launches", 0) for r in runs),
             max_abs_err=max([phase["sweep_max_abs_err"]]
                             + [r["max_abs_err"] for r in phase["rows"]]),
             ms=row["ms"], plain_ms=row["plain_ms"], bound_ms=row["bound_ms"],

@@ -171,7 +171,11 @@ def register(name: str):
 
 def _load_archs() -> None:
     # import side-effect registration of the ported arch modules
-    from repro_torch.configs import qwen3_moe_30b_a3b  # noqa: F401
+    from repro_torch.configs import (  # noqa: F401
+        falcon_mamba_7b,
+        qwen3_moe_30b_a3b,
+        recurrentgemma_2b,
+    )
 
 
 def get_config(name: str) -> ModelConfig:

@@ -36,7 +36,9 @@
 // c+4, ...), keeps its running max, partial denominator and output in
 // registers, and the four meet by warp shuffles.  Q, K, V tiles are
 // converted to f32 in shared memory (rows padded by one float so the
-// dot-product reads do not collide on banks): ~90 KB at hd = 128.  Key
+// dot-product reads do not collide on banks): ~90 KB at hd = 128 and
+// 172,544 B at hd = 256 (recurrentgemma-2b), under the 227 KB opt-in,
+// where each thread carries 64 f32 output accumulators.  Key
 // tiles that no row of the query tile can see (wholly above the causal
 // diagonal, or wholly behind the window) are skipped: a masked key adds an
 // exact 0 once a row has seen a live key, so skipping is exact for every
@@ -205,6 +207,7 @@ int launch_hd(const void* q, const void* k, const void* v, void* o, int bhq,
     case 32: return launch<T, 32>(q, k, v, o, bhq, sq, sk, group, causal, window, scale, st);
     case 64: return launch<T, 64>(q, k, v, o, bhq, sq, sk, group, causal, window, scale, st);
     case 128: return launch<T, 128>(q, k, v, o, bhq, sq, sk, group, causal, window, scale, st);
+    case 256: return launch<T, 256>(q, k, v, o, bhq, sq, sk, group, causal, window, scale, st);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }
@@ -215,7 +218,7 @@ extern "C" {
 
 // o (BHq, Sq, hd) = attention of q (BHq, Sq, hd) over k, v (BHq / group,
 // Sk, hd), all contiguous and of one type: dtype 0 is f32, 1 is bf16.
-// hd is 16, 32, 64 or 128.  Launches on `stream`; returns the
+// hd is 16, 32, 64, 128 or 256.  Launches on `stream`; returns the
 // cudaError_t of the launch (0 = success).
 int flash_attention_launch(const void* q, const void* k, const void* v,
                            void* o, int dtype, int bhq, int sq, int sk,

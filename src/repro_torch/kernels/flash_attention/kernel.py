@@ -19,7 +19,7 @@ from repro_torch.kernels import build_library, launch_counts
 
 NAME = "flash_attention"
 SOURCE = Path(__file__).resolve().parent / "csrc" / "flash_attention.cu"
-HEAD_DIMS = (16, 32, 64, 128)   # the kernel's instantiations
+HEAD_DIMS = (16, 32, 64, 128, 256)   # the kernel's instantiations
 DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
 _lib = None

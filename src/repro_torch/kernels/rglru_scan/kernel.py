@@ -1,0 +1,77 @@
+"""ctypes binding of the Hopper RG-LRU scan kernel
+(``csrc/rglru_scan.cu``).
+
+The CUDA source replaces the TPU kernel
+``repro/kernels/rglru_scan/kernel.py::_kernel``; its header states the
+bound and the design.  The library is built at first use (see
+`repro_torch.kernels.build_library`).  The wrapper checks what it is
+given, allocates the output with `torch.empty`, launches on the current
+stream without synchronising, and raises on a non-zero ``cudaError_t``.
+``a`` and ``bx`` come in one type, float32 (the model's gates) or
+bfloat16; ``h0`` is float32.  Nothing is cast.
+"""
+from __future__ import annotations
+
+import ctypes
+from pathlib import Path
+
+import torch
+
+from repro_torch.kernels import build_library, launch_counts
+
+NAME = "rglru_scan"
+SOURCE = Path(__file__).resolve().parent / "csrc" / "rglru_scan.cu"
+DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+
+_lib = None
+
+
+def library() -> ctypes.CDLL:
+    """Build (once per source content) and load the kernel library."""
+    global _lib
+    if _lib is None:
+        lib = build_library(NAME, [SOURCE])
+        ptr, i32 = ctypes.c_void_p, ctypes.c_int
+        lib.rglru_scan_launch.argtypes = [ptr, ptr, ptr, ptr, i32, i32, i32,
+                                          i32, ptr]
+        lib.rglru_scan_launch.restype = i32
+        _lib = lib
+    return _lib
+
+
+def _check(a: torch.Tensor, bx: torch.Tensor, h0: torch.Tensor) -> None:
+    if a.dim() != 3 or h0.dim() != 2:
+        raise ValueError("a, bx must be (B, S, D), h0 (B, D)")
+    bsz, s, d = a.shape
+    if bx.shape != a.shape or h0.shape != (bsz, d):
+        raise ValueError(f"bx {tuple(bx.shape)} / h0 {tuple(h0.shape)} do "
+                         f"not fit a {tuple(a.shape)}")
+    if not (1 <= bsz <= 65535 and s >= 1 and d >= 1):
+        raise ValueError(f"B={bsz}, S={s}, D={d} outside the kernel's range")
+    for name, t, types in (("a", a, DTYPES), ("bx", bx, (a.dtype,)),
+                           ("h0", h0, (torch.float32,))):
+        if t.device != a.device or t.device.type != "cuda":
+            raise ValueError(f"{name} on {t.device}, expected {a.device} (CUDA)")
+        if t.dtype not in types:
+            raise TypeError(f"{name} is {t.dtype}; a and bx take float32 or "
+                            "bfloat16, one type for both, h0 float32")
+        if not t.is_contiguous():
+            raise ValueError(f"{name} must be contiguous")
+
+
+def rglru_scan_fwd(a: torch.Tensor, bx: torch.Tensor,
+                   h0: torch.Tensor) -> torch.Tensor:
+    """The recurrence on the card; returns every h_t, (B, S, D) float32."""
+    _check(a, bx, h0)
+    lib = library()
+    bsz, s, d = a.shape
+    with torch.cuda.device(a.device):
+        out = torch.empty((bsz, s, d), dtype=torch.float32, device=a.device)
+        stream = torch.cuda.current_stream(a.device).cuda_stream
+        err = lib.rglru_scan_launch(a.data_ptr(), bx.data_ptr(), h0.data_ptr(),
+                                    out.data_ptr(), DTYPES[a.dtype], bsz, s, d,
+                                    stream)
+    if err:
+        raise RuntimeError(f"rglru_scan launch failed: cudaError_t {err}")
+    launch_counts[NAME] += 1
+    return out

@@ -1,6 +1,8 @@
 """Serving launcher: continuous-batching engine over a ported arch.
 
     PYTHONPATH=src python -m repro_torch.launch.serve --device cpu
+    PYTHONPATH=src python -m repro_torch.launch.serve --device cpu \
+        --arch recurrentgemma-2b
     PYTHONPATH=src python -m repro_torch.launch.serve --no-reduced \
         --requests 8 --slots 4 --max-new 16 --max-seq 1024
 
@@ -18,14 +20,15 @@ import numpy as np
 import torch
 
 from repro_torch import resolve_device
-from repro_torch.configs.base import get_config, reduced_config
+from repro_torch.configs.base import get_config, list_archs, reduced_config
 from repro_torch.models.model import init_params
 from repro_torch.serve.engine import Request, ServeEngine
 
 
 def main(argv=None):
     ap = argparse.ArgumentParser()
-    ap.add_argument("--arch", default="qwen3-moe-30b-a3b")
+    ap.add_argument("--arch", default="qwen3-moe-30b-a3b",
+                    choices=list_archs())
     ap.add_argument("--reduced", action=argparse.BooleanOptionalAction,
                     default=True)
     ap.add_argument("--slots", type=int, default=4)

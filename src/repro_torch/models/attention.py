@@ -1,22 +1,26 @@
 """Attention: GQA with RoPE and QK-norm, prefill through the flash
-attention kernel, and decode against a KV cache.
+attention kernel (causal, or within a sliding window), and decode against
+a KV cache or a ring-buffer window cache.
 
-Port of `repro.models.attention` for causal full (global)
-self-attention with RoPE, the attention of the ported architectures.
-Where the JAX package runs `chunked_attention` (attention.py:248), the
-port calls `kernels.flash_attention` — the same function, which on the
-card is the hand-written Hopper kernel.  Decode attention
-(one query against the cache) stays plain torch: no TPU kernel computes
-it in the JAX package.  Sliding windows
-(`block_local_attention`, ring-buffer caches), attention without RoPE
-and cross-attention wait for the slices whose models use them
-(ROADMAP.md Queue 1); the flash kernel already takes a window.
+Port of `repro.models.attention` for causal self-attention with RoPE,
+the attention of the ported architectures, full or windowed (the
+local attention of recurrentgemma).  Where the JAX package runs
+`chunked_attention` (attention.py:248), or `block_local_attention` for
+a window shorter than the sequence (:245-246), the port calls
+`kernels.flash_attention` with the window, the same function (mask
+``0 <= q - k < window``), which on the card is the hand-written Hopper
+kernel.  `block_local_attention` is kept as a plain function beside it
+and tested against both.  Decode attention (one query against the
+cache) stays plain torch: no TPU kernel computes it in the JAX package.
+Attention without RoPE, non-causal attention and cross-attention wait
+for the slices whose models use them (ROADMAP.md Queue 1).
 """
 from __future__ import annotations
 
 from typing import Dict, Tuple
 
 import torch
+import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels.flash_attention import flash_attention
@@ -81,17 +85,64 @@ def _project_kv(p, x: torch.Tensor, cfg: ModelConfig):
     return k, v  # (B, Hkv, S, hd)
 
 
+def block_local_attention(
+    q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, window: int,
+) -> torch.Tensor:
+    """Sliding-window causal attention in O(S * 2W): each query block of
+    size W attends to its own and the previous key block (covers any
+    window <= W).  Port of attention.py:149; the model runs
+    `kernels.flash_attention` with the window instead, the same function."""
+    B, Hq, S, hd = q.shape
+    Hkv = k.shape[1]
+    G = Hq // Hkv
+    W = min(window, S)
+    S_in = S
+    if S % W:  # pad to a block multiple; padded keys are causally masked
+        pad = W - S % W
+        q, k, v = (F.pad(t, (0, 0, 0, pad)) for t in (q, k, v))
+        S = S + pad
+    nb = S // W
+    scale = hd**-0.5
+
+    qb = q.reshape(B, Hkv, G, nb, W, hd)
+    kb = k.reshape(B, Hkv, nb, W, hd)
+    vb = v.reshape(B, Hkv, nb, W, hd)
+    # previous block (zeros before block 0)
+    kprev = torch.cat([torch.zeros_like(kb[:, :, :1]), kb[:, :, :-1]], dim=2)
+    vprev = torch.cat([torch.zeros_like(vb[:, :, :1]), vb[:, :, :-1]], dim=2)
+    k2 = torch.cat([kprev, kb], dim=3)  # (B,Hkv,nb,2W,hd)
+    v2 = torch.cat([vprev, vb], dim=3)
+
+    s = torch.einsum("bhgnqd,bhnkd->bhgnqk", qb.float(), k2.float()) * scale
+    qi = torch.arange(W, device=q.device)
+    ki = torch.arange(2 * W, device=q.device) - W  # relative to block start
+    rel = qi[:, None] - ki[None, :]  # distance q - k
+    mask = (rel >= 0) & (rel < W if window >= S else rel < window)
+    # block 0 has no previous block
+    blk0 = torch.arange(nb, device=q.device) == 0
+    mask_full = mask[None] & ~(blk0[:, None, None] & (ki < 0)[None, None, :])
+    s = torch.where(mask_full[None, None, None], s, NEG_INF)
+    p = torch.softmax(s, dim=-1)
+    out = torch.einsum("bhgnqk,bhnkd->bhgnqd", p, v2.float())
+    return out.reshape(B, Hq, S, hd)[:, :, :S_in].to(q.dtype)
+
+
 def decode_attention(
     q: torch.Tensor,          # (B, Hq, 1, hd)
     k_cache: torch.Tensor,    # (B, Hkv, S, hd)
     v_cache: torch.Tensor,
     kv_len: torch.Tensor,     # (B,): valid cache entries
+    window: int = 0,
 ) -> torch.Tensor:
     B, Hq, _, hd = q.shape
     Hkv, S = k_cache.shape[1], k_cache.shape[2]
     qg = q.reshape(B, Hkv, Hq // Hkv, hd).float()
     s = torch.einsum("bhgd,bhkd->bhgk", qg, k_cache.float()) * hd**-0.5
-    valid = torch.arange(S, device=q.device)[None, :] < kv_len.reshape(-1, 1)
+    idx = torch.arange(S, device=q.device)[None, :]
+    kv_len = kv_len.reshape(-1, 1)
+    valid = idx < kv_len
+    if window > 0:
+        valid &= idx >= kv_len - window
     s = torch.where(valid[:, None, None, :], s, NEG_INF)
     p = torch.softmax(s, dim=-1)
     out = torch.einsum("bhgk,bhkd->bhgd", p, v_cache.float())
@@ -106,19 +157,27 @@ def attention_block(
     x: torch.Tensor,
     cfg: ModelConfig,
     positions: torch.Tensor,          # (S,)
+    window: int = 0,
     return_kv: bool = False,
 ):
-    """Causal self-attention over a full sequence (prefill).
+    """Causal self-attention over a full sequence (prefill), within the
+    last `window` positions when window > 0.
 
     With return_kv=True also returns the (roped) K/V actually used — the
-    exact tensors a decode cache must contain."""
+    exact tensors a decode cache must contain: for a window no longer
+    than the sequence, the trailing `window` entries rolled so that
+    position t sits in ring slot t % window (attention.py:253-259)."""
     B, S, _ = x.shape
     q = apply_rope(_project_q(p, x, cfg), positions, cfg.rope_theta)
     k, v = _project_kv(p, x, cfg)
     k = apply_rope(k, positions, cfg.rope_theta)
-    o = flash_attention(q, k, v, causal=True)
+    o = flash_attention(q, k, v, causal=True, window=window)
     y = o.transpose(1, 2).reshape(B, S, -1) @ p["wo"].to(x.dtype)
     if return_kv:
+        if window > 0 and S >= window:
+            k, v = k[:, :, -window:], v[:, :, -window:]
+            k = torch.roll(k, S % window, dims=2)
+            v = torch.roll(v, S % window, dims=2)
         return y, k, v
     return y
 
@@ -130,17 +189,21 @@ def attention_block_decode(
     pos: torch.Tensor,                # (B,) current position
     k_cache: torch.Tensor,            # (B, Hkv, S, hd), written in place
     v_cache: torch.Tensor,
+    window: int = 0,
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """One decode step: write the new K/V at `pos` into the caches (in
-    place, where the JAX package returns updated copies), attend over
-    them.  Returns (y, k_cache, v_cache)."""
+    """One decode step: write the new K/V into the caches (in place,
+    where the JAX package returns updated copies), attend over them.  A
+    cache exactly `window` long is a ring: position t goes to slot
+    t % window (attention.py:281-283).  Returns (y, k_cache, v_cache)."""
     q = apply_rope(_project_q(p, x, cfg), pos[:, None], cfg.rope_theta)
     k, v = _project_kv(p, x, cfg)
     k = apply_rope(k, pos[:, None], cfg.rope_theta)
     S = k_cache.shape[2]
-    slot = torch.clamp(pos, max=S - 1)
+    ring = window > 0 and S == window
+    slot = pos % window if ring else torch.clamp(pos, max=S - 1)
     bidx = torch.arange(x.shape[0], device=x.device)
     k_cache[bidx, :, slot] = k[:, :, 0].to(k_cache.dtype)
     v_cache[bidx, :, slot] = v[:, :, 0].to(v_cache.dtype)
-    o = decode_attention(q, k_cache, v_cache, torch.clamp(pos + 1, max=S))
+    o = decode_attention(q, k_cache, v_cache, torch.clamp(pos + 1, max=S),
+                         window=0 if ring else window)
     return o.reshape(x.shape[0], 1, -1) @ p["wo"].to(x.dtype), k_cache, v_cache

@@ -3,9 +3,10 @@
 `params_from_numpy(cfg, tree)` takes the parameter pytree of
 `repro.models.model.init_params` with every leaf turned into a numpy
 array (``jax.tree.map(np.asarray, params)``) and returns the port's
-`ParamTree`: the scanned ``stack/blocks/<i>`` leaves (stacked over the
-leading layer axis) are unstacked into one entry per layer in
-`StackPlan.kinds` order, every leaf keeps its ``(d_in, d_out)`` layout,
+`ParamTree`: the scanned ``stack/blocks/<j>`` leaves (stacked over a
+leading ``n_scan`` axis) are unstacked, then the unrolled
+``stack/tail`` layers appended, into one entry per layer in
+`StackPlan.kinds` order (the JAX package's scan order), every leaf keeps its ``(d_in, d_out)`` layout,
 and each is cast to its storage dtype (`layers.storage_dtype`) — the
 dtype the JAX forward casts it to at use, so the forwards agree bit for
 bit in the casts.
@@ -44,7 +45,7 @@ def _index(tree: Mapping, i: int) -> dict:
 
 def tree_from_flat(flat: Mapping[str, np.ndarray]) -> dict:
     """Nested dicts from ``"a/b/c"`` keys (a pytree saved with `np.savez`
-    under its key paths)."""
+    under its key paths; a list's entries under ``"0"``, ``"1"``, ...)."""
     tree: dict = {}
     for key, value in flat.items():
         *path, leaf = key.split("/")
@@ -62,6 +63,13 @@ def params_from_numpy(cfg: ModelConfig, tree: Mapping,
     stack = tree["stack"]
     layers = [_index(stack["blocks"][str(j)], i)
               for i in range(plan.n_scan) for j in range(len(plan.pattern))]
+    tail = stack.get("tail", [])
+    if isinstance(tail, Mapping):   # from `tree_from_flat`
+        tail = [tail[str(i)] for i in range(len(tail))]
+    layers += list(tail)
+    if len(layers) != len(plan.kinds):
+        raise ValueError(f"{len(layers)} layers for a plan of "
+                         f"{len(plan.kinds)}")
     top = {name: v for name, v in tree.items() if name != "stack"}
     out = _leaves(cfg, top, dev)
     out["stack"] = [_leaves(cfg, layer, dev) for layer in layers]

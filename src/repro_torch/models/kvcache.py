@@ -1,10 +1,12 @@
-"""Decode state: the KV caches of the ported layer kinds.
+"""Decode state: KV caches, ring window caches, SSM and LRU states.
 
-Port of `repro.models.kvcache` for self-attention layers (``self_attn``
-and ``moe``).  The JAX package threads a cache pytree through
-`lax.scan`; the port keeps one list entry per layer, each a view of one
-zero-filled tensor stacked over layers.  Decode writes into those views
-in place (`models.attention.attention_block_decode`).
+Port of `repro.models.kvcache` for the ported layer kinds.  The JAX
+package threads a cache pytree through `lax.scan`; the port keeps one
+dict per layer, in `StackPlan.kinds` order, each leaf a view of one
+zero-filled tensor stacked over the layers of that kind (kinds differ in
+leaves and shapes).  Decode writes into those views in place
+(`models.attention.attention_block_decode`,
+`models.transformer.apply_layer`).
 """
 from __future__ import annotations
 
@@ -18,24 +20,42 @@ from repro_torch.models.layers import torch_dtype
 
 def layer_cache_shape(cfg: ModelConfig, kind: str, B: int, L: int) -> Dict:
     hd = cfg.head_dim_
+    Hkv = cfg.num_kv_heads
     cd = torch_dtype(cfg.compute_dtype)
     if kind in ("self_attn", "moe"):
-        shape = (B, cfg.num_kv_heads, L, hd)
-        return {"k": (shape, cd), "v": (shape, cd)}
+        return {"k": ((B, Hkv, L, hd), cd), "v": ((B, Hkv, L, hd), cd)}
+    if kind == "local_attn":
+        W = min(cfg.hybrid.local_window, L)
+        return {"k": ((B, Hkv, W, hd), cd), "v": ((B, Hkv, W, hd), cd)}
+    if kind == "ssm":
+        s = cfg.ssm
+        Di = cfg.d_inner_
+        return {
+            "conv": ((B, s.conv_kernel - 1, Di), cd),
+            "ssm": ((B, Di, s.state_dim), torch.float32),
+        }
+    if kind == "rglru":
+        Dl = cfg.lru_width_
+        return {
+            "conv": ((B, 3, Dl), cd),
+            "lru": ((B, Dl), torch.float32),
+        }
     raise NotImplementedError(
         f"decode state of {kind!r} layers is not ported yet; see ROADMAP.md")
 
 
 def init_cache(cfg: ModelConfig, B: int, L: int,
                device=None) -> List[Dict[str, torch.Tensor]]:
-    """Zero-filled decode state, one ``{"k", "v"}`` per layer."""
+    """Zero-filled decode state, one dict per layer."""
     from repro_torch.models.transformer import stack_plan
 
     kinds = stack_plan(cfg).kinds
-    entries = [layer_cache_shape(cfg, kind, B, L) for kind in kinds]
-    stacked = {
-        name: torch.zeros((len(kinds),) + shape, dtype=dt, device=device)
-        for name, (shape, dt) in entries[0].items()
-    }
-    return [{name: t[i] for name, t in stacked.items()}
-            for i in range(len(kinds))]
+    caches: List[Dict[str, torch.Tensor]] = [{} for _ in kinds]
+    for kind in dict.fromkeys(kinds):
+        layers = [i for i, k in enumerate(kinds) if k == kind]
+        for name, (shape, dt) in layer_cache_shape(cfg, kind, B, L).items():
+            stacked = torch.zeros((len(layers),) + shape, dtype=dt,
+                                  device=device)
+            for j, i in enumerate(layers):
+                caches[i][name] = stacked[j]
+    return caches

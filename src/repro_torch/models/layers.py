@@ -1,8 +1,7 @@
 """Primitive layers: parameter containers, inits, norms, rotary
 embeddings, activations.
 
-Port of `repro.models.layers` (the causal conv waits for the SSM
-slice).  Parameters live in `ParamTree`s, addressed by the same names as
+Port of `repro.models.layers`.  Parameters live in `ParamTree`s, addressed by the same names as
 the JAX package's dict pytree.  The JAX package keeps float32 masters
 and casts most weights to the compute dtype at every use; the port
 stores each weight in the dtype its use casts it to (`storage_dtype`),
@@ -14,7 +13,7 @@ distributions (not its bits: tests carry JAX parameters across with
 from __future__ import annotations
 
 import functools
-from typing import Dict, Mapping
+from typing import Dict, Mapping, Optional, Tuple
 
 import numpy as np
 import torch
@@ -22,12 +21,17 @@ import torch.nn.functional as F
 from torch import nn
 
 # Weights the JAX forward casts to the compute dtype at every use
-# (attention.py:51,63-64,252; moe.py:129-131; ffn.py); the embedding is
-# cast at use too (model.py:77-78) unless it doubles as the f32 head.
-# Everything else (router, norm scales, lm_head) is used in float32.
+# (attention.py:51,63-64,252; moe.py:129-131; ffn.py; the causal conv's
+# "w"/"b", layers.py:121-122; ssm.py:51,53,89,114; rglru.py:47-48,75-76,
+# 81); the embedding is cast at use too (model.py:77-78) unless it
+# doubles as the f32 head.  Everything else (router, norm scales,
+# lm_head, the SSM's A_log/D/dt_bias, the RG-LRU's lambda) is used in
+# float32.
 COMPUTE_STORED = frozenset({
     "wq", "wk", "wv", "wo", "bq", "bk", "bv",
     "w_gate", "w_up", "w_down", "w_in", "b_in", "w_out", "b_out",
+    "w", "b", "in_proj", "x_proj", "dt_proj", "out_proj",
+    "w_y", "w_x", "w_a", "w_i",
 })
 
 
@@ -170,3 +174,40 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor,
     x1, x2 = x.float().chunk(2, dim=-1)
     out = torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
     return out.to(x.dtype)
+
+
+# ---------------- causal depthwise conv (mamba / griffin) ------------------
+
+
+def init_causal_conv(gen: torch.Generator, channels: int, kernel: int,
+                     dtype: torch.dtype) -> Dict:
+    return {
+        "w": normal_init(gen, (channels, kernel), kernel**-0.5, dtype),
+        "b": torch.zeros((channels,), dtype=dtype, device=gen.device),
+    }
+
+
+def apply_causal_conv(
+    p, x: torch.Tensor, state: Optional[torch.Tensor] = None
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Depthwise causal conv1d.  x: (B, S, C); state: (B, K-1, C), the
+    last K-1 inputs, oldest first.  Returns (y, new_state).
+
+    new_state is always K-1 rows, right-aligned: after a prompt shorter
+    than K-1 tokens its leading rows are the zeros that stood before the
+    prompt, so decode convolves over the causal history.  The JAX
+    package returns the same rows (layers.py:132) but its callers keep
+    ``x_pre[:, -(K-1):]``, which is shorter then (ROADMAP.md Queue 3, R3)."""
+    w = p["w"].to(x.dtype)  # (C, K)
+    b = p["b"].to(x.dtype)
+    K = w.shape[1]
+    if state is None:
+        state = x.new_zeros((x.shape[0], K - 1, x.shape[2]))
+    xp = torch.cat([state, x], dim=1)  # (B, S+K-1, C)
+    S = x.shape[1]
+    y = xp[:, 0:S] * w[:, 0]
+    for i in range(1, K):
+        y = y + xp[:, i:i + S] * w[:, i]
+    y = y + b
+    new_state = xp[:, -(K - 1):] if K > 1 else state
+    return y, new_state

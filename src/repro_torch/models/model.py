@@ -14,6 +14,7 @@ import torch.nn.functional as F
 
 from repro_torch import DeviceLike, resolve_device
 from repro_torch.configs.base import ModelConfig
+from repro_torch.models import rglru as RG
 from repro_torch.models import transformer as T
 from repro_torch.models.ffn import gated
 from repro_torch.models.layers import (
@@ -47,24 +48,36 @@ def init_params(cfg: ModelConfig, seed: int,
     return ParamTree(p)
 
 
-def _layer_params(cfg: ModelConfig, kind: str, active_only: bool) -> int:
-    D, hd = cfg.d_model, cfg.head_dim_
-    dq, dkv = cfg.num_heads * hd, cfg.num_kv_heads * hd
-    norm = D * (2 if cfg.norm == "layernorm" else 1)
-    attn = 2 * D * dq + 2 * D * dkv
-    attn += (dq + 2 * dkv) if cfg.qkv_bias else 0
-    attn += 2 * hd if cfg.qk_norm else 0
+def _ffn_params(cfg: ModelConfig, kind: str, active_only: bool) -> int:
+    D = cfg.d_model
     if kind == "moe":
         _no_shared(cfg)
         m = cfg.moe
         per_leaf = m.num_experts * D * m.d_ff_expert
         if active_only:  # as the JAX count: experts scaled by top_k / E
             per_leaf = int(per_leaf * m.top_k / m.num_experts)
-        ffn = D * m.num_experts + 3 * per_leaf
+        return D * m.num_experts + 3 * per_leaf
+    d_ff = cfg.d_ff
+    return 3 * D * d_ff if gated(cfg) else 2 * D * d_ff + d_ff + D
+
+
+def _layer_params(cfg: ModelConfig, kind: str, active_only: bool) -> int:
+    D, hd = cfg.d_model, cfg.head_dim_
+    norm = D * (2 if cfg.norm == "layernorm" else 1)
+    if kind == "ssm":   # ln1 and the mamba mixer (ssm.init_mamba)
+        Di, N, R = cfg.d_inner_, cfg.ssm.state_dim, cfg.dt_rank_
+        conv = Di * cfg.ssm.conv_kernel + Di
+        return (norm + D * 2 * Di + conv + Di * (R + 2 * N) + R * Di
+                + Di + Di * N + Di + Di * D)
+    if kind == "rglru":   # rglru.init_rglru_block
+        Dl = cfg.lru_width_
+        mixer = 3 * D * Dl + 2 * Dl * Dl + (RG.CONV_KERNEL + 1) * Dl + Dl
     else:
-        d_ff = cfg.d_ff
-        ffn = 3 * D * d_ff if gated(cfg) else 2 * D * d_ff + d_ff + D
-    return 2 * norm + attn + ffn
+        dq, dkv = cfg.num_heads * hd, cfg.num_kv_heads * hd
+        mixer = 2 * D * dq + 2 * D * dkv
+        mixer += (dq + 2 * dkv) if cfg.qkv_bias else 0
+        mixer += 2 * hd if cfg.qk_norm else 0
+    return 2 * norm + mixer + _ffn_params(cfg, kind, active_only)
 
 
 def count_params(cfg: ModelConfig, active_only: bool = False) -> int:
@@ -98,18 +111,31 @@ def forward_prefill(
     """Returns (last-token logits (B, V) f32, decode caches).
 
     With cache_len, the K/V caches are padded with zeros to that length
-    so decode steps have slots to write into."""
+    so decode steps have slots to write into; a local-attention cache to
+    min(cache_len, window), its ring's length (model.py:154-173).  SSM
+    and LRU states have no length and are left as they are."""
     tokens = batch["tokens"]
     S = tokens.shape[1]
     x = _embed(params, tokens, cfg)
     ctx = T.LayerCtx(positions=torch.arange(S, device=tokens.device),
                      mode="prefill")
-    x, _, caches = T.apply_stack(params["stack"], x, cfg, ctx,
-                                 T.stack_plan(cfg))
+    plan = T.stack_plan(cfg)
+    x, _, caches = T.apply_stack(params["stack"], x, cfg, ctx, plan)
     if cache_len is not None and cache_len > S:
-        caches = [{name: F.pad(t, (0, 0, 0, cache_len - S))
-                   for name, t in c.items()} for c in caches]
+        caches = [_pad_kv(c, kind, cfg, S, cache_len)
+                  for c, kind in zip(caches, plan.kinds)]
     return _logits(params, x[:, -1:], cfg)[:, 0], caches
+
+
+def _pad_kv(cache: Dict[str, torch.Tensor], kind: str, cfg: ModelConfig,
+            S: int, cache_len: int) -> Dict[str, torch.Tensor]:
+    if "k" not in cache or cache["k"].shape[2] != S:
+        return cache   # a recurrent state, or a ring already at its window
+    target = cache_len
+    if kind == "local_attn":
+        target = min(cache_len, cfg.hybrid.local_window)
+    return {name: F.pad(t, (0, 0, 0, target - S)) if target > S else t
+            for name, t in cache.items()}
 
 
 def forward_decode(

@@ -1,13 +1,15 @@
 """Transformer stacks: stack plan, per-layer init and apply.
 
-Port of `repro.models.transformer` for the uniform stacks of the ported
-architectures (``self_attn`` or ``moe`` layers); `stack_plan` raises
-`NotImplementedError` for the others.  The JAX package scans stacked superblocks with
-`lax.scan`; the port keeps the layers in an `nn.ModuleList` in
-`StackPlan.kinds` order and loops over them in Python.  Two modes, as
-serving needs them: "prefill" (full sequence, also returns the decode
-state) and "decode" (one token against the state).  Training waits for
-its slice (ROADMAP.md Queue 1).
+Port of `repro.models.transformer` for the stacks of the ported
+architectures: uniform stacks of ``self_attn``, ``moe`` or ``ssm``
+layers and the hybrid (Griffin) stack of ``rglru`` and ``local_attn``
+layers with its tail; `stack_plan` raises `NotImplementedError` for the
+others.  The JAX package scans stacked superblocks with `lax.scan`; the
+port keeps the layers in an `nn.ModuleList` in `StackPlan.kinds` order
+and loops over them in Python.  Two modes, as serving needs them:
+"prefill" (full sequence, also returns the decode state) and "decode"
+(one token against the state, which it writes in place).  Training
+waits for its slice (ROADMAP.md Queue 1).
 """
 from __future__ import annotations
 
@@ -21,31 +23,41 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.models import attention as A
 from repro_torch.models import ffn as F
 from repro_torch.models import moe as M
+from repro_torch.models import rglru as R
+from repro_torch.models import ssm as S
 from repro_torch.models.layers import ParamTree, apply_norm, init_norm
 
 
 @dataclasses.dataclass(frozen=True)
 class StackPlan:
     """The JAX package's scanned superblock, `pattern` repeated `n_scan`
-    times; the ported stacks have no unrolled prefix or tail."""
+    times, then the unrolled `tail`; the ported stacks have no unrolled
+    prefix."""
     pattern: Tuple[str, ...]
     n_scan: int
+    tail: Tuple[str, ...] = ()
 
     @property
     def kinds(self) -> Tuple[str, ...]:
-        return self.pattern * self.n_scan
+        return self.pattern * self.n_scan + self.tail
 
 
 def stack_plan(cfg: ModelConfig) -> StackPlan:
     """The JAX package's split of the stack, kept so that parameters
-    convert layer by layer.  Only uniform stacks are ported: dense
-    (``self_attn`` layers) and MoE without dense prefix layers."""
-    if cfg.family not in ("dense", "moe") or (
+    convert layer by layer.  Ported: uniform dense (``self_attn``), MoE
+    without dense prefix layers and SSM stacks, and the hybrid pattern
+    with its tail."""
+    kinds = cfg.layer_kinds()
+    if cfg.family == "hybrid":
+        p = cfg.hybrid.pattern
+        n = cfg.num_layers // len(p)
+        return StackPlan(tuple(p), n, tuple(kinds[len(p) * n:]))
+    if cfg.family not in ("dense", "moe", "ssm") or (
             cfg.moe is not None and cfg.moe.first_dense_layers):
         raise NotImplementedError(
             f"the {cfg.family} stack of {cfg.name!r} is not ported yet; "
             "see ROADMAP.md Queue 1")
-    return StackPlan((cfg.layer_kinds()[0],), cfg.num_layers)
+    return StackPlan((kinds[0],), cfg.num_layers)
 
 
 # --------------------------------------------------------------------------
@@ -54,9 +66,17 @@ def stack_plan(cfg: ModelConfig) -> StackPlan:
 
 
 def init_layer(gen: torch.Generator, cfg: ModelConfig, kind: str) -> Dict:
-    p = {"ln1": init_norm(cfg.norm, cfg.d_model, gen.device),
-         "attn": A.init_attention(gen, cfg),
-         "ln2": init_norm(cfg.norm, cfg.d_model, gen.device)}
+    def norm():
+        return init_norm(cfg.norm, cfg.d_model, gen.device)
+
+    if kind == "ssm":
+        return {"ln1": norm(), "mixer": S.init_mamba(gen, cfg)}
+    p = {"ln1": norm()}
+    if kind == "rglru":
+        p["rec"] = R.init_rglru_block(gen, cfg)
+    else:   # self_attn / moe / local_attn
+        p["attn"] = A.init_attention(gen, cfg)
+    p["ln2"] = norm()
     if kind == "moe":
         p["moe"] = M.init_moe(gen, cfg)
     else:
@@ -71,6 +91,13 @@ class LayerCtx:
     mode: str = "prefill"                       # prefill | decode
 
 
+def _write(cache: Dict, new: Dict) -> Dict:
+    """Decode state into the cache's tensors, in place."""
+    for name, t in new.items():
+        cache[name].copy_(t)
+    return cache
+
+
 def apply_layer(
     kind: str,
     p,
@@ -79,18 +106,41 @@ def apply_layer(
     ctx: LayerCtx,
     cache: Optional[Dict] = None,
 ) -> Tuple[torch.Tensor, torch.Tensor, Dict]:
-    """Returns (x, aux_loss, new_cache)."""
+    """Returns (x, aux_loss, new_cache); in decode mode new_cache is
+    `cache`, written in place."""
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    decode = ctx.mode == "decode"
 
     h = apply_norm(cfg.norm, p["ln1"], x, upcast=cfg.norm_upcast)
-    if ctx.mode == "decode":
-        y, nk, nv = A.attention_block_decode(
-            p["attn"], h, cfg, ctx.pos, cache["k"], cache["v"])
-        new_cache = {"k": nk, "v": nv}
-    else:
-        y, kc, vc = A.attention_block(p["attn"], h, cfg, ctx.positions,
-                                      return_kv=True)
-        new_cache = {"k": kc, "v": vc}
+    if kind == "ssm":
+        if decode:
+            y, cs, ss = S.mamba_decode(p["mixer"], h, cfg, cache["conv"],
+                                       cache["ssm"])
+            new_cache = _write(cache, {"conv": cs, "ssm": ss})
+        else:
+            y, cs, ss = S.mamba_mix(p["mixer"], h, cfg, return_state=True)
+            new_cache = {"conv": cs, "ssm": ss}
+        return x + y, aux, new_cache   # the mixer is the whole block
+
+    if kind == "rglru":
+        if decode:
+            y, cs, hs = R.rglru_block_decode(p["rec"], h, cfg, cache["conv"],
+                                             cache["lru"])
+            new_cache = _write(cache, {"conv": cs, "lru": hs})
+        else:
+            y, cs, hs = R.rglru_block_mix(p["rec"], h, cfg, return_state=True)
+            new_cache = {"conv": cs, "lru": hs}
+    else:   # self_attn / moe / local_attn
+        window = cfg.hybrid.local_window if kind == "local_attn" else 0
+        if decode:
+            y, nk, nv = A.attention_block_decode(
+                p["attn"], h, cfg, ctx.pos, cache["k"], cache["v"],
+                window=window)
+            new_cache = {"k": nk, "v": nv}
+        else:
+            y, kc, vc = A.attention_block(p["attn"], h, cfg, ctx.positions,
+                                          window=window, return_kv=True)
+            new_cache = {"k": kc, "v": vc}
     x = x + y
 
     h = apply_norm(cfg.norm, p["ln2"], x, upcast=cfg.norm_upcast)

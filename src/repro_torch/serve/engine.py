@@ -8,9 +8,14 @@ every slot, idle ones included (token 0 at the slot's last position):
 their tokens take MoE capacity (T = slots), so skipping them would
 change the live slots' tokens.
 
-The cache is written in place: a prefill's K/V are copied into its slot
-and the rest of the slot is zeroed, and decode writes its K/V at each
-slot's position.  Greedy decoding is the tested path; with
+The cache is written in place: a prefill's decode state is copied into
+its slot, each leaf by its kind (as the JAX engine's `put`,
+engine.py:82-99): K/V along the sequence, the rest of the slot zeroed (a
+local-attention ring of length W holds min(L, W) entries); conv, SSM and
+LRU states whole.  The port's conv states are always K-1 rows,
+right-aligned, where the JAX engine pads a shorter prompt's state at the
+end (ROADMAP.md Queue 3, R3).  Decode writes its K/V at each slot's
+position (or ring slot) and its recurrent states in place.  Greedy decoding is the tested path; with
 ``greedy=False`` the first token of a request is drawn from its
 softmax with a `torch.Generator` seeded by the request id (the JAX
 package draws it with `jax.random.categorical`, so the bits differ),
@@ -89,11 +94,16 @@ class ServeEngine:
         tokens = torch.as_tensor(np.asarray(req.prompt, np.int64)[None, :],
                                  device=self.device)
         logits, pc = forward_prefill(self.params, {"tokens": tokens}, self.cfg)
-        # the single-request cache into the batched slot, zero past L
+        # the single-request state into the batched slot
         for layer, pre in zip(self.cache, pc):
             for name, buf in layer.items():
-                buf[slot, :, :L] = pre[name][0].to(buf.dtype)
-                buf[slot, :, L:] = 0
+                src = pre[name][0].to(buf.dtype)
+                if name in ("k", "v"):   # (Hkv, len, hd); zero past len
+                    n = src.shape[1]
+                    buf[slot, :, :n] = src
+                    buf[slot, :, n:] = 0
+                else:                    # conv (K-1, C), ssm (Di, N), lru
+                    buf[slot] = src
         if self.greedy:
             tok = int(torch.argmax(logits[0]))
         else:

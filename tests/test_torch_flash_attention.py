@@ -31,6 +31,7 @@ RAGGED = [  # B, Hq, Hkv, Sq, Sk, hd, causal, window
     (1, 2, 1, 48, 24, 16, True, 0),     # Sq > Sk: rows with no live key
     (2, 4, 1, 70, 70, 64, True, 20),    # window over a ragged edge
     (1, 2, 2, 33, 65, 128, False, 0),   # qwen3's head_dim
+    (1, 10, 1, 40, 40, 256, True, 24),  # recurrentgemma's heads, window
 ]
 DTYPES = {"float32": (jnp.float32, torch.float32),
           "bfloat16": (jnp.bfloat16, torch.bfloat16)}

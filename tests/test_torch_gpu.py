@@ -4,7 +4,8 @@ Imports no JAX, so it runs where only the port is installed:
 ``PYTHONPATH=src python -m pytest -m gpu tests/test_torch_gpu.py``.
 Without a card every test skips.  Tolerances are chip_smoke.py's:
 rotor_slice state atol 1e-5, totals rtol 1e-5; flash_attention and
-moe_gmm f32 2e-5, bf16 2e-2 (tests/test_kernels.py:15-18).
+moe_gmm f32 2e-5, bf16 2e-2 (tests/test_kernels.py:15-18); mamba_scan
+and rglru_scan f32 1e-4, bf16 2e-2 (tests/test_kernels.py:66-69).
 """
 import numpy as np
 import pytest
@@ -16,7 +17,11 @@ from repro_torch.kernels import launch_counts
 from repro_torch.kernels.flash_attention import flash_attention, flash_attention_ref
 from repro_torch.kernels.flash_attention.kernel import flash_attention_fwd
 from repro_torch.kernels.moe_gmm import moe_gmm, moe_gmm_ref
+from repro_torch.kernels.mamba_scan import mamba_scan, mamba_scan_ref
+from repro_torch.kernels.mamba_scan.kernel import mamba_scan_fwd
 from repro_torch.kernels.moe_gmm.kernel import moe_gmm_fwd
+from repro_torch.kernels.rglru_scan import rglru_scan, rglru_scan_ref
+from repro_torch.kernels.rglru_scan.kernel import rglru_scan_fwd
 from repro_torch.kernels.rotor_slice.kernel import rotor_slice_fwd
 from repro_torch.kernels.rotor_slice.ref import rotor_slice_ref
 from repro_torch.netsim import fluid_torch
@@ -115,6 +120,7 @@ def _normal(shape, seed, device, dtype, scale=1.0):
     (1, 3, 1, 48, 48, 16, True, 0), (1, 4, 2, 40, 72, 128, True, 0),
     (1, 2, 1, 48, 24, 16, True, 0), (2, 4, 1, 70, 70, 64, True, 20),
     (1, 2, 2, 33, 65, 128, False, 0), (1, 2, 1, 100, 150, 64, False, 30),
+    (1, 10, 1, 100, 100, 256, True, 24), (1, 10, 1, 70, 130, 256, True, 0),
 ])
 def test_flash_attention_matches_plain_version(card, case, dtype):
     B, Hq, Hkv, Sq, Sk, hd, causal, window = case
@@ -205,3 +211,120 @@ def test_reduced_serve_counts_its_launches(card):
     n = cfg.num_layers
     assert launch_counts["flash_attention"] == n * eng.prefills == n * 3
     assert launch_counts["moe_gmm"] == n * (eng.prefills + eng.ticks)
+
+
+def _scan_tol(dtype):
+    return dict(atol=2e-2, rtol=2e-2) if dtype == torch.bfloat16 else dict(
+        atol=1e-4, rtol=1e-4)
+
+
+def _mamba_inputs(B, S, D, N, seed, device, dtype, x_dtype=None):
+    rng = np.random.default_rng(seed)
+    arrs = (rng.normal(size=(B, S, D)), rng.uniform(0.01, 0.2, (B, S, D)),
+            rng.normal(size=(B, S, N)), rng.normal(size=(B, S, N)),
+            -np.exp(rng.normal(size=(D, N))), rng.normal(size=(D,)))
+    t = [torch.as_tensor(a, dtype=torch.float32, device=device) for a in arrs]
+    return [t[0].to(x_dtype or dtype)] + [a.to(dtype) for a in t[1:4]] + t[4:]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B,S,D,N", [
+    (1, 16, 8, 4), (2, 32, 16, 4), (1, 24, 12, 2), (2, 16, 8, 8),
+    (1, 40, 300, 16), (2, 33, 70, 3), (1, 20, 16, 32)])
+def test_mamba_scan_matches_plain_version(card, B, S, D, N, dtype):
+    args = _mamba_inputs(B, S, D, N, 16, card, dtype)
+    launch_counts.clear()
+    y, h = mamba_scan(*args)
+    assert launch_counts["mamba_scan"] == 1
+    ry, rh = mamba_scan_ref(*args)
+    torch.cuda.synchronize()
+    assert y.dtype == h.dtype == torch.float32
+    torch.testing.assert_close(y, ry, **_scan_tol(dtype))
+    torch.testing.assert_close(h, rh, **_scan_tol(dtype))
+
+
+def test_mamba_scan_takes_the_model_dtypes(card):
+    """x in bf16 beside f32 dt, B, C, as `mamba_mix` passes them."""
+    args = _mamba_inputs(2, 37, 96, 16, 17, card, torch.float32,
+                         x_dtype=torch.bfloat16)
+    y, h = mamba_scan(*args)
+    ry, rh = mamba_scan_ref(*args)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(y, ry, atol=1e-4, rtol=1e-4)
+    torch.testing.assert_close(h, rh, atol=1e-4, rtol=1e-4)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B,S,D", [
+    (1, 32, 16), (2, 64, 8), (1, 48, 24), (3, 100, 130), (1, 17, 2560)])
+def test_rglru_scan_matches_plain_version(card, B, S, D, dtype):
+    rng = np.random.default_rng(18)
+    a = torch.as_tensor(rng.uniform(0.7, 0.999, (B, S, D)), device=card,
+                        dtype=torch.float32).to(dtype)
+    bx = _normal((B, S, D), 19, card, dtype)
+    h0 = _normal((B, D), 20, card, torch.float32)
+    launch_counts.clear()
+    got = rglru_scan(a, bx, h0)
+    assert launch_counts["rglru_scan"] == 1
+    want = rglru_scan_ref(a, bx, h0)
+    torch.cuda.synchronize()
+    assert got.dtype == torch.float32
+    torch.testing.assert_close(got, want, **_scan_tol(dtype))
+
+
+def test_scan_kernels_are_deterministic(card):
+    args = _mamba_inputs(1, 64, 512, 16, 21, card, torch.float32,
+                         x_dtype=torch.bfloat16)
+    a, b = mamba_scan(*args), mamba_scan(*args)
+    assert torch.equal(a[0], b[0]) and torch.equal(a[1], b[1])
+    x = _normal((2, 50, 300), 22, card, torch.float32).sigmoid()
+    h0 = _normal((2, 300), 23, card, torch.float32)
+    assert torch.equal(rglru_scan(x, x, h0), rglru_scan(x, x, h0))
+
+
+def test_scan_kernel_wrappers_check_their_inputs(card):
+    x, dt, bm, cm, a, d = _mamba_inputs(1, 8, 16, 4, 24, card, torch.float32)
+    with pytest.raises(TypeError):
+        mamba_scan_fwd(x.double(), dt, bm, cm, a, d)
+    with pytest.raises(TypeError):
+        mamba_scan_fwd(x, dt, bm.bfloat16(), cm, a, d)   # B not dt's type
+    with pytest.raises(TypeError):
+        mamba_scan_fwd(x, dt, bm, cm, a.bfloat16(), d)
+    with pytest.raises(ValueError):
+        mamba_scan_fwd(x, dt.cpu(), bm, cm, a, d)
+    with pytest.raises(ValueError):
+        mamba_scan_fwd(x, dt, bm, cm, a[:8], d)
+    with pytest.raises(ValueError):   # N = 33 > one warp of lanes
+        mamba_scan_fwd(*_mamba_inputs(1, 8, 16, 33, 25, card, torch.float32))
+    with pytest.raises(ValueError):
+        mamba_scan_fwd(x.transpose(1, 2).contiguous().transpose(1, 2), dt,
+                       bm, cm, a, d)
+    h0 = _normal((1, 16), 26, card, torch.float32)
+    with pytest.raises(TypeError):
+        rglru_scan_fwd(x, dt.bfloat16(), h0)
+    with pytest.raises(TypeError):
+        rglru_scan_fwd(x, dt, h0.bfloat16())
+    with pytest.raises(ValueError):
+        rglru_scan_fwd(x, dt, h0.cpu())
+    with pytest.raises(ValueError):
+        rglru_scan_fwd(x, dt, h0[:, :8])
+
+
+@pytest.mark.parametrize("arch,kernels", [
+    ("falcon-mamba-7b", {"mamba_scan": 2}),
+    ("recurrentgemma-2b", {"rglru_scan": 4, "flash_attention": 1}),
+])
+def test_reduced_recurrent_serve_counts_its_launches(card, arch, kernels):
+    """Per prefill: one launch a layer of the kind; decode launches none."""
+    cfg = reduced_config(get_config(arch))
+    params = init_params(cfg, 0, device=card)
+    eng = ServeEngine(cfg, params, slots=2, max_seq=48, device=card)
+    rng = np.random.default_rng(0)
+    for rid in range(3):
+        eng.submit(Request(rid=rid, max_new_tokens=5, prompt=rng.integers(
+            0, cfg.vocab_size, int(rng.integers(5, 20))).astype(np.int32)))
+    launch_counts.clear()
+    done = eng.run_to_completion()
+    assert len(done) == 3 and eng.ticks > 0
+    assert all(0 <= t < cfg.vocab_size for r in done for t in r.out_tokens)
+    assert dict(launch_counts) == {k: n * 3 for k, n in kernels.items()}

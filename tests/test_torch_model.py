@@ -87,12 +87,13 @@ class TestConfig:
             assert dataclasses.asdict(t) == dataclasses.asdict(j)
 
     def test_unported_arch_raises_and_names_roadmap(self):
-        assert list_archs() == (ARCH,)
+        assert list_archs() == ("falcon-mamba-7b", ARCH, "recurrentgemma-2b")
         with pytest.raises(KeyError, match="ROADMAP"):
-            get_config("falcon-mamba-7b")
+            get_config("deepseek-moe-16b")
 
     @pytest.mark.parametrize("change", [
-        dict(family="ssm"), dict(family="hybrid"), "first_dense_layers"])
+        dict(family="encdec", encoder_layers=2),
+        dict(family="vlm", cross_attn_every=3), "first_dense_layers"])
     def test_unported_stack_raises_and_names_roadmap(self, change):
         cfg = reduced_config(get_config(ARCH))
         if change == "first_dense_layers":   # deepseek-moe's dense prefix

@@ -4,8 +4,10 @@
     python3 chip_smoke.py
 
 Imports nothing of JAX or of the JAX package.  Builds the Hopper kernels
-from the sources in this checkout, then runs, each phase printing one
-JSON line and any failure raising:
+from the sources in this checkout (each kernel's registers and spills
+from ptxas; the flash library's HGMMA instructions counted in its SASS,
+which must be above 0, and no spill in its bf16 kernel), then runs, each
+phase printing one JSON line and any failure raising:
 
 1. kernel: the `rotor_slice` CUDA kernel against its plain PyTorch
    version on the card, vlb on and off, at k8-n16-g1, k12-n108-g1,
@@ -24,14 +26,18 @@ JSON line and any failure raising:
    the kernel must have launched once per slice.
 4. crossover: per-slice time of the dense and the sparse engine across
    the Appendix-B grid at B = 16.
-5. flash_attention: the CUDA kernel against its plain version, f32 and
+5. flash_attention: the bf16 kernel's wgmma tile products alone (S =
+   Q K^T, O = P V at every head dim) against torch.matmul in f32 within
+   1e-5 of the products' magnitudes; the CUDA kernel (bf16 on the tensor
+   cores, f32 on the CUDA cores) against its plain version, f32 and
    bf16, at the sweep of tests/test_kernels.py:21-33, at the qwen3-moe
    prefill shapes (B 1, Hq 32, Hkv 4, hd 128, causal, S 128 / 512 /
    2048) and at recurrentgemma-2b's local attention (Hq 10, Hkv 1, hd
    256, window 2048, S 1900 / 3300), at f32 2e-5 and bf16 2e-2; times the
    kernel (events and profiler), the plain version and, as a yardstick
    never on the path, `F.scaled_dot_product_attention` (causal, or with
-   the window as a boolean mask).
+   the window as a boolean mask; `vs_library` is the kernel's time over
+   it).
 6. moe_gmm: the same at tests/test_kernels.py:89-92 and at E 128, D 2048,
    F 768 with C 4 (a 4-slot decode step) and C 40 (a 512-token prefill);
    no single PyTorch call computes the fused gated FFN, so no library
@@ -144,9 +150,45 @@ def _topology(dp):
     return build(cfg.num_racks, cfg.u, seed=dp.topo_seed, groups=cfg.groups)
 
 
+def _ptxas_report(log: str) -> dict:
+    """Registers and spill bytes of each kernel in nvcc's ``-Xptxas -v``
+    report, by name (``flash_fwd_wgmma<128>`` for a template)."""
+    import re
+
+    out, name = {}, None
+    for ln in log.splitlines():
+        m = re.search(r"Function properties for (\w+)", ln)
+        if m:
+            name = _kernel_name(m.group(1))
+        m = re.search(r"(\d+) bytes spill stores", ln)
+        if m and name:
+            out[name] = dict(spill_bytes=int(m.group(1)))
+        m = re.search(r"Used (\d+) registers", ln)
+        if m and name in out:
+            out[name]["registers"] = int(m.group(1))
+    return out
+
+
+def _kernel_name(mangled: str) -> str:
+    """The last name of an Itanium-mangled function, with its int template
+    argument: ``_ZN..._15flash_fwd_wgmmaILi128EEEv...`` is
+    ``flash_fwd_wgmma<128>``."""
+    import re
+
+    pos, name = 3 if mangled.startswith("_ZN") else 2, mangled
+    while pos < len(mangled) and mangled[pos].isdigit():
+        n = re.match(r"\d+", mangled[pos:]).group(0)
+        name = mangled[pos + len(n):pos + len(n) + int(n)]
+        pos += len(n) + int(n)
+    arg = re.match(r"ILi(\d+)E", mangled[pos:])
+    return f"{name}<{arg.group(1)}>" if arg else name
+
+
 def phase_build() -> dict:
-    """One nvcc per kernel source, all started together."""
-    from repro_torch.kernels import build_libraries, library_path
+    """One nvcc per kernel source, all started together; each kernel's
+    registers and spills; the flash library's tensor-core (HGMMA)
+    instructions, counted in its SASS, and no spill in its bf16 kernel."""
+    from repro_torch.kernels import build_libraries, cuda_tool, library_path
     from repro_torch.kernels.flash_attention import kernel as flash
     from repro_torch.kernels.mamba_scan import kernel as mamba
     from repro_torch.kernels.moe_gmm import kernel as gmm
@@ -163,9 +205,22 @@ def phase_build() -> dict:
     out = dict(phase="build", seconds=time.perf_counter() - t0)
     for name, sources in specs:
         log = library_path(name, sources).with_suffix(".log")
-        out[f"ptxas_{name}"] = [
-            ln.strip() for ln in log.read_text().splitlines()
-            if "Used" in ln or "spill" in ln] if log.exists() else []
+        out[f"ptxas_{name}"] = (_ptxas_report(log.read_text())
+                                if log.exists() else {})
+    wgmma = {k: v for k, v in out["ptxas_flash_attention"].items()
+             if k.startswith("flash_fwd_wgmma")}
+    _check(len(wgmma) == len(flash.HEAD_DIMS),
+           f"flash bf16 instantiations {sorted(wgmma)}")
+    _check(all(v["spill_bytes"] == 0 for v in wgmma.values()),
+           f"flash bf16 kernel spills: {wgmma}")
+    sass = subprocess.run(
+        [cuda_tool("cuobjdump"), "-sass",
+         str(library_path(flash.NAME, [flash.SOURCE]))],
+        capture_output=True, text=True, check=True, timeout=300).stdout
+    out["flash_attention_hgmma"] = hgmma = sum(
+        "HGMMA" in ln for ln in sass.splitlines())
+    print(f"flash_attention HGMMA instructions: {hgmma}", flush=True)
+    _check(hgmma > 0, "the flash library holds no HGMMA")
     return out
 
 
@@ -401,6 +456,33 @@ def _dname(dtype) -> str:
     return str(dtype).replace("torch.", "")
 
 
+def _wgmma_probe(gen) -> dict:
+    """The bf16 flash kernel's two tile products alone, at every head dim:
+    S = Q K^T (m64n64k16, both operands from shared memory) and O = P V
+    (P from registers), against torch.matmul in f32; exact up to the f32
+    summation order, so held within 1e-5 of the sum of the products'
+    magnitudes."""
+    import torch
+
+    from repro_torch.kernels.flash_attention.kernel import (
+        HEAD_DIMS,
+        wgmma_probe,
+    )
+
+    worst = 0.0
+    for hd in HEAD_DIMS:
+        q, k, v = (_randn((64, hd), gen, torch.bfloat16) for _ in range(3))
+        p = _randn((64, 64), gen, torch.bfloat16).abs()
+        s, o = wgmma_probe(q, k, v, p)
+        for what, got, a, b in (("S = Q K^T", s, q, k.T),
+                                ("O = P V", o, p, v)):
+            a, b = a.float(), b.float()
+            rel = float(((got - a @ b).abs() / (a.abs() @ b.abs())).max())
+            _check(rel <= 1e-5, f"wgmma probe hd {hd} {what}: {rel}")
+            worst = max(worst, rel)
+    return dict(head_dims=list(HEAD_DIMS), max_rel_err=worst)
+
+
 def phase_flash_attention() -> dict:
     import torch
     import torch.nn.functional as F
@@ -413,6 +495,7 @@ def phase_flash_attention() -> dict:
     )
 
     gen = torch.Generator(device="cuda").manual_seed(0)
+    probe = _wgmma_probe(gen)
     sweep_err = 0.0
     for dtype in (torch.float32, torch.bfloat16):
         for B, Hq, Hkv, Sq, Sk, hd, causal, window in FLASH_SWEEP:
@@ -468,12 +551,16 @@ def phase_flash_attention() -> dict:
                              hd=hd, causal=True, window=window,
                              max_abs_err=err, ms=ms,
                              device_ms=device_ms, plain_ms=plain_ms,
-                             library_ms=library_ms, bound_ms=bound_ms,
+                             library_ms=library_ms,
+                             vs_library=ms / library_ms, bound_ms=bound_ms,
                              bound_by=bound_by,
-                             tflops=ops / (ms * 1e-3) / 1e12))
+                             tflops=ops / (ms * 1e-3) / 1e12,
+                             device_tflops=ops / (device_ms * 1e-3) / 1e12
+                             if device_ms else None))
             del q, k, v, qf, kf, vf, mask
             torch.cuda.empty_cache()
-    return dict(phase="flash_attention", sweep_cases=2 * len(FLASH_SWEEP),
+    return dict(phase="flash_attention", wgmma_probe=probe,
+                sweep_cases=2 * len(FLASH_SWEEP),
                 sweep_max_abs_err=sweep_err, rows=rows)
 
 

@@ -51,14 +51,16 @@ def pick(t: torch.Tensor, kernel: Callable, plain: Callable) -> Callable:
     raise ValueError(f"no kernel or plain version for device {t.device}")
 
 
-def _nvcc() -> str:
-    found = shutil.which("nvcc")
+def cuda_tool(name: str) -> str:
+    """A CUDA toolkit program (``nvcc``, ``cuobjdump``) on PATH or under
+    CUDA_HOME."""
+    found = shutil.which(name)
     if found:
         return found
     home = os.environ.get("CUDA_HOME", "/usr/local/cuda")
-    path = os.path.join(home, "bin", "nvcc")
+    path = os.path.join(home, "bin", name)
     if not os.path.exists(path):
-        raise RuntimeError("nvcc not found on PATH or under CUDA_HOME")
+        raise RuntimeError(f"{name} not found on PATH or under CUDA_HOME")
     return path
 
 
@@ -83,7 +85,8 @@ def build_libraries(specs: Sequence[Tuple[str, Sequence[Path]]]) -> list:
             continue
         BUILD_DIR.mkdir(parents=True, exist_ok=True)
         tmp = out.with_suffix(f".{os.getpid()}.tmp")
-        cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), *map(str, sources)]
+        cmd = [cuda_tool("nvcc"), *NVCC_FLAGS, "-o", str(tmp),
+               *map(str, sources)]
         procs.append((name, out, tmp, subprocess.Popen(
             cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)))
     failed = []

@@ -8,76 +8,123 @@
 // (k <= q) and an optional window (q - k < window).  Masked scores are the
 // finite -1e30 of the TPU kernel, not -inf, so a row that is masked
 // everywhere gives the mean of V over all Sk keys, as the plain version
-// does.  Scores, the online softmax and the output accumulator are f32
-// for f32 and bf16 inputs alike; the output is rounded once to the
-// input's type.
+// does.  Scores, the online softmax (max, denominator, rescale) and the
+// output accumulator are f32 for f32 and bf16 inputs alike; the output is
+// rounded once to the input's type.  No atomics: a second call gives the
+// same bits.
 //
 // Ragged lengths: the TPU wrapper picks block sizes that divide Sq and
 // Sk.  Here the tiles are fixed and the kernel masks the ragged edge
 // itself: a query row past Sq is computed on zeros and never stored; a
 // key past Sk does not exist (its probability is an exact 0, not the
-// -1e30 of a masked key).
+// -1e30 of a masked key).  Key tiles that no row of the query tile can see
+// (wholly above the causal diagonal, or wholly behind the window) are
+// skipped: a masked key adds an exact 0 once a row has seen a live key
+// (the rescale factor of what came before is then exactly 0), so skipping
+// is exact for every row that has one.  A causal tile with a row at a
+// negative position (Sq > Sk) has a row with no live key, and walks every
+// key tile so that row gets the plain version's mean of V.
 //
 // Bound.  The work is 4 * BH * hd * (live score entries) operations (QK^T
 // and PV), half the square under a causal mask, and the bytes are q, k, v
-// read once and o written once.  At the qwen3-moe prefill shapes (Hq 32,
-// Hkv 4, hd 128, S 512-2048) the operations dominate: 989 TFLOP/s of bf16
-// tensor-core rate against 3.35 TB/s puts the line at ~295 operations a
-// byte, and attention over S keys does ~S/2 per byte.  This first kernel
-// is simple rather than fast: it runs on the CUDA cores in f32 (67 TFLOP/s
-// peak), so it cannot come near the tensor-core bound; wgmma tiles with
-// TMA loads are later work (ROADMAP).
+// read once and o written once.  989 TFLOP/s of bf16 tensor-core rate
+// against 3.35 TB/s puts the line at ~295 operations a byte.  At the main
+// path's bf16 shapes (H100 SXM data-sheet rates):
+//   qwen3-moe prefill, Hq 32, Hkv 4, hd 128, causal:
+//     S 128   0.135 GFLOP, 2.36 MB  -> 0.000704 ms (bytes)
+//     S 512   2.15 GFLOP,  9.44 MB  -> 0.00282 ms (bytes)
+//     S 2048  34.4 GFLOP,  37.7 MB  -> 0.0348 ms (operations)
+//   recurrentgemma-2b local attention, Hq 10, Hkv 1, hd 256, window 2048:
+//     S 1900  18.5 GFLOP,  21.4 MB  -> 0.0187 ms (operations)
+//     S 3300  47.7 GFLOP,  37.2 MB  -> 0.0483 ms (operations)
 //
-// Design.  One block of 128 threads per (32-query tile, folded head), a
-// loop over 64-key tiles inside the block in place of the TPU's
-// sequential kv grid axis (blocks run in no order, so nothing is carried
-// between them).  Four threads own one query row: each computes 16 of the
-// tile's 64 scores and a quarter of the row's hd output dims (dims c,
-// c+4, ...), keeps its running max, partial denominator and output in
-// registers, and the four meet by warp shuffles.  Q, K, V tiles are
-// converted to f32 in shared memory (rows padded by one float so the
-// dot-product reads do not collide on banks): ~90 KB at hd = 128 and
-// 172,544 B at hd = 256 (recurrentgemma-2b), under the 227 KB opt-in,
-// where each thread carries 64 f32 output accumulators.  Key
-// tiles that no row of the query tile can see (wholly above the causal
-// diagonal, or wholly behind the window) are skipped: a masked key adds an
-// exact 0 once a row has seen a live key, so skipping is exact for every
-// row that has one.  A causal tile with a row at a negative position (Sq
-// > Sk) has a row with no live key, and walks every key tile so that row
-// gets the plain version's mean of V.
+// Two paths, split by type.
+//
+// bf16: tensor cores through wgmma (sm_90a), flash_fwd_wgmma<HD>.  One
+// block of one warpgroup (128 threads) per (64-query tile, folded head);
+// query tiles are walked last-first so the long causal tiles start first.
+// Q is loaded once; K and V go through a two-stage ring in shared memory:
+// the next tile's 16-byte cp.async copies are started while the tensor
+// cores compute this tile's S, and one barrier a tile (after waiting for
+// them) both publishes them and frees the stage they refill next.  Rows
+// past Sq or Sk are zero-filled by the src-size form of cp.async and never
+// read.  The copies write straight into the layout the wgmma descriptors
+// name: per 64-row tile, column blocks of min(hd, 64) elements, rows of
+// W = min(2 hd, 128) bytes, 16-byte chunks swizzled (chunk ^= (address >>
+// 7) mod W/16: the 128/64/32-byte swizzle modes), so no transpose copy.
+// Per 64-key tile:
+//   S = Q K^T   wgmma m64n64k16, Q and K from shared memory, both K-major,
+//               hd/16 instructions into 32 f32 per thread;
+//   mask and online softmax on that fragment in registers: a thread holds
+//               two rows (r, r+8) of its warp's 16, row max and sum are
+//               reductions over the four lanes of a quad (xor 1, 2); exp2
+//               of scores pre-scaled by log2(e) / sqrt(hd);
+//   O += P V    wgmma m64nNk16 (N = min(hd, 64), hd/N per k16 step), A = P
+//               from registers: the f32 score fragment packed in pairs to
+//               bf16x2 is the A fragment (a0..a3 = d[8kk + 0,1 | 2,3 | 4,5
+//               | 6,7]), no shuffle; B = V read MN-major (transpose-B).
+// Each wgmma group is fenced, committed and waited for before its
+// registers are touched.  Shared memory: (1 + 2 x 2) tiles of 64 x hd
+// bf16, plus 1 KB for alignment: 160 KB at hd 256 (one block an SM), 80 KB
+// at hd 128 (two).  Registers: O is hd/2 f32 a thread (128 at hd 256), S
+// 32, P 16; the descriptors are kept from being hoisted out of the key
+// loop, where 2 x hd/16 of them would hold 64-bit registers (hd 256
+// spilled).
+// ptxas for flash_fwd_wgmma<16, 32, 64, 128, 256> (CUDA 12.8, -O3
+// -fmad=false): 90, 96, 124, 162, 220 registers, no spill (chip_smoke.py's
+// build phase prints and checks it).
+// Measured variants that were not faster (PERF.md): S of tile t+1
+// started before the softmax of tile t; two warpgroups sharing each K, V
+// tile (128 query rows, half the copies, but the two run in step, so
+// neither's softmax overlaps the other's products); a third stage.  The
+// cost that is left grows with the bytes copied and is paid where the
+// copies are started, not waited for: TMA loads from a producer warp, with
+// two consumer warpgroups taking turns on the tensor cores, are the next
+// step (ROADMAP).
+//
+// One rounding is new (ROADMAP Queue 3, B3): P goes to bf16 before the
+// P V product, as in every tensor-core flash kernel; the TPU kernel keeps
+// p in f32 (repro/kernels/flash_attention/kernel.py:58-64).  Q K^T has no
+// new rounding (bf16 x bf16 products are exact in f32).  The softmax's
+// denominator sums the unrounded f32 p.  Against the plain version on bf16
+// inputs this costs about one bf16 step of the output
+// (tests/test_torch_flash_attention.py holds it within 2e-2).
+//
+// f32: the CUDA cores, flash_fwd_f32<HD>, unchanged from the first port.
+// The f32 tolerance (2e-5) rules out TF32 tensor cores.  One block of 128
+// threads per (32-query tile, folded head), four threads a query row,
+// each computing 16 of a 64-key tile's scores and a quarter of the row's
+// output dims; Q, K, V converted tiles in shared memory (rows padded by
+// one float against bank conflicts).
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
 
+#include <type_traits>
+
 namespace {
+
+constexpr float kNegInf = -1e30f;
+
+// ---------------- f32: CUDA cores ------------------------------------------
 
 constexpr int kBQ = 32;          // query rows per block
 constexpr int kBK = 64;          // keys per tile
 constexpr int kThreads = 128;    // four threads per query row
 constexpr int kPerThread = kBK / 4;
-constexpr float kNegInf = -1e30f;
-
-__device__ __forceinline__ float to_f32(float x) { return x; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 x) {
-  return __bfloat162float(x);
-}
-__device__ __forceinline__ void store(float* p, float x) { *p = x; }
-__device__ __forceinline__ void store(__nv_bfloat16* p, float x) {
-  *p = __float2bfloat16_rn(x);
-}
 
 template <int HD>
-constexpr size_t smem_bytes() {
+constexpr size_t smem_bytes_f32() {
   return sizeof(float) *
          (kBQ * (HD + 1) + kBK * (HD + 1) + kBK * HD + kBQ * (kBK + 1));
 }
 
-template <typename T, int HD>
+template <int HD>
 __global__ void __launch_bounds__(kThreads)
-flash_fwd(const T* __restrict__ q, const T* __restrict__ k,
-          const T* __restrict__ v, T* __restrict__ o, int sq, int sk,
-          int group, int causal, int window, float scale) {
+flash_fwd_f32(const float* __restrict__ q, const float* __restrict__ k,
+              const float* __restrict__ v, float* __restrict__ o, int sq,
+              int sk, int group, int causal, int window, float scale) {
   extern __shared__ float smem[];
   float* qs = smem;                       // [kBQ][HD + 1]
   float* ks = qs + kBQ * (HD + 1);        // [kBK][HD + 1]
@@ -90,14 +137,14 @@ flash_fwd(const T* __restrict__ q, const T* __restrict__ k,
   const int r = t >> 2;                   // query row within the tile
   const int c = t & 3;                    // which quarter of the row
   const int off = sk - sq;                // query i sits at position i + off
-  const T* qb = q + static_cast<size_t>(bh) * sq * HD;
-  const T* kb = k + static_cast<size_t>(bh / group) * sk * HD;
-  const T* vb = v + static_cast<size_t>(bh / group) * sk * HD;
+  const float* qb = q + static_cast<size_t>(bh) * sq * HD;
+  const float* kb = k + static_cast<size_t>(bh / group) * sk * HD;
+  const float* vb = v + static_cast<size_t>(bh / group) * sk * HD;
 
   for (int i = t; i < kBQ * HD; i += kThreads) {
     const int rr = i / HD, d = i % HD;
     qs[rr * (HD + 1) + d] =
-        q0 + rr < sq ? to_f32(qb[static_cast<size_t>(q0 + rr) * HD + d]) : 0.f;
+        q0 + rr < sq ? qb[static_cast<size_t>(q0 + rr) * HD + d] : 0.f;
   }
 
   // keys any row of this tile can see
@@ -122,8 +169,8 @@ flash_fwd(const T* __restrict__ q, const T* __restrict__ k,
       const int j = i / HD, d = i % HD;
       const bool in = k0 + j < sk;
       const size_t at = static_cast<size_t>(k0 + j) * HD + d;
-      ks[j * (HD + 1) + d] = in ? to_f32(kb[at]) : 0.f;
-      vs[j * HD + d] = in ? to_f32(vb[at]) : 0.f;
+      ks[j * (HD + 1) + d] = in ? kb[at] : 0.f;
+      vs[j * HD + d] = in ? vb[at] : 0.f;
     }
     __syncthreads();
 
@@ -175,39 +222,525 @@ flash_fwd(const T* __restrict__ q, const T* __restrict__ k,
   l += __shfl_xor_sync(0xffffffffu, l, 2);
   if (q0 + r < sq) {
     const float inv_l = 1.f / fmaxf(l, 1e-30f);
-    T* ob = o + (static_cast<size_t>(bh) * sq + q0 + r) * HD;
+    float* ob = o + (static_cast<size_t>(bh) * sq + q0 + r) * HD;
 #pragma unroll
-    for (int i = 0; i < HD / 4; ++i) store(ob + c + 4 * i, acc[i] * inv_l);
+    for (int i = 0; i < HD / 4; ++i) ob[c + 4 * i] = acc[i] * inv_l;
   }
 }
 
-template <typename T, int HD>
-int launch(const void* q, const void* k, const void* v, void* o, int bhq,
-           int sq, int sk, int group, int causal, int window, float scale,
-           cudaStream_t st) {
-  constexpr size_t bytes = smem_bytes<HD>();
+template <int HD>
+int launch_f32(const void* q, const void* k, const void* v, void* o, int bhq,
+               int sq, int sk, int group, int causal, int window, float scale,
+               cudaStream_t st) {
+  constexpr size_t bytes = smem_bytes_f32<HD>();
   cudaError_t err = cudaFuncSetAttribute(
-      flash_fwd<T, HD>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      flash_fwd_f32<HD>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       static_cast<int>(bytes));
   if (err != cudaSuccess) return static_cast<int>(err);
   const dim3 grid((sq + kBQ - 1) / kBQ, bhq);
-  flash_fwd<T, HD><<<grid, kThreads, bytes, st>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<T*>(o), sq, sk, group, causal,
-      window, scale);
+  flash_fwd_f32<HD><<<grid, kThreads, bytes, st>>>(
+      static_cast<const float*>(q), static_cast<const float*>(k),
+      static_cast<const float*>(v), static_cast<float*>(o), sq, sk, group,
+      causal, window, scale);
   return static_cast<int>(cudaGetLastError());
 }
 
-template <typename T>
-int launch_hd(const void* q, const void* k, const void* v, void* o, int bhq,
-              int sq, int sk, int hd, int group, int causal, int window,
-              float scale, cudaStream_t st) {
+// ---------------- bf16: tensor cores (wgmma) -------------------------------
+
+using bf16 = __nv_bfloat16;
+
+constexpr int kRows = 64;        // query rows per block = keys per tile
+constexpr int kWG = 128;         // one warpgroup
+
+// A 64 x HD bf16 tile in shared memory as the wgmma descriptors read it:
+// column blocks of kCols elements, each 64 rows of kW bytes, swizzled.
+template <int HD>
+struct Tile {
+  static constexpr int kW = HD * 2 < 128 ? HD * 2 : 128;
+  static constexpr int kCols = kW / 2;
+  static constexpr int kBytes = kRows * HD * 2;
+  // descriptor layout type: 1 = 128-byte, 2 = 64-byte, 3 = 32-byte swizzle
+  static constexpr uint64_t kLayout = kW == 128 ? 1 : (kW == 64 ? 2 : 3);
+};
+
+// Byte offset of element (r, c) in the tile, c a multiple of 8.  The
+// swizzle XORs the 16-byte chunk index with address bits 7.. (mod W/16);
+// tiles start on 1024-byte boundaries, so offsets stand for addresses.
+template <int HD>
+__device__ __forceinline__ uint32_t tile_offset(int r, int c) {
+  constexpr int W = Tile<HD>::kW, C = Tile<HD>::kCols;
+  const uint32_t off = (c / C) * (kRows * W) + r * W + (c % C) * 2;
+  return off ^ (((off >> 7) & (W / 16 - 1)) << 4);
+}
+
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// 16 bytes global -> shared; src_bytes 0 writes zeros and reads nothing
+__device__ __forceinline__ void cp_async16(uint32_t dst, const void* src,
+                                           int src_bytes) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n"
+               :: "r"(dst), "l"(src), "r"(src_bytes) : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+// wait for all of this thread's committed copies
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group 0;\n" ::: "memory");
+}
+
+// Rows row0.. of a (rows, HD) matrix into a tile, 16 bytes a copy, the
+// warpgroup's threads side by side along a row; rows >= rows_valid are
+// zero-filled, never read.
+template <int HD>
+__device__ __forceinline__ void load_tile(uint32_t dst, const bf16* src,
+                                          int row0, int rows_valid, int t) {
+  constexpr int kChunks = HD / 8;          // 16-byte chunks a row
+  constexpr int kStep = kWG / kChunks;     // rows a pass
+  const int c = (t % kChunks) * 8;
+#pragma unroll
+  for (int r = t / kChunks; r < kRows; r += kStep) {
+    const bool in = row0 + r < rows_valid;
+    const bf16* g = in ? src + static_cast<size_t>(row0 + r) * HD + c : src;
+    cp_async16(dst + tile_offset<HD>(r, c), g, in ? 16 : 0);
+  }
+}
+
+// Make this thread's cp.async writes visible to the wgmma (async) proxy;
+// a barrier after it makes everyone's visible.
+__device__ __forceinline__ void fence_proxy_async() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+
+__device__ __forceinline__ uint64_t make_desc(uint32_t addr, uint32_t lbo,
+                                              uint32_t sbo, uint64_t layout) {
+  return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) |
+         (static_cast<uint64_t>(lbo >> 4) << 16) |
+         (static_cast<uint64_t>(sbo >> 4) << 32) | (layout << 62);
+}
+
+// The descriptor through an empty asm: what is derived from it is computed
+// where it is used, not hoisted out of the key loop into registers.
+__device__ __forceinline__ uint64_t opaque(uint64_t d) {
+  asm volatile("" : "+l"(d));
+  return d;
+}
+
+// K-major operand (Q as A, K as B of S = Q K^T): 8-row groups SBO = 8 W
+// apart (LBO is unused by swizzled K-major layouts).  Step kk adds, in
+// 16-byte units, its column block and 32 bytes a step inside the swizzle
+// row (no carry: shared addresses stay below 2^18).
+template <int HD>
+__device__ __forceinline__ uint64_t desc_k_major(uint32_t tile) {
+  return make_desc(tile, 16, 8 * Tile<HD>::kW, Tile<HD>::kLayout);
+}
+template <int HD>
+__device__ __forceinline__ uint64_t k_major_step(int kk) {
+  constexpr int W = Tile<HD>::kW, C = Tile<HD>::kCols;
+  return ((16 * kk / C) * (kRows * W) + (16 * kk % C) * 2) >> 4;
+}
+
+// MN-major operand (V as B of O = P V, keys x hd with hd contiguous): key
+// step kk is 16 rows (two 8-row groups, SBO = 8 W apart); column block j
+// is one swizzle atom wide, so LBO (the stride between atoms along N) is
+// not crossed by one instruction.
+template <int HD>
+__device__ __forceinline__ uint64_t desc_mn_major(uint32_t tile) {
+  constexpr int W = Tile<HD>::kW;
+  return make_desc(tile, kRows * W, 8 * W, Tile<HD>::kLayout);
+}
+template <int HD>
+__device__ __forceinline__ uint64_t mn_major_step(int kk, int j) {
+  constexpr int W = Tile<HD>::kW;
+  return (j * (kRows * W) + kk * 16 * W) >> 4;
+}
+
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+// wait for all committed wgmma groups
+__device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+}
+
+// Keep the compiler from moving reads or writes of registers that a wgmma
+// in flight reads or writes across the wait for it (asm statements keep
+// their order): fenced after the wait, they are live until it.
+template <int N>
+__device__ __forceinline__ void fence_regs(float* d) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(d[i]) :: "memory");
+}
+
+// d (64 x 64 f32) = A B (+ d if accumulate): A, B descriptors, both K-major
+__device__ __forceinline__ void wgmma_ss_n64(float* d, uint64_t a, uint64_t b,
+                                             int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "
+      "%15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, "
+      "%28, %29, %30, %31}, %32, %33, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31])
+      : "l"(a), "l"(b), "r"(accumulate));
+}
+
+// d (64 x N f32) += A B: A (64 x 16 bf16) from registers, B descriptor
+// MN-major (transpose-B)
+template <int N>
+__device__ __forceinline__ void wgmma_rs(float* d, const uint32_t* a,
+                                         uint64_t b);
+
+template <>
+__device__ __forceinline__ void wgmma_rs<16>(float* d, const uint32_t* a,
+                                             uint64_t b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %13, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n16k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7}, {%8, %9, %10, %11}, %12, p, 1, 1, "
+      "1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
+}
+
+template <>
+__device__ __forceinline__ void wgmma_rs<32>(float* d, const uint32_t* a,
+                                             uint64_t b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %21, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "
+      "%15}, {%16, %17, %18, %19}, %20, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
+}
+
+template <>
+__device__ __forceinline__ void wgmma_rs<64>(float* d, const uint32_t* a,
+                                             uint64_t b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "
+      "%15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, "
+      "%28, %29, %30, %31}, {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
+}
+
+__device__ __forceinline__ uint32_t pack_bf16x2(float lo, float hi) {
+  const __nv_bfloat162 h = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<const uint32_t*>(&h);
+}
+
+// Start s (64 x 64 f32 fragment) = Q K^T as one wgmma group.  s is zeroed
+// first, so that its last values are dead here (the first product
+// ignores them).
+template <int HD>
+__device__ __forceinline__ void start_qk(float* s, uint32_t qs, uint32_t ks) {
+#pragma unroll
+  for (int i = 0; i < 32; ++i) s[i] = 0.f;
+  const uint64_t qd = opaque(desc_k_major<HD>(qs));
+  const uint64_t kd = opaque(desc_k_major<HD>(ks));
+  fence_regs<32>(s);
+  wgmma_fence();
+#pragma unroll
+  for (int kk = 0; kk < HD / 16; ++kk)
+    wgmma_ss_n64(s, qd + k_major_step<HD>(kk), kd + k_major_step<HD>(kk),
+                 kk > 0);
+  wgmma_commit();
+}
+
+// P as the A operand: a thread's fragment of a 64 x N product holds, for
+// column group i, d[4i + 0, 1] at row r, columns 8i + 2 (lane mod 4) +
+// 0, 1 and d[4i + 2, 3] at row r + 8, so pairs of the 64 x 64 f32
+// fragment p rounded to bf16x2 are the k16 A fragments a[4kk .. 4kk + 3].
+__device__ __forceinline__ void pack_p(uint32_t* a, const float* p) {
+#pragma unroll
+  for (int i = 0; i < 16; ++i) a[i] = pack_bf16x2(p[2 * i], p[2 * i + 1]);
+}
+
+// Start o (64 x HD f32 fragment) += P V as one wgmma group, P from the
+// registers a (pack_p).
+template <int HD>
+__device__ __forceinline__ void start_pv(float* o, const uint32_t* a,
+                                         uint32_t vs) {
+  constexpr int N = HD < 64 ? HD : 64;   // columns an instruction
+  const uint64_t vd = opaque(desc_mn_major<HD>(vs));
+  fence_regs<HD / 2>(o);
+  wgmma_fence();
+#pragma unroll
+  for (int kk = 0; kk < 4; ++kk)
+#pragma unroll
+    for (int j = 0; j < HD / N; ++j)
+      wgmma_rs<N>(o + j * (N / 2), a + 4 * kk,
+                  vd + mn_major_step<HD>(kk, j));
+  wgmma_commit();
+}
+
+template <int HD>
+constexpr size_t smem_bytes_bf16() {
+  return 5 * Tile<HD>::kBytes + 1024;   // Q, 2 x (K, V), alignment
+}
+
+// the 1024-byte aligned start of dynamic shared memory
+__device__ __forceinline__ uint32_t aligned_smem(const void* base) {
+  return (smem_addr(base) + 1023u) & ~1023u;
+}
+
+// Mask and scale one 64-key tile's scores s (keys k0..) in place, then the
+// online softmax of rows pos0, pos0 + 8: the running max m and sum l are
+// updated, s becomes P = exp2(s - m), and corr is the factor the output
+// accumulated so far is rescaled by.  `masked` (uniform over the block)
+// is false where no key of the tile is past Sk, above the diagonal or
+// behind the window for any row.
+__device__ __forceinline__ void softmax_tile(float* s, float* m, float* l,
+                                             float* corr, bool masked,
+                                             int k0, int pos0, int cq,
+                                             int sk, int causal, int window,
+                                             float scale2) {
+  float mx[2] = {-INFINITY, -INFINITY};
+#pragma unroll
+  for (int i = 0; i < 32; ++i) {
+    const int h = (i >> 1) & 1;                      // row pos0 + 8h
+    if (masked) {
+      const int key = k0 + 8 * (i >> 2) + cq + (i & 1);
+      const int pos = pos0 + 8 * h;
+      const bool live = (!causal || key <= pos) &&
+                        (window <= 0 || pos - key < window);
+      s[i] = key >= sk ? -INFINITY : (live ? s[i] * scale2 : kNegInf);
+    } else {
+      s[i] *= scale2;
+    }
+    mx[h] = fmaxf(mx[h], s[i]);
+  }
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    mx[h] = fmaxf(mx[h], __shfl_xor_sync(0xffffffffu, mx[h], 1));
+    mx[h] = fmaxf(mx[h], __shfl_xor_sync(0xffffffffu, mx[h], 2));
+    const float m_new = fmaxf(m[h], mx[h]);
+    corr[h] = exp2f(m[h] - m_new);
+    m[h] = m_new;
+    l[h] *= corr[h];
+  }
+#pragma unroll
+  for (int i = 0; i < 32; ++i) {
+    const int h = (i >> 1) & 1;
+    s[i] = exp2f(s[i] - m[h]);
+    l[h] += s[i];
+  }
+}
+
+template <int HD>
+__global__ void __launch_bounds__(kWG)
+flash_fwd_wgmma(const bf16* __restrict__ q, const bf16* __restrict__ k,
+                const bf16* __restrict__ v, bf16* __restrict__ o, int sq,
+                int sk, int group, int causal, int window, float scale) {
+  extern __shared__ uint8_t smem_raw[];
+  constexpr int kTile = Tile<HD>::kBytes;
+  const uint32_t qs = aligned_smem(smem_raw);
+  const uint32_t ring = qs + kTile;      // stage s: K at + 2s, V at + 2s + 1
+
+  const int bh = blockIdx.y;
+  const int q0 = (gridDim.x - 1 - blockIdx.x) * kRows;
+  const int t = threadIdx.x;
+  const int lane = t & 31;
+  const int r0 = 16 * (t >> 5) + (lane >> 2);   // rows r0 and r0 + 8
+  const int cq = 2 * (lane & 3);                // columns 8i + cq + 0, 1
+  const int off = sk - sq;
+  const bf16* kb = k + static_cast<size_t>(bh / group) * sk * HD;
+  const bf16* vb = v + static_cast<size_t>(bh / group) * sk * HD;
+
+  // keys any row of this tile can see (as flash_fwd_f32)
+  const int pos_lo = q0 + off;
+  const int pos_hi = min(q0 + kRows, sq) - 1 + off;
+  int k_begin = 0, k_end = sk;
+  if (!(causal && pos_lo < 0)) {
+    if (causal) k_end = min(sk, pos_hi + 1);
+    if (window > 0) k_begin = max(0, pos_lo - window + 1);
+  }
+  k_begin = (k_begin / kRows) * kRows;
+
+  load_tile<HD>(qs, q + static_cast<size_t>(bh) * sq * HD, q0, sq, t);
+  load_tile<HD>(ring, kb, k_begin, sk, t);
+  load_tile<HD>(ring + kTile, vb, k_begin, sk, t);
+  cp_async_commit();
+
+  const float scale2 = scale * 1.4426950408889634f;   // exp -> exp2
+  const int pos0 = q0 + r0 + off;
+  float m[2] = {kNegInf, kNegInf}, l[2] = {0.f, 0.f}, corr[2];
+  float acc[HD / 2], s[32];
+  uint32_t a[16];
+#pragma unroll
+  for (int i = 0; i < HD / 2; ++i) acc[i] = 0.f;
+
+  int stage = 0;
+  for (int k0 = k_begin; k0 < k_end; k0 += kRows, stage ^= 1) {
+    cp_async_wait();
+    fence_proxy_async();
+    // everyone's copies of this tile landed, and everyone is done with the
+    // last tile, whose stage the copies below refill
+    __syncthreads();
+    const uint32_t ks = ring + 2 * stage * kTile;
+    start_qk<HD>(s, qs, ks);
+    // the next tile's copies go out while the tensor cores work
+    if (k0 + kRows < k_end) {
+      const uint32_t next = ring + 2 * (stage ^ 1) * kTile;
+      load_tile<HD>(next, kb, k0 + kRows, sk, t);
+      load_tile<HD>(next + kTile, vb, k0 + kRows, sk, t);
+      cp_async_commit();
+    }
+    wgmma_wait();
+    fence_regs<32>(s);
+    // mask only where the tile crosses the diagonal, the window's edge or
+    // Sk (uniform over the block)
+    const bool masked =
+        k0 + kRows > sk || (causal && k0 + kRows - 1 > pos_lo) ||
+        (window > 0 && q0 + kRows - 1 + off - k0 >= window);
+    softmax_tile(s, m, l, corr, masked, k0, pos0, cq, sk, causal, window,
+                 scale2);
+#pragma unroll
+    for (int i = 0; i < HD / 2; ++i) acc[i] *= corr[(i >> 1) & 1];
+    pack_p(a, s);
+    start_pv<HD>(acc, a, ks + kTile);
+    wgmma_wait();
+    fence_regs<HD / 2>(acc);
+  }
+
+  // store rows r0, r0 + 8 of the tile, columns as the fragment holds them
+  constexpr int N = HD < 64 ? HD : 64;
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    l[h] += __shfl_xor_sync(0xffffffffu, l[h], 1);
+    l[h] += __shfl_xor_sync(0xffffffffu, l[h], 2);
+    const int row = q0 + r0 + 8 * h;
+    if (row >= sq) continue;
+    const float inv_l = 1.f / fmaxf(l[h], 1e-30f);
+    bf16* ob = o + (static_cast<size_t>(bh) * sq + row) * HD;
+#pragma unroll
+    for (int j = 0; j < HD / N; ++j)
+#pragma unroll
+      for (int i = 0; i < N / 8; ++i) {
+        const float* x = acc + j * (N / 2) + 4 * i + 2 * h;
+        *reinterpret_cast<__nv_bfloat162*>(ob + j * N + 8 * i + cq) =
+            __floats2bfloat162_rn(x[0] * inv_l, x[1] * inv_l);
+      }
+  }
+}
+
+template <int HD>
+int launch_bf16(const void* q, const void* k, const void* v, void* o,
+                int bhq, int sq, int sk, int group, int causal, int window,
+                float scale, cudaStream_t st) {
+  constexpr size_t bytes = smem_bytes_bf16<HD>();
+  cudaError_t err = cudaFuncSetAttribute(
+      flash_fwd_wgmma<HD>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      static_cast<int>(bytes));
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const dim3 grid((sq + kRows - 1) / kRows, bhq);
+  flash_fwd_wgmma<HD><<<grid, kWG, bytes, st>>>(
+      static_cast<const bf16*>(q), static_cast<const bf16*>(k),
+      static_cast<const bf16*>(v), static_cast<bf16*>(o), sq, sk, group,
+      causal, window, scale);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// The tile products alone, for testing the descriptors and fragment
+// layouts: s (64 x 64 f32) = q k^T and o (64 x HD f32) = p v, q, k, v
+// (64 x HD) and p (64 x 64) bf16, one warpgroup, through the same loads
+// and wgmma calls as flash_fwd_wgmma.
+template <int HD>
+__global__ void __launch_bounds__(kWG)
+wgmma_probe(const bf16* __restrict__ q, const bf16* __restrict__ k,
+            const bf16* __restrict__ v, const bf16* __restrict__ p,
+            float* __restrict__ s_out, float* __restrict__ o_out) {
+  extern __shared__ uint8_t smem_raw[];
+  constexpr int kTile = Tile<HD>::kBytes;
+  const uint32_t qs = aligned_smem(smem_raw);
+  const int t = threadIdx.x, lane = t & 31;
+  const int r0 = 16 * (t >> 5) + (lane >> 2), cq = 2 * (lane & 3);
+  load_tile<HD>(qs, q, 0, kRows, t);
+  load_tile<HD>(qs + kTile, k, 0, kRows, t);
+  load_tile<HD>(qs + 2 * kTile, v, 0, kRows, t);
+  cp_async_commit();
+  cp_async_wait();
+  fence_proxy_async();
+  __syncthreads();
+
+  float s[32], acc[HD / 2];
+  uint32_t a[16];
+  start_qk<HD>(s, qs, qs + kTile);
+  wgmma_wait();
+  fence_regs<32>(s);
+#pragma unroll
+  for (int i = 0; i < 32; ++i) {   // fragment element i of rows r0, r0 + 8
+    const int idx = (r0 + 8 * ((i >> 1) & 1)) * kRows + 8 * (i >> 2) + cq +
+                    (i & 1);
+    s_out[idx] = s[i];
+    s[i] = __bfloat162float(p[idx]);
+  }
+#pragma unroll
+  for (int i = 0; i < HD / 2; ++i) acc[i] = 0.f;
+  pack_p(a, s);
+  start_pv<HD>(acc, a, qs + 2 * kTile);
+  wgmma_wait();
+  fence_regs<HD / 2>(acc);
+  constexpr int N = HD < 64 ? HD : 64;
+#pragma unroll
+  for (int i = 0; i < HD / 2; ++i) {
+    const int j = i / (N / 2), e = i % (N / 2);
+    const int row = r0 + 8 * ((e >> 1) & 1);
+    o_out[row * HD + j * N + 8 * (e >> 2) + cq + (e & 1)] = acc[i];
+  }
+}
+
+template <int HD>
+int launch_probe(const void* q, const void* k, const void* v, const void* p,
+                 void* s, void* o, cudaStream_t st) {
+  constexpr size_t bytes = 3 * Tile<HD>::kBytes + 1024;
+  cudaError_t err = cudaFuncSetAttribute(
+      wgmma_probe<HD>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      static_cast<int>(bytes));
+  if (err != cudaSuccess) return static_cast<int>(err);
+  wgmma_probe<HD><<<1, kWG, bytes, st>>>(
+      static_cast<const bf16*>(q), static_cast<const bf16*>(k),
+      static_cast<const bf16*>(v), static_cast<const bf16*>(p),
+      static_cast<float*>(s), static_cast<float*>(o));
+  return static_cast<int>(cudaGetLastError());
+}
+
+// f(std::integral_constant<int, hd>) for each head dim the kernels take
+template <typename F>
+int by_head_dim(int hd, F&& f) {
   switch (hd) {
-    case 16: return launch<T, 16>(q, k, v, o, bhq, sq, sk, group, causal, window, scale, st);
-    case 32: return launch<T, 32>(q, k, v, o, bhq, sq, sk, group, causal, window, scale, st);
-    case 64: return launch<T, 64>(q, k, v, o, bhq, sq, sk, group, causal, window, scale, st);
-    case 128: return launch<T, 128>(q, k, v, o, bhq, sq, sk, group, causal, window, scale, st);
-    case 256: return launch<T, 256>(q, k, v, o, bhq, sq, sk, group, causal, window, scale, st);
+    case 16: return f(std::integral_constant<int, 16>{});
+    case 32: return f(std::integral_constant<int, 32>{});
+    case 64: return f(std::integral_constant<int, 64>{});
+    case 128: return f(std::integral_constant<int, 128>{});
+    case 256: return f(std::integral_constant<int, 256>{});
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }
@@ -217,9 +750,10 @@ int launch_hd(const void* q, const void* k, const void* v, void* o, int bhq,
 extern "C" {
 
 // o (BHq, Sq, hd) = attention of q (BHq, Sq, hd) over k, v (BHq / group,
-// Sk, hd), all contiguous and of one type: dtype 0 is f32, 1 is bf16.
-// hd is 16, 32, 64, 128 or 256.  Launches on `stream`; returns the
-// cudaError_t of the launch (0 = success).
+// Sk, hd), all contiguous and of one type: dtype 0 is f32 (CUDA cores),
+// 1 is bf16 (wgmma; pointers 16-byte aligned).  hd is 16, 32, 64, 128 or
+// 256.  Launches on `stream`; returns the cudaError_t of the launch (0 =
+// success).
 int flash_attention_launch(const void* q, const void* k, const void* v,
                            void* o, int dtype, int bhq, int sq, int sk,
                            int hd, int group, int causal, int window,
@@ -229,12 +763,27 @@ int flash_attention_launch(const void* q, const void* k, const void* v,
     return static_cast<int>(cudaErrorInvalidValue);
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (dtype == 0)
-    return launch_hd<float>(q, k, v, o, bhq, sq, sk, hd, group, causal,
-                            window, scale, st);
+    return by_head_dim(hd, [&](auto h) {
+      return launch_f32<decltype(h)::value>(q, k, v, o, bhq, sq, sk, group,
+                                            causal, window, scale, st);
+    });
   if (dtype == 1)
-    return launch_hd<__nv_bfloat16>(q, k, v, o, bhq, sq, sk, hd, group,
-                                    causal, window, scale, st);
+    return by_head_dim(hd, [&](auto h) {
+      return launch_bf16<decltype(h)::value>(q, k, v, o, bhq, sq, sk, group,
+                                             causal, window, scale, st);
+    });
   return static_cast<int>(cudaErrorInvalidValue);
+}
+
+// The wgmma tile products alone (bf16 q, k, v (64, hd), p (64, 64); f32
+// s (64, 64) = q k^T, o (64, hd) = p v): one block on `stream`.
+int flash_wgmma_probe_launch(const void* q, const void* k, const void* v,
+                             const void* p, void* s, void* o, int hd,
+                             void* stream) {
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  return by_head_dim(hd, [&](auto h) {
+    return launch_probe<decltype(h)::value>(q, k, v, p, s, o, st);
+  });
 }
 
 }  // extern "C"

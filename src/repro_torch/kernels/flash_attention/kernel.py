@@ -36,6 +36,8 @@ def library() -> ctypes.CDLL:
             ctypes.c_float, ptr,
         ]
         lib.flash_attention_launch.restype = i32
+        lib.flash_wgmma_probe_launch.argtypes = [ptr] * 6 + [i32, ptr]
+        lib.flash_wgmma_probe_launch.restype = i32
         _lib = lib
     return _lib
 
@@ -63,6 +65,8 @@ def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                             "or bfloat16, one type for q, k and v")
         if not t.is_contiguous():
             raise ValueError(f"{name} must be contiguous")
+        if t.dtype == torch.bfloat16 and t.data_ptr() % 16:
+            raise ValueError(f"{name} must start on 16 bytes (cp.async)")
 
 
 def flash_attention_fwd(
@@ -88,3 +92,33 @@ def flash_attention_fwd(
         raise RuntimeError(f"flash_attention launch failed: cudaError_t {err}")
     launch_counts[NAME] += 1
     return o
+
+
+def wgmma_probe(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                p: torch.Tensor) -> tuple:
+    """The bf16 kernel's two tile products alone, through its loads,
+    descriptors and fragment layouts: ``s = q @ k.T`` (64, 64) and
+    ``o = p @ v`` (64, hd), both f32, from bf16 q, k, v (64, hd) and
+    p (64, 64) on the card."""
+    hd = q.shape[-1]
+    if hd not in HEAD_DIMS:
+        raise ValueError(f"head_dim {hd} not in {HEAD_DIMS}")
+    for name, t, shape in (("q", q, (64, hd)), ("k", k, (64, hd)),
+                           ("v", v, (64, hd)), ("p", p, (64, 64))):
+        if (tuple(t.shape) != shape or t.dtype != torch.bfloat16
+                or t.device.type != "cuda" or not t.is_contiguous()
+                or t.data_ptr() % 16):
+            raise ValueError(f"{name} must be a contiguous, aligned bf16 "
+                             f"CUDA tensor of shape {shape}")
+    lib = library()
+    with torch.cuda.device(q.device):
+        s = torch.empty((64, 64), dtype=torch.float32, device=q.device)
+        o = torch.empty((64, hd), dtype=torch.float32, device=q.device)
+        stream = torch.cuda.current_stream(q.device).cuda_stream
+        err = lib.flash_wgmma_probe_launch(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), p.data_ptr(),
+            s.data_ptr(), o.data_ptr(), hd, stream)
+    if err:
+        raise RuntimeError(f"wgmma probe launch failed: cudaError_t {err}")
+    launch_counts["flash_wgmma_probe"] += 1
+    return s, o

@@ -5,7 +5,10 @@ The same seeded numpy inputs go through the JAX Pallas kernel in
 interpret mode, the JAX plain version and the port's `ops` / `ref`, at
 the sweep of tests/test_kernels.py:21-33 and its tolerances (f32 2e-5,
 bf16 2e-2), plus ragged lengths (which the port's kernel masks itself)
-and the model's `chunked_attention` (tests/test_kernels.py:106).
+and the model's `chunked_attention` (tests/test_kernels.py:106).  The
+card's bf16 kernel rounds P to bf16 before P V (ROADMAP Queue 3, B3);
+its arithmetic, written out here in plain torch, stays within the bf16
+tolerance of the plain version.
 """
 import jax.numpy as jnp
 import numpy as np
@@ -16,6 +19,7 @@ from repro.kernels.flash_attention import flash_attention as j_flash
 from repro.kernels.flash_attention import flash_attention_ref as j_ref
 from repro.models.attention import chunked_attention
 from repro_torch.kernels.flash_attention import flash_attention, flash_attention_ref
+from repro_torch.kernels.flash_attention.ref import NEG_INF, attention_mask
 
 SWEEP = [  # B, Hq, Hkv, Sq, Sk, hd, causal, window, bq, bk
     (1, 2, 2, 64, 64, 32, True, 0, 32, 32),     # MHA causal
@@ -106,3 +110,44 @@ def test_matches_model_chunked_attention():
                              causal=True, chunk_q=16, chunk_k=16)
     np.testing.assert_allclose(_np(got), np.asarray(want), atol=2e-5,
                                rtol=2e-5)
+
+
+def _rounded_p_attention(q, k, v, causal, window, tile=64):
+    """The bf16 kernel's arithmetic: scores and the online softmax in f32
+    over 64-key tiles, the tile's P rounded to bf16 before P V, the
+    denominator summed from the unrounded P."""
+    B, Hq, Sq, hd = q.shape
+    Hkv, Sk = k.shape[1], k.shape[2]
+    qf = q.float().reshape(B, Hkv, Hq // Hkv, Sq, hd)
+    kf, vf = k.float(), v.float()
+    mask = attention_mask(Sq, Sk, causal, window)
+    m = torch.full((B, Hkv, Hq // Hkv, Sq, 1), NEG_INF)
+    l = torch.zeros_like(m)
+    o = torch.zeros_like(qf)
+    for k0 in range(0, Sk, tile):
+        s = torch.einsum("bhgqd,bhkd->bhgqk", qf,
+                         kf[:, :, k0:k0 + tile]) * hd**-0.5
+        s = torch.where(mask[:, k0:k0 + tile], s, NEG_INF)
+        m_new = torch.maximum(m, s.amax(-1, keepdim=True))
+        corr = torch.exp(m - m_new)
+        p = torch.exp(s - m_new)
+        l = l * corr + p.sum(-1, keepdim=True)
+        o = o * corr + torch.einsum("bhgqk,bhkd->bhgqd",
+                                    p.bfloat16().float(),
+                                    vf[:, :, k0:k0 + tile])
+        m = m_new
+    return (o / l).reshape(B, Hq, Sq, hd).to(q.dtype)
+
+
+@pytest.mark.parametrize("case", [  # B, Hq, Hkv, S, hd, window
+    (1, 4, 1, 600, 256, 256),   # recurrentgemma's heads, window
+    (1, 8, 2, 300, 128, 0),     # qwen3's head_dim, causal
+])
+def test_bf16_p_rounding_is_within_bf16_tolerance(case):
+    B, Hq, Hkv, S, hd, window = case
+    q, k, v = _port(_inputs(B, Hq, Hkv, S, S, hd, seed=S + hd),
+                    torch.bfloat16)
+    got = _rounded_p_attention(q, k, v, True, window)
+    want = flash_attention_ref(q, k, v, True, window)
+    assert got.dtype == torch.bfloat16
+    torch.testing.assert_close(got.float(), want.float(), **_tol("bfloat16"))

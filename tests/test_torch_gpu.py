@@ -5,7 +5,9 @@ Imports no JAX, so it runs where only the port is installed:
 Without a card every test skips.  Tolerances are chip_smoke.py's:
 rotor_slice state atol 1e-5, totals rtol 1e-5; flash_attention and
 moe_gmm f32 2e-5, bf16 2e-2 (tests/test_kernels.py:15-18); mamba_scan
-and rglru_scan f32 1e-4, bf16 2e-2 (tests/test_kernels.py:66-69).
+and rglru_scan f32 1e-4, bf16 2e-2 (tests/test_kernels.py:66-69).  The
+bf16 flash kernel's wgmma tile products are exact up to the f32
+summation order: within 1e-5 of the sum of the products' magnitudes.
 """
 import numpy as np
 import pytest
@@ -15,7 +17,11 @@ from repro_torch.core.topology import build_opera_topology
 from repro_torch.configs.base import get_config, reduced_config
 from repro_torch.kernels import launch_counts
 from repro_torch.kernels.flash_attention import flash_attention, flash_attention_ref
-from repro_torch.kernels.flash_attention.kernel import flash_attention_fwd
+from repro_torch.kernels.flash_attention.kernel import (
+    HEAD_DIMS,
+    flash_attention_fwd,
+    wgmma_probe,
+)
 from repro_torch.kernels.moe_gmm import moe_gmm, moe_gmm_ref
 from repro_torch.kernels.mamba_scan import mamba_scan, mamba_scan_ref
 from repro_torch.kernels.mamba_scan.kernel import mamba_scan_fwd
@@ -121,6 +127,10 @@ def _normal(shape, seed, device, dtype, scale=1.0):
     (1, 2, 1, 48, 24, 16, True, 0), (2, 4, 1, 70, 70, 64, True, 20),
     (1, 2, 2, 33, 65, 128, False, 0), (1, 2, 1, 100, 150, 64, False, 30),
     (1, 10, 1, 100, 100, 256, True, 24), (1, 10, 1, 70, 130, 256, True, 0),
+    # ragged 64-row tiles at the main path's head dims; a window across
+    # tile edges; Sq > Sk, rows with no live key
+    (1, 4, 2, 200, 200, 128, True, 0), (1, 4, 1, 130, 300, 256, True, 70),
+    (1, 4, 1, 96, 40, 128, True, 0),
 ])
 def test_flash_attention_matches_plain_version(card, case, dtype):
     B, Hq, Hkv, Sq, Sk, hd, causal, window = case
@@ -155,6 +165,33 @@ def test_moe_gmm_matches_plain_version(card, E, C, D, F, dtype):
     torch.testing.assert_close(got.float(), want.float(), **_tol(dtype))
 
 
+@pytest.mark.parametrize("hd", HEAD_DIMS)
+def test_wgmma_probe_matches_matmul(card, hd):
+    """The bf16 kernel's tile products alone: S = Q K^T (both operands
+    K-major from shared memory) and O = P V (P from registers, V
+    MN-major), through its swizzled layouts and descriptors."""
+    q, k, v = (_normal((64, hd), seed, card, torch.bfloat16)
+               for seed in (30, 31, 32))
+    p = _normal((64, 64), 33, card, torch.bfloat16).abs()
+    s, o = wgmma_probe(q, k, v, p)
+    torch.cuda.synchronize()
+    for got, a, b in ((s, q, k.T), (o, p, v)):
+        want = a.double() @ b.double()
+        size = a.double().abs() @ b.double().abs()
+        assert float(((got.double() - want).abs() - 1e-5 * size).max()) <= 0
+
+
+def test_flash_attention_counts_one_launch_per_call(card):
+    """bf16 (wgmma) and f32 (CUDA cores): one launch each."""
+    q = _normal((1, 4, 70, 64), 34, card, torch.float32)
+    k = _normal((1, 2, 70, 64), 35, card, torch.float32)
+    launch_counts.clear()
+    flash_attention(q.bfloat16(), k.bfloat16(), k.bfloat16())
+    assert launch_counts["flash_attention"] == 1
+    flash_attention(q, k, k)
+    assert launch_counts["flash_attention"] == 2
+
+
 def test_model_kernels_are_deterministic(card):
     q = _normal((1, 4, 70, 64), 7, card, torch.bfloat16)
     k = _normal((1, 2, 70, 64), 8, card, torch.bfloat16)
@@ -181,6 +218,11 @@ def test_model_kernel_wrappers_check_their_inputs(card):
                             k[..., :48].contiguous(), 2, True, 0)  # hd 48
     with pytest.raises(ValueError):
         flash_attention_fwd(q, k, k, 3, True, 0)   # 4 rows != 2 x 3
+    kb = k.bfloat16()
+    buf = torch.zeros(q.numel() + 8, dtype=torch.bfloat16, device=card)
+    with pytest.raises(ValueError):   # bf16 must start on 16 bytes
+        flash_attention_fwd(buf[1:1 + q.numel()].view(q.shape), kb, kb, 2,
+                            True, 0)
     h = _normal((2, 8, 32), 13, card, torch.float32)
     w = _normal((2, 32, 16), 14, card, torch.float32)
     wd = _normal((2, 16, 32), 15, card, torch.float32)

@@ -33,15 +33,19 @@ phase printing one JSON line and any failure raising:
    bf16, at the sweep of tests/test_kernels.py:21-33, at the qwen3-moe
    prefill shapes (B 1, Hq 32, Hkv 4, hd 128, causal, S 128 / 512 /
    2048) and at recurrentgemma-2b's local attention (Hq 10, Hkv 1, hd
-   256, window 2048, S 1900 / 3300), at f32 2e-5 and bf16 2e-2; times the
-   kernel (events and profiler), the plain version and, as a yardstick
-   never on the path, `F.scaled_dot_product_attention` (causal, or with
-   the window as a boolean mask; `vs_library` is the kernel's time over
-   it).
+   256, window 2048, S 1900 / 3300), and in bf16 at stablelm-12b's head
+   dim 160 (Hq 32, Hkv 8, S 512; zero-padded to 256 by the wrapper), at
+   f32 2e-5 and bf16 2e-2; times the kernel (events and profiler), the
+   plain version and, as a yardstick never on the path,
+   `F.scaled_dot_product_attention` (causal, or with the window as a
+   boolean mask; `vs_library` is the kernel's time over it).
 6. moe_gmm: the same at tests/test_kernels.py:89-92 and at E 128, D 2048,
-   F 768 with C 4 (a 4-slot decode step) and C 40 (a 512-token prefill);
-   no single PyTorch call computes the fused gated FFN, so no library
-   time.
+   F 768 with C 4 (a 4-slot decode step), C 12 and C 40 (prefills of
+   ~150 and 512 tokens); device ms of both passes together and of each,
+   the share of the byte bound and GB/s.  No single PyTorch call
+   computes the fused gated FFN, so no library time; as a yardstick
+   never on the path, `bmm_trio_ms` times three `torch.bmm` calls plus
+   silu in the row's type (it rounds g and u to that type).
 7. mamba_scan: the same at tests/test_kernels.py:47-53 (f32 1e-4, bf16
    2e-2) and at falcon-mamba-7b's prefill (B 1, S 512, D 8192, N 16; x
    bf16 or f32 beside f32 dt, B, C), y and the final state h_S at 1e-4.
@@ -110,18 +114,23 @@ def _device_ms(fn, names, reps: int = 10):
     """Device time per call of the kernels whose names contain one of
     `names`, from the profiler's CUDA trace: the card's own time, without
     the host's launch overhead.  None when the trace holds no such
-    kernel."""
+    kernel.  A trace whose count of such kernels is not a whole multiple
+    of `reps` has lost events, and is taken again (up to 3 times)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            fn()
-        torch.cuda.synchronize()
-    us = sum(getattr(e, "device_time_total", 0.0)
-             for e in prof.key_averages() if any(n in e.key for n in names))
+    for _ in range(3):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        hits = [e for e in prof.key_averages()
+                if any(n in e.key for n in names)]
+        if sum(e.count for e in hits) % reps == 0:
+            break
+    us = sum(getattr(e, "device_time_total", 0.0) for e in hits)
     return us / reps / 1e3 if us > 0 else None
 
 
@@ -170,9 +179,10 @@ def _ptxas_report(log: str) -> dict:
 
 
 def _kernel_name(mangled: str) -> str:
-    """The last name of an Itanium-mangled function, with its int template
-    argument: ``_ZN..._15flash_fwd_wgmmaILi128EEEv...`` is
-    ``flash_fwd_wgmma<128>``."""
+    """The last name of an Itanium-mangled function, with its template
+    arguments: ``_ZN..._15flash_fwd_wgmmaILi128EEEv...`` is
+    ``flash_fwd_wgmma<128>``, ``..._15moe_gmm_gate_upI13__nv_bfloat16Li4ELb1EEEv...``
+    ``moe_gmm_gate_up<__nv_bfloat16, 4, 1>``."""
     import re
 
     pos, name = 3 if mangled.startswith("_ZN") else 2, mangled
@@ -180,8 +190,24 @@ def _kernel_name(mangled: str) -> str:
         n = re.match(r"\d+", mangled[pos:]).group(0)
         name = mangled[pos + len(n):pos + len(n) + int(n)]
         pos += len(n) + int(n)
-    arg = re.match(r"ILi(\d+)E", mangled[pos:])
-    return f"{name}<{arg.group(1)}>" if arg else name
+    if not mangled.startswith("I", pos):
+        return name
+    args, pos = [], pos + 1
+    while pos < len(mangled) and mangled[pos] != "E":
+        lit = re.match(r"L[a-z](n?\d+)E", mangled[pos:])
+        src = re.match(r"(\d+)", mangled[pos:])
+        if lit:
+            args.append(lit.group(1).replace("n", "-"))
+            pos += lit.end()
+        elif src:
+            n = int(src.group(1))
+            args.append(mangled[pos + src.end():pos + src.end() + n])
+            pos += src.end() + n
+        else:
+            args.append({"f": "float", "i": "int"}.get(mangled[pos],
+                                                       mangled[pos]))
+            pos += 1
+    return f"{name}<{', '.join(args)}>"
 
 
 def phase_build() -> dict:
@@ -512,7 +538,9 @@ def phase_flash_attention() -> dict:
     cases = [(1, 32, 4, 128, S, 0) for S in (128, 512, 2048)] + [
         (1, 10, 1, 256, S, 2048) for S in (1900, 3300)]
     for dtype in (torch.float32, torch.bfloat16):
-        for B, Hq, Hkv, hd, S, window in cases:
+        # stablelm-12b's head dim, between the instantiations
+        padded = [(1, 32, 8, 160, 512, 0)] if dtype == torch.bfloat16 else []
+        for B, Hq, Hkv, hd, S, window in cases + padded:
             q = _randn((B, Hq, S, hd), gen, dtype)
             k = _randn((B, Hkv, S, hd), gen, dtype)
             v = _randn((B, Hkv, S, hd), gen, dtype)
@@ -564,10 +592,19 @@ def phase_flash_attention() -> dict:
                 sweep_max_abs_err=sweep_err, rows=rows)
 
 
+def _bmm_trio(h, wg, wu, wd):
+    """The expert FFN as three batched products and silu in h's type: a
+    yardstick only (it rounds g and u to that type)."""
+    import torch
+    import torch.nn.functional as F
+
+    return torch.bmm(F.silu(torch.bmm(h, wg)) * torch.bmm(h, wu), wd)
+
+
 def phase_moe_gmm() -> dict:
     import torch
 
-    from repro_torch.kernels.moe_gmm.kernel import moe_gmm_fwd
+    from repro_torch.kernels.moe_gmm.kernel import moe_gmm_fwd, plan
     from repro_torch.kernels.moe_gmm.ops import moe_gmm
     from repro_torch.kernels.moe_gmm.ref import moe_gmm_ref
 
@@ -588,7 +625,7 @@ def phase_moe_gmm() -> dict:
         w = [_randn((E, D, Fd), gen, dtype, D**-0.5),
              _randn((E, D, Fd), gen, dtype, D**-0.5),
              _randn((E, Fd, D), gen, dtype, Fd**-0.5)]
-        for C in (4, 40):
+        for C in (4, 12, 40):
             h = _randn((E, C, D), gen, dtype)
             got = moe_gmm(h, *w)
             err = _held(got, moe_gmm_ref(h, *w), dtype,
@@ -596,18 +633,28 @@ def phase_moe_gmm() -> dict:
             _check(torch.equal(got, moe_gmm(h, *w)),
                    f"moe_gmm C={C} not deterministic")
             ms = _cuda_ms(lambda: moe_gmm_fwd(h, *w), reps=10)
-            device_ms = _device_ms(lambda: moe_gmm_fwd(h, *w), ("moe_gmm",),
-                                   reps=10)
+            device_ms, gate_up_ms, down_ms = (
+                _device_ms(lambda: moe_gmm_fwd(h, *w), names, reps=10)
+                for names in (("moe_gmm",), ("moe_gmm_gate_up",),
+                              ("moe_gmm_down",)))
             plain_ms = _cuda_ms(lambda: moe_gmm_ref(h, *w), reps=3, warmup=1)
+            bmm_trio_ms = _cuda_ms(lambda: _bmm_trio(h, *w), reps=10)
             es = h.element_size()
             nbytes = es * (2 * E * C * D + 3 * E * D * Fd)
             ops = 6 * E * C * D * Fd
             bound_ms, bound_by = _bound(nbytes, ops, dtype)
             rows.append(dict(dtype=_dname(dtype), E=E, C=C, D=D, F=Fd,
+                             rows_per_block=plan(E, C, D, Fd, dtype).rows,
                              max_abs_err=err, ms=ms, device_ms=device_ms,
+                             gate_up_device_ms=gate_up_ms,
+                             down_device_ms=down_ms,
                              plain_ms=plain_ms, library_ms=None,
+                             bmm_trio_ms=bmm_trio_ms,
                              bound_ms=bound_ms, bound_by=bound_by,
-                             gbytes_per_s=nbytes / (ms * 1e-3) / 1e9))
+                             bound_share=bound_ms / device_ms,
+                             gbytes_per_s=nbytes / (ms * 1e-3) / 1e9,
+                             device_gbytes_per_s=nbytes / (device_ms * 1e-3)
+                             / 1e9))
         del w, h, got
         torch.cuda.empty_cache()
     return dict(phase="moe_gmm", sweep_cases=2 * len(GMM_SWEEP),
@@ -1017,8 +1064,8 @@ def main() -> int:
     main_row = next(r for r in kern["rows"]
                     if r["design"] == "k64-n1024-g4" and r["vlb"])
     # the serving path's shapes: bf16, a 512-token prefill, a decode tick
-    flash_row = next(r for r in flash["rows"]
-                     if r["dtype"] == "bfloat16" and r["S"] == 512)
+    flash_row = next(r for r in flash["rows"] if r["dtype"] == "bfloat16"
+                     and r["S"] == 512 and r["hd"] == 128)
     gmm_row = next(r for r in gmm["rows"]
                    if r["dtype"] == "bfloat16" and r["C"] == 4)
     kernels = [dict(

@@ -7,6 +7,9 @@ the bound and the design.  The library is built at first use (see
 `repro_torch.kernels.build_library`).  The wrapper checks what it is
 given, allocates the output with `torch.empty`, launches on the current
 stream without synchronising, and raises on a non-zero ``cudaError_t``.
+A head dim between the instantiations is zero-padded to the next one
+(`padded_head_dim`): zero columns add nothing to Q K^T and give zero
+output columns, and the scale stays that of the true head dim.
 """
 from __future__ import annotations
 
@@ -14,6 +17,7 @@ import ctypes
 from pathlib import Path
 
 import torch
+import torch.nn.functional as F
 
 from repro_torch.kernels import build_library, launch_counts
 
@@ -52,8 +56,7 @@ def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                          f"fit q {tuple(q.shape)}")
     if group < 1 or bhq != k.shape[0] * group:
         raise ValueError(f"BHq {bhq} != BHkv {k.shape[0]} x group {group}")
-    if hd not in HEAD_DIMS:
-        raise ValueError(f"head_dim {hd} not in {HEAD_DIMS}")
+    padded_head_dim(hd)
     if not 1 <= bhq <= 65535 or q.shape[1] < 1 or k.shape[1] < 1:
         raise ValueError(f"shapes {tuple(q.shape)}, {tuple(k.shape)} "
                          "outside the kernel's range")
@@ -69,6 +72,15 @@ def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
             raise ValueError(f"{name} must start on 16 bytes (cp.async)")
 
 
+def padded_head_dim(hd: int) -> int:
+    """The instantiation a head dim runs on: the least of `HEAD_DIMS` not
+    below it.  Raises above the largest."""
+    for width in HEAD_DIMS:
+        if 1 <= hd <= width:
+            return width
+    raise ValueError(f"head_dim {hd} outside 1..{HEAD_DIMS[-1]}")
+
+
 def flash_attention_fwd(
     q: torch.Tensor,   # (BHq, Sq, hd), heads folded
     k: torch.Tensor,   # (BHkv, Sk, hd)
@@ -81,17 +93,20 @@ def flash_attention_fwd(
     _check(q, k, v, group)
     lib = library()
     bhq, sq, hd = q.shape
+    width = padded_head_dim(hd)
     with torch.cuda.device(q.device):
+        if width != hd:
+            q, k, v = (F.pad(t, (0, width - hd)) for t in (q, k, v))
         o = torch.empty_like(q)
         stream = torch.cuda.current_stream(q.device).cuda_stream
         err = lib.flash_attention_launch(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
-            DTYPES[q.dtype], bhq, sq, k.shape[1], hd, group,
+            DTYPES[q.dtype], bhq, sq, k.shape[1], width, group,
             int(bool(causal)), int(window), hd**-0.5, stream)
     if err:
         raise RuntimeError(f"flash_attention launch failed: cudaError_t {err}")
     launch_counts[NAME] += 1
-    return o
+    return o if width == hd else o[..., :hd].contiguous()
 
 
 def wgmma_probe(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,

@@ -3,15 +3,20 @@
 
 The CUDA source replaces the TPU kernel
 ``repro/kernels/moe_gmm/kernel.py::_kernel``; its header states the
-bound and the design.  The library is built at first use (see
-`repro_torch.kernels.build_library`).  The wrapper checks what it is
-given, allocates the output with `torch.empty`, launches on the current
-stream without synchronising, and raises on a non-zero ``cudaError_t``.
+bound and the design: two passes, ``moe_gmm_gate_up`` into an f32
+activation scratch and ``moe_gmm_down``, launched together by one call.
+The library is built at first use (see
+`repro_torch.kernels.build_library`).  `plan` gives the grid and the
+load width from the shapes alone; the wrapper checks what
+it is given, allocates the scratch and the output with `torch.empty`,
+launches on the current stream without synchronising, counts one launch
+and raises on a non-zero ``cudaError_t``.
 """
 from __future__ import annotations
 
 import ctypes
 from pathlib import Path
+from typing import NamedTuple
 
 import torch
 
@@ -20,10 +25,41 @@ from repro_torch.kernels import build_library, launch_counts
 NAME = "moe_gmm"
 SOURCE = Path(__file__).resolve().parent / "csrc" / "moe_gmm.cu"
 DTYPES = {torch.float32: 0, torch.bfloat16: 1}
-ROWS = 8            # kBC in the source: h rows held per block
-SMEM_BYTES = 227 * 1024
+# The source's tiling: kWarps warps of 32 lanes, kLanesX lanes across a
+# weight row (16-byte loads each), so 32 / kLanesX slices of the summed
+# dimension a warp; pass 1 runs half the warps on Wg, half on Wu.
+WARPS = 8
+LANES_X = 16
+LOAD_BYTES = 16
 
 _lib = None
+
+
+class Plan(NamedTuple):
+    rows: int            # capacity rows a block holds (R in the source)
+    row_tiles: int       # ceil(C / rows): weight reads per column tile
+    vec_gate_up: bool    # 16-byte loads of Wg, Wu (rows a whole number)
+    vec_down: bool       # 16-byte loads of Wd
+    gate_up_blocks: int  # blocks of each pass
+    down_blocks: int
+
+
+def plan(E: int, C: int, D: int, F: int, dtype: torch.dtype) -> Plan:
+    """How the kernel runs (E, C, D, F) in `dtype`.  Rows a block: 8
+    where that pads C to no more rows than 4 would (C 5-8, 13-16, ...:
+    each weight load then feeds twice the rows), else 4 (decode's C 4,
+    and C 9-12, 17-20, ...); ceil(C / rows) row tiles.  Each block is
+    LANES_X 16-byte loads wide, with vector loads only where a weight row
+    is a whole number of them (the wrapper also needs the weights on 16
+    bytes)."""
+    per_load = LOAD_BYTES // dtype.itemsize
+    rows = 8 if C > 4 and -(-C // 4) == 2 * -(-C // 8) else 4
+    tiles = -(-C // rows)
+    cols = LANES_X * per_load
+    return Plan(rows=rows, row_tiles=tiles,
+                vec_gate_up=F % per_load == 0, vec_down=D % per_load == 0,
+                gate_up_blocks=E * tiles * -(-F // cols),
+                down_blocks=E * tiles * -(-D // cols))
 
 
 def library() -> ctypes.CDLL:
@@ -33,7 +69,8 @@ def library() -> ctypes.CDLL:
         lib = build_library(NAME, [SOURCE])
         ptr, i32 = ctypes.c_void_p, ctypes.c_int
         lib.moe_gmm_launch.argtypes = [
-            ptr, ptr, ptr, ptr, ptr, i32, i32, i32, i32, i32, ptr,
+            ptr, ptr, ptr, ptr, ptr, ptr, i32, i32, i32, i32, i32, i32, i32,
+            i32, ptr,
         ]
         lib.moe_gmm_launch.restype = i32
         _lib = lib
@@ -48,8 +85,7 @@ def _check(h, wg, wu, wd) -> None:
     if wg.shape != (e, d, f) or wu.shape != (e, d, f) or wd.shape != (e, f, d):
         raise ValueError(f"weights {tuple(wg.shape)}, {tuple(wu.shape)}, "
                          f"{tuple(wd.shape)} do not fit h {tuple(h.shape)}")
-    if not (1 <= e <= 65535 and c >= 1 and f >= 1
-            and 4 * ROWS * (d + 256) <= SMEM_BYTES):
+    if not (1 <= e <= 65535 and c >= 1 and d >= 1 and f >= 1):
         raise ValueError(f"E={e}, C={c}, D={d}, F={f} outside the kernel's range")
     for name, t in (("h", h), ("wg", wg), ("wu", wu), ("wd", wd)):
         if t.device != h.device or t.device.type != "cuda":
@@ -67,12 +103,19 @@ def moe_gmm_fwd(h: torch.Tensor, wg: torch.Tensor, wu: torch.Tensor,
     _check(h, wg, wu, wd)
     lib = library()
     e, c, d = h.shape
+    f = wg.shape[2]
+    p = plan(e, c, d, f, h.dtype)
+    vec_gate_up = p.vec_gate_up and not (wg.data_ptr() % LOAD_BYTES
+                                         or wu.data_ptr() % LOAD_BYTES)
+    vec_down = p.vec_down and not wd.data_ptr() % LOAD_BYTES
     with torch.cuda.device(h.device):
+        act = torch.empty((e, c, f), dtype=torch.float32, device=h.device)
         out = torch.empty_like(h)
         stream = torch.cuda.current_stream(h.device).cuda_stream
         err = lib.moe_gmm_launch(
             h.data_ptr(), wg.data_ptr(), wu.data_ptr(), wd.data_ptr(),
-            out.data_ptr(), DTYPES[h.dtype], e, c, d, wg.shape[2], stream)
+            act.data_ptr(), out.data_ptr(), DTYPES[h.dtype], p.rows,
+            int(vec_gate_up), int(vec_down), e, c, d, f, stream)
     if err:
         raise RuntimeError(f"moe_gmm launch failed: cudaError_t {err}")
     launch_counts[NAME] += 1

@@ -8,17 +8,21 @@ bf16 2e-2), plus ragged lengths (which the port's kernel masks itself)
 and the model's `chunked_attention` (tests/test_kernels.py:106).  The
 card's bf16 kernel rounds P to bf16 before P V (ROADMAP Queue 3, B3);
 its arithmetic, written out here in plain torch, stays within the bf16
-tolerance of the plain version.
+tolerance of the plain version.  A head dim between the kernel's
+instantiations runs zero-padded to the next one; that arithmetic, too,
+is held to the JAX package here.
 """
 import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+import torch.nn.functional as F
 
 from repro.kernels.flash_attention import flash_attention as j_flash
 from repro.kernels.flash_attention import flash_attention_ref as j_ref
 from repro.models.attention import chunked_attention
 from repro_torch.kernels.flash_attention import flash_attention, flash_attention_ref
+from repro_torch.kernels.flash_attention.kernel import HEAD_DIMS, padded_head_dim
 from repro_torch.kernels.flash_attention.ref import NEG_INF, attention_mask
 
 SWEEP = [  # B, Hq, Hkv, Sq, Sk, hd, causal, window, bq, bk
@@ -151,3 +155,49 @@ def test_bf16_p_rounding_is_within_bf16_tolerance(case):
     want = flash_attention_ref(q, k, v, True, window)
     assert got.dtype == torch.bfloat16
     torch.testing.assert_close(got.float(), want.float(), **_tol("bfloat16"))
+
+
+@pytest.mark.parametrize("hd,width", [
+    (1, 16), (16, 16), (17, 32), (48, 64), (80, 128), (160, 256), (256, 256)])
+def test_padded_head_dim_is_the_next_instantiation(hd, width):
+    assert padded_head_dim(hd) == width and width in HEAD_DIMS
+
+
+@pytest.mark.parametrize("hd", [0, 257, 320])
+def test_head_dim_outside_the_instantiations_raises(hd):
+    with pytest.raises(ValueError):
+        padded_head_dim(hd)
+
+
+def _padded_attention(q, k, v, causal, window):
+    """What the card's wrapper runs at a head dim between instantiations:
+    q, k, v zero-padded to `padded_head_dim`, scores scaled by the true
+    head dim, the output's padded columns dropped."""
+    B, Hq, Sq, hd = q.shape
+    Hkv, Sk = k.shape[1], k.shape[2]
+    width = padded_head_dim(hd)
+    qp, kp, vp = (F.pad(t.float(), (0, width - hd)) for t in (q, k, v))
+    qg = qp.reshape(B, Hkv, Hq // Hkv, Sq, width)
+    s = torch.einsum("bhgqd,bhkd->bhgqk", qg, kp) * hd**-0.5
+    s = torch.where(attention_mask(Sq, Sk, causal, window), s, NEG_INF)
+    o = torch.einsum("bhgqk,bhkd->bhgqd", torch.softmax(s, dim=-1), vp)
+    assert float(o[..., hd:].abs().max()) == 0.0
+    return o[..., :hd].reshape(B, Hq, Sq, hd).to(q.dtype)
+
+
+@pytest.mark.parametrize("dtype", list(DTYPES))
+@pytest.mark.parametrize("hd,window", [(48, 0), (80, 16), (160, 0)])
+def test_zero_padded_head_dim_matches_jax(hd, window, dtype):
+    jdt, tdt = DTYPES[dtype]
+    arrs = _inputs(1, 4, 2, 40, 40, hd, seed=hd)
+    q, k, v = _port(arrs, tdt)
+    got = _padded_attention(q, k, v, True, window)
+    torch.testing.assert_close(got.float(),
+                               flash_attention_ref(q, k, v, True, window).float(),
+                               **_tol(dtype))
+    jq, jk, jv = [jnp.asarray(a, jdt) for a in arrs]
+    kern = j_flash(jq, jk, jv, causal=True, window=window, block_q=8,
+                   block_k=8, interpret=True)
+    for ref in (kern, j_ref(jq, jk, jv, causal=True, window=window)):
+        np.testing.assert_allclose(_np(got), np.asarray(ref, np.float32),
+                                   **_tol(dtype))

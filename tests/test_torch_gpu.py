@@ -8,6 +8,8 @@ moe_gmm f32 2e-5, bf16 2e-2 (tests/test_kernels.py:15-18); mamba_scan
 and rglru_scan f32 1e-4, bf16 2e-2 (tests/test_kernels.py:66-69).  The
 bf16 flash kernel's wgmma tile products are exact up to the f32
 summation order: within 1e-5 of the sum of the products' magnitudes.
+Head dims between the flash instantiations run zero-padded; moe_gmm runs
+its scalar loads for rows or weights off 16 bytes.
 """
 import numpy as np
 import pytest
@@ -150,6 +152,14 @@ def test_flash_attention_matches_plain_version(card, case, dtype):
 @pytest.mark.parametrize("E,C,D,F", [
     (2, 16, 16, 32), (4, 8, 32, 64), (3, 12, 8, 24),
     (8, 4, 64, 32), (4, 13, 300, 260), (2, 9, 2304, 96),
+    # qwen3-moe's widths at decode (C 1, 4: 4 rows a block), C 8 (one
+    # 8-row tile), C 9 (3 tiles of 4, across a tile edge), C 14 (8 rows
+    # a block, the second tile ragged) and a prefill's C 40
+    (16, 1, 2048, 768), (16, 4, 2048, 768), (16, 8, 2048, 768),
+    (16, 9, 2048, 768), (16, 14, 2048, 768), (16, 40, 2048, 768),
+    # weight rows that are no whole number of 16-byte loads: scalar
+    # loads (bf16 at C 3, both types at C 14)
+    (3, 3, 300, 260), (2, 14, 301, 259),
 ])
 def test_moe_gmm_matches_plain_version(card, E, C, D, F, dtype):
     h = _normal((E, C, D), 3, card, dtype)
@@ -162,6 +172,64 @@ def test_moe_gmm_matches_plain_version(card, E, C, D, F, dtype):
     want = moe_gmm_ref(h, wg, wu, wd)
     torch.cuda.synchronize()
     assert got.dtype == dtype
+    torch.testing.assert_close(got.float(), want.float(), **_tol(dtype))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_moe_gmm_takes_empty_capacity_rows(card, dtype):
+    """A dispatch buffer as the model leaves it: most experts' capacity
+    rows all zero, a few rows filled; empty rows give zero output."""
+    E, C, D, F = 32, 4, 2048, 768
+    h = torch.zeros((E, C, D), dtype=dtype, device=card)
+    h[3, :2] = _normal((2, D), 40, card, dtype)
+    h[17, :1] = _normal((1, D), 41, card, dtype)
+    h[31] = _normal((C, D), 42, card, dtype)
+    wg = _normal((E, D, F), 43, card, dtype, D**-0.5)
+    wu = _normal((E, D, F), 44, card, dtype, D**-0.5)
+    wd = _normal((E, F, D), 45, card, dtype, F**-0.5)
+    got = moe_gmm(h, wg, wu, wd)
+    want = moe_gmm_ref(h, wg, wu, wd)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(got.float(), want.float(), **_tol(dtype))
+    empty = h.float().abs().sum(-1) == 0
+    assert int(empty.sum()) == E * C - 7
+    assert float(got.float()[empty].abs().max()) == 0.0
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_moe_gmm_takes_weights_off_16_bytes(card, dtype):
+    """Weights that start 2 or 4 bytes past a 16-byte line take the
+    scalar loads (and the output still matches)."""
+    E, C, D, F = 4, 4, 256, 128
+    h = _normal((E, C, D), 46, card, dtype)
+    ws = []
+    for seed, shape, fan in ((47, (E, D, F), D), (48, (E, D, F), D),
+                             (49, (E, F, D), F)):
+        buf = torch.empty(E * D * F + 8, dtype=dtype, device=card)
+        w = buf[1:1 + E * D * F].view(shape)
+        w.copy_(_normal(shape, seed, card, dtype, fan**-0.5))
+        assert w.data_ptr() % 16
+        ws.append(w)
+    got = moe_gmm(h, *ws)
+    want = moe_gmm_ref(h, *ws)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(got.float(), want.float(), **_tol(dtype))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("hd,window", [(48, 0), (80, 24), (160, 0)])
+def test_flash_attention_takes_any_head_dim(card, hd, window, dtype):
+    """Head dims between the instantiations run zero-padded to the next
+    one (stablelm-12b's is 160)."""
+    q = _normal((1, 8, 100, hd), 36, card, dtype)
+    k = _normal((1, 2, 100, hd), 37, card, dtype)
+    v = _normal((1, 2, 100, hd), 38, card, dtype)
+    launch_counts.clear()
+    got = flash_attention(q, k, v, causal=True, window=window)
+    assert launch_counts["flash_attention"] == 1
+    want = flash_attention_ref(q, k, v, True, window)
+    torch.cuda.synchronize()
+    assert got.shape == q.shape and got.dtype == dtype
     torch.testing.assert_close(got.float(), want.float(), **_tol(dtype))
 
 
@@ -213,9 +281,10 @@ def test_model_kernel_wrappers_check_their_inputs(card):
     with pytest.raises(ValueError):
         flash_attention_fwd(q.transpose(1, 2).contiguous().transpose(1, 2),
                             k, k, 2, True, 0)
-    with pytest.raises(ValueError):
-        flash_attention_fwd(q[..., :48].contiguous(), k[..., :48].contiguous(),
-                            k[..., :48].contiguous(), 2, True, 0)  # hd 48
+    wide = _normal((4, 32, 320), 16, card, torch.float32)
+    with pytest.raises(ValueError):   # hd 320: above every instantiation
+        flash_attention_fwd(wide, wide[:2].contiguous(), wide[:2].contiguous(),
+                            2, True, 0)
     with pytest.raises(ValueError):
         flash_attention_fwd(q, k, k, 3, True, 0)   # 4 rows != 2 x 3
     kb = k.bfloat16()

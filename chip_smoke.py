@@ -12,9 +12,14 @@ phase printing one JSON line and any failure raising:
 1. kernel: the `rotor_slice` CUDA kernel against its plain PyTorch
    version on the card, vlb on and off, at k8-n16-g1, k12-n108-g1,
    k12-n108-g2 and k64-n1024-g4 (B = 16, and B = 1 at k12-n108-g1 as
-   Fig. 8 runs it; random non-negative state with a zero diagonal); state atol 1e-5, totals rtol 1e-5.  Times the
+   Fig. 8 runs it; random non-negative state with a zero diagonal), and
+   at k64-n1024-g4 again in the worst case for pass B's gather (own
+   below 1, relay zero: every partner has room); state atol 1e-5,
+   totals rtol 1e-5, the same bits from a second launch.  Times the
    kernel and the plain version with CUDA events beside the byte bound,
-   and the kernel's own device time from the profiler's trace.
+   and the kernel's own device time from the profiler's trace, both
+   passes and each (`rotor_rows`, `rotor_cols`), beside pass B's strip
+   width and the design's bytes (20 B N^2 with vlb, 16 without).
 2. fig08: Fig. 8 (OPERA_648, 100 KB all-to-all shuffle, no VLB, 40
    cycles) through `simulate_rotor_bulk_torch` with the dense and the
    sparse engine, on the JAX package's seed-0 topology stored in
@@ -23,7 +28,9 @@ phase printing one JSON line and any failure raising:
 3. sweep: `sweep.run_design` at k64-n1024-g4, the largest Appendix-B
    point (lifted topology, sparse engine), over 4 workloads x 2 loads x
    2 seeds = 16 scenarios.  Every row must drain and conserve bytes, and
-   the kernel must have launched once per slice.
+   the kernel must have launched once per slice.  Times the slice loop
+   alone (host clock) beside the kernel's device time in it, and the
+   peak device memory of `run_design`.
 4. crossover: per-slice time of the dense and the sparse engine across
    the Appendix-B grid at B = 16.
 5. flash_attention: the bf16 kernel's wgmma tile products alone (S =
@@ -251,14 +258,21 @@ def phase_build() -> dict:
 
 
 def phase_kernel(cases) -> dict:
+    """Each case (design, topology, B, state): "random" draws own in
+    [0, 2) and relay in [0, 1); "worst_case" halves that own (below 1)
+    and zeroes relay, so every partner keeps room and every live slot
+    adds to pass B's gather."""
     import numpy as np
     import torch
 
-    from repro_torch.kernels.rotor_slice.kernel import rotor_slice_fwd
+    from repro_torch.kernels.rotor_slice.kernel import (
+        rotor_slice_fwd,
+        strip_width,
+    )
     from repro_torch.kernels.rotor_slice.ref import rotor_slice_ref
 
     rows = []
-    for name, topo, bsz in cases:
+    for name, topo, bsz, state in cases:
         n, u = topo.num_racks, topo.num_switches
         dst = torch.as_tensor(topo.matching_index_tensor()[1], device="cuda")
         rng = np.random.default_rng(n)
@@ -268,6 +282,8 @@ def phase_kernel(cases) -> dict:
             a[:, np.arange(n), np.arange(n)] = 0.0
         own = torch.from_numpy(own).cuda()
         relay = torch.from_numpy(relay).cuda()
+        if state == "worst_case":
+            own, relay = own * 0.5, torch.zeros_like(relay)
         for vlb in (False, True):
             got = rotor_slice_fwd(own, relay, dst, vlb)
             ref = rotor_slice_ref(own, relay, dst, vlb)
@@ -275,23 +291,33 @@ def phase_kernel(cases) -> dict:
             err = max(float((g - r).abs().max()) for g, r in zip(got[:2], ref[:2]))
             tot = max(float(((g - r).abs() / r.abs().clamp(min=1e-30)).max())
                       for g, r in zip(got[2:], ref[2:]) if float(r.abs().max()) > 0)
-            _check(err <= 1e-5, f"{name} vlb={vlb} state err {err}")
-            _check(tot <= 1e-5, f"{name} vlb={vlb} totals rel err {tot}")
+            _check(err <= 1e-5, f"{name} {state} vlb={vlb} state err {err}")
+            _check(tot <= 1e-5, f"{name} {state} vlb={vlb} totals rel err {tot}")
             again = rotor_slice_fwd(own, relay, dst, vlb)
             _check(all(torch.equal(a, b) for a, b in zip(got, again)),
-                   f"{name} vlb={vlb} not deterministic")
+                   f"{name} {state} vlb={vlb} not deterministic")
             big = n >= 512
-            ms = _cuda_ms(lambda: rotor_slice_fwd(own, relay, dst, vlb),
-                          reps=20 if big else 200)
+            fn = lambda: rotor_slice_fwd(own, relay, dst, vlb)  # noqa: E731
+            ms = _cuda_ms(fn, reps=20 if big else 200)
             plain_ms = _cuda_ms(lambda: rotor_slice_ref(own, relay, dst, vlb),
                                 reps=3 if big else 20, warmup=1)
-            device_ms = _device_ms(lambda: rotor_slice_fwd(own, relay, dst, vlb),
-                                   ("rotor_rows", "rotor_cols"))
+            device_ms, rows_ms, cols_ms = (
+                _device_ms(fn, names) for names in (
+                    ("rotor_rows", "rotor_cols"), ("rotor_rows",),
+                    ("rotor_cols",)))
             bound_ms, bound_by = _bound_ms(bsz, n, u)
-            rows.append(dict(design=name, B=bsz, N=n, u=u, vlb=vlb,
+            # the design's bytes: with vlb pass B reads own's strips again
+            design_bytes = (20 if vlb else 16) * bsz * n * n
+            rows.append(dict(design=name, state=state, B=bsz, N=n, u=u,
+                             vlb=vlb, strip=strip_width(n),
                              max_abs_err=err, totals_rel_err=tot, ms=ms,
-                             device_ms=device_ms, plain_ms=plain_ms,
-                             bound_ms=bound_ms, bound_by=bound_by))
+                             device_ms=device_ms, rows_device_ms=rows_ms,
+                             cols_device_ms=cols_ms, plain_ms=plain_ms,
+                             bound_ms=bound_ms, bound_by=bound_by,
+                             bound_share=(bound_ms / device_ms
+                                          if device_ms else None),
+                             design_bytes=design_bytes,
+                             design_ms=design_bytes / HBM_BYTES_PER_S * 1e3))
         del own, relay
         torch.cuda.empty_cache()
     return dict(phase="kernel", rows=rows)
@@ -389,10 +415,15 @@ def phase_sweep(topo) -> dict:
     _run_batch_sparse(dst, own0, spec.vlb, SWEEP_CYCLES)
     torch.cuda.synchronize()
     engine_s = time.perf_counter() - t0
+    # the kernel's own device time in the loop, on this run's states
+    rotor_ms = _device_ms(
+        lambda: _run_batch_sparse(dst, own0, spec.vlb, SWEEP_CYCLES),
+        ("rotor_rows", "rotor_cols"), reps=1)
     return dict(
         phase="sweep", design=dp.name, scenarios=res.batch_size,
         max_cycles=SWEEP_CYCLES, slices=steps, run_design_wall_s=wall,
         slice_loop_s=engine_s, ms_per_slice=engine_s / steps * 1e3,
+        rotor_device_ms_per_slice=rotor_ms / steps if rotor_ms else None,
         rotor_slice_launches=launches, peak_bytes=peak,
         slices_run_max=int(res.slices_run.max()),
         finished_frac_min=float(fin.min()),
@@ -1029,9 +1060,10 @@ def main() -> int:
     _emit(dict(phase="topologies", seconds=time.perf_counter() - t0))
 
     # (design, batch): Fig. 8 runs k12-n108-g1 at B = 1, the sweep k64 at 16
-    kern = phase_kernel([(k, topos[k], b) for k, b in (
-        ("k8-n16-g1", 16), ("k12-n108-g1", 1), ("k12-n108-g1", 16),
-        ("k12-n108-g2", 16), ("k64-n1024-g4", 16))])
+    kern = phase_kernel([(k, topos[k], b, state) for k, b, state in (
+        ("k8-n16-g1", 16, "random"), ("k12-n108-g1", 1, "random"),
+        ("k12-n108-g1", 16, "random"), ("k12-n108-g2", 16, "random"),
+        ("k64-n1024-g4", 16, "random"), ("k64-n1024-g4", 16, "worst_case"))])
     _emit(kern)
     _emit(phase_fig08(root))
     sweep = phase_sweep(topos["k64-n1024-g4"])
@@ -1061,8 +1093,8 @@ def main() -> int:
         [3300, 2600, 1900, 900], golden_kernels["serve_golden_rgemma"])
     _emit(serve_rgemma)
 
-    main_row = next(r for r in kern["rows"]
-                    if r["design"] == "k64-n1024-g4" and r["vlb"])
+    main_row = next(r for r in kern["rows"] if r["design"] == "k64-n1024-g4"
+                    and r["state"] == "random" and r["vlb"])
     # the serving path's shapes: bf16, a 512-token prefill, a decode tick
     flash_row = next(r for r in flash["rows"] if r["dtype"] == "bfloat16"
                      and r["S"] == 512 and r["hd"] == 128)

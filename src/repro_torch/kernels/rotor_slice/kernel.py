@@ -6,7 +6,8 @@ bound and the design.  The library is built at first use (see
 `repro_torch.kernels.build_library`).  The wrapper checks what it is
 given, allocates the outputs and the scratch with `torch.empty`,
 launches both passes on the current stream without synchronising, and
-raises on a non-zero ``cudaError_t``.
+raises on a non-zero ``cudaError_t``.  Pass B's strip width is
+`strip_width` of N alone.
 """
 from __future__ import annotations
 
@@ -19,11 +20,28 @@ import torch
 from repro_torch.kernels import build_library, launch_counts
 
 SOURCE = Path(__file__).resolve().parent / "csrc" / "rotor_slice.cu"
-# pass A keeps a row's slot map and values in 8 * N bytes of shared memory
-MAX_RACKS = 48 * 1024 // 8
+MAX_RACKS = 6144  # pass B at its narrowest strip (T 8) fits up to here
 MAX_SLOTS = 64  # kMaxU in the source; the launch refuses more
+STRIP_WIDTHS = (32, 16, 8)  # pass B's instantiations, widest first
+SMEM_BYTES = 227 * 1024 - 1024  # kMaxSmem less 1 KB in the source
+
+
+def _cols_smem(n: int, t: int, u: int) -> int:
+    """Pass B's shared memory with vlb (`cols_smem` in the source): the
+    (N, T) f32 strip of take, a list head per row, 8 bytes a live cell."""
+    return n * t * 4 + n * 4 + t * u * 8
+
 
 _lib = None
+
+
+def strip_width(n: int) -> int:
+    """Pass B's strip width T for N racks: the widest whose shared memory
+    fits `SMEM_BYTES` at any u (32 at N = 1024, 8 at N = 6144)."""
+    for t in STRIP_WIDTHS:
+        if _cols_smem(n, t, MAX_SLOTS) <= SMEM_BYTES:
+            return t
+    raise ValueError(f"N = {n}: no strip width fits shared memory")
 
 
 def library() -> ctypes.CDLL:
@@ -33,8 +51,8 @@ def library() -> ctypes.CDLL:
         lib = build_library("rotor_slice", [SOURCE])
         ptr, i32 = ctypes.c_void_p, ctypes.c_int
         lib.rotor_slice_launch.argtypes = [
-            ptr, ptr, ptr, i32, i32, i32, i32,
-            ptr, ptr, ptr, ptr, ptr, ptr, ptr, ptr, ptr, ptr,
+            ptr, ptr, ptr, i32, i32, i32, i32, i32,
+            ptr, ptr, ptr, ptr, ptr, ptr, ptr, ptr, ptr, ptr, ptr,
         ]
         lib.rotor_slice_launch.restype = i32
         _lib = lib
@@ -78,17 +96,25 @@ def rotor_slice_fwd(
         own_out = torch.empty_like(own)
         relay_out = torch.empty_like(relay)
         totals = torch.empty((2, bsz), dtype=own.dtype, device=own.device)
-        take = torch.empty_like(own) if vlb else own_out
-        edge = torch.empty((2, bsz, n, u), dtype=own.dtype, device=own.device)
-        rows = torch.empty((4, bsz, n), dtype=own.dtype, device=own.device)
+        # One scratch allocation, in f32 words: W as (weight, partner row)
+        # pairs (B, N, u, 2) first, for 8-byte alignment, then the slot
+        # masks (B, N) u64, send_relay (B, N, u), frac and the three row
+        # partials (4, B, N), and the spreading-row counts (B,) int32.
+        edge, rows = bsz * n * u, bsz * n
+        scratch = torch.empty(3 * edge + 6 * rows + bsz, dtype=torch.float32,
+                              device=own.device)
+        base = scratch.data_ptr()
+        at = [base + 4 * w for w in (0, 2 * edge, 2 * edge + 2 * rows,
+                                     3 * edge + 2 * rows, 3 * edge + 3 * rows,
+                                     3 * edge + 6 * rows)]
         stream = torch.cuda.current_stream(own.device).cuda_stream
         err = lib.rotor_slice_launch(
             own.data_ptr(), relay.data_ptr(), dst.data_ptr(),
-            bsz, n, u, int(bool(vlb)),
+            bsz, n, u, int(bool(vlb)), strip_width(n),
             own_out.data_ptr(), relay_out.data_ptr(),
-            totals[0].data_ptr(), totals[1].data_ptr(), take.data_ptr(),
-            edge[0].data_ptr(), edge[1].data_ptr(),
-            rows[0].data_ptr(), rows[1:].data_ptr(), stream)
+            totals[0].data_ptr(), totals[1].data_ptr(), at[2], at[0], at[1],
+            at[3], at[4], at[5],
+            stream)
     if err:
         raise RuntimeError(f"rotor_slice launch failed: cudaError_t {err}")
     launch_counts["rotor_slice"] += 1

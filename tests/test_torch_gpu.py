@@ -15,7 +15,10 @@ import numpy as np
 import pytest
 import torch
 
-from repro_torch.core.topology import build_opera_topology
+from repro_torch.core.topology import (
+    build_lifted_opera_topology,
+    build_opera_topology,
+)
 from repro_torch.configs.base import get_config, reduced_config
 from repro_torch.kernels import launch_counts
 from repro_torch.kernels.flash_attention import flash_attention, flash_attention_ref
@@ -56,21 +59,58 @@ def _state(n, bsz, seed, device):
     return torch.from_numpy(own).to(device), torch.from_numpy(relay).to(device)
 
 
+def _held_to_plain_version(own, relay, dst, vlb):
+    """State atol 1e-5, totals rtol 1e-5 against `rotor_slice_ref`, and
+    the same bits from a second launch."""
+    got = rotor_slice_fwd(own, relay, dst, vlb)
+    ref = rotor_slice_ref(own, relay, dst, vlb)
+    torch.cuda.synchronize()
+    for x, y in zip(got[:2], ref[:2]):
+        torch.testing.assert_close(x, y, atol=1e-5, rtol=0)
+    for x, y in zip(got[2:], ref[2:]):
+        torch.testing.assert_close(x, y, rtol=1e-5, atol=1e-6)
+    again = rotor_slice_fwd(own, relay, dst, vlb)
+    for x, y in zip(got, again):
+        assert torch.equal(x, y)
+
+
 @pytest.mark.parametrize("vlb", [False, True])
-@pytest.mark.parametrize("n,u,g", [(16, 4, 1), (16, 4, 2), (108, 6, 1)])
+@pytest.mark.parametrize("n,u,g", [(16, 4, 1), (16, 4, 2), (108, 6, 1),
+                                   (240, 12, 2)])  # k24-n240-g2: ragged strip
 def test_kernel_matches_plain_version(card, n, u, g, vlb):
+    # above 128 racks the sweep lifts its topologies (sweep.LIFTED_TOPO_RACKS)
+    build = build_lifted_opera_topology if n > 128 else build_opera_topology
     dst = torch.as_tensor(
-        build_opera_topology(n, u, seed=0, groups=g).matching_index_tensor(),
-        device=card)
+        build(n, u, seed=0, groups=g).matching_index_tensor(), device=card)
     own, relay = _state(n, 4, 0, card)
     for t in range(0, dst.shape[0], max(1, dst.shape[0] // 5)):
-        got = rotor_slice_fwd(own, relay, dst[t], vlb)
-        ref = rotor_slice_ref(own, relay, dst[t], vlb)
-        torch.cuda.synchronize()
-        for x, y in zip(got[:2], ref[:2]):
-            torch.testing.assert_close(x, y, atol=1e-5, rtol=0)
-        for x, y in zip(got[2:], ref[2:]):
-            torch.testing.assert_close(x, y, rtol=1e-5, atol=1e-6)
+        _held_to_plain_version(own, relay, dst[t], vlb)
+
+
+def _xor_matching(n, u, device):
+    """dst[i, s] = i ^ (s + 1): u disjoint involutions without fixed
+    points; slot 5 dark for every row, as a reconfiguring switch."""
+    i = torch.arange(n, dtype=torch.int32)[:, None]
+    dst = i ^ torch.arange(1, u + 1, dtype=torch.int32)[None]
+    dst[:, 5] = n
+    return dst.to(device)
+
+
+@pytest.mark.parametrize("state", ["random", "half_drained", "worst_case"])
+@pytest.mark.parametrize("n,bsz", [(1024, 2), (4096, 1)])
+def test_kernel_on_synthetic_matchings(card, n, bsz, state):
+    """Full strips (N 1024) and narrow ones (N 4096: T 8).  Half the rows
+    drained stop spreading; relay zero with own below 1 leaves every
+    partner room, so every live slot adds to the gather."""
+    dst = _xor_matching(n, 32, card)
+    own, relay = _state(n, bsz, 5, card)
+    if state == "half_drained":
+        own[:, ::2] = 0.0
+    elif state == "worst_case":
+        own = own * 0.5
+        relay = torch.zeros_like(relay)
+    for vlb in (False, True):
+        _held_to_plain_version(own, relay, dst, vlb)
 
 
 def test_kernel_is_deterministic(card):

@@ -16,10 +16,15 @@ import torch
 from repro.core.topology import build_opera_topology
 from repro.kernels.rotor_slice import rotor_slice_step as jax_step
 from repro.kernels.rotor_slice.ref import apply_edges as jax_apply_edges
+from repro.kernels.rotor_slice.ref import rotor_slice_ref as jax_ref
 from repro.netsim.fluid import rotor_slice_step as oracle_step
 from repro_torch.kernels import launch_counts, pick
 from repro_torch.kernels.rotor_slice import rotor_slice_step
-from repro_torch.kernels.rotor_slice.kernel import rotor_slice_fwd
+from repro_torch.kernels.rotor_slice.kernel import (
+    MAX_RACKS,
+    rotor_slice_fwd,
+    strip_width,
+)
 from repro_torch.kernels.rotor_slice.ref import apply_edges, rotor_slice_ref
 
 
@@ -129,3 +134,108 @@ def test_kernel_wrapper_refuses_cpu_tensors(k8):
 def test_pick_rejects_other_devices():
     with pytest.raises(ValueError, match="meta"):
         pick(torch.empty(1, device="meta"), rotor_slice_fwd, rotor_slice_ref)
+
+
+def _two_pass(own, relay, dst, vlb, strip):
+    """The CUDA kernel's arithmetic in plain torch, pass by pass.
+
+    Pass A (rows): the edge sends, q off the live columns, frac, and the
+    spread weight scattered to the partner's slot, W[b, dst[i, s], s] =
+    share[b, i, s] where frac[b, i] != 0, else 0 (dark slots of the
+    partner row are never written, and never read).  Pass B (column
+    strips of `strip`): take restaged from own * frac with the columns
+    live in each row zeroed through dst[c, s], and each row's relay plus
+    the contributing slots' W * take, summed in slot order."""
+    bsz, n, u = own.shape[0], own.shape[1], dst.shape[1]
+    rows = torch.arange(n)
+    valid = dst < n
+    dstc = torch.where(valid, dst, 0).long()
+    vf = valid.float()[None]
+    own_e = own[:, rows[:, None], dstc] * vf
+    so = torch.minimum(own_e, vf)
+    room = vf - so
+    sr = torch.minimum(relay[:, rows[:, None], dstc] * vf, room)
+    room = room - sr
+    live_col = torch.zeros(n, n, dtype=torch.bool)
+    live_col[rows[:, None].expand(n, u)[valid], dst[valid].long()] = True
+    q = torch.where(live_col[None], 0.0, own).sum(2)
+    r = room.sum(2)
+    t = torch.minimum(q, r) if vlb else torch.zeros_like(q)
+    frac = torch.where(q > 0, t / q.clamp(min=1e-30), 0.0) if vlb else t
+    share = room * torch.where(r > 0, 1.0 / r.clamp(min=1e-30), 0.0)[..., None]
+    w = torch.full((bsz, n, u), float("nan"))
+    for i in range(n):
+        for s in range(u):
+            if valid[i, s]:
+                w[:, dst[i, s], s] = torch.where(frac[:, i] != 0, share[:, i, s], 0.0)
+    own_out = torch.where(live_col[None], own, own - own * frac[..., None])
+    own_out[:, rows[:, None].expand(n, u)[valid], dst[valid].long()] = (
+        own_e - so)[:, valid]
+    relay_out = torch.empty_like(relay)
+    for c0 in range(0, n, strip):
+        cols = torch.arange(c0, min(c0 + strip, n))
+        take = own[:, :, cols] * frac[..., None]
+        for c in cols.tolist():
+            for s in range(u):
+                if valid[c, s]:
+                    take[:, dst[c, s], c - c0] = 0.0
+        v = relay[:, :, cols].clone()
+        acc = torch.zeros_like(v)
+        for s in range(u):
+            hit = valid[:, s, None] & (dstc[:, s, None] == cols[None])
+            v = torch.where(hit[None], v - sr[:, :, s, None], v)
+            ws = torch.where(valid[None, :, s], w[:, :, s], 0.0)
+            if vlb:
+                acc = torch.where((ws != 0)[..., None],
+                                  acc + ws[..., None] * take[:, dstc[:, s]], acc)
+        relay_out[:, :, cols] = v + acc
+    delivered = so.sum((1, 2)) + sr.sum((1, 2))
+    return own_out, relay_out, delivered, t.sum(1)
+
+
+def _topology_point(name):
+    if name == "k16-n128-g2":
+        from repro.core.topology import build_lifted_opera_topology
+
+        topo = build_lifted_opera_topology(128, 8, seed=0, groups=2,
+                                           max_base=64)
+        return topo.matching_index_tensor(), (0, 5)
+    n, u, g = {"k8-n16-g1": (16, 4, 1), "k8-n16-g2": (16, 4, 2),
+               "k12-n108-g1": (108, 6, 1)}[name]
+    return build_opera_topology(n, u, seed=0, groups=g).matching_index_tensor(), (0, 3)
+
+
+@pytest.mark.parametrize("vlb", [False, True])
+@pytest.mark.parametrize("name,strip", [
+    ("k8-n16-g1", strip_width(16)), ("k8-n16-g2", strip_width(16)),
+    ("k16-n128-g2", strip_width(128)),
+    ("k12-n108-g1", 32),   # 108 = 3 x 32 + 12: a ragged last strip
+])
+def test_two_pass_arithmetic_matches_jax_kernel_and_refs(name, strip, vlb):
+    """The kernel's two passes (W scattered to the partner slot, take
+    restaged strip by strip, slots summed in order) against the JAX
+    Pallas kernel in interpret mode, JAX's rotor_slice_ref and the
+    port's, at state atol 1e-5 and totals atol 1e-4."""
+    dst_all, slices = _topology_point(name)
+    n = dst_all.shape[1]
+    own, relay = _state(n, bsz=2, seed=3)
+    for t in slices:
+        dst = dst_all[t]
+        got = _two_pass(torch.from_numpy(own), torch.from_numpy(relay),
+                        torch.from_numpy(dst), vlb, strip)
+        args = (jnp.asarray(own), jnp.asarray(relay), jnp.asarray(dst))
+        wants = (jax_step(*args, vlb=vlb, force_pallas=True),
+                 jax_ref(*args, vlb=vlb),
+                 rotor_slice_ref(torch.from_numpy(own), torch.from_numpy(relay),
+                                 torch.from_numpy(dst), vlb))
+        for want in wants:
+            for i, (g, r) in enumerate(zip(got, want)):
+                np.testing.assert_allclose(g.numpy(), np.asarray(r),
+                                           atol=1e-5 if i < 2 else 1e-4)
+
+
+def test_strip_width_fits_shared_memory():
+    assert [strip_width(n) for n in (16, 108, 1024, 2048, 4096, MAX_RACKS)] == [
+        32, 32, 32, 16, 8, 8]
+    with pytest.raises(ValueError):
+        strip_width(8192)

@@ -6,7 +6,8 @@
 Imports nothing of JAX or of the JAX package.  Builds the Hopper kernels
 from the sources in this checkout (each kernel's registers and spills
 from ptxas; the flash library's HGMMA instructions counted in its SASS,
-which must be above 0, and no spill in its bf16 kernel), then runs, each
+which must be above 0, and no spill in its bf16 kernel or in either scan
+kernel), then runs, each
 phase printing one JSON line and any failure raising:
 
 1. kernel: the `rotor_slice` CUDA kernel against its plain PyTorch
@@ -54,10 +55,18 @@ phase printing one JSON line and any failure raising:
    never on the path, `bmm_trio_ms` times three `torch.bmm` calls plus
    silu in the row's type (it rounds g and u to that type).
 7. mamba_scan: the same at tests/test_kernels.py:47-53 (f32 1e-4, bf16
-   2e-2) and at falcon-mamba-7b's prefill (B 1, S 512, D 8192, N 16; x
-   bf16 or f32 beside f32 dt, B, C), y and the final state h_S at 1e-4.
+   2e-2) and at falcon-mamba-7b's prefill (B 1, D 8192, N 16; S 512 with
+   x bf16 or f32 beside f32 dt, B, C, and S 134 with x bf16), y and the
+   final state h_S at 1e-4, the same bits from a second call; each model
+   row with the floor of its exponentials on the SFU (`sfu_floor_ms`: 16
+   a clock an SM at the SM clock nvidia-smi reads while the kernel runs),
+   the design's bytes and `bound_share` (bound / device ms).
 8. rglru_scan: the same at tests/test_kernels.py:73-75 and at
-   recurrentgemma-2b's longest prefill (B 1, S 3300, D 2560).
+   recurrentgemma-2b's longest and shortest prefills (B 1, S 3300 and
+   900, D 2560) and at a 32,768-token prompt, where the carries' cost
+   shows, device ms of the three passes together and of each
+   (`rglru_chunk_ends`, `rglru_chunk_carry`, `rglru_chunk_scan`), the
+   design's 20 B an element and `bound_share`.
 9. serve_golden, serve_golden_mamba, serve_golden_rgemma: reduced
    qwen3-moe, falcon-mamba and recurrentgemma in f32 with the JAX
    package's weights (src/repro_torch/data/): prefill logits at
@@ -120,9 +129,9 @@ def _cuda_ms(fn, reps: int, warmup: int = 2) -> float:
 def _device_ms(fn, names, reps: int = 10):
     """Device time per call of the kernels whose names contain one of
     `names`, from the profiler's CUDA trace: the card's own time, without
-    the host's launch overhead.  None when the trace holds no such
-    kernel.  A trace whose count of such kernels is not a whole multiple
-    of `reps` has lost events, and is taken again (up to 3 times)."""
+    the host's launch overhead.  A trace with no such kernel, or whose
+    count of them is not a whole multiple of `reps`, has lost events, and
+    is taken again (up to 3 times); None when the last holds none."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -135,7 +144,8 @@ def _device_ms(fn, names, reps: int = 10):
             torch.cuda.synchronize()
         hits = [e for e in prof.key_averages()
                 if any(n in e.key for n in names)]
-        if sum(e.count for e in hits) % reps == 0:
+        count = sum(e.count for e in hits)
+        if count and count % reps == 0:
             break
     us = sum(getattr(e, "device_time_total", 0.0) for e in hits)
     return us / reps / 1e3 if us > 0 else None
@@ -192,10 +202,13 @@ def _kernel_name(mangled: str) -> str:
     ``moe_gmm_gate_up<__nv_bfloat16, 4, 1>``."""
     import re
 
-    pos, name = 3 if mangled.startswith("_ZN") else 2, mangled
+    # subs: the names a substitution (S_, S0_, S1_, ...) may stand for,
+    # in their order: the name's components, then its type arguments
+    pos, name, subs = 3 if mangled.startswith("_ZN") else 2, mangled, []
     while pos < len(mangled) and mangled[pos].isdigit():
         n = re.match(r"\d+", mangled[pos:]).group(0)
         name = mangled[pos + len(n):pos + len(n) + int(n)]
+        subs.append(name)
         pos += len(n) + int(n)
     if not mangled.startswith("I", pos):
         return name
@@ -203,13 +216,19 @@ def _kernel_name(mangled: str) -> str:
     while pos < len(mangled) and mangled[pos] != "E":
         lit = re.match(r"L[a-z](n?\d+)E", mangled[pos:])
         src = re.match(r"(\d+)", mangled[pos:])
+        sub = re.match(r"S([0-9A-Z]*)_", mangled[pos:])
         if lit:
             args.append(lit.group(1).replace("n", "-"))
             pos += lit.end()
         elif src:
             n = int(src.group(1))
             args.append(mangled[pos + src.end():pos + src.end() + n])
+            subs.append(args[-1])
             pos += src.end() + n
+        elif sub:
+            i = int(sub.group(1), 36) + 1 if sub.group(1) else 0
+            args.append(subs[i] if i < len(subs) else sub.group(0))
+            pos += sub.end()
         else:
             args.append({"f": "float", "i": "int"}.get(mangled[pos],
                                                        mangled[pos]))
@@ -254,6 +273,11 @@ def phase_build() -> dict:
         "HGMMA" in ln for ln in sass.splitlines())
     print(f"flash_attention HGMMA instructions: {hgmma}", flush=True)
     _check(hgmma > 0, "the flash library holds no HGMMA")
+    scans = {k: v for name in (mamba.NAME, rglru.NAME)
+             for k, v in out[f"ptxas_{name}"].items()}
+    _check(len(scans) > 0
+           and all(v["spill_bytes"] == 0 for v in scans.values()),
+           f"scan kernels spill: {scans}")
     return out
 
 
@@ -682,10 +706,12 @@ def phase_moe_gmm() -> dict:
                              plain_ms=plain_ms, library_ms=None,
                              bmm_trio_ms=bmm_trio_ms,
                              bound_ms=bound_ms, bound_by=bound_by,
-                             bound_share=bound_ms / device_ms,
+                             bound_share=(bound_ms / device_ms
+                                          if device_ms else None),
                              gbytes_per_s=nbytes / (ms * 1e-3) / 1e9,
-                             device_gbytes_per_s=nbytes / (device_ms * 1e-3)
-                             / 1e9))
+                             device_gbytes_per_s=(
+                                 nbytes / (device_ms * 1e-3) / 1e9
+                                 if device_ms else None)))
         del w, h, got
         torch.cuda.empty_cache()
     return dict(phase="moe_gmm", sweep_cases=2 * len(GMM_SWEEP),
@@ -710,12 +736,37 @@ def _uniform(shape, gen, lo, hi, dtype):
     return (lo + (hi - lo) * x).to(dtype)
 
 
+SFU_PER_CLOCK = 16   # exponentials a clock an SM (CUDA guide, sm_90)
+SMS = 132           # H100 SXM
+
+
+def _sm_clock_mhz(fn, calls: int) -> float:
+    """The SM clock (MHz) while `fn` runs: nvidia-smi samples clocks.sm
+    every 20 ms beside `calls` back-to-back calls; the highest sample, as
+    the idle samples before and after are lower."""
+    import torch
+
+    smi = subprocess.Popen(
+        ["nvidia-smi", "--query-gpu=clocks.sm", "--format=csv,noheader,nounits",
+         "-lms", "20"], stdout=subprocess.PIPE, text=True)
+    try:
+        time.sleep(0.5)
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    finally:
+        smi.terminate()
+        out = smi.communicate(timeout=60)[0]
+    return max(float(v) for v in out.split() if v.strip())
+
+
 def phase_mamba_scan() -> dict:
     """The selective scan at the sweep of tests/test_kernels.py:47-53 and
-    at falcon-mamba-7b's prefill (B 1, S 512, D 8192, N 16): the model's
-    types (x bf16; dt, B, C f32) and all f32.  y and the final state h_S
-    against the plain version; times, bound; no library call computes a
-    selective scan."""
+    at falcon-mamba-7b's prefill (B 1, D 8192, N 16) at S 512 and 134 (its
+    longest and shortest prompts): the model's types (x bf16; dt, B, C
+    f32) and, at S 512, all f32.  y and the final state h_S against the
+    plain version; times; the function's bound beside the floor of its
+    exponentials on the SFU; no library call computes a selective scan."""
     import math
 
     import torch
@@ -740,9 +791,13 @@ def phase_mamba_scan() -> dict:
             sweep_err = max(sweep_err,
                             _held(y, ry, dtype, what, _scan_tol(dtype)),
                             _held(h, rh, dtype, what + " h_S", _scan_tol(dtype)))
+            y2, h2 = mamba_scan(*args)
+            _check(torch.equal(y, y2) and torch.equal(h, h2),
+                   f"{what} not deterministic")
     rows = []
-    B, S, D, N = 1, 512, 8192, 16
-    for x_dtype in (torch.bfloat16, torch.float32):
+    B, D, N = 1, 8192, 16
+    for S, x_dtype in ((512, torch.bfloat16), (512, torch.float32),
+                       (134, torch.bfloat16)):
         # the model's draws: A = -(1..N) (S4D-real), D = 1, dt = softplus
         # of the projection plus a bias set for steps in [1e-3, 1e-1]
         x = _randn((B, S, D), gen, x_dtype)
@@ -755,26 +810,38 @@ def phase_mamba_scan() -> dict:
                 torch.ones(D, device="cuda"))
         y, h = mamba_scan(*args)
         ry, rh = mamba_scan_ref(*args)
-        what = f"mamba_scan falcon-mamba x {x_dtype}"
+        what = f"mamba_scan falcon-mamba S {S} x {x_dtype}"
         err = max(_held(y, ry, x_dtype, what, 1e-4),
                   _held(h, rh, x_dtype, what + " h_S", 1e-4))
         y2, h2 = mamba_scan(*args)
         _check(torch.equal(y, y2) and torch.equal(h, h2),
                f"{what} not deterministic")
-        ms = _cuda_ms(lambda: mamba_scan_fwd(*args), reps=20)
-        device_ms = _device_ms(lambda: mamba_scan_fwd(*args),
-                               ("mamba_scan_fwd",), reps=20)
+        fn = lambda: mamba_scan_fwd(*args)  # noqa: E731
+        ms = _cuda_ms(fn, reps=20)
+        device_ms = _device_ms(fn, ("mamba_scan_fwd",), reps=20)
         plain_ms = _cuda_ms(lambda: mamba_scan_ref(*args), reps=3, warmup=1)
+        mhz = _sm_clock_mhz(fn, calls=4000)
         # x, dt read once, y written once; B, C per step; A, D, h_S
         nbytes = (B * S * D * (x.element_size() + 4 + 4) + 2 * B * S * N * 4
                   + 4 * D * N + 4 * D + 4 * B * D * N)
         ops = B * S * D * (7 * N + 3)   # f32, on the CUDA cores
         bound_ms, bound_by = _bound(nbytes, ops, torch.float32)
+        # the design reads B and C again in every block of 32 channels
+        # (from L2 after the first)
+        design_bytes = nbytes + (-(-D // 32) - 1) * 2 * B * S * N * 4
+        exps = B * S * D * N
         rows.append(dict(x_dtype=_dname(x_dtype), p_dtype="float32", B=B,
                          S=S, D=D, N=N, max_abs_err=err, ms=ms,
                          device_ms=device_ms, plain_ms=plain_ms,
                          library_ms=None, bound_ms=bound_ms,
                          bound_by=bound_by,
+                         bound_share=(bound_ms / device_ms
+                                      if device_ms else None),
+                         exps=exps, sm_clock_mhz=mhz,
+                         sfu_floor_ms=exps / (SFU_PER_CLOCK * SMS * mhz * 1e6)
+                         * 1e3,
+                         design_bytes=design_bytes,
+                         design_ms=design_bytes / HBM_BYTES_PER_S * 1e3,
                          gbytes_per_s=nbytes / (ms * 1e-3) / 1e9))
         del args, x, step, y, h, ry, rh, y2, h2
         torch.cuda.empty_cache()
@@ -784,9 +851,12 @@ def phase_mamba_scan() -> dict:
 
 def phase_rglru_scan() -> dict:
     """The RG-LRU recurrence at the sweep of tests/test_kernels.py:73-75
-    and at recurrentgemma-2b's longest prefill (B 1, S 3300, D 2560, a
-    and bx f32 as the model's gates are); no library call computes a
-    gated linear recurrence."""
+    and at recurrentgemma-2b's longest and shortest prefills (B 1, S 3300
+    and 900, D 2560; a and bx f32 as the model's gates are, and bf16) and
+    at S 32768, where 512 chunks show whether the carries stay linear:
+    device ms of the three passes together and of each, the function's
+    bound and the design's 20 B an element (a and bx read twice); no
+    library call computes a gated linear recurrence."""
     import torch
 
     from repro_torch.kernels.rglru_scan.kernel import rglru_scan_fwd
@@ -795,7 +865,8 @@ def phase_rglru_scan() -> dict:
 
     gen = torch.Generator(device="cuda").manual_seed(3)
     sweep_err = 0.0
-    shapes = RGLRU_SWEEP + [(1, 3300, 2560)]
+    shapes = RGLRU_SWEEP + [(1, 3300, 2560), (1, 900, 2560),
+                            (1, 32768, 2560)]
     rows = []
     for dtype in (torch.float32, torch.bfloat16):
         for B, S, D in shapes:
@@ -805,22 +876,34 @@ def phase_rglru_scan() -> dict:
             got = rglru_scan(a, bx, h0)
             err = _held(got, rglru_scan_ref(a, bx, h0), dtype,
                         f"rglru_scan {(B, S, D)} {dtype}", _scan_tol(dtype))
-            if S < 3300:
+            _check(torch.equal(got, rglru_scan(a, bx, h0)),
+                   f"rglru_scan {(B, S, D)} {dtype} not deterministic")
+            if (B, S, D) in RGLRU_SWEEP:
                 sweep_err = max(sweep_err, err)
                 continue
-            _check(torch.equal(got, rglru_scan(a, bx, h0)),
-                   f"rglru_scan {dtype} not deterministic")
-            ms = _cuda_ms(lambda: rglru_scan_fwd(a, bx, h0), reps=20)
-            device_ms = _device_ms(lambda: rglru_scan_fwd(a, bx, h0),
-                                   ("rglru_scan_fwd",), reps=20)
+            fn = lambda: rglru_scan_fwd(a, bx, h0)  # noqa: E731
+            ms = _cuda_ms(fn, reps=20)
+            passes = ("rglru_chunk_ends", "rglru_chunk_carry",
+                      "rglru_chunk_scan")
+            device_ms, ends_ms, carry_ms, scan_ms = (
+                _device_ms(fn, names, reps=20)
+                for names in (passes,) + tuple((p,) for p in passes))
             plain_ms = _cuda_ms(lambda: rglru_scan_ref(a, bx, h0), reps=3,
                                 warmup=1)
-            nbytes = B * S * D * (2 * a.element_size() + 4) + 4 * B * D
+            es = a.element_size()
+            nbytes = B * S * D * (2 * es + 4) + 4 * B * D
             bound_ms, bound_by = _bound(nbytes, 2 * B * S * D, torch.float32)
+            design_bytes = B * S * D * (4 * es + 4) + 4 * B * D
             rows.append(dict(dtype=_dname(dtype), B=B, S=S, D=D,
                              max_abs_err=err, ms=ms, device_ms=device_ms,
+                             ends_device_ms=ends_ms,
+                             carry_device_ms=carry_ms, scan_device_ms=scan_ms,
                              plain_ms=plain_ms, library_ms=None,
                              bound_ms=bound_ms, bound_by=bound_by,
+                             bound_share=(bound_ms / device_ms
+                                          if device_ms else None),
+                             design_bytes=design_bytes,
+                             design_ms=design_bytes / HBM_BYTES_PER_S * 1e3,
                              gbytes_per_s=nbytes / (ms * 1e-3) / 1e9))
             del a, bx, h0, got
             torch.cuda.empty_cache()
@@ -1111,8 +1194,10 @@ def main() -> int:
         library_ms=None)]
     # the main paths' shapes: falcon-mamba's 512-token prefill (x bf16),
     # recurrentgemma's 3,300-token prefill (f32 gates)
-    mamba_row = next(r for r in mamba["rows"] if r["x_dtype"] == "bfloat16")
-    rglru_row = next(r for r in rglru["rows"] if r["dtype"] == "float32")
+    mamba_row = next(r for r in mamba["rows"]
+                     if r["x_dtype"] == "bfloat16" and r["S"] == 512)
+    rglru_row = next(r for r in rglru["rows"]
+                     if r["dtype"] == "float32" and r["S"] == 3300)
     # launches: every full serving run the kernel is on, summed
     runs = (serve, serve_mamba, serve_rgemma)
     for name, row, phase, replaces in (

@@ -26,7 +26,7 @@ from repro_torch.kernels import build_library, launch_counts
 NAME = "mamba_scan"
 SOURCE = Path(__file__).resolve().parent / "csrc" / "mamba_scan.cu"
 DTYPES = {torch.float32: 0, torch.bfloat16: 1}
-MAX_STATE = 32      # one warp's lanes per channel
+MAX_STATE = 32      # 16 lanes of 2 states a channel (csrc/mamba_scan.cu)
 
 _lib = None
 

@@ -5,8 +5,11 @@ The CUDA source replaces the TPU kernel
 ``repro/kernels/rglru_scan/kernel.py::_kernel``; its header states the
 bound and the design.  The library is built at first use (see
 `repro_torch.kernels.build_library`).  The wrapper checks what it is
-given, allocates the output with `torch.empty`, launches on the current
-stream without synchronising, and raises on a non-zero ``cudaError_t``.
+given, allocates the output and the kernel's (B, ceil(S / chunk), 2, D)
+float32 scratch of chunk ends with `torch.empty`, launches the three
+passes (``rglru_chunk_ends``, ``rglru_chunk_carry``, ``rglru_chunk_scan``;
+one call, counted once) on the current stream without synchronising, and
+raises on a non-zero ``cudaError_t``.
 ``a`` and ``bx`` come in one type, float32 (the model's gates) or
 bfloat16; ``h0`` is float32.  Nothing is cast.
 """
@@ -32,9 +35,11 @@ def library() -> ctypes.CDLL:
     if _lib is None:
         lib = build_library(NAME, [SOURCE])
         ptr, i32 = ctypes.c_void_p, ctypes.c_int
-        lib.rglru_scan_launch.argtypes = [ptr, ptr, ptr, ptr, i32, i32, i32,
-                                          i32, ptr]
+        lib.rglru_scan_launch.argtypes = [ptr, ptr, ptr, ptr, ptr, i32, i32,
+                                          i32, i32, ptr]
         lib.rglru_scan_launch.restype = i32
+        lib.rglru_scan_scratch_floats.argtypes = [i32, i32, i32]
+        lib.rglru_scan_scratch_floats.restype = ctypes.c_longlong
         _lib = lib
     return _lib
 
@@ -67,10 +72,12 @@ def rglru_scan_fwd(a: torch.Tensor, bx: torch.Tensor,
     bsz, s, d = a.shape
     with torch.cuda.device(a.device):
         out = torch.empty((bsz, s, d), dtype=torch.float32, device=a.device)
+        ends = torch.empty(lib.rglru_scan_scratch_floats(bsz, s, d),
+                           dtype=torch.float32, device=a.device)
         stream = torch.cuda.current_stream(a.device).cuda_stream
         err = lib.rglru_scan_launch(a.data_ptr(), bx.data_ptr(), h0.data_ptr(),
-                                    out.data_ptr(), DTYPES[a.dtype], bsz, s, d,
-                                    stream)
+                                    ends.data_ptr(), out.data_ptr(),
+                                    DTYPES[a.dtype], bsz, s, d, stream)
     if err:
         raise RuntimeError(f"rglru_scan launch failed: cudaError_t {err}")
     launch_counts[NAME] += 1

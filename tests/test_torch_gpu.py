@@ -381,7 +381,9 @@ def _mamba_inputs(B, S, D, N, seed, device, dtype, x_dtype=None):
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("B,S,D,N", [
     (1, 16, 8, 4), (2, 32, 16, 4), (1, 24, 12, 2), (2, 16, 8, 8),
-    (1, 40, 300, 16), (2, 33, 70, 3), (1, 20, 16, 32)])
+    (1, 40, 300, 16), (2, 33, 70, 3), (1, 20, 16, 32),
+    # falcon-mamba-7b's prefill; N 3 and 32 over several 16-step chunks
+    (1, 512, 8192, 16), (1, 70, 96, 3), (2, 50, 100, 32)])
 def test_mamba_scan_matches_plain_version(card, B, S, D, N, dtype):
     args = _mamba_inputs(B, S, D, N, 16, card, dtype)
     launch_counts.clear()
@@ -392,6 +394,8 @@ def test_mamba_scan_matches_plain_version(card, B, S, D, N, dtype):
     assert y.dtype == h.dtype == torch.float32
     torch.testing.assert_close(y, ry, **_scan_tol(dtype))
     torch.testing.assert_close(h, rh, **_scan_tol(dtype))
+    y2, h2 = mamba_scan(*args)
+    assert torch.equal(y, y2) and torch.equal(h, h2)
 
 
 def test_mamba_scan_takes_the_model_dtypes(card):
@@ -407,7 +411,10 @@ def test_mamba_scan_takes_the_model_dtypes(card):
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("B,S,D", [
-    (1, 32, 16), (2, 64, 8), (1, 48, 24), (3, 100, 130), (1, 17, 2560)])
+    (1, 32, 16), (2, 64, 8), (1, 48, 24), (3, 100, 130), (1, 17, 2560),
+    # recurrentgemma-2b's longest prefill; a ragged S over 16 chunks of 64;
+    # 313 chunks, the last ragged, whose carries run in one pass
+    (1, 3300, 2560), (1, 1000, 300), (2, 20000, 130)])
 def test_rglru_scan_matches_plain_version(card, B, S, D, dtype):
     rng = np.random.default_rng(18)
     a = torch.as_tensor(rng.uniform(0.7, 0.999, (B, S, D)), device=card,
@@ -421,6 +428,7 @@ def test_rglru_scan_matches_plain_version(card, B, S, D, dtype):
     torch.cuda.synchronize()
     assert got.dtype == torch.float32
     torch.testing.assert_close(got, want, **_scan_tol(dtype))
+    assert torch.equal(got, rglru_scan(a, bx, h0))
 
 
 def test_scan_kernels_are_deterministic(card):
@@ -445,7 +453,7 @@ def test_scan_kernel_wrappers_check_their_inputs(card):
         mamba_scan_fwd(x, dt.cpu(), bm, cm, a, d)
     with pytest.raises(ValueError):
         mamba_scan_fwd(x, dt, bm, cm, a[:8], d)
-    with pytest.raises(ValueError):   # N = 33 > one warp of lanes
+    with pytest.raises(ValueError):   # N = 33 > the kernel's 32
         mamba_scan_fwd(*_mamba_inputs(1, 8, 16, 33, 25, card, torch.float32))
     with pytest.raises(ValueError):
         mamba_scan_fwd(x.transpose(1, 2).contiguous().transpose(1, 2), dt,

@@ -34,7 +34,29 @@ phase printing one JSON line and any failure raising:
    peak device memory of `run_design`.
 4. crossover: per-slice time of the dense and the sparse engine across
    the Appendix-B grid at B = 16.
-5. flash_attention: the bf16 kernel's wgmma tile products alone (S =
+5. fig11: Fig. 11's fluid and flow columns (benchmarks/fig11_faults.py,
+   full mode) on the JAX package's seed-1, switch_fault_tolerance=2
+   k12-n108 topology stored in src/repro_torch/data/: the ten failure
+   rows (load 0.4 paced over 12 cycles, detection lag 3, 14 cycles) in
+   one batched `simulate_rotor_bulk_batch` call with the dense engine and
+   again with the sparse one, retention held to the JAX package's stored
+   rows at rtol 1e-4 and the blackholed and residual fractions at atol
+   1e-6, with the paper's checks (links 0.04 and switches 2/6 retain >=
+   0.90, 3/6 falls more than 0.05 below 2/6); `FailureSchedule.empty()`
+   unpaced on the sparse engine gives the same bits as no faults and
+   launches `rotor_slice` once a slice; the four flow scenarios (28,072
+   Websearch flows each, faults projected by `apply_flow_faults`) through
+   the faulted dense flow engine, every result held to the stored one at
+   tests/test_flows_jax.py's tolerances, the histograms to equal class
+   totals and each class's p50 and p99 within one bin.  Times each slice
+   loop and the flow loop (host clock), their kernel launches and device
+   time a step (profiler), and each call's peak device memory.
+6. faulted_sparse_k64: the faulted sparse engine (plain torch) at
+   k64-n1024-g4, the sweep's 16 scenarios, VLB, links 0.04 and 2
+   switches failing at slice 0, paced over 2 of 3 cycles: every row
+   conserves bytes at rtol 1e-5; its ms a slice and peak memory beside
+   the unfaulted kernel's ms a slice in the sweep.
+7. flash_attention: the bf16 kernel's wgmma tile products alone (S =
    Q K^T, O = P V at every head dim) against torch.matmul in f32 within
    1e-5 of the products' magnitudes; the CUDA kernel (bf16 on the tensor
    cores, f32 on the CUDA cores) against its plain version, f32 and
@@ -47,33 +69,33 @@ phase printing one JSON line and any failure raising:
    plain version and, as a yardstick never on the path,
    `F.scaled_dot_product_attention` (causal, or with the window as a
    boolean mask; `vs_library` is the kernel's time over it).
-6. moe_gmm: the same at tests/test_kernels.py:89-92 and at E 128, D 2048,
+8. moe_gmm: the same at tests/test_kernels.py:89-92 and at E 128, D 2048,
    F 768 with C 4 (a 4-slot decode step), C 12 and C 40 (prefills of
    ~150 and 512 tokens); device ms of both passes together and of each,
    the share of the byte bound and GB/s.  No single PyTorch call
    computes the fused gated FFN, so no library time; as a yardstick
    never on the path, `bmm_trio_ms` times three `torch.bmm` calls plus
    silu in the row's type (it rounds g and u to that type).
-7. mamba_scan: the same at tests/test_kernels.py:47-53 (f32 1e-4, bf16
+9. mamba_scan: the same at tests/test_kernels.py:47-53 (f32 1e-4, bf16
    2e-2) and at falcon-mamba-7b's prefill (B 1, D 8192, N 16; S 512 with
    x bf16 or f32 beside f32 dt, B, C, and S 134 with x bf16), y and the
    final state h_S at 1e-4, the same bits from a second call; each model
    row with the floor of its exponentials on the SFU (`sfu_floor_ms`: 16
    a clock an SM at the SM clock nvidia-smi reads while the kernel runs),
    the design's bytes and `bound_share` (bound / device ms).
-8. rglru_scan: the same at tests/test_kernels.py:73-75 and at
+10. rglru_scan: the same at tests/test_kernels.py:73-75 and at
    recurrentgemma-2b's longest and shortest prefills (B 1, S 3300 and
    900, D 2560) and at a 32,768-token prompt, where the carries' cost
    shows, device ms of the three passes together and of each
    (`rglru_chunk_ends`, `rglru_chunk_carry`, `rglru_chunk_scan`), the
    design's 20 B an element and `bound_share`.
-9. serve_golden, serve_golden_mamba, serve_golden_rgemma: reduced
+11. serve_golden, serve_golden_mamba, serve_golden_rgemma: reduced
    qwen3-moe, falcon-mamba and recurrentgemma in f32 with the JAX
    package's weights (src/repro_torch/data/): prefill logits at
    atol/rtol 1e-4 and the greedy tokens of a 4-request, 2-slot
    `ServeEngine` run equal to the JAX engine's, each kernel launched once
    per layer of its kind per prefill (moe_gmm per decode tick too).
-10. serve_full, serve_full_falcon_mamba, serve_full_rgemma: each model at
+12. serve_full, serve_full_falcon_mamba, serve_full_rgemma: each model at
    full width and depth in bf16, seed-0 random weights on the card:
    qwen3-moe-30b-a3b (48 layers) and falcon-mamba-7b (64 layers) serve 8
    requests of 128-512 tokens at 4 slots, recurrentgemma-2b (26 layers)
@@ -428,9 +450,7 @@ def phase_sweep(topo) -> dict:
 
     # the slice loop alone, on the same inputs already on the card
     cfg = dp.to_config()
-    demands = np.stack([sweep.scenario_demand(w, cfg, load, seed)
-                        for w in spec.workloads for load in spec.loads
-                        for seed in spec.seeds])
+    demands = _sweep_demands(spec, cfg)
     own0 = torch.as_tensor(demands / slice_capacity_bytes(cfg),
                            dtype=torch.float32, device="cuda")
     dst = torch.as_tensor(topo.matching_index_tensor(), device="cuda")
@@ -483,6 +503,330 @@ def phase_crossover(topos: dict) -> dict:
         torch.cuda.empty_cache()
     return dict(phase="crossover", vlb=True, rows=rows)
 
+
+
+# ---------------- Fig. 11: fault injection and the flow engine ------------
+
+FIG11_LOAD, FIG11_PACED, FIG11_LAG = 0.4, 12, 3   # fig11_faults.py:34-36
+FIG11_FLOWS = dict(num_hosts=216, horizon_s=0.4, dt_s=2e-4, tail_s=0.2,
+                   seed=0)
+FLOW_P99S = ("fct_p99_ms_small", "fct_p99_ms_mid", "fct_p99_ms_large")
+
+
+def _fig11_schedules(topo):
+    """benchmarks/fig11_faults.py:42-63 in full mode: the baseline, then
+    links, ToRs (recovering inside the paced window) and switches."""
+    from repro_torch.netsim.faults import FailureSchedule
+
+    S = topo.num_slices
+    kw = dict(onset_step=2 * S, detect_lag=FIG11_LAG)
+    rows = [("baseline", FailureSchedule.empty(topo))]
+    rows += [(f"links {f:.2f}", FailureSchedule.draw(
+        topo, seed=11, link_frac=f, **kw)) for f in (0.02, 0.04, 0.08)]
+    rows += [(f"tors {f:.2f}", FailureSchedule.draw(
+        topo, seed=13, tor_frac=f, recover_step=(FIG11_PACED - 2) * S, **kw))
+        for f in (0.05, 0.07, 0.12)]
+    rows += [(f"switches {k}/6", FailureSchedule.draw(
+        topo, seed=17, switch_count=k, **kw)) for k in (1, 2, 3)]
+    return rows
+
+
+def _fig11_flow_scenarios(topo):
+    """benchmarks/fig11_faults.py:96-117: one Websearch scenario and its
+    three fault projections."""
+    from repro_torch.netsim.faults import FailureSchedule, apply_flow_faults
+    from repro_torch.netsim.flows import build_scenario
+
+    scn = build_scenario("opera", "websearch", 0.25, **FIG11_FLOWS)
+    lag = dict(onset_step=300, detect_lag=3)
+    draws = [("clean", None),
+             ("links 0.04", FailureSchedule.draw(
+                 topo, seed=11, link_frac=0.04, **lag)),
+             ("tors 0.07", FailureSchedule.draw(
+                 topo, seed=13, tor_frac=0.07, recover_step=1500, **lag)),
+             ("switches 2/6", FailureSchedule.draw(
+                 topo, seed=17, switch_count=2, **lag))]
+    return [(label, scn if s is None else apply_flow_faults(scn, s))
+            for label, s in draws]
+
+
+def _launch_profile(fn, steps: int) -> tuple:
+    """Kernels (and copies) that `fn`, a run of `steps` steps, launches a
+    step, and their device ms a step, from the profiler's CUDA trace."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    dev = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
+    launches = sum(e.count for e in dev)
+    us = sum(e.self_device_time_total for e in dev)
+    return launches / steps, us / steps / 1e3
+
+
+def _timed(fn):
+    """(result, host seconds ending in synchronize, peak device bytes)."""
+    import torch
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, time.perf_counter() - t0, torch.cuda.max_memory_allocated()
+
+
+def _within_one_bin(a: float, b: float) -> bool:
+    import numpy as np
+
+    from repro_torch.netsim.flows import FCT_BIN_LOG2_WIDTH
+
+    if not (np.isfinite(a) and np.isfinite(b)):
+        return (np.isnan(a) and np.isnan(b)) or a == b
+    return abs(float(np.log2(a / b))) <= FCT_BIN_LOG2_WIDTH * (1 + 1e-9)
+
+
+def _fig11_fluid(topo, want, engine: str) -> dict:
+    """One batched call over the ten rows, held to the stored rows, then
+    the slice loop alone on the same operands."""
+    import numpy as np
+    import torch
+
+    from repro_torch.core.schedule import cycle_timing, slice_capacity_bytes
+    from repro_torch.kernels import launch_counts
+    from repro_torch.netsim import fluid_torch
+    from repro_torch.netsim.sweep import DesignPoint
+
+    cfg = DesignPoint(k=12, num_racks=108).to_config()
+    cap = slice_capacity_bytes(cfg, cycle_timing(cfg))
+    rows = _fig11_schedules(topo)
+    labels = [label for label, _ in rows]
+    scheds = [s for _, s in rows]
+    S, cycles = topo.num_slices, FIG11_PACED + 2
+    d = np.full((108, 108), FIG11_LOAD * (cfg.u - 1) * cap * FIG11_PACED)
+    np.fill_diagonal(d, 0.0)
+    demand = np.broadcast_to(d, (len(rows), 108, 108))
+    run = lambda c: fluid_torch.simulate_rotor_bulk_batch(  # noqa: E731
+        cfg, demand, topo=topo, max_cycles=c, faults=scheds,
+        paced_cycles=FIG11_PACED, engine=engine)
+    run(1)
+    launch_counts.clear()
+    res, wall, peak = _timed(lambda: run(cycles))
+    _check(launch_counts["rotor_slice"] == 0,
+           f"fig11 {engine}: the faulted step launched rotor_slice")
+    T = (FIG11_PACED + 1) * S - 1
+    base = float(res.finished_frac[0, T])
+    got, err = {}, dict(retention=0.0, blackholed_frac=0.0, residual_frac=0.0)
+    for i, label in enumerate(labels):
+        g = dict(retention=float(res.finished_frac[i, T]) / base,
+                 blackholed_frac=float(res.blackholed_bytes[i]
+                                       / res.total_bytes[i]),
+                 residual_frac=float(res.residual_bytes[i]
+                                     / res.total_bytes[i]))
+        w = want[label]
+        _check(bool(np.isclose(g["retention"], w["retention"], rtol=1e-4)),
+               f"fig11 {engine} {label} retention {g['retention']} "
+               f"!= {w['retention']}")
+        for k in ("blackholed_frac", "residual_frac"):
+            _check(abs(g[k] - w[k]) <= 1e-6,
+                   f"fig11 {engine} {label} {k} {g[k]} != {w[k]}")
+        err["retention"] = max(err["retention"],
+                               abs(g["retention"] / w["retention"] - 1))
+        for k in ("blackholed_frac", "residual_frac"):
+            err[k] = max(err[k], abs(g[k] - w[k]))
+        got[label] = g
+    sw2 = got["switches 2/6"]["retention"]
+    _check(got["links 0.04"]["retention"] >= 0.90 and sw2 >= 0.90,
+           "fig11: more than 10 % throughput lost at 4 % links or 2/6 "
+           "switches")
+    _check(got["switches 3/6"]["retention"] < sw2 - 0.05,
+           "fig11: 3/6 switches does not degrade visibly")
+
+    # the slice loop alone, on the same operands already on the card
+    dev = torch.device("cuda")
+    masks, tl, pair_sw = fluid_torch.fault_operands(topo, scheds, len(rows),
+                                                    dev)
+    own0 = torch.as_tensor(demand / cap, dtype=torch.float32, device=dev)
+    if engine == "dense":
+        adj = torch.as_tensor(topo.matching_tensor(), device=dev)
+        sw = torch.as_tensor(masks.switch_id, device=dev).long()
+        loop = lambda c: fluid_torch._run_batch_faulted(  # noqa: E731
+            adj, sw, pair_sw, own0, tl, True, c, FIG11_PACED)
+    else:
+        dst = torch.as_tensor(topo.matching_index_tensor(), device=dev)
+        loop = lambda c: fluid_torch._run_batch_sparse_faulted(  # noqa: E731
+            dst, pair_sw, own0, tl, True, c, FIG11_PACED)
+    _, loop_s, loop_peak = _timed(lambda: loop(cycles))
+    launches, dev_ms = _launch_profile(lambda: loop(1), S)
+    return dict(rows=got, max_err=err, wall_s=wall, peak_bytes=peak,
+                slice_loop_s=loop_s,
+                ms_per_slice=loop_s / (cycles * S) * 1e3,
+                launches_per_slice=launches, device_ms_per_slice=dev_ms,
+                loop_peak_bytes=loop_peak)
+
+
+def _fig11_flows(topo, want) -> dict:
+    import numpy as np
+    import torch
+
+    from repro_torch.netsim import flows_torch
+    from repro_torch.netsim.flows import hist_percentile
+
+    scns = _fig11_flow_scenarios(topo)
+    batch, wall, peak = _timed(lambda: flows_torch.simulate_flows_batch(
+        [s for _, s in scns]))
+    out = {}
+    for (label, scn), r, h in zip(scns, batch.results, batch.hists):
+        w = want[label]
+        _check(bool(r.admitted) == w["admitted"],
+               f"fig11 flows {label} admitted")
+        _check(abs(r.finished_frac - w["finished_frac"]) <= 1e-6,
+               f"fig11 flows {label} finished_frac {r.finished_frac}")
+        _check(abs(r.backlog_frac - w["backlog_frac"]) <= 1e-4,
+               f"fig11 flows {label} backlog_frac {r.backlog_frac}")
+        for f in FLOW_P99S + ("fct_mean_ms",):
+            a, b = getattr(r, f), w[f]
+            _check(a == b or bool(np.isclose(a, b, rtol=1e-3, atol=1e-3)),
+                   f"fig11 flows {label} {f} {a} != {b}")
+        wh = np.asarray(w["hist"])
+        _check(bool((h.sum(1) == wh.sum(1)).all()),
+               f"fig11 flows {label} class totals {h.sum(1)} != {wh.sum(1)}")
+        for c in range(h.shape[0]):
+            for q in (50.0, 99.0):
+                a, b = hist_percentile(h[c], q), hist_percentile(wh[c], q)
+                _check(_within_one_bin(a, b),
+                       f"fig11 flows {label} class {c} p{q:g} {a} vs {b}")
+        out[label] = dict(flows=scn.num_flows, admitted=bool(r.admitted),
+                          finished_frac=r.finished_frac,
+                          fct_p99_ms_small=r.fct_p99_ms_small,
+                          fct_mean_ms=r.fct_mean_ms,
+                          hist_bins_differing=int((h != wh).sum()))
+    steps = scns[0][1].steps
+    dev = torch.device("cuda")
+    remaining0, ops, _ = flows_torch._stage(
+        [s for _, s in scns], steps, max(s.num_flows for _, s in scns),
+        torch.float32, dev)
+    _, loop_s, loop_peak = _timed(
+        lambda: flows_torch._run_batch(remaining0, ops, steps, False))
+    launches, dev_ms = _launch_profile(
+        lambda: flows_torch._run_batch(remaining0, ops, 100, False), 100)
+    return dict(rows=out, steps=steps, wall_s=wall, peak_bytes=peak,
+                flow_loop_s=loop_s, ms_per_step=loop_s / steps * 1e3,
+                launches_per_step=launches, device_ms_per_step=dev_ms,
+                loop_peak_bytes=loop_peak)
+
+
+def phase_fig11(root: Path) -> dict:
+    import numpy as np
+
+    from repro_torch.core.topology import topology_from_arrays
+    from repro_torch.kernels import launch_counts
+    from repro_torch.netsim.faults import FailureSchedule
+    from repro_torch.netsim.fluid_torch import simulate_rotor_bulk_batch
+    from repro_torch.netsim.sweep import DesignPoint
+
+    data = root / "src" / "repro_torch" / "data"
+    topo = topology_from_arrays(
+        108, 6, np.load(data / "fig11_k12_n108_seed1_sft2.npy"), groups=1)
+    want = json.loads((data / "fig11_expected.json").read_text())
+    out = dict(phase="fig11", design="k12-n108-g1 (seed 1, sft 2)", B=10,
+               slices=(FIG11_PACED + 2) * topo.num_slices)
+    for engine in ("dense", "sparse"):
+        out[engine] = _fig11_fluid(topo, want["fluid"], engine)
+
+    # an event-less schedule without pacing: the unfaulted kernel path
+    cfg = DesignPoint(k=12, num_racks=108).to_config()
+    demand = np.full((108, 108), 1e6)
+    np.fill_diagonal(demand, 0.0)
+    runs, cycles = [], 4
+    for faults in (None, FailureSchedule.empty(topo)):
+        launch_counts.clear()
+        runs.append(simulate_rotor_bulk_batch(
+            cfg, demand, topo=topo, max_cycles=cycles, faults=faults,
+            engine="sparse"))
+        _check(launch_counts["rotor_slice"] == cycles * topo.num_slices,
+               f"empty schedule: {launch_counts['rotor_slice']} launches")
+    for f in ("finished_frac", "wire_bytes", "goodput_bytes",
+              "residual_bytes"):
+        _check(bool(np.array_equal(getattr(runs[0], f), getattr(runs[1], f))),
+               f"empty schedule changes {f}")
+    out["empty_schedule_same_bits"] = True
+    out["flows"] = _fig11_flows(topo, want["flows"])
+    return out
+
+
+def _sweep_demands(spec, cfg):
+    """The sweep's scenarios, workload-major, as `run_design` orders them."""
+    import numpy as np
+
+    from repro_torch.netsim import sweep
+
+    return np.stack([sweep.scenario_demand(w, cfg, load, seed)
+                     for w in spec.workloads for load in spec.loads
+                     for seed in spec.seeds])
+
+
+def phase_faulted_sparse_k64(topo, sweep_row: dict) -> dict:
+    """The faulted sparse step (plain torch, no kernel) at the sweep's
+    point and batch, beside the unfaulted kernel's ms a slice there."""
+    import numpy as np
+    import torch
+
+    from repro_torch.core.schedule import slice_capacity_bytes
+    from repro_torch.kernels import launch_counts
+    from repro_torch.netsim import fluid_torch, sweep
+    from repro_torch.netsim.faults import FailureSchedule
+
+    dp = sweep.DesignPoint(k=64, num_racks=1024, groups=4)
+    cfg = dp.to_config()
+    spec = sweep.SweepSpec(designs=(dp,), workloads=sweep.WORKLOADS,
+                           loads=(0.1, 0.3), seeds=(0, 1))
+    demands = _sweep_demands(spec, cfg)
+    sched = FailureSchedule.draw(topo, seed=0, link_frac=0.04,
+                                 switch_count=2, onset_step=0)
+    cycles, paced = SWEEP_CYCLES, 2
+    launch_counts.clear()
+    res, wall, peak = _timed(lambda: fluid_torch.simulate_rotor_bulk_batch(
+        cfg, demands, topo=topo, max_cycles=cycles, faults=sched,
+        paced_cycles=paced, engine="sparse"))
+    _check(launch_counts["rotor_slice"] == 0,
+           "faulted_sparse_k64: the faulted step launched rotor_slice")
+    end = res.finished_frac[:, -1] * res.total_bytes
+    _check(bool(np.allclose(end + res.residual_bytes, res.total_bytes,
+                            rtol=1e-5, atol=0.0)),
+           "faulted_sparse_k64: bytes not conserved")
+    bh = res.blackholed_bytes
+    _check(bool(np.isfinite(bh).all() and (bh >= 0).all() and bh.max() > 0),
+           f"faulted_sparse_k64: blackholed {bh.tolist()}")
+
+    dev = torch.device("cuda")
+    _, tl, pair_sw = fluid_torch.fault_operands(topo, sched, len(demands), dev)
+    own0 = torch.as_tensor(demands / slice_capacity_bytes(cfg),
+                           dtype=torch.float32, device=dev)
+    dst = torch.as_tensor(topo.matching_index_tensor(), device=dev)
+    steps = cycles * topo.num_slices
+    _, loop_s, loop_peak = _timed(
+        lambda: fluid_torch._run_batch_sparse_faulted(
+            dst, pair_sw, own0, tl, True, cycles, paced))
+    launches, dev_ms = _launch_profile(
+        lambda: fluid_torch._run_batch_sparse_faulted(
+            dst[:16], pair_sw, own0, tl, True, 1, 1), 16)
+    ms = loop_s / steps * 1e3
+    return dict(
+        phase="faulted_sparse_k64", design=dp.name, B=len(demands), vlb=True,
+        events=[(e.kind, len(e.ids)) for e in sched.events],
+        max_cycles=cycles, paced_cycles=paced, slices=steps, wall_s=wall,
+        peak_bytes=peak, slice_loop_s=loop_s, ms_per_slice=ms,
+        loop_peak_bytes=loop_peak, launches_per_slice=launches,
+        device_ms_per_slice=dev_ms,
+        unfaulted_kernel_ms_per_slice=sweep_row["ms_per_slice"],
+        vs_unfaulted=ms / sweep_row["ms_per_slice"],
+        blackholed_frac_max=float((bh / res.total_bytes).max()),
+        finished_frac_min=float(res.finished_frac[:, -1].min()))
 
 # ---------------- model kernels and serving (qwen3-moe-30b-a3b) -----------
 
@@ -1152,6 +1496,8 @@ def main() -> int:
     sweep = phase_sweep(topos["k64-n1024-g4"])
     _emit(sweep)
     _emit(phase_crossover(topos))
+    _emit(phase_fig11(root))
+    _emit(phase_faulted_sparse_k64(topos["k64-n1024-g4"], sweep))
     del topos
     flash = phase_flash_attention()
     _emit(flash)

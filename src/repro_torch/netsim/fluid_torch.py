@@ -21,8 +21,18 @@ Two engines share the public API (`engine=` on
 Both drivers keep the trajectory on the device: the ``(B, T)`` delivered
 and wire tensors are preallocated and column ``t`` is written each
 step, with no host sync until the run ends.  ``engine="auto"`` picks
-sparse at N >= `SPARSE_AUTO_RACKS`.  Fault injection and paced demand
-(Fig. 11) are not ported yet.
+sparse at N >= `SPARSE_AUTO_RACKS`.
+
+Fault injection and paced demand (Fig. 11): each engine has a faulted
+step that rebuilds the per-step masks from the compiled int32
+component timelines (`faults.compile_fault_masks`) by comparisons on
+the global step, so one program serves every failure draw.  The
+faulted sparse step is `rotor_slice_faulted_ref` in plain torch on
+every device; the reference has no kernel for it either.  Blackholed
+bytes are summed directly from the sends into really-dead edges, not
+taken as attempted minus delivered (ROADMAP R1).  An event-less
+schedule with no pacing runs the unfaulted program, so
+`FailureSchedule.empty()` gives the same bits as ``faults=None``.
 """
 from __future__ import annotations
 
@@ -37,6 +47,12 @@ from repro_torch.configs.opera_paper import OperaNetConfig
 from repro_torch.core.schedule import cycle_timing, slice_capacity_bytes
 from repro_torch.core.topology import OperaTopology, build_opera_topology
 from repro_torch.kernels.rotor_slice.ops import rotor_slice_step
+from repro_torch.kernels.rotor_slice.ref import rotor_slice_faulted_ref
+from repro_torch.netsim.faults import (
+    FailureSchedule,
+    FaultMasks,
+    compile_fault_masks,
+)
 from repro_torch.netsim.fluid import RotorFluidResult
 
 # engine="auto" switches to the sparse engine at this rack count: the JAX
@@ -44,10 +60,6 @@ from repro_torch.netsim.fluid import RotorFluidResult
 # there.  On the H100 the faster engine depends on the batch and on VLB
 # as well as on N (chip_smoke.py's crossover phase; PERF.md).
 SPARSE_AUTO_RACKS = 192
-
-_NOT_PORTED = ("fault injection and paced demand are not ported yet "
-               "(ROADMAP: faulted fluid engines)")
-
 
 def _slice_step(own, relay, adj, vlb: bool):
     """One dense topology slice over the batch: `fluid_jax._slice_step`
@@ -121,6 +133,147 @@ def _run_batch_sparse(dst, own0, vlb: bool, num_cycles: int):
     return done_t, wire_t, own.sum((1, 2)) + relay.sum((1, 2))
 
 
+# --------------------------------------------------------------------------
+# Faulted engines (fault injection and paced demand)
+# --------------------------------------------------------------------------
+
+
+def _component_masks(g: int, up_onset, up_detect, up_recover,
+                     tor_onset, tor_detect, tor_recover):
+    """Which uplinks (B, N, S+1) and ToRs (B, N) are really down and
+    which are known down at global step `g`: comparisons on the int32
+    timelines, on the device (`faults.step_masks` is the numpy
+    reference)."""
+    return ((g >= up_onset) & (g < up_recover),
+            (g >= up_detect) & (g < up_recover),
+            (g >= tor_onset) & (g < tor_recover),
+            (g >= tor_detect) & (g < tor_recover))
+
+
+def _pair_dead(up_k, tor_k, pair_sw, dtype):
+    """(B, N, N) 0/1: pairs whose one serving switch (every slice) is
+    known down at either end, or whose either ToR is."""
+    p_k = torch.gather(up_k, 2, pair_sw.expand(up_k.shape[0], -1, -1))
+    return (p_k | p_k.transpose(1, 2)
+            | tor_k[:, :, None] | tor_k[:, None, :]).to(dtype)
+
+
+def _slice_step_faulted(own, relay, adj, sw, pair_sw, g: int, timelines,
+                        vlb: bool):
+    """One dense slice under failure masks: `fluid_jax._slice_step_faulted`
+    with a leading batch axis, blackholed bytes summed directly (R1).
+    Returns (own, relay, delivered, moved, blackholed) with (B,) totals;
+    moved is None without VLB."""
+    up_f, up_k, tor_fb, tor_kb = _component_masks(g, *timelines)
+    swb = sw.expand(own.shape[0], -1, -1)
+    i_f = torch.gather(up_f, 2, swb)
+    i_k = torch.gather(up_k, 2, swb)
+    e_real = (i_f | i_f.transpose(1, 2)
+              | tor_fb[:, :, None] | tor_fb[:, None, :]).to(own.dtype)
+    e_known = (i_k | i_k.transpose(1, 2)
+               | tor_kb[:, :, None] | tor_kb[:, None, :]).to(own.dtype)
+    tor_real = tor_fb.to(own.dtype)
+
+    cap = adj * (1.0 - e_known) * (1.0 - tor_real)[:, :, None]
+    arrive = 1.0 - e_real
+    send_own = torch.minimum(own, cap)
+    own = own - send_own * arrive
+    room = cap - send_own
+    send_relay = torch.minimum(relay, room)
+    relay = relay - send_relay * arrive
+    room = room - send_relay
+    delivered = ((send_own * arrive).sum((1, 2))
+                 + (send_relay * arrive).sum((1, 2)))
+    blackholed = ((send_own * e_real).sum((1, 2))
+                  + (send_relay * e_real).sum((1, 2)))
+    if not vlb:
+        return own, relay, delivered, None, blackholed
+    dst_ok = (1.0 - tor_kb.to(own.dtype))[:, None, :]
+    elig = torch.where(cap > 0, 0.0, own * dst_ok)
+    relig = relay * _pair_dead(up_k, tor_kb, pair_sw, own.dtype) * dst_ok
+    q = elig.sum(2) + relig.sum(2)
+    r = room.sum(2)
+    t = torch.minimum(q, r)
+    frac = torch.where(q > 0, t / q.clamp(min=1e-30), 0.0)[:, :, None]
+    take = elig * frac
+    rtake = relig * frac
+    share = room * torch.where(r > 0, 1.0 / r.clamp(min=1e-30),
+                               0.0)[:, :, None]
+    lost = (share * e_real).sum(2)
+    own = own - take + take * lost[:, :, None]
+    relay = relay - rtake + rtake * lost[:, :, None]
+    relay = relay + (share * arrive).transpose(1, 2) @ (take + rtake)
+    lost_bytes = ((take + rtake).sum(2) * lost).sum(1)
+    return (own, relay, delivered, t.sum(1) - lost_bytes,
+            blackholed + lost_bytes)
+
+
+def _sparse_slice_step_faulted(own, relay, dst, pair_sw, g: int, timelines,
+                               vlb: bool):
+    """One sparse slice under failure masks: slot s of ``dst`` is switch
+    s, so the uplink timelines apply by slot; only the pair-dead mask
+    gathers through the (N, N) serving-switch map."""
+    up_f, up_k, tor_fb, tor_kb = _component_masks(g, *timelines)
+    u = dst.shape[1]
+    return rotor_slice_faulted_ref(
+        own, relay, dst, up_f[:, :, :u], up_k[:, :, :u], tor_fb, tor_kb,
+        _pair_dead(up_k, tor_kb, pair_sw, own.dtype), vlb)
+
+
+def _run_faulted(step, slices, own0, num_cycles: int, paced_cycles: int):
+    """Shared step loop of the faulted engines: `step(own, relay, t, g)`
+    runs slice t at global step g.  With `paced_cycles`, each of the
+    first that many cycles starts by injecting 1/paced_cycles of the
+    demand.  Returns (done_t, wire_t, residual, blackholed)."""
+    bsz = own0.shape[0]
+    done_t = own0.new_empty((bsz, num_cycles * slices))
+    wire_t = torch.empty_like(done_t)
+    if paced_cycles:
+        inject = own0 * (1.0 / paced_cycles)
+        own = torch.zeros_like(own0)
+    else:
+        own = own0
+    relay = torch.zeros_like(own0)
+    done = own0.new_zeros(bsz)
+    wire = own0.new_zeros(bsz)
+    blk = own0.new_zeros(bsz)
+    for c in range(num_cycles):
+        if c < paced_cycles:
+            own = own + inject
+        for t in range(slices):
+            g = c * slices + t
+            own, relay, delivered, moved, blackholed = step(own, relay, t, g)
+            done = done + delivered
+            wire = wire + delivered
+            if moved is not None:
+                wire = wire + moved
+            blk = blk + blackholed
+            done_t[:, g] = done
+            wire_t[:, g] = wire
+    return done_t, wire_t, own.sum((1, 2)) + relay.sum((1, 2)), blk
+
+
+def _run_batch_faulted(adj, sw, pair_sw, own0, timelines, vlb: bool,
+                       num_cycles: int, paced_cycles: int):
+    """Dense faulted run.  `sw` (S, N, N) and `pair_sw` (N, N) are the
+    int64 switch-id maps; `timelines` the six (B, ...) int32 tensors of
+    `FaultMasks`."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    return _run_faulted(
+        lambda own, relay, t, g: _slice_step_faulted(
+            own, relay, adj[t], sw[t], pair_sw, g, timelines, vlb),
+        adj.shape[0], own0, num_cycles, paced_cycles)
+
+
+def _run_batch_sparse_faulted(dst, pair_sw, own0, timelines, vlb: bool,
+                              num_cycles: int, paced_cycles: int):
+    """Sparse faulted run over the (S, N, u) index tensor."""
+    return _run_faulted(
+        lambda own, relay, t, g: _sparse_slice_step_faulted(
+            own, relay, dst[t], pair_sw, g, timelines, vlb),
+        dst.shape[0], own0, num_cycles, paced_cycles)
+
+
 @dataclasses.dataclass
 class RotorBatchResult:
     """Per-scenario bulk stats for a batch of B scenarios over T slices.
@@ -168,6 +321,35 @@ class RotorBatchResult:
         )
 
 
+def fault_operands(topo: OperaTopology, faults, bsz: int, device):
+    """Compile `faults` (None, a schedule, a list of them, or
+    `FaultMasks`) for a batch of `bsz` rows and put the faulted runs'
+    operands on `device`: returns the masks, the six int32 timelines
+    and the (N, N) int64 serving-switch map."""
+    if faults is None:
+        faults = FailureSchedule.empty(topo)
+    masks = (faults if isinstance(faults, FaultMasks)
+             else compile_fault_masks(topo, faults)).broadcast_to(bsz)
+    timelines = tuple(torch.as_tensor(a, device=device) for a in (
+        masks.up_onset, masks.up_detect, masks.up_recover,
+        masks.tor_onset, masks.tor_detect, masks.tor_recover))
+    return masks, timelines, torch.as_tensor(masks.pair_switch,
+                                             device=device).long()
+
+
+def _faults_all_empty(faults) -> bool:
+    """True when `faults` carries no failure event: None, an event-less
+    `FailureSchedule`, or a sequence of event-less ones."""
+    if faults is None:
+        return True
+    if isinstance(faults, FailureSchedule):
+        return faults.is_empty
+    if isinstance(faults, (list, tuple)):
+        return all(isinstance(f, FailureSchedule) and f.is_empty
+                   for f in faults)
+    return False
+
+
 def resolve_engine(engine: str, num_racks: int) -> str:
     """Map ``engine="auto"`` to "dense"/"sparse" by design-point size."""
     if engine == "auto":
@@ -185,7 +367,7 @@ def simulate_rotor_bulk_batch(
     topo: Optional[OperaTopology] = None,
     seed: int = 0,
     dtype: torch.dtype = torch.float32,
-    faults=None,
+    faults=None,  # FailureSchedule | Sequence[FailureSchedule] | FaultMasks
     paced_cycles: int = 0,
     engine: str = "auto",          # auto | dense | sparse
     device: DeviceLike = None,
@@ -194,11 +376,14 @@ def simulate_rotor_bulk_batch(
 
     The batch axis is the scenario grid (workloads, load levels, demand
     seeds).  ``device=None`` runs on the CUDA card and raises without
-    one; ``device="cpu"`` runs the plain PyTorch path.  `faults` and
-    `paced_cycles` raise `NotImplementedError` until the faulted
-    engines are ported."""
-    if faults is not None or paced_cycles:
-        raise NotImplementedError(_NOT_PORTED)
+    one; ``device="cpu"`` runs the plain PyTorch path.
+
+    `faults` is a `faults.FailureSchedule` shared by every row, a
+    sequence of them (one draw per row), or compiled `FaultMasks`;
+    `paced_cycles` spreads each row's demand over that many cycle
+    starts instead of offering it all at t=0.  Either routes the batch
+    through the engine's faulted program; an event-less `faults` with
+    no pacing runs the unfaulted one."""
     dev = resolve_device(device)
     demands = np.asarray(demands, np.float64)
     if demands.ndim == 2:
@@ -212,14 +397,33 @@ def simulate_rotor_bulk_batch(
     engine = resolve_engine(engine, n)
 
     own0 = torch.as_tensor(demands / cap, dtype=dtype, device=dev)
-    if engine == "sparse":
-        dst = torch.as_tensor(topo.matching_index_tensor(), device=dev)
-        done_t, wire_t, residual = _run_batch_sparse(
-            dst, own0, bool(vlb), int(max_cycles))
+    blackholed = None
+    if _faults_all_empty(faults) and not paced_cycles:
+        if engine == "sparse":
+            dst = torch.as_tensor(topo.matching_index_tensor(), device=dev)
+            done_t, wire_t, residual = _run_batch_sparse(
+                dst, own0, bool(vlb), int(max_cycles))
+        else:
+            adj = torch.as_tensor(topo.matching_tensor(), dtype=dtype,
+                                  device=dev)
+            done_t, wire_t, residual = _run_batch(
+                adj, own0, bool(vlb), int(max_cycles))
     else:
-        adj = torch.as_tensor(topo.matching_tensor(), dtype=dtype, device=dev)
-        done_t, wire_t, residual = _run_batch(
-            adj, own0, bool(vlb), int(max_cycles))
+        masks, timelines, pair_sw = fault_operands(
+            topo, faults, demands.shape[0], dev)
+        if engine == "sparse":
+            dst = torch.as_tensor(topo.matching_index_tensor(), device=dev)
+            done_t, wire_t, residual, blk = _run_batch_sparse_faulted(
+                dst, pair_sw, own0, timelines, bool(vlb), int(max_cycles),
+                int(paced_cycles))
+        else:
+            adj = torch.as_tensor(topo.matching_tensor(), dtype=dtype,
+                                  device=dev)
+            sw = torch.as_tensor(masks.switch_id, device=dev).long()
+            done_t, wire_t, residual, blk = _run_batch_faulted(
+                adj, sw, pair_sw, own0, timelines, bool(vlb),
+                int(max_cycles), int(paced_cycles))
+        blackholed = blk.cpu().numpy().astype(np.float64) * cap
 
     # Device f32 trajectories are de-normalized on the host at float64
     # before stats, mirroring the numpy oracle's precision.
@@ -263,6 +467,7 @@ def simulate_rotor_bulk_batch(
         residual_bytes=residual,
         total_bytes=totals,
         slices_run=slices_run,
+        blackholed_bytes=blackholed,
     )
 
 

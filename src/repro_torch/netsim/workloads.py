@@ -1,11 +1,88 @@
-"""Rack-level spatial traffic patterns (§5.2, §5.6).
+"""Published flow-size distributions (Fig. 1) and rack-level spatial
+traffic patterns (§5.2, §5.6).
 
-Copy of the demand builders of `repro.netsim.workloads`; keep the two
-in step.  Demands are float64 numpy matrices of rack->rack bytes.
+Copy of `repro.netsim.workloads`; keep the two in step.  CDFs are
+piecewise log-linear encodings of the published curves (Websearch:
+DCTCP; Datamining: VL2; Hadoop: Facebook), so a numpy generator draws
+the same flow sizes as the JAX package.  Demands are float64 numpy
+matrices of rack->rack bytes.
 """
 from __future__ import annotations
 
+from typing import Dict, List, Tuple
+
 import numpy as np
+
+# (size_bytes, P[size <= s]) — piecewise log-linear between points
+WEBSEARCH_CDF: List[Tuple[float, float]] = [
+    (6e3, 0.15), (13e3, 0.20), (19e3, 0.30), (33e3, 0.40), (53e3, 0.53),
+    (133e3, 0.60), (667e3, 0.70), (1.3e6, 0.80), (3e6, 0.90),
+    (6e6, 0.96), (10e6, 0.99), (14e6, 1.00),
+]
+DATAMINING_CDF: List[Tuple[float, float]] = [
+    (100, 0.03), (300, 0.2), (1e3, 0.50), (3e3, 0.68), (10e3, 0.80),
+    (100e3, 0.90), (1e6, 0.95), (10e6, 0.973), (100e6, 0.99),
+    (250e6, 0.995), (1e9, 1.00),
+]
+HADOOP_CDF: List[Tuple[float, float]] = [
+    (150, 0.1), (1e3, 0.4), (10e3, 0.55), (100e3, 0.70), (300e3, 0.85),
+    (1e6, 0.95), (10e6, 0.99), (100e6, 1.00),
+]
+
+CDFS: Dict[str, List[Tuple[float, float]]] = {
+    "websearch": WEBSEARCH_CDF,
+    "datamining": DATAMINING_CDF,
+    "hadoop": HADOOP_CDF,
+}
+
+
+def sample_flow_sizes(name: str, n: int, rng: np.random.Generator) -> np.ndarray:
+    """Inverse-CDF sampler.  The distribution has an atom of mass p0 at
+    the first CDF point (P[S <= s0] = p0, conventionally all at s0) and
+    is log-linear between points; u is drawn on the full [0, 1) so the
+    atom carries exactly p0 of the samples."""
+    cdf = CDFS[name]
+    sizes = np.array([s for s, _ in cdf])
+    probs = np.array([p for _, p in cdf])
+    u = rng.uniform(0.0, 1.0, n)
+    idx = np.searchsorted(probs, u)
+    idx = np.clip(idx, 1, len(cdf) - 1)
+    s0, s1 = sizes[idx - 1], sizes[idx]
+    p0, p1 = probs[idx - 1], probs[idx]
+    frac = np.clip((u - p0) / np.maximum(p1 - p0, 1e-12), 0.0, 1.0)
+    return np.exp(np.log(s0) + frac * (np.log(s1) - np.log(s0)))
+
+
+def _byte_mass_below(cdf: List[Tuple[float, float]], cutoff: float) -> float:
+    """E[S * 1{S < cutoff}] in closed form.
+
+    Between points the CDF is linear in ln s, so the byte mass of a bin
+    (s0, s1] is  (p1 - p0) * (s1 - s0) / ln(s1 / s0)  — the integral of
+    s dF — truncated at the cutoff; the first point carries an atom of
+    p0 * s0 (matching the sampler's convention above)."""
+    s_first, p_first = cdf[0]
+    total = p_first * s_first if s_first < cutoff else 0.0
+    for (s0, p0), (s1, p1) in zip(cdf, cdf[1:]):
+        hi = min(cutoff, s1)
+        if hi <= s0:
+            break
+        total += (p1 - p0) * (hi - s0) / np.log(s1 / s0)
+    return total
+
+
+def mean_flow_size(name: str) -> float:
+    return float(_byte_mass_below(CDFS[name], np.inf))
+
+
+def byte_fraction_below(name: str, cutoff: float) -> float:
+    """Fraction of bytes carried by flows smaller than `cutoff` — exact
+    integral over the piecewise log-linear CDF (no Monte-Carlo)."""
+    cdf = CDFS[name]
+    return float(_byte_mass_below(cdf, cutoff) / _byte_mass_below(cdf, np.inf))
+
+
+# ---------------- spatial patterns (§5.2, §5.6) ----------------------------
+
 
 
 def demand_all_to_all(num_racks: int, hosts_per_rack: int,

@@ -170,14 +170,6 @@ class TestDispatch:
         with pytest.raises(ValueError):
             fluid_torch.resolve_engine("tiled", 16)
 
-    @pytest.mark.parametrize("kw", [dict(faults=object()),
-                                    dict(paced_cycles=3)])
-    def test_faults_not_ported(self, kw):
-        cfg = tsweep.DesignPoint(k=8, num_racks=16).to_config()
-        with pytest.raises(NotImplementedError, match="faulted"):
-            fluid_torch.simulate_rotor_bulk_batch(
-                cfg, np.ones((16, 16)), device="cpu", **kw)
-
     def test_default_device_is_cuda(self):
         if torch.cuda.is_available():
             pytest.skip("a card is present: the default device is usable")

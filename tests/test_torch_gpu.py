@@ -5,7 +5,9 @@ Imports no JAX, so it runs where only the port is installed:
 Without a card every test skips.  Tolerances are chip_smoke.py's:
 rotor_slice state atol 1e-5, totals rtol 1e-5; flash_attention and
 moe_gmm f32 2e-5, bf16 2e-2 (tests/test_kernels.py:15-18); mamba_scan
-and rglru_scan f32 1e-4, bf16 2e-2 (tests/test_kernels.py:66-69).  The
+and rglru_scan f32 1e-4, bf16 2e-2 (tests/test_kernels.py:66-69); the
+faulted fluid steps (plain torch) state atol 1e-5 against their CPU
+run, the flow engine at tests/test_flows_jax.py's tolerances.  The
 bf16 flash kernel's wgmma tile products are exact up to the f32
 summation order: within 1e-5 of the sum of the products' magnitudes.
 Head dims between the flash instantiations run zero-padded; moe_gmm runs
@@ -36,6 +38,14 @@ from repro_torch.kernels.rglru_scan.kernel import rglru_scan_fwd
 from repro_torch.kernels.rotor_slice.kernel import rotor_slice_fwd
 from repro_torch.kernels.rotor_slice.ref import rotor_slice_ref
 from repro_torch.netsim import fluid_torch
+from repro_torch.netsim.faults import (
+    FailureEvent,
+    FailureSchedule,
+    apply_flow_faults,
+    compile_fault_masks,
+)
+from repro_torch.netsim.flows import build_scenario
+from repro_torch.netsim.flows_torch import simulate_flows_batch
 from repro_torch.models.model import init_params
 from repro_torch.netsim.sweep import DesignPoint, scenario_demand
 from repro_torch.serve.engine import Request, ServeEngine
@@ -487,3 +497,124 @@ def test_reduced_recurrent_serve_counts_its_launches(card, arch, kernels):
     assert len(done) == 3 and eng.ticks > 0
     assert all(0 <= t < cfg.vocab_size for r in done for t in r.out_tokens)
     assert dict(launch_counts) == {k: n * 3 for k, n in kernels.items()}
+
+
+# ---------------------------------------------------------------------------
+# fault injection and the flow engine (plain torch on the card)
+# ---------------------------------------------------------------------------
+
+
+def _fault_schedules(topo):
+    """A link, a ToR and a switch event with onsets, lags and recoveries
+    inside two cycles, and a drawn mixed schedule."""
+    S = topo.num_slices
+    events = (FailureEvent("link", ((1, 0), (5, 1)), onset_step=2,
+                           detect_lag=3, recover_step=S + 4),
+              FailureEvent("tor", (3,), onset_step=5, detect_lag=2,
+                           recover_step=S + 8),
+              FailureEvent("switch", (2,), onset_step=S // 2, detect_lag=3))
+    return [FailureSchedule(topo.num_racks, topo.num_switches, events),
+            FailureSchedule.draw(topo, seed=8, link_frac=0.1, tor_frac=0.12,
+                                 switch_count=1, onset_step=3, detect_lag=3)]
+
+
+@pytest.mark.parametrize("vlb", [False, True])
+@pytest.mark.parametrize("engine", ["dense", "sparse"])
+def test_faulted_steps_match_cpu(card, engine, vlb):
+    """Two cycles of the faulted step on the card and on the CPU, each
+    from its own last state: state atol 1e-5, totals rtol 1e-5."""
+    topo = build_opera_topology(16, 4, seed=0)
+    masks = compile_fault_masks(topo, _fault_schedules(topo))
+    own, relay = _state(16, 2, 3, "cpu")
+    runs = {}
+    for dev in ("cpu", card):
+        tl = tuple(torch.as_tensor(a, device=dev) for a in (
+            masks.up_onset, masks.up_detect, masks.up_recover,
+            masks.tor_onset, masks.tor_detect, masks.tor_recover))
+        pair_sw = torch.as_tensor(masks.pair_switch, device=dev).long()
+        sw = torch.as_tensor(masks.switch_id, device=dev).long()
+        adj = torch.as_tensor(topo.matching_tensor(), device=dev)
+        dst = torch.as_tensor(topo.matching_index_tensor(), device=dev)
+        o, r = own.to(dev), relay.to(dev)
+        steps = []
+        for g in range(2 * topo.num_slices):
+            t = g % topo.num_slices
+            if engine == "dense":
+                out = fluid_torch._slice_step_faulted(
+                    o, r, adj[t], sw[t], pair_sw, g, tl, vlb)
+            else:
+                out = fluid_torch._sparse_slice_step_faulted(
+                    o, r, dst[t], pair_sw, g, tl, vlb)
+            o, r = out[0], out[1]
+            steps.append([x.cpu() if x is not None else None for x in out])
+        runs[str(dev)] = steps
+    for want, got in zip(runs["cpu"], runs[str(card)]):
+        for x, y in zip(got[:2], want[:2]):
+            torch.testing.assert_close(x, y, atol=1e-5, rtol=0)
+        for x, y in zip(got[2:], want[2:]):
+            if y is not None:
+                torch.testing.assert_close(x, y, rtol=1e-5, atol=1e-6)
+
+
+@pytest.mark.parametrize("engine", ["dense", "sparse"])
+def test_faulted_engine_matches_cpu(card, engine):
+    dp = DesignPoint(k=8, num_racks=16)
+    cfg = dp.to_config()
+    topo = build_opera_topology(16, 4, seed=0)
+    dem = np.stack([scenario_demand("permutation", cfg, 0.5, s)
+                    for s in range(2)])
+    kw = dict(max_cycles=6, topo=topo, engine=engine, paced_cycles=3,
+              faults=_fault_schedules(topo))
+    launch_counts.clear()
+    got = fluid_torch.simulate_rotor_bulk_batch(cfg, dem, **kw)
+    assert launch_counts["rotor_slice"] == 0   # the faulted step is plain
+    ref = fluid_torch.simulate_rotor_bulk_batch(cfg, dem, device="cpu", **kw)
+    np.testing.assert_allclose(got.finished_frac, ref.finished_frac, atol=5e-5)
+    np.testing.assert_allclose(got.blackholed_bytes, ref.blackholed_bytes,
+                               rtol=1e-4, atol=1.0)
+    assert got.blackholed_bytes.max() > 0
+
+
+def test_empty_schedule_is_bitwise_on_the_kernel_path(card):
+    """An event-less schedule without pacing runs the unfaulted sparse
+    program: the rotor_slice kernel once a slice, the same bits as
+    faults=None."""
+    dp = DesignPoint(k=8, num_racks=16)
+    cfg = dp.to_config()
+    topo = build_opera_topology(16, 4, seed=0)
+    dem = scenario_demand("skew", cfg, 2.5, 0)
+    runs = []
+    for faults in (None, FailureSchedule.empty(topo),
+                   [FailureSchedule.empty(topo)]):
+        launch_counts.clear()
+        runs.append(fluid_torch.simulate_rotor_bulk_batch(
+            cfg, dem, max_cycles=4, topo=topo, engine="sparse",
+            faults=faults))
+        assert launch_counts["rotor_slice"] == 4 * topo.num_slices
+    for r in runs[1:]:
+        for f in ("finished_frac", "wire_bytes", "goodput_bytes",
+                  "residual_bytes"):
+            np.testing.assert_array_equal(getattr(r, f), getattr(runs[0], f))
+
+
+def test_faulted_flows_match_cpu(card):
+    """The dense flow engine, faulted and not, on the card against the
+    CPU: equal admission and completion totals, results at
+    tests/test_flows_jax.py's tolerances."""
+    topo = build_opera_topology(8, 2, seed=0)
+    kw = dict(num_hosts=16, horizon_s=0.12, dt_s=5e-4, tail_s=0.1, seed=0)
+    base = build_scenario("opera", "websearch", 0.12, **kw)
+    sched = FailureSchedule.draw(topo, seed=5, tor_frac=0.25, link_frac=0.2,
+                                 onset_step=40, detect_lag=5,
+                                 recover_step=120)
+    scns = [base, apply_flow_faults(base, sched)]
+    got = simulate_flows_batch(scns, trace=True)
+    ref = simulate_flows_batch(scns, trace=True, device="cpu")
+    for g, r, gh, rh in zip(got.results, ref.results, got.hists, ref.hists):
+        assert g.admitted == r.admitted
+        assert np.isclose(g.finished_frac, r.finished_frac, atol=1e-6)
+        assert np.isclose(g.backlog_frac, r.backlog_frac, atol=1e-4)
+        assert np.isclose(g.fct_mean_ms, r.fct_mean_ms, rtol=1e-3, atol=1e-3)
+        np.testing.assert_array_equal(gh.sum(1), rh.sum(1))
+    for g, r, s in zip(got.traces, ref.traces, scns):
+        np.testing.assert_allclose(g, r, atol=s.sizes.max() * 1e-5)

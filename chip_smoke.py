@@ -51,12 +51,36 @@ phase printing one JSON line and any failure raising:
    totals and each class's p50 and p99 within one bin.  Times each slice
    loop and the flow loop (host clock), their kernel launches and device
    time a step (profiler), and each call's peak device memory.
-6. faulted_sparse_k64: the faulted sparse engine (plain torch) at
+6. flows_tiled: the tiled flow engine.  `fig09_h648`: Fig. 9's grid
+   (benchmarks/fig09_websearch.py:13-22: opera, expander, clos; loads
+   0.01-0.25; seeds 2 and 3) at the paper's 648 hosts, 30 scenarios of
+   up to 126,327 flows and 4,498 steps, through `sweep.run_flow_sweep`
+   with engine="auto", which must resolve to tiled, held to the JAX
+   package's run in src/repro_torch/data/ at tests/test_flows_tiled.py's
+   tolerances (every histogram bin equal, admitted and finished_frac
+   equal, backlog_frac within 1e-5, each p99 within one bin), then the
+   same grid on the dense engine on the card, the two engines held to
+   each other the same way, and Fig. 9's three checks answered as the
+   JAX package's stored run answers them.  `fig07_tiled`:
+   Fig. 7's grid as the benchmark runs it (216 hosts, 32 Datamining
+   scenarios) on the tiled engine, held to the stored run alike.
+   `fig11_tiled`: Fig. 11's four flow scenarios on the tiled engine, held
+   to the stored rows as the dense ones are, and Fig. 11's static
+   cross-check (benchmarks/fig11_faults.py:134-158) through the port's
+   `to_failure_set`, `connectivity_loss` and `path_stretch`, full mode
+   held to the JAX package's stored cross-check, fast mode also to
+   results/benchmarks/fig11_faults.json.  `crossover_rows`: both engines
+   on one expander Websearch scenario at load 0.2, 648 hosts, horizons
+   0.2, 0.8 and 2.4 s (33,687 to 404,248 flows).  Each run gives its
+   seconds, ms a step (host clock), launches and device ms a step
+   (profiler) and peak device memory, beside `tiled_state_bytes` and
+   `dense_state_bytes`.
+7. faulted_sparse_k64: the faulted sparse engine (plain torch) at
    k64-n1024-g4, the sweep's 16 scenarios, VLB, links 0.04 and 2
    switches failing at slice 0, paced over 2 of 3 cycles: every row
    conserves bytes at rtol 1e-5; its ms a slice and peak memory beside
    the unfaulted kernel's ms a slice in the sweep.
-7. flash_attention: the bf16 kernel's wgmma tile products alone (S =
+8. flash_attention: the bf16 kernel's wgmma tile products alone (S =
    Q K^T, O = P V at every head dim) against torch.matmul in f32 within
    1e-5 of the products' magnitudes; the CUDA kernel (bf16 on the tensor
    cores, f32 on the CUDA cores) against its plain version, f32 and
@@ -69,33 +93,33 @@ phase printing one JSON line and any failure raising:
    plain version and, as a yardstick never on the path,
    `F.scaled_dot_product_attention` (causal, or with the window as a
    boolean mask; `vs_library` is the kernel's time over it).
-8. moe_gmm: the same at tests/test_kernels.py:89-92 and at E 128, D 2048,
+9. moe_gmm: the same at tests/test_kernels.py:89-92 and at E 128, D 2048,
    F 768 with C 4 (a 4-slot decode step), C 12 and C 40 (prefills of
    ~150 and 512 tokens); device ms of both passes together and of each,
    the share of the byte bound and GB/s.  No single PyTorch call
    computes the fused gated FFN, so no library time; as a yardstick
    never on the path, `bmm_trio_ms` times three `torch.bmm` calls plus
    silu in the row's type (it rounds g and u to that type).
-9. mamba_scan: the same at tests/test_kernels.py:47-53 (f32 1e-4, bf16
+10. mamba_scan: the same at tests/test_kernels.py:47-53 (f32 1e-4, bf16
    2e-2) and at falcon-mamba-7b's prefill (B 1, D 8192, N 16; S 512 with
    x bf16 or f32 beside f32 dt, B, C, and S 134 with x bf16), y and the
    final state h_S at 1e-4, the same bits from a second call; each model
    row with the floor of its exponentials on the SFU (`sfu_floor_ms`: 16
    a clock an SM at the SM clock nvidia-smi reads while the kernel runs),
    the design's bytes and `bound_share` (bound / device ms).
-10. rglru_scan: the same at tests/test_kernels.py:73-75 and at
+11. rglru_scan: the same at tests/test_kernels.py:73-75 and at
    recurrentgemma-2b's longest and shortest prefills (B 1, S 3300 and
    900, D 2560) and at a 32,768-token prompt, where the carries' cost
    shows, device ms of the three passes together and of each
    (`rglru_chunk_ends`, `rglru_chunk_carry`, `rglru_chunk_scan`), the
    design's 20 B an element and `bound_share`.
-11. serve_golden, serve_golden_mamba, serve_golden_rgemma: reduced
+12. serve_golden, serve_golden_mamba, serve_golden_rgemma: reduced
    qwen3-moe, falcon-mamba and recurrentgemma in f32 with the JAX
    package's weights (src/repro_torch/data/): prefill logits at
    atol/rtol 1e-4 and the greedy tokens of a 4-request, 2-slot
    `ServeEngine` run equal to the JAX engine's, each kernel launched once
    per layer of its kind per prefill (moe_gmm per decode tick too).
-12. serve_full, serve_full_falcon_mamba, serve_full_rgemma: each model at
+13. serve_full, serve_full_falcon_mamba, serve_full_rgemma: each model at
    full width and depth in bf16, seed-0 random weights on the card:
    qwen3-moe-30b-a3b (48 layers) and falcon-mamba-7b (64 layers) serve 8
    requests of 128-512 tokens at 4 slots, recurrentgemma-2b (26 layers)
@@ -669,42 +693,58 @@ def _fig11_fluid(topo, want, engine: str) -> dict:
                 loop_peak_bytes=loop_peak)
 
 
-def _fig11_flows(topo, want) -> dict:
+def _hold_fig11_flow_rows(scns, batch, want, tag: str,
+                          streamed: bool = False) -> dict:
+    """Each flow row against the stored one at tests/test_flows_jax.py's
+    tolerances, histogram class totals equal and each class's p50 and
+    p99 within one bin.  A `streamed` (tiled) run's p99s are histogram
+    quantiles, held within one bin of the stored exact ones
+    (tests/test_flows_tiled.py), its empty-class sentinels exactly."""
     import numpy as np
-    import torch
 
-    from repro_torch.netsim import flows_torch
     from repro_torch.netsim.flows import hist_percentile
 
-    scns = _fig11_flow_scenarios(topo)
-    batch, wall, peak = _timed(lambda: flows_torch.simulate_flows_batch(
-        [s for _, s in scns]))
     out = {}
     for (label, scn), r, h in zip(scns, batch.results, batch.hists):
         w = want[label]
-        _check(bool(r.admitted) == w["admitted"],
-               f"fig11 flows {label} admitted")
+        _check(bool(r.admitted) == w["admitted"], f"{tag} {label} admitted")
         _check(abs(r.finished_frac - w["finished_frac"]) <= 1e-6,
-               f"fig11 flows {label} finished_frac {r.finished_frac}")
+               f"{tag} {label} finished_frac {r.finished_frac}")
         _check(abs(r.backlog_frac - w["backlog_frac"]) <= 1e-4,
-               f"fig11 flows {label} backlog_frac {r.backlog_frac}")
+               f"{tag} {label} backlog_frac {r.backlog_frac}")
         for f in FLOW_P99S + ("fct_mean_ms",):
             a, b = getattr(r, f), w[f]
-            _check(a == b or bool(np.isclose(a, b, rtol=1e-3, atol=1e-3)),
-                   f"fig11 flows {label} {f} {a} != {b}")
+            if streamed and f in FLOW_P99S:
+                ok = a == b if 0.0 in (a, b) else _within_one_bin(a, b)
+            else:
+                ok = a == b or bool(np.isclose(a, b, rtol=1e-3, atol=1e-3))
+            _check(ok, f"{tag} {label} {f} {a} != {b}")
         wh = np.asarray(w["hist"])
         _check(bool((h.sum(1) == wh.sum(1)).all()),
-               f"fig11 flows {label} class totals {h.sum(1)} != {wh.sum(1)}")
+               f"{tag} {label} class totals {h.sum(1)} != {wh.sum(1)}")
         for c in range(h.shape[0]):
             for q in (50.0, 99.0):
                 a, b = hist_percentile(h[c], q), hist_percentile(wh[c], q)
                 _check(_within_one_bin(a, b),
-                       f"fig11 flows {label} class {c} p{q:g} {a} vs {b}")
+                       f"{tag} {label} class {c} p{q:g} {a} vs {b}")
         out[label] = dict(flows=scn.num_flows, admitted=bool(r.admitted),
                           finished_frac=r.finished_frac,
+                          backlog_frac=r.backlog_frac,
                           fct_p99_ms_small=r.fct_p99_ms_small,
                           fct_mean_ms=r.fct_mean_ms,
                           hist_bins_differing=int((h != wh).sum()))
+    return out
+
+
+def _fig11_flows(topo, want) -> dict:
+    import torch
+
+    from repro_torch.netsim import flows_torch
+
+    scns = _fig11_flow_scenarios(topo)
+    batch, wall, peak = _timed(lambda: flows_torch.simulate_flows_batch(
+        [s for _, s in scns]))
+    out = _hold_fig11_flow_rows(scns, batch, want, "fig11 flows")
     steps = scns[0][1].steps
     dev = torch.device("cuda")
     remaining0, ops, _ = flows_torch._stage(
@@ -756,6 +796,300 @@ def phase_fig11(root: Path) -> dict:
                f"empty schedule changes {f}")
     out["empty_schedule_same_bits"] = True
     out["flows"] = _fig11_flows(topo, want["flows"])
+    return out
+
+
+# ---------------- the tiled flow engine: Figs. 9, 7, 11 and the crossover --
+
+CROSSOVER_HORIZONS = (0.2, 0.8, 2.4)   # expander Websearch 0.2, 648 hosts
+
+
+class _Batches:
+    """Keep every `FlowBatchResult` that `flows_torch.simulate_flows_batch`
+    returns while in use, so a run through `sweep.run_flow_sweep` shows
+    its engine (the tiled one reports its window) and its histograms."""
+
+    def __enter__(self):
+        from repro_torch.netsim import flows_torch
+
+        self.seen, self._orig = [], flows_torch.simulate_flows_batch
+
+        def keep(*args, **kw):
+            out = self._orig(*args, **kw)
+            self.seen.append(out)
+            return out
+
+        flows_torch.simulate_flows_batch = keep
+        return self
+
+    def __exit__(self, *exc):
+        from repro_torch.netsim import flows_torch
+
+        flows_torch.simulate_flows_batch = self._orig
+
+
+def _flow_run(fn, steps: int, profiled: bool = True) -> dict:
+    """`fn` (one engine call) timed on the host clock with its peak
+    device memory, then, if `profiled`, run again under the profiler for
+    its launches and device ms a step (kernels and copies), summed from
+    the trace's raw device events (a run holds up to ~1.2 M of them:
+    `key_averages` would take minutes)."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    out, wall, peak = _timed(fn)
+    run = dict(result=out, wall_s=wall, ms_per_step=wall / steps * 1e3,
+               peak_bytes=peak)
+    if profiled:
+        t0 = time.perf_counter()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
+        dev = [e for e in prof.profiler.kineto_results.events()
+               if e.device_type() == DeviceType.CUDA]
+        run.update(launches_per_step=len(dev) / steps,
+                   device_ms_per_step=sum(e.duration_ns() for e in dev)
+                   / steps / 1e6,
+                   profile_s=time.perf_counter() - t0)
+    return run
+
+
+def _hold_flow_rows(got, hists, want, tag: str) -> dict:
+    """tests/test_flows_tiled.py:71-91's tolerances: every histogram bin
+    equal, admitted and finished_frac equal, backlog_frac within 1e-5,
+    each p99 within one bin (sentinels equal)."""
+    import numpy as np
+
+    exact = dict(backlog=0, mean=0)
+    for g, h, w in zip(got, hists, want):
+        where = f"{tag} {g['network']} {g['load']} seed {g['seed']}"
+        _check(bool(np.array_equal(h, np.asarray(w["hist"]))),
+               f"{where}: histograms differ in {int((h != w['hist']).sum())} "
+               "bins")
+        _check(g["admitted"] == w["admitted"], f"{where}: admitted")
+        _check(g["finished_frac"] == w["finished_frac"],
+               f"{where}: finished_frac {g['finished_frac']} "
+               f"!= {w['finished_frac']}")
+        _check(abs(g["backlog_frac"] - w["backlog_frac"]) < 1e-5,
+               f"{where}: backlog_frac {g['backlog_frac']} "
+               f"!= {w['backlog_frac']}")
+        for f in FLOW_P99S:
+            a, b = g[f], w[f]
+            _check(a == b if 0.0 in (a, b) else _within_one_bin(a, b),
+                   f"{where}: {f} {a} vs {b}")
+        exact["backlog"] += bool(g["backlog_frac"] == w["backlog_frac"])
+        exact["mean"] += bool(g["fct_mean_ms"] == w["fct_mean_ms"])
+    return dict(rows=len(got), backlog_frac_equal=exact["backlog"],
+                fct_mean_equal=exact["mean"],
+                backlog_frac_max_diff=max(abs(g["backlog_frac"]
+                                              - w["backlog_frac"])
+                                          for g, w in zip(got, want)))
+
+
+def _fig09_checks(rows) -> dict:
+    """benchmarks/fig09_websearch.py:45-51 on rows of the grid."""
+    from repro_torch.netsim.sweep import summarize
+
+    mean = summarize(rows, by=("network", "load"),
+                     stats=("fct_p99_ms_small", "admitted"))
+    net = {n: [r for r in mean if r["network"] == n]
+           for n in ("opera", "expander")}
+    return dict(
+        opera10=net["opera"][2]["admitted"] > 0.5
+        and net["opera"][3]["admitted"] < 0.5,
+        statics25=net["expander"][3]["admitted"] > 0.5,
+        low_load_equal=abs(net["opera"][0]["fct_p99_ms_small"]
+                           - net["expander"][0]["fct_p99_ms_small"]) < 5.0)
+
+
+def _grid_sweep(name: str, engine: str, want, profiled: bool):
+    """One stored grid through `run_flow_sweep` (its seconds: scenarios
+    built, run and finalized), held to the stored rows; then the engine
+    alone on the grid's scenarios, which must give the same bits."""
+    import numpy as np
+
+    from repro_torch.netsim import flows_torch
+    from repro_torch.netsim.flows import build_scenario
+    from repro_torch.netsim.sweep import FlowSweepSpec, run_flow_sweep
+
+    # the grid as the stored run ran it (tests/test_torch_flows_tiled.py
+    # holds the stored spec to benchmarks/fig09_websearch.py's and
+    # benchmarks/fig07_datamining.py's)
+    spec = FlowSweepSpec(*(tuple(want[k]) for k in (
+        "networks", "workloads", "loads", "seeds")), engine=engine)
+    sim_kw, steps = want["sim_kw"], want["steps"]
+    with _Batches() as seen:
+        rows, grid_s, _ = _timed(lambda: run_flow_sweep(spec, **sim_kw))
+    batch = seen.seen[0]
+    _check(len(rows) == len(want["rows"]), f"{name}: {len(rows)} rows")
+    for r, w in zip(rows, want["rows"]):
+        _check((r["network"], r["load"], r["seed"])
+               == (w["network"], w["load"], w["seed"]), f"{name}: grid order")
+    n_max = max(w["flows"] for w in want["rows"])
+    resolved = ("tiled" if batch.peak_window_tiles is not None else "dense")
+    _check(resolved == flows_torch.resolve_flow_engine(engine, n_max),
+           f"{name}: {engine} ran the {resolved} engine")
+    held = _hold_flow_rows(rows, batch.hists, want["rows"], name)
+    scns = [build_scenario(r["network"], r["workload"], r["load"],
+                           seed=r["seed"], **sim_kw) for r in rows]
+    _check([s.num_flows for s in scns] == [w["flows"] for w in want["rows"]],
+           f"{name}: flow counts")
+    run = _flow_run(lambda: flows_torch.simulate_flows_batch(
+        scns, engine=resolved), steps, profiled)
+    again = run.pop("result")
+    _check(all(np.array_equal(a, b) for a, b in zip(again.hists, batch.hists))
+           and again.results == batch.results,
+           f"{name}: the engine alone differs from the sweep")
+    return dict(engine=resolved, scenarios=len(rows), steps=steps,
+                max_flows=n_max, peak_window_tiles=batch.peak_window_tiles,
+                stored_peak_window_tiles=want["peak_window_tiles"],
+                held=held, grid_s=grid_s, **run), rows, batch, scns
+
+
+def _fig11_static(topo, data: Path, root: Path) -> dict:
+    """benchmarks/fig11_faults.py:134-158 through the port's
+    `to_failure_set`, `connectivity_loss` and `path_stretch`: full mode
+    held to the JAX package's stored cross-check, fast mode also to
+    results/benchmarks/fig11_faults.json's static block."""
+    import numpy as np
+
+    from repro_torch.core.routing import connectivity_loss, path_stretch
+    from repro_torch.netsim.faults import FailureSchedule
+
+    want = json.loads((data / "fig11_static_expected.json").read_text())
+    fast_rows = ("links 0.04", "switches 2/6")
+    out = {}
+    for mode, stride in (("full", 4), ("fast", 8)):
+        rows = [(label, s) for label, s in _fig11_schedules(topo)
+                if not s.is_empty and (mode == "full" or label in fast_rows)]
+        slices = range(0, topo.num_slices, stride)
+        got = {label: connectivity_loss(topo, s.to_failure_set(), slices)
+               for label, s in rows}
+        base = path_stretch(topo, FailureSchedule.empty(topo).to_failure_set(),
+                            list(slices)[:4])
+        st = path_stretch(topo, rows[0][1].to_failure_set(), list(slices)[:4])
+        got["stretch"] = dict(baseline_mean_path=base["mean_path"],
+                              failed_mean_path=st["mean_path"])
+        targets = [want[mode]]
+        if mode == "fast":
+            targets.append(json.loads((root / "results" / "benchmarks"
+                                       / "fig11_faults.json").read_text())
+                           ["static"])
+        for target in targets:
+            for label, row in got.items():
+                for k, v in row.items():
+                    _check(bool(np.isclose(v, target[label][k], rtol=1e-12,
+                                           atol=1e-12)),
+                           f"fig11 static {mode} {label} {k} {v} "
+                           f"!= {target[label][k]}")
+        out[mode] = got
+    return out
+
+
+def _flows_fig09(stored) -> dict:
+    """Fig. 9 at 648 hosts, the slice's main path: auto -> tiled, then
+    the dense engine on the same grid."""
+    import numpy as np
+
+    from repro_torch.kernels import launch_counts
+    from repro_torch.netsim import flows_torch
+
+    t0 = time.perf_counter()
+    launch_counts.clear()
+    tiled, rows, batch, scns = _grid_sweep("fig09_h648", "auto",
+                                           stored["fig09_h648"], True)
+    tiled["kernel_launches"] = dict(launch_counts)
+    _check(tiled["engine"] == "tiled", "fig09_h648: auto did not run tiled")
+    dense = _flow_run(lambda: flows_torch.simulate_flows_batch(
+        scns, engine="dense"), tiled["steps"])
+    dbatch = dense.pop("result")
+    want_dense = [dict(network=s.network, load=s.load, seed=s.seed, hist=h,
+                       **{f: getattr(r, f) for f in (
+                           FLOW_P99S + ("admitted", "finished_frac",
+                                        "backlog_frac", "fct_mean_ms"))})
+                  for s, r, h in zip(scns, dbatch.results, dbatch.hists)]
+    tiled["vs_dense"] = _hold_flow_rows(rows, batch.hists, want_dense,
+                                        "fig09_h648 tiled vs dense")
+    tiled["vs_dense"]["remaining_bytes_equal"] = sum(
+        bool(np.array_equal(a, b)) for a, b in zip(batch.remaining_bytes,
+                                                   dbatch.remaining_bytes))
+    B = len(scns)
+    tiled["tiled_state_bytes"] = flows_torch.tiled_state_bytes(
+        tiled["peak_window_tiles"], flows_torch.DEFAULT_TILE, B)
+    dense["dense_state_bytes"] = flows_torch.dense_state_bytes(
+        tiled["max_flows"], B)
+    tiled["dense"] = dense
+    # Fig. 9's checks at 648 hosts: a check the JAX package's stored run
+    # fails too is the reference's finding; the port must answer alike
+    tiled["fig09_checks"] = _fig09_checks(rows)
+    tiled["fig09_checks_stored"] = _fig09_checks(stored["fig09_h648"]["rows"])
+    _check(tiled["fig09_checks"] == tiled["fig09_checks_stored"],
+           f"fig09_h648 checks {tiled['fig09_checks']} != the stored run's")
+    tiled["seconds"] = time.perf_counter() - t0
+    return tiled
+
+
+def _flows_fig11(data: Path, root: Path) -> dict:
+    """Fig. 11's four faulted flow scenarios on the tiled engine, and its
+    static cross-check."""
+    import numpy as np
+
+    from repro_torch.core.topology import topology_from_arrays
+    from repro_torch.netsim import flows_torch
+
+    t0 = time.perf_counter()
+    topo = topology_from_arrays(
+        108, 6, np.load(data / "fig11_k12_n108_seed1_sft2.npy"), groups=1)
+    want = json.loads((data / "fig11_expected.json").read_text())["flows"]
+    scns = _fig11_flow_scenarios(topo)
+    run = _flow_run(lambda: flows_torch.simulate_flows_batch(
+        [s for _, s in scns], engine="tiled"), scns[0][1].steps)
+    batch = run.pop("result")
+    return dict(rows=_hold_fig11_flow_rows(scns, batch, want, "fig11 tiled",
+                                           streamed=True),
+                peak_window_tiles=batch.peak_window_tiles, **run,
+                static=_fig11_static(topo, data, root),
+                seconds=time.perf_counter() - t0)
+
+
+def _flows_crossover() -> dict:
+    """Where the two engines cross on the card, one scenario a run."""
+    import numpy as np
+
+    from repro_torch.netsim import flows_torch
+    from repro_torch.netsim.flows import build_scenario
+
+    rows, t0 = [], time.perf_counter()
+    for horizon in CROSSOVER_HORIZONS:
+        scn = build_scenario("expander", "websearch", 0.2, num_hosts=648,
+                             horizon_s=horizon, tail_s=0.3, seed=0)
+        row, hists = dict(horizon_s=horizon, flows=scn.num_flows,
+                          steps=scn.steps), []
+        for engine in ("dense", "tiled"):
+            r = _flow_run(lambda: flows_torch.simulate_flows_batch(
+                [scn], engine=engine), scn.steps)
+            res = r.pop("result")
+            hists.append(res.hists[0])
+            row[engine] = dict(r, peak_window_tiles=res.peak_window_tiles)
+        _check(bool(np.array_equal(*hists)),
+               f"crossover {horizon}: the engines' histograms differ")
+        row["tiled_over_dense"] = (row["tiled"]["ms_per_step"]
+                                   / row["dense"]["ms_per_step"])
+        rows.append(row)
+    return dict(rows=rows, seconds=time.perf_counter() - t0)
+
+
+def phase_flows_tiled(root: Path) -> dict:
+    data = root / "src" / "repro_torch" / "data"
+    stored = json.loads((data / "flow_grids_expected.json").read_text())
+    out = dict(phase="flows_tiled", fig09_h648=_flows_fig09(stored))
+    t0 = time.perf_counter()
+    out["fig07_tiled"] = dict(
+        _grid_sweep("fig07", "tiled", stored["fig07"], False)[0],
+        seconds=time.perf_counter() - t0)
+    out["fig11_tiled"] = _flows_fig11(data, root)
+    out["crossover_rows"] = _flows_crossover()
     return out
 
 
@@ -1497,6 +1831,7 @@ def main() -> int:
     _emit(sweep)
     _emit(phase_crossover(topos))
     _emit(phase_fig11(root))
+    _emit(phase_flows_tiled(root))
     _emit(phase_faulted_sparse_k64(topos["k64-n1024-g4"], sweep))
     del topos
     flash = phase_flash_attention()

@@ -23,9 +23,9 @@ Mask semantics (fluid and flow engines alike):
 * **recovery** at ``recover_step``: masks lift, frozen traffic retries.
 
 `FailureSchedule.empty()` dispatches to the failure-free engine paths,
-so it is bit-identical to running without faults.  The reference's
-``FailureSchedule.to_failure_set`` is not copied: it needs
-`core.routing`, which the port does not have yet.
+so it is bit-identical to running without faults.
+`FailureSchedule.to_failure_set` gives the static `core.routing` view of
+a schedule for the connectivity and stretch cross-checks.
 """
 from __future__ import annotations
 
@@ -138,6 +138,21 @@ class FailureSchedule:
                 **kw))
         return cls(num_racks=topo.num_racks, num_switches=topo.num_switches,
                    events=tuple(events), seed=seed)
+
+    def to_failure_set(self):
+        """Steady-state (all events, time ignored) view for the static
+        connectivity/stretch cross-checks in `repro_torch.core.routing`."""
+        from repro_torch.core.routing import FailureSet
+
+        fs = FailureSet()
+        for ev in self.events:
+            if ev.kind == "link":
+                fs.uplinks.update((int(r), int(s)) for r, s in ev.ids)
+            elif ev.kind == "tor":
+                fs.tors.update(int(t) for t in ev.ids)
+            else:
+                fs.switches.update(int(s) for s in ev.ids)
+        return fs
 
 
 def live_uplinks(topo: OperaTopology) -> List[Tuple[int, int]]:

@@ -1,12 +1,14 @@
-"""Scenario-sweep runner over the batched PyTorch fluid engine.
+"""Scenario-sweep runners over the batched PyTorch engines.
 
-Port of the fluid half of `repro.netsim.sweep`.  Fans a grid of Opera
-design points (k, num_racks, groups) x workloads x load levels x demand
-seeds through `fluid_torch.simulate_rotor_bulk_batch`, one batched call
-per design point.  Loads are offered as a fraction of aggregate host NIC
+Port of `repro.netsim.sweep`.  `run_sweep` fans a grid of Opera design
+points (k, num_racks, groups) x workloads x load levels x demand seeds
+through `fluid_torch.simulate_rotor_bulk_batch`, one batched call per
+design point.  Loads are offered as a fraction of aggregate host NIC
 bandwidth over one topology cycle: at load x, every host sources
 x * link_rate * cycle bytes, placed by the workload's spatial pattern.
-The flow-level sweep is not ported yet.
+`run_flow_sweep` runs a (network x workload x load x seed) flow grid
+through `flows_torch` in one batched call (dense, or tiled at
+`flows_torch.TILED_AUTO_FLOWS` flows under ``engine="auto"``).
 """
 from __future__ import annotations
 
@@ -178,6 +180,38 @@ def run_sweep(spec: SweepSpec, device: DeviceLike = None) -> List[Dict]:
         r, _ = run_design(spec, dp, device=device)
         rows.extend(r)
     return rows
+
+
+@dataclasses.dataclass(frozen=True)
+class FlowSweepSpec:
+    """Flow-level analogue of `SweepSpec`: the (network x workload x load
+    x seed) grids Figs. 7, 9 and 10 sweep through the batched flow
+    engine, with `flows_torch`'s auto/dense/tiled dispatch."""
+
+    networks: Tuple[str, ...]
+    workloads: Tuple[str, ...] = ("websearch",)
+    loads: Tuple[float, ...] = (0.05, 0.2)
+    seeds: Tuple[int, ...] = (0,)
+    engine: str = "auto"            # flows_torch engine: auto | dense | tiled
+
+    @property
+    def num_scenarios(self) -> int:
+        return (len(self.networks) * len(self.workloads)
+                * len(self.loads) * len(self.seeds))
+
+
+def run_flow_sweep(spec: FlowSweepSpec, device: DeviceLike = None,
+                   **sim_kw) -> List[Dict]:
+    """The whole flow grid in one batched run (dense: one step loop;
+    tiled: one chunk loop whose every chunk covers the grid).  `sim_kw`
+    goes to `flows.build_scenario` (horizon_s, dt_s, num_hosts, ...) or
+    to the tiled geometry (tile_size, window_tiles, chunk_steps); rows
+    are `summarize`-ready."""
+    from repro_torch.netsim.flows_torch import simulate_grid
+
+    return simulate_grid(
+        spec.networks, spec.workloads, spec.loads, seeds=spec.seeds,
+        engine=spec.engine, device=device, **sim_kw)
 
 
 def summarize(

@@ -387,23 +387,13 @@ class TestGrids:
 
 
 class TestApi:
-    def test_tiled_engine_is_not_ported(self):
-        _, t = _pair("opera", "websearch", 0.05, seed=0, **TINY)
-        with pytest.raises(NotImplementedError, match="item 3"):
-            flows_torch.simulate_flows_batch([t], engine="tiled", device="cpu")
+    def test_engine_resolution(self):
         assert flows_torch.resolve_flow_engine("auto", 65535) == "dense"
         assert flows_torch.resolve_flow_engine("auto", 65536) == "tiled"
         assert flows_torch.resolve_flow_engine("auto", 10**6, trace=True) \
             == "dense"
         with pytest.raises(ValueError):
             flows_torch.resolve_flow_engine("sparse", 16)
-
-    def test_auto_raises_at_the_tiled_size(self):
-        big = tflows.build_scenario("opera", "websearch", 0.3, num_hosts=648,
-                                    horizon_s=0.3, dt_s=2e-4, tail_s=0.0)
-        assert big.num_flows >= flows_torch.TILED_AUTO_FLOWS
-        with pytest.raises(NotImplementedError, match="tiled"):
-            flows_torch.simulate_flows_batch([big], device="cpu")
 
     def test_batch_checks(self):
         _, a = _pair("opera", "websearch", 0.1, **TINY)

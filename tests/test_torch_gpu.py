@@ -7,7 +7,9 @@ rotor_slice state atol 1e-5, totals rtol 1e-5; flash_attention and
 moe_gmm f32 2e-5, bf16 2e-2 (tests/test_kernels.py:15-18); mamba_scan
 and rglru_scan f32 1e-4, bf16 2e-2 (tests/test_kernels.py:66-69); the
 faulted fluid steps (plain torch) state atol 1e-5 against their CPU
-run, the flow engine at tests/test_flows_jax.py's tolerances.  The
+run, the flow engines at tests/test_flows_jax.py's tolerances (the tiled
+engine's histograms, backlog and remaining bytes equal to the dense
+engine's on the card, and its results equal to its CPU run's).  The
 bf16 flash kernel's wgmma tile products are exact up to the f32
 summation order: within 1e-5 of the sum of the products' magnitudes.
 Head dims between the flash instantiations run zero-padded; moe_gmm runs
@@ -618,3 +620,67 @@ def test_faulted_flows_match_cpu(card):
         np.testing.assert_array_equal(gh.sum(1), rh.sum(1))
     for g, r, s in zip(got.traces, ref.traces, scns):
         np.testing.assert_allclose(g, r, atol=s.sizes.max() * 1e-5)
+
+
+def _tiled_scenarios():
+    """Four small scenarios (clean), then two of them faulted."""
+    topo = build_opera_topology(8, 2, seed=0)
+    kw = dict(num_hosts=16, horizon_s=0.12, dt_s=5e-4, tail_s=0.1)
+    clean = [build_scenario(net, wl, load, seed=seed, **kw)
+             for net, wl, load, seed in (("opera", "websearch", 0.1, 0),
+                                         ("opera", "datamining", 0.35, 1),
+                                         ("expander", "websearch", 0.2, 2),
+                                         ("rotornet", "websearch", 0.15, 3))]
+    sched = FailureSchedule.draw(topo, seed=5, tor_frac=0.25, link_frac=0.2,
+                                 onset_step=40, detect_lag=5,
+                                 recover_step=120)
+    return clean, [apply_flow_faults(s, sched) for s in clean[:2]] + clean[2:]
+
+
+@pytest.mark.parametrize("faulted", [False, True], ids=["clean", "faulted"])
+def test_tiled_flows_match_dense_on_the_card(card, faulted):
+    """The tiled engine on the card against the dense one on the card:
+    histograms bitwise, p99s within one bin, the same backlog_frac and
+    remaining bytes (both engines stage the same allowances and sum the
+    same per-flow deficits on the host)."""
+    scns = _tiled_scenarios()[faulted]
+    dense = simulate_flows_batch(scns, engine="dense")
+    tiled = simulate_flows_batch(scns, engine="tiled", tile_size=32,
+                                 window_tiles=1, chunk_steps=16)
+    assert tiled.peak_window_tiles > 1
+    width = np.log2(1e7) / 96          # FCT_BIN_LOG2_WIDTH
+    for d, t, dh, th, drem, trem in zip(
+            dense.results, tiled.results, dense.hists, tiled.hists,
+            dense.remaining_bytes, tiled.remaining_bytes):
+        np.testing.assert_array_equal(th, dh)
+        assert (t.admitted, t.finished_frac) == (d.admitted, d.finished_frac)
+        assert t.backlog_frac == d.backlog_frac
+        np.testing.assert_array_equal(trem, drem)
+        for f in ("fct_p99_ms_small", "fct_p99_ms_mid", "fct_p99_ms_large"):
+            a, b = getattr(t, f), getattr(d, f)
+            if a == 0.0 or b == 0.0 or np.isinf(a) or np.isinf(b):
+                assert a == b
+            else:
+                assert abs(np.log2(a / b)) <= width * (1 + 1e-9), f
+
+
+@pytest.mark.parametrize("faulted", [False, True], ids=["clean", "faulted"])
+def test_tiled_flows_on_the_card_match_cpu(card, faulted):
+    """The device-resident window gives the CPU run's results: the same
+    window peak, admission, completions and histogram class totals (a
+    bin may move where CUDA's log and the CPU's differ in the last bit),
+    and remaining bytes within tests/test_flows_jax.py's trajectory
+    tolerance."""
+    scns = _tiled_scenarios()[faulted]
+    kw = dict(engine="tiled", tile_size=32, window_tiles=1, chunk_steps=16)
+    got = simulate_flows_batch(scns, **kw)
+    ref = simulate_flows_batch(scns, device="cpu", **kw)
+    assert got.peak_window_tiles == ref.peak_window_tiles
+    for s, g, r, gh, rh, grem, rrem in zip(
+            scns, got.results, ref.results, got.hists, ref.hists,
+            got.remaining_bytes, ref.remaining_bytes):
+        np.testing.assert_array_equal(gh.sum(1), rh.sum(1))
+        assert (g.admitted, g.finished_frac) == (r.admitted, r.finished_frac)
+        assert abs(g.backlog_frac - r.backlog_frac) < 1e-5
+        assert np.isclose(g.fct_mean_ms, r.fct_mean_ms, rtol=1e-5)
+        np.testing.assert_allclose(grem, rrem, atol=s.sizes.max() * 1e-5)

@@ -87,15 +87,20 @@ phase printing one JSON line and any failure raising:
    bf16, at the sweep of tests/test_kernels.py:21-33, at the qwen3-moe
    prefill shapes (B 1, Hq 32, Hkv 4, hd 128, causal, S 128 / 512 /
    2048) and at recurrentgemma-2b's local attention (Hq 10, Hkv 1, hd
-   256, window 2048, S 1900 / 3300), and in bf16 at stablelm-12b's head
-   dim 160 (Hq 32, Hkv 8, S 512; zero-padded to 256 by the wrapper), at
-   f32 2e-5 and bf16 2e-2; times the kernel (events and profiler), the
-   plain version and, as a yardstick never on the path,
+   256, window 2048, S 1900 / 3300), in bf16 at the layouts of
+   smollm-360m (Hq 15, Hkv 5, hd 64), deepseek-moe-16b (Hq 16, Hkv 16, hd
+   128) and stablelm-12b (Hq 32, Hkv 8, hd 160, zero-padded to 256 by the
+   wrapper) at S 512, and at head dims 320 and 512 (Hq 8, Hkv 2, S 512;
+   the f32 kernel's hd-512 instantiation, bf16 widened to f32 around the
+   call), at f32 2e-5 and bf16 2e-2; times the kernel (events and
+   profiler), the plain version and, as a yardstick never on the path,
    `F.scaled_dot_product_attention` (causal, or with the window as a
    boolean mask; `vs_library` is the kernel's time over it).
 9. moe_gmm: the same at tests/test_kernels.py:89-92 and at E 128, D 2048,
    F 768 with C 4 (a 4-slot decode step), C 12 and C 40 (prefills of
-   ~150 and 512 tokens); device ms of both passes together and of each,
+   ~150 and 512 tokens), and in bf16 at deepseek-moe-16b's E 64, D 2048,
+   F 1408 with C 4 (a decode step) and C 56 (a 455-token prefill);
+   device ms of both passes together and of each,
    the share of the byte bound and GB/s.  No single PyTorch call
    computes the fused gated FFN, so no library time; as a yardstick
    never on the path, `bmm_trio_ms` times three `torch.bmm` calls plus
@@ -113,24 +118,34 @@ phase printing one JSON line and any failure raising:
    shows, device ms of the three passes together and of each
    (`rglru_chunk_ends`, `rglru_chunk_carry`, `rglru_chunk_scan`), the
    design's 20 B an element and `bound_share`.
-12. serve_golden, serve_golden_mamba, serve_golden_rgemma: reduced
-   qwen3-moe, falcon-mamba and recurrentgemma in f32 with the JAX
-   package's weights (src/repro_torch/data/): prefill logits at
+12. serve_golden, serve_golden_mamba, serve_golden_rgemma,
+   serve_golden_deepseek, serve_golden_smollm, serve_golden_yi,
+   serve_golden_stablelm, serve_golden_qwen15: each reduced arch in f32
+   (the five transformer archs in their own head layouts, recorded in
+   their files: deepseek MHA at hd 128, smollm hd 64 with 3 query heads a
+   KV head, yi and qwen1.5 hd 128 with 8, stablelm hd 160 with 4) with
+   the JAX package's weights (src/repro_torch/data/): prefill logits at
    atol/rtol 1e-4 and the greedy tokens of a 4-request, 2-slot
    `ServeEngine` run equal to the JAX engine's, each kernel launched once
-   per layer of its kind per prefill (moe_gmm per decode tick too).
-13. serve_full, serve_full_falcon_mamba, serve_full_rgemma: each model at
-   full width and depth in bf16, seed-0 random weights on the card:
-   qwen3-moe-30b-a3b (48 layers) and falcon-mamba-7b (64 layers) serve 8
-   requests of 128-512 tokens at 4 slots, recurrentgemma-2b (26 layers)
-   4 requests of 3,300 / 2,600 / 1,900 / 900 tokens at 2 slots (past its
-   2,048 window), 16 new tokens each; every kernel launch is counted,
-   then a profiled window of decode ticks shows where a tick's time
-   goes.  Each phase frees the last one's weights first.
+   per layer of its kinds per prefill (moe_gmm per decode tick too).
+13. serve_full, serve_full_falcon_mamba, serve_full_rgemma,
+   serve_full_deepseek, serve_full_smollm, serve_full_yi,
+   serve_full_stablelm, serve_full_qwen15: each model at full width in
+   bf16, seed-0 random weights on the card, at full depth but for
+   qwen1.5-110b (20 of its 80 layers: 80 need ~225 GB; the phase prints
+   the cut): qwen3-moe-30b-a3b (48 layers), falcon-mamba-7b (64) and the
+   five transformer archs serve 8 requests of 128-512 tokens at 4 slots,
+   recurrentgemma-2b (26 layers) 4 requests of 3,300 / 2,600 / 1,900 /
+   900 tokens at 2 slots (past its 2,048 window), 16 new tokens each;
+   the parameter count is held to `count_params` (and, for the five,
+   to the JAX package's full-width count), every kernel launch is
+   counted, then a profiled window of decode ticks shows where a tick's
+   time goes.  Each phase frees the last one's weights first.
 
-Then the kernel table line, the card's name and power limit, and the
-device line.  Exits non-zero, printing no result, without a CUDA card or
-outside a checkout of the repository.
+Then each phase's seconds and the script's total, the kernel table
+line, the card's name and power limit, and the device line.  Exits
+non-zero, printing no result, without a CUDA card or outside a checkout
+of the repository.
 """
 from __future__ import annotations
 
@@ -307,10 +322,14 @@ def phase_build() -> dict:
                                 if log.exists() else {})
     wgmma = {k: v for k, v in out["ptxas_flash_attention"].items()
              if k.startswith("flash_fwd_wgmma")}
-    _check(len(wgmma) == len(flash.HEAD_DIMS),
+    _check(len(wgmma) == len(flash.WGMMA_HEAD_DIMS),
            f"flash bf16 instantiations {sorted(wgmma)}")
     _check(all(v["spill_bytes"] == 0 for v in wgmma.values()),
            f"flash bf16 kernel spills: {wgmma}")
+    f32 = [k for k in out["ptxas_flash_attention"]
+           if k.startswith("flash_fwd_f32")]
+    _check(len(f32) == len(flash.HEAD_DIMS),
+           f"flash f32 instantiations {sorted(f32)}")
     sass = subprocess.run(
         [cuda_tool("cuobjdump"), "-sass",
          str(library_path(flash.NAME, [flash.SOURCE]))],
@@ -1224,12 +1243,12 @@ def _wgmma_probe(gen) -> dict:
     import torch
 
     from repro_torch.kernels.flash_attention.kernel import (
-        HEAD_DIMS,
+        WGMMA_HEAD_DIMS,
         wgmma_probe,
     )
 
     worst = 0.0
-    for hd in HEAD_DIMS:
+    for hd in WGMMA_HEAD_DIMS:
         q, k, v = (_randn((64, hd), gen, torch.bfloat16) for _ in range(3))
         p = _randn((64, 64), gen, torch.bfloat16).abs()
         s, o = wgmma_probe(q, k, v, p)
@@ -1239,7 +1258,7 @@ def _wgmma_probe(gen) -> dict:
             rel = float(((got - a @ b).abs() / (a.abs() @ b.abs())).max())
             _check(rel <= 1e-5, f"wgmma probe hd {hd} {what}: {rel}")
             worst = max(worst, rel)
-    return dict(head_dims=list(HEAD_DIMS), max_rel_err=worst)
+    return dict(head_dims=list(WGMMA_HEAD_DIMS), max_rel_err=worst)
 
 
 def phase_flash_attention() -> dict:
@@ -1270,10 +1289,16 @@ def phase_flash_attention() -> dict:
     # attention (hd 256, MQA, window 2048) below and past the window
     cases = [(1, 32, 4, 128, S, 0) for S in (128, 512, 2048)] + [
         (1, 10, 1, 256, S, 2048) for S in (1900, 3300)]
+    # head dims above 256 (F1): the f32 kernel's hd-512 instantiation,
+    # 320 zero-padded to it; bf16 widened to f32 around the call
+    wide = [(1, 8, 2, 320, 512, 0), (1, 8, 2, 512, 512, 0)]
     for dtype in (torch.float32, torch.bfloat16):
-        # stablelm-12b's head dim, between the instantiations
-        padded = [(1, 32, 8, 160, 512, 0)] if dtype == torch.bfloat16 else []
-        for B, Hq, Hkv, hd, S, window in cases + padded:
+        # smollm-360m's (hd 64, group 3) and deepseek-moe-16b's (hd 128,
+        # MHA) layouts, and stablelm-12b's head dim, between the
+        # instantiations (hd 160, group 4)
+        archs = [(1, 15, 5, 64, 512, 0), (1, 16, 16, 128, 512, 0),
+                 (1, 32, 8, 160, 512, 0)] if dtype == torch.bfloat16 else []
+        for B, Hq, Hkv, hd, S, window in cases + archs + wide:
             q = _randn((B, Hq, S, hd), gen, dtype)
             k = _randn((B, Hkv, S, hd), gen, dtype)
             v = _randn((B, Hkv, S, hd), gen, dtype)
@@ -1352,17 +1377,23 @@ def phase_moe_gmm() -> dict:
                 moe_gmm(h, *w), moe_gmm_ref(h, *w), dtype,
                 f"moe_gmm sweep {(E, C, D, Fd)}"))
     rows = []
-    E, D, Fd = 128, 2048, 768
-    for dtype in (torch.float32, torch.bfloat16):
+    # qwen3-moe (E 128, F 768) in both types at a 4-slot decode tick and
+    # prefills of ~150 and 512 tokens; deepseek-moe-16b (E 64, F 1408) in
+    # bf16 at a decode tick and a 455-token prefill (C 56)
+    shapes = [("qwen3-moe-30b-a3b", dtype, 128, 768, (4, 12, 40))
+              for dtype in (torch.float32, torch.bfloat16)] + [
+        ("deepseek-moe-16b", torch.bfloat16, 64, 1408, (4, 56))]
+    D = 2048
+    for arch, dtype, E, Fd, caps in shapes:
         # fan-in scaled weights, as the model draws them (dense_init)
         w = [_randn((E, D, Fd), gen, dtype, D**-0.5),
              _randn((E, D, Fd), gen, dtype, D**-0.5),
              _randn((E, Fd, D), gen, dtype, Fd**-0.5)]
-        for C in (4, 12, 40):
+        for C in caps:
             h = _randn((E, C, D), gen, dtype)
             got = moe_gmm(h, *w)
             err = _held(got, moe_gmm_ref(h, *w), dtype,
-                        f"moe_gmm qwen3 C={C} {dtype}")
+                        f"moe_gmm {arch} C={C} {dtype}")
             _check(torch.equal(got, moe_gmm(h, *w)),
                    f"moe_gmm C={C} not deterministic")
             ms = _cuda_ms(lambda: moe_gmm_fwd(h, *w), reps=10)
@@ -1376,8 +1407,8 @@ def phase_moe_gmm() -> dict:
             nbytes = es * (2 * E * C * D + 3 * E * D * Fd)
             ops = 6 * E * C * D * Fd
             bound_ms, bound_by = _bound(nbytes, ops, dtype)
-            rows.append(dict(dtype=_dname(dtype), E=E, C=C, D=D, F=Fd,
-                             rows_per_block=plan(E, C, D, Fd, dtype).rows,
+            rows.append(dict(arch=arch, dtype=_dname(dtype), E=E, C=C, D=D,
+                             F=Fd, rows_per_block=plan(E, C, D, Fd, dtype).rows,
                              max_abs_err=err, ms=ms, device_ms=device_ms,
                              gate_up_device_ms=gate_up_ms,
                              down_device_ms=down_ms,
@@ -1590,26 +1621,45 @@ def phase_rglru_scan() -> dict:
 
 
 # Each golden run: (phase, arch, stored file, kernel launches per layer
-# of each kind per prefill and per decode tick).
+# of each of its kinds per prefill and per decode tick).
+DENSE_KERNELS = {"flash_attention": (("self_attn",), 1, 0)}
 GOLDEN_RUNS = [
     ("serve_golden", ARCH, "qwen3_moe_reduced_golden.npz",
-     {"flash_attention": ("moe", 1, 0), "moe_gmm": ("moe", 1, 1)}),
+     {"flash_attention": (("moe",), 1, 0), "moe_gmm": (("moe",), 1, 1)}),
     ("serve_golden_mamba", "falcon-mamba-7b", "falcon_mamba_reduced_golden.npz",
-     {"mamba_scan": ("ssm", 1, 0)}),
+     {"mamba_scan": (("ssm",), 1, 0)}),
     ("serve_golden_rgemma", "recurrentgemma-2b",
      "recurrentgemma_reduced_golden.npz",
-     {"rglru_scan": ("rglru", 1, 0), "flash_attention": ("local_attn", 1, 0)}),
+     {"rglru_scan": (("rglru",), 1, 0),
+      "flash_attention": (("local_attn",), 1, 0)}),
+    ("serve_golden_deepseek", "deepseek-moe-16b",
+     "deepseek_moe_16b_reduced_golden.npz",
+     {"flash_attention": (("dense", "moe"), 1, 0),
+      "moe_gmm": (("moe",), 1, 1)}),
+    ("serve_golden_smollm", "smollm-360m", "smollm_360m_reduced_golden.npz",
+     DENSE_KERNELS),
+    ("serve_golden_yi", "yi-9b", "yi_9b_reduced_golden.npz", DENSE_KERNELS),
+    ("serve_golden_stablelm", "stablelm-12b",
+     "stablelm_12b_reduced_golden.npz", DENSE_KERNELS),
+    ("serve_golden_qwen15", "qwen1.5-110b", "qwen15_110b_reduced_golden.npz",
+     DENSE_KERNELS),
 ]
+# JAX's `param_count()` of each transformer arch at full width and depth
+FULL_PARAMS = {"deepseek-moe-16b": 16_375_728_128,
+               "smollm-360m": 361_821_120, "yi-9b": 8_829_407_232,
+               "stablelm-12b": 12_143_339_520,
+               "qwen1.5-110b": 111_209_914_368}
 
 
 def _expected_launches(cfg, kernels: dict, prefills: int, ticks: int) -> dict:
-    """Launches each kernel must count: per layer of its kind, per prefill
-    and per decode tick."""
+    """Launches each kernel must count: per layer of its kinds, per
+    prefill and per decode tick."""
     from repro_torch.models.transformer import stack_plan
 
     kinds = stack_plan(cfg).kinds
-    return {name: kinds.count(kind) * (per_prefill * prefills + per_tick * ticks)
-            for name, (kind, per_prefill, per_tick) in kernels.items()}
+    return {name: sum(k in on for k in kinds)
+            * (per_prefill * prefills + per_tick * ticks)
+            for name, (on, per_prefill, per_tick) in kernels.items()}
 
 
 def phase_serve_golden(root: Path, phase: str, arch: str, fname: str,
@@ -1624,7 +1674,10 @@ def phase_serve_golden(root: Path, phase: str, arch: str, fname: str,
     from repro_torch.serve.engine import Request, ServeEngine
 
     stored = dict(np.load(root / "src" / "repro_torch" / "data" / fname))
-    cfg = reduced_config(get_config(arch)).replace(compute_dtype="float32")
+    # the head layout the golden run was made in, where it records one
+    layout = json.loads(str(stored["config"])) if "config" in stored else {}
+    cfg = reduced_config(get_config(arch)).replace(compute_dtype="float32",
+                                                   **layout)
     params = params_from_numpy(cfg, tree_from_flat(
         {k[len("param/"):]: v for k, v in stored.items()
          if k.startswith("param/")}), device="cuda")
@@ -1654,7 +1707,7 @@ def phase_serve_golden(root: Path, phase: str, arch: str, fname: str,
                f"{phase} tokens {r.rid}: {r.out_tokens} != {want}")
     expected = _expected_launches(cfg, kernels, eng.prefills, eng.ticks)
     _check(launches == expected, f"{phase} launches {launches} != {expected}")
-    return dict(phase=phase, arch=arch, requests=n,
+    return dict(phase=phase, arch=arch, layout=layout, requests=n,
                 prompt_lens=[len(p) for p in prompts], prefills=eng.prefills,
                 ticks=eng.ticks, tokens_equal=True,
                 prefill_logits_max_abs_err=logit_err,
@@ -1711,7 +1764,8 @@ def _free_card() -> None:
 
 def phase_serve_full(phase: str, arch: str, slots: int, max_seq: int,
                      max_new: int, lens, kernels: dict,
-                     probe_len: int = 256) -> dict:
+                     probe_len: int = 256, layers: int = 0,
+                     why: str = "") -> dict:
     """`arch` at full width and depth in bf16, seed-0 random weights on
     the card: a `ServeEngine` serves one request per prompt length
     (token ids numpy seed 0; `lens` None draws qwen3-moe's traffic from
@@ -1719,7 +1773,9 @@ def phase_serve_full(phase: str, arch: str, slots: int, max_seq: int,
     and 134 tokens), `max_new` tokens each; every kernel launch
     is counted against `kernels` (as GOLDEN_RUNS); then `slots` fresh
     requests of `probe_len` tokens and a profiled window of decode ticks
-    show where a tick's time goes."""
+    show where a tick's time goes.  `layers` > 0 cuts the depth (never
+    the width) to that many layers, for the reason `why`, and the phase
+    prints the cut."""
     import numpy as np
     import torch
 
@@ -1730,6 +1786,14 @@ def phase_serve_full(phase: str, arch: str, slots: int, max_seq: int,
 
     _free_card()
     cfg = get_config(arch)            # full width, full depth, bf16 compute
+    if arch in FULL_PARAMS:
+        _check(count_params(cfg) == FULL_PARAMS[arch],
+               f"{phase} full-width count {count_params(cfg)}")
+    reduced = {}
+    if layers:
+        reduced = {"num_layers": [cfg.num_layers, layers]}
+        print(f"reduced: {json.dumps(reduced)} ({why})", flush=True)
+        cfg = cfg.replace(num_layers=layers)
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     params = init_params(cfg, 0, device="cuda")
@@ -1776,7 +1840,8 @@ def phase_serve_full(phase: str, arch: str, slots: int, max_seq: int,
     if not cfg.tie_embeddings:
         tick_bytes -= (embed.shape[0] - slots) * embed.shape[1] * embed.element_size()
     out = dict(
-        phase=phase, arch=cfg.name, layers=cfg.num_layers,
+        phase=phase, arch=cfg.name, layers=cfg.num_layers, reduced=reduced,
+        reduced_why=why,
         d_model=cfg.d_model, params=n_params, param_bytes=param_bytes,
         init_s=init_s, requests=n_req, prompt_lens=lens, new_tokens=max_new,
         slots=slots, max_seq=max_seq, wall_s=wall, prefills=eng.prefills,
@@ -1814,56 +1879,75 @@ def main() -> int:
 
     # plain versions and f32 paths in full f32, as the JAX package's dots
     torch.backends.cuda.matmul.allow_tf32 = False
+    start = time.perf_counter()
+    seconds = {}
 
-    _emit(phase_build())
+    def run(fn, *args, **kw) -> dict:
+        """Run one phase, print its line and keep its seconds."""
+        t0 = time.perf_counter()
+        out = fn(*args, **kw)
+        seconds[out["phase"]] = time.perf_counter() - t0
+        _emit(out)
+        return out
+
+    run(phase_build)
     t0 = time.perf_counter()
     topos = {dp.name: _topology(dp) for dp in appendix_b_grid()}
-    _emit(dict(phase="topologies", seconds=time.perf_counter() - t0))
+    seconds["topologies"] = time.perf_counter() - t0
+    _emit(dict(phase="topologies", seconds=seconds["topologies"]))
 
     # (design, batch): Fig. 8 runs k12-n108-g1 at B = 1, the sweep k64 at 16
-    kern = phase_kernel([(k, topos[k], b, state) for k, b, state in (
+    kern = run(phase_kernel, [(k, topos[k], b, state) for k, b, state in (
         ("k8-n16-g1", 16, "random"), ("k12-n108-g1", 1, "random"),
         ("k12-n108-g1", 16, "random"), ("k12-n108-g2", 16, "random"),
         ("k64-n1024-g4", 16, "random"), ("k64-n1024-g4", 16, "worst_case"))])
-    _emit(kern)
-    _emit(phase_fig08(root))
-    sweep = phase_sweep(topos["k64-n1024-g4"])
-    _emit(sweep)
-    _emit(phase_crossover(topos))
-    _emit(phase_fig11(root))
-    _emit(phase_flows_tiled(root))
-    _emit(phase_faulted_sparse_k64(topos["k64-n1024-g4"], sweep))
+    run(phase_fig08, root)
+    sweep = run(phase_sweep, topos["k64-n1024-g4"])
+    run(phase_crossover, topos)
+    run(phase_fig11, root)
+    run(phase_flows_tiled, root)
+    run(phase_faulted_sparse_k64, topos["k64-n1024-g4"], sweep)
     del topos
-    flash = phase_flash_attention()
-    _emit(flash)
-    gmm = phase_moe_gmm()
-    _emit(gmm)
-    mamba = phase_mamba_scan()
-    _emit(mamba)
-    rglru = phase_rglru_scan()
-    _emit(rglru)
+    flash = run(phase_flash_attention)
+    gmm = run(phase_moe_gmm)
+    mamba = run(phase_mamba_scan)
+    rglru = run(phase_rglru_scan)
     for phase, arch, fname, kernels in GOLDEN_RUNS:
-        _emit(phase_serve_golden(root, phase, arch, fname, kernels))
+        run(phase_serve_golden, root, phase, arch, fname, kernels)
     golden_kernels = {phase: k for phase, _, _, k in GOLDEN_RUNS}
-    serve = phase_serve_full("serve_full", ARCH, 4, 1024, 16, None,
-                             golden_kernels["serve_golden"])
-    _emit(serve)
-    serve_mamba = phase_serve_full(
-        "serve_full_falcon_mamba", "falcon-mamba-7b", 4, 1024, 16, None,
-        golden_kernels["serve_golden_mamba"])
-    _emit(serve_mamba)
-    serve_rgemma = phase_serve_full(
-        "serve_full_rgemma", "recurrentgemma-2b", 2, 4096, 16,
-        [3300, 2600, 1900, 900], golden_kernels["serve_golden_rgemma"])
-    _emit(serve_rgemma)
+    runs = [run(phase_serve_full, "serve_full", ARCH, 4, 1024, 16, None,
+                golden_kernels["serve_golden"])]
+    runs.append(run(phase_serve_full, "serve_full_falcon_mamba",
+                    "falcon-mamba-7b", 4, 1024, 16, None,
+                    golden_kernels["serve_golden_mamba"]))
+    runs.append(run(phase_serve_full, "serve_full_rgemma",
+                    "recurrentgemma-2b", 2, 4096, 16,
+                    [3300, 2600, 1900, 900],
+                    golden_kernels["serve_golden_rgemma"]))
+    # the transformer archs of the JAX package at full width, qwen3-moe's
+    # traffic; qwen1.5-110b's 80 layers (~225 GB of bf16 weights) do not
+    # fit the card's 80 GB, so it keeps 20 of them
+    for phase, arch, layers in (
+            ("serve_full_deepseek", "deepseek-moe-16b", 0),
+            ("serve_full_smollm", "smollm-360m", 0),
+            ("serve_full_yi", "yi-9b", 0),
+            ("serve_full_stablelm", "stablelm-12b", 0),
+            ("serve_full_qwen15", "qwen1.5-110b", 20)):
+        runs.append(run(
+            phase_serve_full, phase, arch, 4, 1024, 16, None,
+            golden_kernels[phase.replace("serve_full", "serve_golden")],
+            layers=layers,
+            why="80 layers of bf16 weights need ~225 GB; 20 fit the "
+                "card's 80 GB" if layers else ""))
 
     main_row = next(r for r in kern["rows"] if r["design"] == "k64-n1024-g4"
                     and r["state"] == "random" and r["vlb"])
-    # the serving path's shapes: bf16, a 512-token prefill, a decode tick
+    # the serving path's shapes: bf16, qwen3-moe's 512-token prefill and
+    # decode tick
     flash_row = next(r for r in flash["rows"] if r["dtype"] == "bfloat16"
-                     and r["S"] == 512 and r["hd"] == 128)
-    gmm_row = next(r for r in gmm["rows"]
-                   if r["dtype"] == "bfloat16" and r["C"] == 4)
+                     and r["S"] == 512 and r["hd"] == 128 and r["Hq"] == 32)
+    gmm_row = next(r for r in gmm["rows"] if r["dtype"] == "bfloat16"
+                   and r["C"] == 4 and r["E"] == 128)
     kernels = [dict(
         name="rotor_slice", route="cuda",
         source="src/repro_torch/kernels/rotor_slice/csrc/rotor_slice.cu",
@@ -1880,7 +1964,6 @@ def main() -> int:
     rglru_row = next(r for r in rglru["rows"]
                      if r["dtype"] == "float32" and r["S"] == 3300)
     # launches: every full serving run the kernel is on, summed
-    runs = (serve, serve_mamba, serve_rgemma)
     for name, row, phase, replaces in (
             ("flash_attention", flash_row, flash,
              "src/repro/kernels/flash_attention/kernel.py:22"),
@@ -1898,6 +1981,8 @@ def main() -> int:
                             + [r["max_abs_err"] for r in phase["rows"]]),
             ms=row["ms"], plain_ms=row["plain_ms"], bound_ms=row["bound_ms"],
             bound_by=row["bound_by"], library_ms=row["library_ms"]))
+    _emit({"phase_seconds": seconds,
+           "total_seconds": time.perf_counter() - start})
     _emit({"kernels": kernels})
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],

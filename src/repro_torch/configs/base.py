@@ -172,9 +172,14 @@ def register(name: str):
 def _load_archs() -> None:
     # import side-effect registration of the ported arch modules
     from repro_torch.configs import (  # noqa: F401
+        deepseek_moe_16b,
         falcon_mamba_7b,
         qwen3_moe_30b_a3b,
+        qwen15_110b,
         recurrentgemma_2b,
+        smollm_360m,
+        stablelm_12b,
+        yi_9b,
     )
 
 

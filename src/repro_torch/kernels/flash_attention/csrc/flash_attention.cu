@@ -90,12 +90,20 @@
 // inputs this costs about one bf16 step of the output
 // (tests/test_torch_flash_attention.py holds it within 2e-2).
 //
-// f32: the CUDA cores, flash_fwd_f32<HD>, unchanged from the first port.
-// The f32 tolerance (2e-5) rules out TF32 tensor cores.  One block of 128
-// threads per (32-query tile, folded head), four threads a query row,
-// each computing 16 of a 64-key tile's scores and a quarter of the row's
-// output dims; Q, K, V converted tiles in shared memory (rows padded by
-// one float against bank conflicts).
+// f32: the CUDA cores, flash_fwd_f32<HD>, unchanged from the first port up
+// to hd 256.  The f32 tolerance (2e-5) rules out TF32 tensor cores.  One
+// block of 128 threads per (32-query tile, folded head), four threads a
+// query row, each computing 16 of a 64-key tile's scores and a quarter of
+// the row's output dims; Q, K, V converted tiles in shared memory (rows
+// padded by one float against bank conflicts): 169 KB at hd 256.
+//
+// Head dims above 256 (hd 512, F1 in ROADMAP Queue 3) run only here, bf16
+// inputs widened to f32 around the call by the wrapper, so they keep p in
+// f32 as the TPU kernel does.  The same code on a smaller tiling
+// (F32Tiling): 16 query rows a block, 32-key tiles and eight threads a row
+// (one warp holds whole rows), so shared memory stays at 166 KB and each
+// thread holds hd/8 = 64 accumulators, as at hd 256.  No config has such a
+// head dim; it is held to the plain version, not made fast.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
@@ -109,22 +117,36 @@ constexpr float kNegInf = -1e30f;
 
 // ---------------- f32: CUDA cores ------------------------------------------
 
-constexpr int kBQ = 32;          // query rows per block
-constexpr int kBK = 64;          // keys per tile
-constexpr int kThreads = 128;    // four threads per query row
-constexpr int kPerThread = kBK / 4;
+// The f32 kernel's tiling at head dim HD: query rows a block, keys a tile
+// and threads a query row (a power of two, so a row lies in one warp).
+template <int HD>
+struct F32Tiling {
+  static constexpr bool kWide = HD > 256;
+  static constexpr int kBQ = kWide ? 16 : 32;
+  static constexpr int kBK = kWide ? 32 : 64;
+  static constexpr int kTPR = kWide ? 8 : 4;
+  static constexpr int kThreads = kBQ * kTPR;   // 128
+  static constexpr int kPerThread = kBK / kTPR;  // scores of a tile a thread
+  static constexpr int kDims = HD / kTPR;        // output dims a thread
+};
 
 template <int HD>
 constexpr size_t smem_bytes_f32() {
+  constexpr int kBQ = F32Tiling<HD>::kBQ, kBK = F32Tiling<HD>::kBK;
   return sizeof(float) *
          (kBQ * (HD + 1) + kBK * (HD + 1) + kBK * HD + kBQ * (kBK + 1));
 }
 
 template <int HD>
-__global__ void __launch_bounds__(kThreads)
+__global__ void __launch_bounds__(F32Tiling<HD>::kThreads)
 flash_fwd_f32(const float* __restrict__ q, const float* __restrict__ k,
               const float* __restrict__ v, float* __restrict__ o, int sq,
               int sk, int group, int causal, int window, float scale) {
+  constexpr int kBQ = F32Tiling<HD>::kBQ, kBK = F32Tiling<HD>::kBK;
+  constexpr int kTPR = F32Tiling<HD>::kTPR;
+  constexpr int kThreads = F32Tiling<HD>::kThreads;
+  constexpr int kPerThread = F32Tiling<HD>::kPerThread;
+  constexpr int kDims = F32Tiling<HD>::kDims;
   extern __shared__ float smem[];
   float* qs = smem;                       // [kBQ][HD + 1]
   float* ks = qs + kBQ * (HD + 1);        // [kBK][HD + 1]
@@ -134,8 +156,8 @@ flash_fwd_f32(const float* __restrict__ q, const float* __restrict__ k,
   const int bh = blockIdx.y;
   const int q0 = blockIdx.x * kBQ;
   const int t = threadIdx.x;
-  const int r = t >> 2;                   // query row within the tile
-  const int c = t & 3;                    // which quarter of the row
+  const int r = t / kTPR;                 // query row within the tile
+  const int c = t % kTPR;                 // which of the row's threads
   const int off = sk - sq;                // query i sits at position i + off
   const float* qb = q + static_cast<size_t>(bh) * sq * HD;
   const float* kb = k + static_cast<size_t>(bh / group) * sk * HD;
@@ -159,9 +181,9 @@ flash_fwd_f32(const float* __restrict__ q, const float* __restrict__ k,
 
   const int qpos = q0 + r + off;
   float m = kNegInf, l = 0.f;
-  float acc[HD / 4];
+  float acc[kDims];
 #pragma unroll
-  for (int i = 0; i < HD / 4; ++i) acc[i] = 0.f;
+  for (int i = 0; i < kDims; ++i) acc[i] = 0.f;
 
   for (int k0 = k_begin; k0 < k_end; k0 += kBK) {
     __syncthreads();  // q tile written; last tile's K/V reads done
@@ -181,50 +203,51 @@ flash_fwd_f32(const float* __restrict__ q, const float* __restrict__ k,
       const float qd = qs[r * (HD + 1) + d];
 #pragma unroll
       for (int jj = 0; jj < kPerThread; ++jj)
-        s[jj] = fmaf(qd, ks[(c + 4 * jj) * (HD + 1) + d], s[jj]);
+        s[jj] = fmaf(qd, ks[(c + kTPR * jj) * (HD + 1) + d], s[jj]);
     }
     float tile_max = -INFINITY;
 #pragma unroll
     for (int jj = 0; jj < kPerThread; ++jj) {
-      const int key = k0 + c + 4 * jj;
+      const int key = k0 + c + kTPR * jj;
       bool live = true;
       if (causal) live = live && key <= qpos;
       if (window > 0) live = live && (qpos - key) < window;
       s[jj] = key >= sk ? -INFINITY : (live ? s[jj] * scale : kNegInf);
       tile_max = fmaxf(tile_max, s[jj]);
     }
-    tile_max = fmaxf(tile_max, __shfl_xor_sync(0xffffffffu, tile_max, 1));
-    tile_max = fmaxf(tile_max, __shfl_xor_sync(0xffffffffu, tile_max, 2));
+#pragma unroll
+    for (int x = 1; x < kTPR; x <<= 1)
+      tile_max = fmaxf(tile_max, __shfl_xor_sync(0xffffffffu, tile_max, x));
     const float m_new = fmaxf(m, tile_max);
     const float corr = expf(m - m_new);
     float psum = 0.f;
 #pragma unroll
     for (int jj = 0; jj < kPerThread; ++jj) {
       const float p = expf(s[jj] - m_new);
-      ps[r * (kBK + 1) + c + 4 * jj] = p;
+      ps[r * (kBK + 1) + c + kTPR * jj] = p;
       psum += p;
     }
     l = l * corr + psum;
     m = m_new;
-    __syncwarp();  // the row's four threads share one warp
+    __syncwarp();  // the row's threads share one warp
 #pragma unroll
-    for (int i = 0; i < HD / 4; ++i) acc[i] *= corr;
+    for (int i = 0; i < kDims; ++i) acc[i] *= corr;
     const int nk = min(kBK, sk - k0);
     for (int j = 0; j < nk; ++j) {
       const float p = ps[r * (kBK + 1) + j];
 #pragma unroll
-      for (int i = 0; i < HD / 4; ++i)
-        acc[i] = fmaf(p, vs[j * HD + c + 4 * i], acc[i]);
+      for (int i = 0; i < kDims; ++i)
+        acc[i] = fmaf(p, vs[j * HD + c + kTPR * i], acc[i]);
     }
   }
 
-  l += __shfl_xor_sync(0xffffffffu, l, 1);
-  l += __shfl_xor_sync(0xffffffffu, l, 2);
+#pragma unroll
+  for (int x = 1; x < kTPR; x <<= 1) l += __shfl_xor_sync(0xffffffffu, l, x);
   if (q0 + r < sq) {
     const float inv_l = 1.f / fmaxf(l, 1e-30f);
     float* ob = o + (static_cast<size_t>(bh) * sq + q0 + r) * HD;
 #pragma unroll
-    for (int i = 0; i < HD / 4; ++i) ob[c + 4 * i] = acc[i] * inv_l;
+    for (int i = 0; i < kDims; ++i) ob[c + kTPR * i] = acc[i] * inv_l;
   }
 }
 
@@ -237,8 +260,9 @@ int launch_f32(const void* q, const void* k, const void* v, void* o, int bhq,
       flash_fwd_f32<HD>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       static_cast<int>(bytes));
   if (err != cudaSuccess) return static_cast<int>(err);
+  constexpr int kBQ = F32Tiling<HD>::kBQ;
   const dim3 grid((sq + kBQ - 1) / kBQ, bhq);
-  flash_fwd_f32<HD><<<grid, kThreads, bytes, st>>>(
+  flash_fwd_f32<HD><<<grid, F32Tiling<HD>::kThreads, bytes, st>>>(
       static_cast<const float*>(q), static_cast<const float*>(k),
       static_cast<const float*>(v), static_cast<float*>(o), sq, sk, group,
       causal, window, scale);
@@ -732,7 +756,7 @@ int launch_probe(const void* q, const void* k, const void* v, const void* p,
   return static_cast<int>(cudaGetLastError());
 }
 
-// f(std::integral_constant<int, hd>) for each head dim the kernels take
+// f(std::integral_constant<int, hd>) for each head dim both kernels take
 template <typename F>
 int by_head_dim(int hd, F&& f) {
   switch (hd) {
@@ -752,8 +776,8 @@ extern "C" {
 // o (BHq, Sq, hd) = attention of q (BHq, Sq, hd) over k, v (BHq / group,
 // Sk, hd), all contiguous and of one type: dtype 0 is f32 (CUDA cores),
 // 1 is bf16 (wgmma; pointers 16-byte aligned).  hd is 16, 32, 64, 128 or
-// 256.  Launches on `stream`; returns the cudaError_t of the launch (0 =
-// success).
+// 256, and for f32 also 512.  Launches on `stream`; returns the
+// cudaError_t of the launch (0 = success).
 int flash_attention_launch(const void* q, const void* k, const void* v,
                            void* o, int dtype, int bhq, int sq, int sk,
                            int hd, int group, int causal, int window,
@@ -762,6 +786,9 @@ int flash_attention_launch(const void* q, const void* k, const void* v,
       bhq % group)
     return static_cast<int>(cudaErrorInvalidValue);
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (dtype == 0 && hd == 512)
+    return launch_f32<512>(q, k, v, o, bhq, sq, sk, group, causal, window,
+                           scale, st);
   if (dtype == 0)
     return by_head_dim(hd, [&](auto h) {
       return launch_f32<decltype(h)::value>(q, k, v, o, bhq, sq, sk, group,

@@ -9,7 +9,9 @@ given, allocates the output with `torch.empty`, launches on the current
 stream without synchronising, and raises on a non-zero ``cudaError_t``.
 A head dim between the instantiations is zero-padded to the next one
 (`padded_head_dim`): zero columns add nothing to Q K^T and give zero
-output columns, and the scale stays that of the true head dim.
+output columns, and the scale stays that of the true head dim.  Head
+dims above 256 run on the f32 kernel's hd-512 instantiation only: bf16
+inputs are widened to f32 for the call and the output rounded back once.
 """
 from __future__ import annotations
 
@@ -23,7 +25,8 @@ from repro_torch.kernels import build_library, launch_counts
 
 NAME = "flash_attention"
 SOURCE = Path(__file__).resolve().parent / "csrc" / "flash_attention.cu"
-HEAD_DIMS = (16, 32, 64, 128, 256)   # the kernel's instantiations
+HEAD_DIMS = (16, 32, 64, 128, 256, 512)   # the f32 kernel's instantiations
+WGMMA_HEAD_DIMS = HEAD_DIMS[:-1]          # the bf16 (wgmma) kernel's
 DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
 _lib = None
@@ -94,7 +97,10 @@ def flash_attention_fwd(
     lib = library()
     bhq, sq, hd = q.shape
     width = padded_head_dim(hd)
+    dtype = q.dtype
     with torch.cuda.device(q.device):
+        if width not in WGMMA_HEAD_DIMS:   # the f32 kernel alone
+            q, k, v = (t.float() for t in (q, k, v))
         if width != hd:
             q, k, v = (F.pad(t, (0, width - hd)) for t in (q, k, v))
         o = torch.empty_like(q)
@@ -106,7 +112,8 @@ def flash_attention_fwd(
     if err:
         raise RuntimeError(f"flash_attention launch failed: cudaError_t {err}")
     launch_counts[NAME] += 1
-    return o if width == hd else o[..., :hd].contiguous()
+    o = o if width == hd else o[..., :hd]
+    return o.to(dtype).contiguous()
 
 
 def wgmma_probe(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -116,8 +123,8 @@ def wgmma_probe(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     ``o = p @ v`` (64, hd), both f32, from bf16 q, k, v (64, hd) and
     p (64, 64) on the card."""
     hd = q.shape[-1]
-    if hd not in HEAD_DIMS:
-        raise ValueError(f"head_dim {hd} not in {HEAD_DIMS}")
+    if hd not in WGMMA_HEAD_DIMS:
+        raise ValueError(f"head_dim {hd} not in {WGMMA_HEAD_DIMS}")
     for name, t, shape in (("q", q, (64, hd)), ("k", k, (64, hd)),
                            ("v", v, (64, hd)), ("p", p, (64, 64))):
         if (tuple(t.shape) != shape or t.dtype != torch.bfloat16

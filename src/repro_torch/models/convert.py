@@ -3,10 +3,11 @@
 `params_from_numpy(cfg, tree)` takes the parameter pytree of
 `repro.models.model.init_params` with every leaf turned into a numpy
 array (``jax.tree.map(np.asarray, params)``) and returns the port's
-`ParamTree`: the scanned ``stack/blocks/<j>`` leaves (stacked over a
-leading ``n_scan`` axis) are unstacked, then the unrolled
-``stack/tail`` layers appended, into one entry per layer in
-`StackPlan.kinds` order (the JAX package's scan order), every leaf keeps its ``(d_in, d_out)`` layout,
+`ParamTree`: the unrolled ``stack/prefix`` layers, then the scanned
+``stack/blocks/<j>`` leaves (stacked over a leading ``n_scan`` axis)
+unstacked, then the unrolled ``stack/tail`` layers, into one entry per
+layer in `StackPlan.kinds` order (the JAX package's scan order); every
+leaf keeps its ``(d_in, d_out)`` layout,
 and each is cast to its storage dtype (`layers.storage_dtype`) — the
 dtype the JAX forward casts it to at use, so the forwards agree bit for
 bit in the casts.
@@ -43,6 +44,15 @@ def _index(tree: Mapping, i: int) -> dict:
             for name, v in tree.items()}
 
 
+def _unrolled(stack: Mapping, name: str) -> list:
+    """The JAX stack's list of unrolled layers `name` ("prefix" or
+    "tail"); from `tree_from_flat` it arrives keyed "0", "1", ..."""
+    layers = stack.get(name, [])
+    if isinstance(layers, Mapping):
+        layers = [layers[str(i)] for i in range(len(layers))]
+    return list(layers)
+
+
 def tree_from_flat(flat: Mapping[str, np.ndarray]) -> dict:
     """Nested dicts from ``"a/b/c"`` keys (a pytree saved with `np.savez`
     under its key paths; a list's entries under ``"0"``, ``"1"``, ...)."""
@@ -61,12 +71,10 @@ def params_from_numpy(cfg: ModelConfig, tree: Mapping,
     dev = resolve_device(device)
     plan = stack_plan(cfg)
     stack = tree["stack"]
-    layers = [_index(stack["blocks"][str(j)], i)
-              for i in range(plan.n_scan) for j in range(len(plan.pattern))]
-    tail = stack.get("tail", [])
-    if isinstance(tail, Mapping):   # from `tree_from_flat`
-        tail = [tail[str(i)] for i in range(len(tail))]
-    layers += list(tail)
+    layers = _unrolled(stack, "prefix")
+    layers += [_index(stack["blocks"][str(j)], i)
+               for i in range(plan.n_scan) for j in range(len(plan.pattern))]
+    layers += _unrolled(stack, "tail")
     if len(layers) != len(plan.kinds):
         raise ValueError(f"{len(layers)} layers for a plan of "
                          f"{len(plan.kinds)}")

@@ -1,10 +1,11 @@
 """Dense feed-forward blocks: SwiGLU / GeGLU (gated) and plain MLP.
 
-Port of `repro.models.ffn`, for the layers of dense stacks.
+Port of `repro.models.ffn`, for the layers of dense stacks and the dense
+prefix layers of MoE stacks (`d_ff` = `d_ff_dense`).
 """
 from __future__ import annotations
 
-from typing import Dict
+from typing import Dict, Optional
 
 import torch
 
@@ -16,8 +17,18 @@ def gated(cfg: ModelConfig) -> bool:
     return cfg.act in ("silu", "gelu")
 
 
-def init_ffn(gen: torch.Generator, cfg: ModelConfig) -> Dict:
-    d_ff = cfg.d_ff
+def ffn_width(cfg: ModelConfig, kind: str) -> int:
+    """The hidden width of a layer's dense FFN: `d_ff_dense` for a MoE
+    stack's leading ``dense`` layers where it is set, else `d_ff`
+    (transformer.py:132-133)."""
+    if kind == "dense" and cfg.moe is not None and cfg.moe.d_ff_dense:
+        return cfg.moe.d_ff_dense
+    return cfg.d_ff
+
+
+def init_ffn(gen: torch.Generator, cfg: ModelConfig,
+             d_ff: Optional[int] = None) -> Dict:
+    d_ff = d_ff or cfg.d_ff
     dt = storage_dtype(cfg, "w_in")
     if gated(cfg):
         return {

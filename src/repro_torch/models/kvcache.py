@@ -22,7 +22,7 @@ def layer_cache_shape(cfg: ModelConfig, kind: str, B: int, L: int) -> Dict:
     hd = cfg.head_dim_
     Hkv = cfg.num_kv_heads
     cd = torch_dtype(cfg.compute_dtype)
-    if kind in ("self_attn", "moe"):
+    if kind in ("self_attn", "moe", "dense"):
         return {"k": ((B, Hkv, L, hd), cd), "v": ((B, Hkv, L, hd), cd)}
     if kind == "local_attn":
         W = min(cfg.hybrid.local_window, L)

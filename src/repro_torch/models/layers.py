@@ -21,15 +21,16 @@ import torch.nn.functional as F
 from torch import nn
 
 # Weights the JAX forward casts to the compute dtype at every use
-# (attention.py:51,63-64,252; moe.py:129-131; ffn.py; the causal conv's
-# "w"/"b", layers.py:121-122; ssm.py:51,53,89,114; rglru.py:47-48,75-76,
-# 81); the embedding is cast at use too (model.py:77-78) unless it
+# (attention.py:51,63-64,252; moe.py:129-131, 181-183; ffn.py; the causal
+# conv's "w"/"b", layers.py:121-122; ssm.py:51,53,89,114; rglru.py:47-48,
+# 75-76, 81); the embedding is cast at use too (model.py:77-78) unless it
 # doubles as the f32 head.  Everything else (router, norm scales,
 # lm_head, the SSM's A_log/D/dt_bias, the RG-LRU's lambda) is used in
 # float32.
 COMPUTE_STORED = frozenset({
     "wq", "wk", "wv", "wo", "bq", "bk", "bv",
     "w_gate", "w_up", "w_down", "w_in", "b_in", "w_out", "b_out",
+    "shared_gate", "shared_up", "shared_down",
     "w", "b", "in_proj", "x_proj", "dt_proj", "out_proj",
     "w_y", "w_x", "w_a", "w_i",
 })

@@ -16,7 +16,7 @@ from repro_torch import DeviceLike, resolve_device
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import rglru as RG
 from repro_torch.models import transformer as T
-from repro_torch.models.ffn import gated
+from repro_torch.models.ffn import ffn_width, gated
 from repro_torch.models.layers import (
     ParamTree,
     apply_norm,
@@ -26,7 +26,6 @@ from repro_torch.models.layers import (
     storage_dtype,
     torch_dtype,
 )
-from repro_torch.models.moe import _no_shared
 
 
 def init_params(cfg: ModelConfig, seed: int,
@@ -51,13 +50,13 @@ def init_params(cfg: ModelConfig, seed: int,
 def _ffn_params(cfg: ModelConfig, kind: str, active_only: bool) -> int:
     D = cfg.d_model
     if kind == "moe":
-        _no_shared(cfg)
         m = cfg.moe
         per_leaf = m.num_experts * D * m.d_ff_expert
         if active_only:  # as the JAX count: experts scaled by top_k / E
             per_leaf = int(per_leaf * m.top_k / m.num_experts)
-        return D * m.num_experts + 3 * per_leaf
-    d_ff = cfg.d_ff
+        shared = 3 * D * m.d_ff_shared if m.num_shared_experts else 0
+        return D * m.num_experts + 3 * per_leaf + shared
+    d_ff = ffn_width(cfg, kind)
     return 3 * D * d_ff if gated(cfg) else 2 * D * d_ff + d_ff + D
 
 

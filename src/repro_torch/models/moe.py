@@ -4,14 +4,17 @@ Port of the single-shard path of `repro.models.moe.apply_moe`
 (moe.py:190-200): softmax top-k routing with renormalized gates,
 GShard-style capacity dispatch with a deterministic drop (stable rank
 within each expert; dropped slots go to a sentinel row that is thrown
-away), the per-expert gated FFN, and the gate-weighted combine.  Where
-the JAX package runs three einsums ("kernels/moe_gmm mirrors this",
-moe.py:128-131), the port calls `kernels.moe_gmm` — on the card the
-hand-written Hopper kernel.  That kernel computes silu only, so
-`apply_moe` refuses any other activation rather than silently using
-silu.  The expert-parallel `shard_map` branches (rotor all-to-all
-dispatch) wait for the rotor collectives (ROADMAP.md Queue 1); shared
-experts wait for deepseek-moe-16b.
+away), the per-expert gated FFN, and the gate-weighted combine, plus
+DeepSeekMoE's always-on shared branch (moe.py:179-185, :200).  Where
+the JAX package runs three einsums for the routed experts
+("kernels/moe_gmm mirrors this", moe.py:128-131), the port calls
+`kernels.moe_gmm` — on the card the hand-written Hopper kernel.  That
+kernel computes silu only, so `apply_moe` refuses any other activation
+rather than silently using silu.  The shared branch is three plain
+products outside any kernel in the JAX package, and stays plain
+`torch.matmul` here.  The expert-parallel `shard_map` branches (rotor
+all-to-all dispatch) wait for the rotor collectives (ROADMAP.md Queue
+1).
 """
 from __future__ import annotations
 
@@ -22,30 +25,30 @@ import torch
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels.moe_gmm import moe_gmm
-from repro_torch.models.layers import dense_init, normal_init, storage_dtype
+from repro_torch.models.layers import (act_fn, dense_init, normal_init,
+                                       storage_dtype)
 
 
 # ---------------- params ---------------------------------------------------
 
 
-def _no_shared(cfg: ModelConfig) -> None:
-    if cfg.moe.num_shared_experts:
-        raise NotImplementedError(
-            "shared experts are not ported yet (deepseek-moe-16b; "
-            "ROADMAP.md Queue 1)")
-
-
 def init_moe(gen: torch.Generator, cfg: ModelConfig) -> Dict:
-    _no_shared(cfg)
     m = cfg.moe
     E, D, F = m.num_experts, cfg.d_model, m.d_ff_expert
     dt = storage_dtype(cfg, "w_gate")
-    return {
+    p = {
         "router": dense_init(gen, D, E, torch.float32),  # fp32 router
         "w_gate": normal_init(gen, (E, D, F), D**-0.5, dt),
         "w_up": normal_init(gen, (E, D, F), D**-0.5, dt),
         "w_down": normal_init(gen, (E, F, D), F**-0.5, dt),
     }
+    if m.num_shared_experts:
+        Fs = m.d_ff_shared
+        sdt = storage_dtype(cfg, "shared_gate")
+        p["shared_gate"] = dense_init(gen, D, Fs, sdt)
+        p["shared_up"] = dense_init(gen, D, Fs, sdt)
+        p["shared_down"] = dense_init(gen, Fs, D, sdt)
+    return p
 
 
 # ---------------- routing helpers ------------------------------------------
@@ -130,7 +133,6 @@ def apply_moe(p, x: torch.Tensor,
     if cfg.act != "silu":
         raise NotImplementedError(
             f"act {cfg.act!r}: the moe_gmm kernel computes silu only")
-    _no_shared(cfg)
     m = cfg.moe
     B, S, D = x.shape
     E, k = m.num_experts, m.top_k
@@ -142,6 +144,11 @@ def apply_moe(p, x: torch.Tensor,
         x.reshape(T, D), gates, idx,
         p["w_gate"], p["w_up"], p["w_down"], cfg, capacity,
     ).reshape(B, S, D)
+    if m.num_shared_experts:  # always-on branch (DeepSeekMoE)
+        f = act_fn(cfg.act)
+        g = f(x @ p["shared_gate"].to(x.dtype))
+        u = x @ p["shared_up"].to(x.dtype)
+        y = y + (g * u) @ p["shared_down"].to(x.dtype)
     return y, _aux_loss(probs, idx, E)
 
 

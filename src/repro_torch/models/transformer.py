@@ -2,10 +2,10 @@
 
 Port of `repro.models.transformer` for the stacks of the ported
 architectures: uniform stacks of ``self_attn``, ``moe`` or ``ssm``
-layers and the hybrid (Griffin) stack of ``rglru`` and ``local_attn``
-layers with its tail; `stack_plan` raises `NotImplementedError` for the
-others.  The JAX package scans stacked superblocks with `lax.scan`; the
-port keeps the layers in an `nn.ModuleList` in `StackPlan.kinds` order
+layers, MoE stacks with leading ``dense`` layers (DeepSeekMoE), and the
+hybrid (Griffin) stack of ``rglru`` and ``local_attn`` layers with its
+tail; `stack_plan` raises `NotImplementedError` for the others.  The
+JAX package scans stacked superblocks with `lax.scan`; the port keeps the layers in an `nn.ModuleList` in `StackPlan.kinds` order
 and loops over them in Python.  Two modes, as serving needs them:
 "prefill" (full sequence, also returns the decode state) and "decode"
 (one token against the state, which it writes in place).  Training
@@ -30,34 +30,37 @@ from repro_torch.models.layers import ParamTree, apply_norm, init_norm
 
 @dataclasses.dataclass(frozen=True)
 class StackPlan:
-    """The JAX package's scanned superblock, `pattern` repeated `n_scan`
-    times, then the unrolled `tail`; the ported stacks have no unrolled
-    prefix."""
+    """The JAX package's split: the unrolled `prefix`, the scanned
+    superblock `pattern` repeated `n_scan` times, then the unrolled
+    `tail`."""
+    prefix: Tuple[str, ...]
     pattern: Tuple[str, ...]
     n_scan: int
     tail: Tuple[str, ...] = ()
 
     @property
     def kinds(self) -> Tuple[str, ...]:
-        return self.pattern * self.n_scan + self.tail
+        return self.prefix + self.pattern * self.n_scan + self.tail
 
 
 def stack_plan(cfg: ModelConfig) -> StackPlan:
     """The JAX package's split of the stack, kept so that parameters
     convert layer by layer.  Ported: uniform dense (``self_attn``), MoE
-    without dense prefix layers and SSM stacks, and the hybrid pattern
-    with its tail."""
+    (with or without leading dense layers) and SSM stacks, and the
+    hybrid pattern with its tail."""
     kinds = cfg.layer_kinds()
+    if cfg.family == "moe" and cfg.moe.first_dense_layers:
+        r = cfg.moe.first_dense_layers
+        return StackPlan(tuple(kinds[:r]), ("moe",), cfg.num_layers - r)
     if cfg.family == "hybrid":
         p = cfg.hybrid.pattern
         n = cfg.num_layers // len(p)
-        return StackPlan(tuple(p), n, tuple(kinds[len(p) * n:]))
-    if cfg.family not in ("dense", "moe", "ssm") or (
-            cfg.moe is not None and cfg.moe.first_dense_layers):
+        return StackPlan((), tuple(p), n, tuple(kinds[len(p) * n:]))
+    if cfg.family not in ("dense", "moe", "ssm"):
         raise NotImplementedError(
             f"the {cfg.family} stack of {cfg.name!r} is not ported yet; "
             "see ROADMAP.md Queue 1")
-    return StackPlan((kinds[0],), cfg.num_layers)
+    return StackPlan((), (kinds[0],), cfg.num_layers)
 
 
 # --------------------------------------------------------------------------
@@ -74,13 +77,13 @@ def init_layer(gen: torch.Generator, cfg: ModelConfig, kind: str) -> Dict:
     p = {"ln1": norm()}
     if kind == "rglru":
         p["rec"] = R.init_rglru_block(gen, cfg)
-    else:   # self_attn / moe / local_attn
+    else:   # self_attn / moe / dense / local_attn
         p["attn"] = A.init_attention(gen, cfg)
     p["ln2"] = norm()
     if kind == "moe":
         p["moe"] = M.init_moe(gen, cfg)
     else:
-        p["ffn"] = F.init_ffn(gen, cfg)
+        p["ffn"] = F.init_ffn(gen, cfg, d_ff=F.ffn_width(cfg, kind))
     return p
 
 
@@ -130,7 +133,7 @@ def apply_layer(
         else:
             y, cs, hs = R.rglru_block_mix(p["rec"], h, cfg, return_state=True)
             new_cache = {"conv": cs, "lru": hs}
-    else:   # self_attn / moe / local_attn
+    else:   # self_attn / moe / dense / local_attn
         window = cfg.hybrid.local_window if kind == "local_attn" else 0
         if decode:
             y, nk, nv = A.attention_block_decode(

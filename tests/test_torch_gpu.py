@@ -12,8 +12,9 @@ engine's histograms, backlog and remaining bytes equal to the dense
 engine's on the card, and its results equal to its CPU run's).  The
 bf16 flash kernel's wgmma tile products are exact up to the f32
 summation order: within 1e-5 of the sum of the products' magnitudes.
-Head dims between the flash instantiations run zero-padded; moe_gmm runs
-its scalar loads for rows or weights off 16 bytes.
+Head dims between the flash instantiations run zero-padded, above 256 on
+the f32 kernel alone; moe_gmm runs its scalar loads for rows or weights
+off 16 bytes.
 """
 import numpy as np
 import pytest
@@ -27,7 +28,7 @@ from repro_torch.configs.base import get_config, reduced_config
 from repro_torch.kernels import launch_counts
 from repro_torch.kernels.flash_attention import flash_attention, flash_attention_ref
 from repro_torch.kernels.flash_attention.kernel import (
-    HEAD_DIMS,
+    WGMMA_HEAD_DIMS,
     flash_attention_fwd,
     wgmma_probe,
 )
@@ -269,10 +270,12 @@ def test_moe_gmm_takes_weights_off_16_bytes(card, dtype):
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("hd,window", [(48, 0), (80, 24), (160, 0)])
+@pytest.mark.parametrize("hd,window", [(48, 0), (80, 24), (160, 0), (320, 0),
+                                       (512, 24)])
 def test_flash_attention_takes_any_head_dim(card, hd, window, dtype):
     """Head dims between the instantiations run zero-padded to the next
-    one (stablelm-12b's is 160)."""
+    one (stablelm-12b's is 160); above 256 on the f32 kernel's hd-512
+    instantiation, bf16 widened to f32 around the call."""
     q = _normal((1, 8, 100, hd), 36, card, dtype)
     k = _normal((1, 2, 100, hd), 37, card, dtype)
     v = _normal((1, 2, 100, hd), 38, card, dtype)
@@ -285,7 +288,7 @@ def test_flash_attention_takes_any_head_dim(card, hd, window, dtype):
     torch.testing.assert_close(got.float(), want.float(), **_tol(dtype))
 
 
-@pytest.mark.parametrize("hd", HEAD_DIMS)
+@pytest.mark.parametrize("hd", WGMMA_HEAD_DIMS)
 def test_wgmma_probe_matches_matmul(card, hd):
     """The bf16 kernel's tile products alone: S = Q K^T (both operands
     K-major from shared memory) and O = P V (P from registers, V
@@ -333,8 +336,8 @@ def test_model_kernel_wrappers_check_their_inputs(card):
     with pytest.raises(ValueError):
         flash_attention_fwd(q.transpose(1, 2).contiguous().transpose(1, 2),
                             k, k, 2, True, 0)
-    wide = _normal((4, 32, 320), 16, card, torch.float32)
-    with pytest.raises(ValueError):   # hd 320: above every instantiation
+    wide = _normal((4, 32, 640), 16, card, torch.float32)
+    with pytest.raises(ValueError):   # hd 640: above every instantiation
         flash_attention_fwd(wide, wide[:2].contiguous(), wide[:2].contiguous(),
                             2, True, 0)
     with pytest.raises(ValueError):
@@ -374,6 +377,31 @@ def test_reduced_serve_counts_its_launches(card):
     n = cfg.num_layers
     assert launch_counts["flash_attention"] == n * eng.prefills == n * 3
     assert launch_counts["moe_gmm"] == n * (eng.prefills + eng.ticks)
+
+
+@pytest.mark.parametrize("arch,flash_layers,moe_layers", [
+    ("deepseek-moe-16b", 3, 2), ("smollm-360m", 2, 0), ("yi-9b", 2, 0),
+    ("stablelm-12b", 2, 0), ("qwen1.5-110b", 2, 0)])
+def test_reduced_transformer_archs_count_their_launches(card, arch,
+                                                        flash_layers,
+                                                        moe_layers):
+    """flash_attention once a layer a prefill (deepseek's dense first
+    layer too), moe_gmm once a MoE layer a prefill and a tick."""
+    cfg = reduced_config(get_config(arch))
+    params = init_params(cfg, 0, device=card)
+    eng = ServeEngine(cfg, params, slots=2, max_seq=48, device=card)
+    rng = np.random.default_rng(0)
+    for rid in range(3):
+        eng.submit(Request(rid=rid, max_new_tokens=5, prompt=rng.integers(
+            0, cfg.vocab_size, int(rng.integers(5, 20))).astype(np.int32)))
+    launch_counts.clear()
+    done = eng.run_to_completion()
+    assert len(done) == 3 and eng.ticks > 0
+    assert all(0 <= t < cfg.vocab_size for r in done for t in r.out_tokens)
+    want = {"flash_attention": flash_layers * 3}
+    if moe_layers:
+        want["moe_gmm"] = moe_layers * (eng.prefills + eng.ticks)
+    assert dict(launch_counts) == want
 
 
 def _scan_tol(dtype):

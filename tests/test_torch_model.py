@@ -82,22 +82,29 @@ def _x(shape, dtype, seed):
 
 
 class TestConfig:
-    def test_configs_equal_the_jax_package(self):
-        for j, t in (_cfgs("bfloat16"), (j_get_config(ARCH), get_config(ARCH))):
+    @pytest.mark.parametrize("arch", list_archs())
+    def test_configs_equal_the_jax_package(self, arch):
+        jred = j_reduced(j_get_config(arch)).replace(compute_dtype="bfloat16")
+        tred = reduced_config(get_config(arch)).replace(
+            compute_dtype="bfloat16")
+        for j, t in ((jred, tred), (j_get_config(arch), get_config(arch))):
             assert dataclasses.asdict(t) == dataclasses.asdict(j)
 
     def test_unported_arch_raises_and_names_roadmap(self):
-        assert list_archs() == ("falcon-mamba-7b", ARCH, "recurrentgemma-2b")
+        assert list_archs() == (
+            "deepseek-moe-16b", "falcon-mamba-7b", "qwen1.5-110b", ARCH,
+            "recurrentgemma-2b", "smollm-360m", "stablelm-12b", "yi-9b")
         with pytest.raises(KeyError, match="ROADMAP"):
-            get_config("deepseek-moe-16b")
+            get_config("seamless-m4t-large-v2")
 
     @pytest.mark.parametrize("change", [
         dict(family="encdec", encoder_layers=2),
-        dict(family="vlm", cross_attn_every=3), "first_dense_layers"])
+        dict(family="vlm", cross_attn_every=3),
+        dict(family="vlm", cross_attn_every=0, num_image_tokens=8)])
     def test_unported_stack_raises_and_names_roadmap(self, change):
+        """The encdec stack, and the vlm family with or without its
+        cross-attention layers (its image inputs are not ported)."""
         cfg = reduced_config(get_config(ARCH))
-        if change == "first_dense_layers":   # deepseek-moe's dense prefix
-            change = dict(moe=dataclasses.replace(cfg.moe, first_dense_layers=1))
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             T.stack_plan(cfg.replace(**change))
 

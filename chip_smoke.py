@@ -90,12 +90,15 @@ phase printing one JSON line and any failure raising:
    256, window 2048, S 1900 / 3300), in bf16 at the layouts of
    smollm-360m (Hq 15, Hkv 5, hd 64), deepseek-moe-16b (Hq 16, Hkv 16, hd
    128) and stablelm-12b (Hq 32, Hkv 8, hd 160, zero-padded to 256 by the
-   wrapper) at S 512, and at head dims 320 and 512 (Hq 8, Hkv 2, S 512;
-   the f32 kernel's hd-512 instantiation, bf16 widened to f32 around the
-   call), at f32 2e-5 and bf16 2e-2; times the kernel (events and
-   profiler), the plain version and, as a yardstick never on the path,
-   `F.scaled_dot_product_attention` (causal, or with the window as a
-   boolean mask; `vs_library` is the kernel's time over it).
+   wrapper) at S 512, non-causal at seamless-m4t's encoder (Hq = Hkv =
+   16, hd 64, S 455) and llama-3.2-vision's cross layers (Hq 64, Hkv 8,
+   hd 128, Sq 455, Sk 1,600), and at head dims 320, 512, 768 and 1024
+   (Hq 8, Hkv 2, S 512; the f32 kernel's hd-512 and hd-1024
+   instantiations, bf16 widened to f32 around the call), at f32 2e-5 and
+   bf16 2e-2; times the kernel (events and profiler), the plain version
+   and, as a yardstick never on the path,
+   `F.scaled_dot_product_attention` (causal, non-causal, or with the
+   window as a boolean mask; `vs_library` is the kernel's time over it).
 9. moe_gmm: the same at tests/test_kernels.py:89-92 and at E 128, D 2048,
    F 768 with C 4 (a 4-slot decode step), C 12 and C 40 (prefills of
    ~150 and 512 tokens), and in bf16 at deepseek-moe-16b's E 64, D 2048,
@@ -120,24 +123,33 @@ phase printing one JSON line and any failure raising:
    design's 20 B an element and `bound_share`.
 12. serve_golden, serve_golden_mamba, serve_golden_rgemma,
    serve_golden_deepseek, serve_golden_smollm, serve_golden_yi,
-   serve_golden_stablelm, serve_golden_qwen15: each reduced arch in f32
-   (the five transformer archs in their own head layouts, recorded in
-   their files: deepseek MHA at hd 128, smollm hd 64 with 3 query heads a
-   KV head, yi and qwen1.5 hd 128 with 8, stablelm hd 160 with 4) with
-   the JAX package's weights (src/repro_torch/data/): prefill logits at
-   atol/rtol 1e-4 and the greedy tokens of a 4-request, 2-slot
-   `ServeEngine` run equal to the JAX engine's, each kernel launched once
-   per layer of its kinds per prefill (moe_gmm per decode tick too).
+   serve_golden_stablelm, serve_golden_qwen15, serve_golden_seamless,
+   serve_golden_llama_vision: each reduced arch in f32 (the seven
+   transformer archs in their own head layouts, recorded in their files:
+   deepseek MHA at hd 128, smollm hd 64 with 3 query heads a KV head, yi,
+   qwen1.5 and llama-vision hd 128 with 8, stablelm hd 160 with 4,
+   seamless MHA at hd 64) with the JAX package's weights
+   (src/repro_torch/data/): prefill logits at atol/rtol 1e-4 (the two
+   cross archs on seeded encoder frames or image embeddings, then three
+   decode steps' logits too) and the greedy tokens of a 4-request,
+   2-slot `ServeEngine` run equal to the JAX run's (the JAX engine's; for
+   the cross archs each request's alone, since the JAX engine attends
+   the zero padding of seamless's cross caches, ROADMAP Queue 3, R4),
+   each kernel launched once per layer of its kinds per prefill (twice
+   per decoder layer; moe_gmm per decode tick too).
 13. serve_full, serve_full_falcon_mamba, serve_full_rgemma,
    serve_full_deepseek, serve_full_smollm, serve_full_yi,
-   serve_full_stablelm, serve_full_qwen15: each model at full width in
-   bf16, seed-0 random weights on the card, at full depth but for
-   qwen1.5-110b (20 of its 80 layers: 80 need ~225 GB; the phase prints
-   the cut): qwen3-moe-30b-a3b (48 layers), falcon-mamba-7b (64) and the
-   five transformer archs serve 8 requests of 128-512 tokens at 4 slots,
+   serve_full_stablelm, serve_full_qwen15, serve_full_seamless,
+   serve_full_llama_vision: each model at full width in bf16, seed-0
+   random weights on the card, at full depth but for qwen1.5-110b (20 of
+   its 80 layers: 80 need ~225 GB) and llama-3.2-vision-90b (35 of 100,
+   28 self + 7 cross: 100 need ~175 GB); the phase prints the cut:
+   qwen3-moe-30b-a3b (48 layers), falcon-mamba-7b (64) and the seven
+   transformer archs serve 8 requests of 128-512 tokens at 4 slots (the
+   cross archs on the engine's zero encoder frames or image embeddings),
    recurrentgemma-2b (26 layers) 4 requests of 3,300 / 2,600 / 1,900 /
    900 tokens at 2 slots (past its 2,048 window), 16 new tokens each;
-   the parameter count is held to `count_params` (and, for the five,
+   the parameter count is held to `count_params` (and, for the seven,
    to the JAX package's full-width count), every kernel launch is
    counted, then a profiled window of decode ticks shows where a tick's
    time goes.  Each phase frees the last one's weights first.
@@ -1261,7 +1273,11 @@ def _wgmma_probe(gen) -> dict:
     return dict(head_dims=list(WGMMA_HEAD_DIMS), max_rel_err=worst)
 
 
-def phase_flash_attention() -> dict:
+def _flash_row(gen, dtype, B, Hq, Hkv, Sq, Sk, hd, causal, window) -> dict:
+    """One flash row: the kernel through `ops.flash_attention` held to its
+    plain version (and to itself: the same bits twice), then timed (events
+    and profiler) beside the plain version, SDPA (causal, non-causal, or
+    with the window as a boolean mask) and its bound."""
     import torch
     import torch.nn.functional as F
 
@@ -1271,6 +1287,55 @@ def phase_flash_attention() -> dict:
         attention_mask,
         flash_attention_ref,
     )
+
+    q = _randn((B, Hq, Sq, hd), gen, dtype)
+    k = _randn((B, Hkv, Sk, hd), gen, dtype)
+    v = _randn((B, Hkv, Sk, hd), gen, dtype)
+    qf = q.reshape(-1, Sq, hd)
+    kf, vf = (t.reshape(-1, Sk, hd) for t in (k, v))
+    what = f"flash Sq={Sq} Sk={Sk} hd={hd} causal={causal} window={window}"
+    got = flash_attention(q, k, v, causal=causal, window=window)
+    want = flash_attention_ref(q, k, v, causal, window)
+    err = _held(got, want, dtype, f"{what} {dtype}")
+    again = flash_attention(q, k, v, causal=causal, window=window)
+    _check(torch.equal(got, again), f"{what} not deterministic")
+    del got, want, again
+    reps = 20 if max(Sq, Sk) <= 512 else 5
+    kernel = lambda: flash_attention_fwd(qf, kf, vf, Hq // Hkv,  # noqa: E731
+                                         causal, window)
+    ms = _cuda_ms(kernel, reps=reps)
+    device_ms = _device_ms(kernel, ("flash_fwd",), reps=reps)
+    plain_ms = _cuda_ms(lambda: flash_attention_ref(q, k, v, causal, window),
+                        reps=3, warmup=1)
+    mask = attention_mask(Sq, Sk, causal, window, device="cuda")
+    if window or (causal and Sq != Sk):
+        sdpa = dict(attn_mask=mask)
+    else:
+        sdpa = dict(is_causal=causal)
+    library_ms = _cuda_ms(lambda: F.scaled_dot_product_attention(
+        q, k, v, enable_gqa=True, **sdpa), reps=reps)
+    live = int(mask.sum())
+    es = q.element_size()
+    nbytes = es * (2 * B * Hq * Sq * hd + 2 * B * Hkv * Sk * hd)
+    ops = 4 * B * Hq * hd * live
+    bound_ms, bound_by = _bound(nbytes, ops, dtype)
+    del q, k, v, qf, kf, vf, mask
+    torch.cuda.empty_cache()
+    return dict(dtype=_dname(dtype), B=B, Hq=Hq, Hkv=Hkv, S=Sq, Sk=Sk, hd=hd,
+                causal=causal, window=window, max_abs_err=err, ms=ms,
+                device_ms=device_ms, plain_ms=plain_ms,
+                library_ms=library_ms, vs_library=ms / library_ms,
+                bound_ms=bound_ms, bound_by=bound_by,
+                tflops=ops / (ms * 1e-3) / 1e12,
+                device_tflops=ops / (device_ms * 1e-3) / 1e12
+                if device_ms else None)
+
+
+def phase_flash_attention() -> dict:
+    import torch
+
+    from repro_torch.kernels.flash_attention.ops import flash_attention
+    from repro_torch.kernels.flash_attention.ref import flash_attention_ref
 
     gen = torch.Generator(device="cuda").manual_seed(0)
     probe = _wgmma_probe(gen)
@@ -1285,66 +1350,30 @@ def phase_flash_attention() -> dict:
             sweep_err = max(sweep_err, _held(
                 got, want, dtype, f"flash sweep {(B, Hq, Hkv, Sq, Sk, hd)}"))
     rows = []
-    # qwen3-moe's prefills (causal), then recurrentgemma-2b's local
-    # attention (hd 256, MQA, window 2048) below and past the window
-    cases = [(1, 32, 4, 128, S, 0) for S in (128, 512, 2048)] + [
-        (1, 10, 1, 256, S, 2048) for S in (1900, 3300)]
-    # head dims above 256 (F1): the f32 kernel's hd-512 instantiation,
-    # 320 zero-padded to it; bf16 widened to f32 around the call
-    wide = [(1, 8, 2, 320, 512, 0), (1, 8, 2, 512, 512, 0)]
+    # B, Hq, Hkv, Sq, Sk, hd, causal, window: qwen3-moe's prefills
+    # (causal), then recurrentgemma-2b's local attention (hd 256, MQA,
+    # window 2048) below and past the window
+    cases = [(1, 32, 4, S, S, 128, True, 0) for S in (128, 512, 2048)] + [
+        (1, 10, 1, S, S, 256, True, 2048) for S in (1900, 3300)]
+    # cross-attention and the encoder, non-causal at a 455-token prompt:
+    # seamless-m4t's encoder (MHA, hd 64) and llama-3.2-vision's cross
+    # layers (hd 128, group 8) over 1,600 image tokens
+    cross = [(1, 16, 16, 455, 455, 64, False, 0),
+             (1, 64, 8, 455, 1600, 128, False, 0)]
+    # head dims above 256 (F1, F2): the f32 kernel's hd-512 and hd-1024
+    # instantiations, 320 and 768 zero-padded to them; bf16 widened to f32
+    # around the call
+    wide = [(1, 8, 2, 512, 512, hd, True, 0) for hd in (320, 512, 768, 1024)]
     for dtype in (torch.float32, torch.bfloat16):
         # smollm-360m's (hd 64, group 3) and deepseek-moe-16b's (hd 128,
         # MHA) layouts, and stablelm-12b's head dim, between the
         # instantiations (hd 160, group 4)
-        archs = [(1, 15, 5, 64, 512, 0), (1, 16, 16, 128, 512, 0),
-                 (1, 32, 8, 160, 512, 0)] if dtype == torch.bfloat16 else []
-        for B, Hq, Hkv, hd, S, window in cases + archs + wide:
-            q = _randn((B, Hq, S, hd), gen, dtype)
-            k = _randn((B, Hkv, S, hd), gen, dtype)
-            v = _randn((B, Hkv, S, hd), gen, dtype)
-            qf, kf, vf = (t.reshape(-1, S, hd) for t in (q, k, v))
-            got = flash_attention(q, k, v, causal=True, window=window)
-            want = flash_attention_ref(q, k, v, True, window)
-            err = _held(got, want, dtype,
-                        f"flash S={S} hd={hd} window={window} {dtype}")
-            again = flash_attention(q, k, v, causal=True, window=window)
-            _check(torch.equal(got, again),
-                   f"flash S={S} hd={hd} not deterministic")
-            del got, want, again
-            reps = 20 if S <= 512 else 5
-            ms = _cuda_ms(lambda: flash_attention_fwd(
-                qf, kf, vf, Hq // Hkv, True, window), reps=reps)
-            device_ms = _device_ms(
-                lambda: flash_attention_fwd(qf, kf, vf, Hq // Hkv, True,
-                                            window),
-                ("flash_fwd",), reps=reps)
-            plain_ms = _cuda_ms(
-                lambda: flash_attention_ref(q, k, v, True, window), reps=3,
-                warmup=1)
-            mask = attention_mask(S, S, True, window, device="cuda")
-            if window:
-                library_ms = _cuda_ms(lambda: F.scaled_dot_product_attention(
-                    q, k, v, attn_mask=mask, enable_gqa=True), reps=reps)
-            else:
-                library_ms = _cuda_ms(lambda: F.scaled_dot_product_attention(
-                    q, k, v, is_causal=True, enable_gqa=True), reps=reps)
-            live = int(mask.sum())
-            es = q.element_size()
-            nbytes = es * (2 * B * Hq * S * hd + 2 * B * Hkv * S * hd)
-            ops = 4 * B * Hq * hd * live
-            bound_ms, bound_by = _bound(nbytes, ops, dtype)
-            rows.append(dict(dtype=_dname(dtype), B=B, Hq=Hq, Hkv=Hkv, S=S,
-                             hd=hd, causal=True, window=window,
-                             max_abs_err=err, ms=ms,
-                             device_ms=device_ms, plain_ms=plain_ms,
-                             library_ms=library_ms,
-                             vs_library=ms / library_ms, bound_ms=bound_ms,
-                             bound_by=bound_by,
-                             tflops=ops / (ms * 1e-3) / 1e12,
-                             device_tflops=ops / (device_ms * 1e-3) / 1e12
-                             if device_ms else None))
-            del q, k, v, qf, kf, vf, mask
-            torch.cuda.empty_cache()
+        archs = [(1, 15, 5, 512, 512, 64, True, 0),
+                 (1, 16, 16, 512, 512, 128, True, 0),
+                 (1, 32, 8, 512, 512, 160, True, 0)
+                 ] if dtype == torch.bfloat16 else []
+        for case in cases + archs + cross + wide:
+            rows.append(_flash_row(gen, dtype, *case))
     return dict(phase="flash_attention", wgmma_probe=probe,
                 sweep_cases=2 * len(FLASH_SWEEP),
                 sweep_max_abs_err=sweep_err, rows=rows)
@@ -1621,7 +1650,8 @@ def phase_rglru_scan() -> dict:
 
 
 # Each golden run: (phase, arch, stored file, kernel launches per layer
-# of each of its kinds per prefill and per decode tick).
+# of each of its kinds per prefill and per decode tick; a kind named
+# twice launches twice, as a decoder layer's self- and cross-attention).
 DENSE_KERNELS = {"flash_attention": (("self_attn",), 1, 0)}
 GOLDEN_RUNS = [
     ("serve_golden", ARCH, "qwen3_moe_reduced_golden.npz",
@@ -1643,23 +1673,70 @@ GOLDEN_RUNS = [
      "stablelm_12b_reduced_golden.npz", DENSE_KERNELS),
     ("serve_golden_qwen15", "qwen1.5-110b", "qwen15_110b_reduced_golden.npz",
      DENSE_KERNELS),
+    ("serve_golden_seamless", "seamless-m4t-large-v2",
+     "seamless_m4t_large_v2_reduced_golden.npz",
+     {"flash_attention": (("encoder", "decoder", "decoder"), 1, 0)}),
+    ("serve_golden_llama_vision", "llama-3.2-vision-90b",
+     "llama32_vision_90b_reduced_golden.npz",
+     {"flash_attention": (("self_attn", "cross_attn"), 1, 0)}),
 ]
 # JAX's `param_count()` of each transformer arch at full width and depth
 FULL_PARAMS = {"deepseek-moe-16b": 16_375_728_128,
                "smollm-360m": 361_821_120, "yi-9b": 8_829_407_232,
                "stablelm-12b": 12_143_339_520,
-               "qwen1.5-110b": 111_209_914_368}
+               "qwen1.5-110b": 111_209_914_368,
+               "seamless-m4t-large-v2": 1_632_698_368,
+               "llama-3.2-vision-90b": 87_666_794_496}
 
 
 def _expected_launches(cfg, kernels: dict, prefills: int, ticks: int) -> dict:
-    """Launches each kernel must count: per layer of its kinds, per
-    prefill and per decode tick."""
-    from repro_torch.models.transformer import stack_plan
+    """Launches each kernel must count: per layer of its kinds (the
+    decoder's and the encoder's), per prefill and per decode tick."""
+    from repro_torch.models.transformer import encoder_plan, stack_plan
 
-    kinds = stack_plan(cfg).kinds
-    return {name: sum(k in on for k in kinds)
+    kinds = stack_plan(cfg).kinds + encoder_plan(cfg).kinds
+    return {name: sum(on.count(k) for k in kinds)
             * (per_prefill * prefills + per_tick * ticks)
             for name, (on, per_prefill, per_tick) in kernels.items()}
+
+
+def _seeded_run(params, cfg, stored: dict, i: int, what: str) -> float:
+    """A golden run's prompt on its stored seeded source (encoder frames
+    or image embeddings): the prefill logits, then the decode steps'
+    logits on the stored greedy tokens, each within 1e-4 of the JAX
+    package's.  Returns the largest difference."""
+    import numpy as np
+    import torch
+
+    from repro_torch.models.model import (
+        CROSS_INPUT,
+        forward_decode,
+        forward_prefill,
+    )
+
+    prompt = stored[f"prompt/{i}"]
+    batch = {"tokens": torch.as_tensor(prompt[None].astype(np.int64),
+                                       device="cuda")}
+    want = [stored[f"logits/{i}"]]
+    if f"embeds/{i}" in stored:
+        batch[CROSS_INPUT[cfg.family]] = torch.as_tensor(
+            stored[f"embeds/{i}"][None], device="cuda")
+        want += list(stored[f"seeded_logits/{i}"])
+    logits, caches = forward_prefill(params, batch, cfg, cache_len=64)
+    worst = 0.0
+    for step, w in enumerate(want):
+        if step:
+            tok = int(stored[f"seeded_tokens/{i}"][step - 1])
+            logits, caches = forward_decode(
+                params, torch.tensor([[tok]], device="cuda"),
+                torch.tensor([len(prompt) + step - 1], device="cuda"),
+                caches, cfg)
+        w = torch.as_tensor(w, device="cuda")
+        err = (logits[0] - w).abs()
+        _check(bool((err <= 1e-4 + 1e-4 * w.abs()).all()),
+               f"{what} logits {i} step {step}: {float(err.max())}")
+        worst = max(worst, float(err.max()))
+    return worst
 
 
 def phase_serve_golden(root: Path, phase: str, arch: str, fname: str,
@@ -1670,7 +1747,6 @@ def phase_serve_golden(root: Path, phase: str, arch: str, fname: str,
     from repro_torch.configs.base import get_config, reduced_config
     from repro_torch.kernels import launch_counts
     from repro_torch.models.convert import params_from_numpy, tree_from_flat
-    from repro_torch.models.model import forward_prefill
     from repro_torch.serve.engine import Request, ServeEngine
 
     stored = dict(np.load(root / "src" / "repro_torch" / "data" / fname))
@@ -1683,17 +1759,9 @@ def phase_serve_golden(root: Path, phase: str, arch: str, fname: str,
          if k.startswith("param/")}), device="cuda")
     n = sum(1 for k in stored if k.startswith("prompt/"))
     prompts = [stored[f"prompt/{i}"] for i in range(n)]
-    logit_err = 0.0
     with torch.no_grad():
-        for i, prompt in enumerate(prompts):
-            tokens = torch.as_tensor(prompt[None].astype(np.int64),
-                                     device="cuda")
-            logits, _ = forward_prefill(params, {"tokens": tokens}, cfg)
-            want = torch.as_tensor(stored[f"logits/{i}"], device="cuda")
-            err = (logits[0] - want).abs()
-            _check(bool((err <= 1e-4 + 1e-4 * want.abs()).all()),
-                   f"{phase} prefill logits {i}: {float(err.max())}")
-            logit_err = max(logit_err, float(err.max()))
+        logit_err = max(_seeded_run(params, cfg, stored, i, phase)
+                        for i in range(n))
     eng = ServeEngine(cfg, params, slots=2, max_seq=64, device="cuda")
     for rid, prompt in enumerate(prompts):
         eng.submit(Request(rid=rid, prompt=prompt, max_new_tokens=8))
@@ -1707,10 +1775,20 @@ def phase_serve_golden(root: Path, phase: str, arch: str, fname: str,
                f"{phase} tokens {r.rid}: {r.out_tokens} != {want}")
     expected = _expected_launches(cfg, kernels, eng.prefills, eng.ticks)
     _check(launches == expected, f"{phase} launches {launches} != {expected}")
+    seeded = {}
+    if "embeds/0" in stored:
+        seeded = dict(source_lens=[len(stored[f"embeds/{i}"])
+                                   for i in range(n)],
+                      seeded_decode_steps=len(stored["seeded_logits/0"]))
+        # the JAX engine's tokens, where they differ: its padded cross
+        # caches (ROADMAP Queue 3, R4)
+        seeded["jax_engine_differs"] = [
+            i for i in range(n) if stored[f"jax_engine_tokens/{i}"].tolist()
+            != stored[f"tokens/{i}"].tolist()]
     return dict(phase=phase, arch=arch, layout=layout, requests=n,
                 prompt_lens=[len(p) for p in prompts], prefills=eng.prefills,
                 ticks=eng.ticks, tokens_equal=True,
-                prefill_logits_max_abs_err=logit_err,
+                prefill_logits_max_abs_err=logit_err, **seeded,
                 **{f"{k}_launches": v for k, v in launches.items()})
 
 
@@ -1781,7 +1859,12 @@ def phase_serve_full(phase: str, arch: str, slots: int, max_seq: int,
 
     from repro_torch.configs.base import get_config
     from repro_torch.kernels import launch_counts
-    from repro_torch.models.model import count_params, forward_prefill, init_params
+    from repro_torch.models.model import (
+        CROSS_INPUT,
+        count_params,
+        forward_prefill,
+        init_params,
+    )
     from repro_torch.serve.engine import Request, ServeEngine
 
     _free_card()
@@ -1828,15 +1911,25 @@ def phase_serve_full(phase: str, arch: str, slots: int, max_seq: int,
     with torch.no_grad():   # logits of the last request's prefill
         tokens = torch.as_tensor(done[-1].prompt[None].astype(np.int64),
                                  device="cuda")
-        logits, _ = forward_prefill(params, {"tokens": tokens}, cfg)
+        batch = {"tokens": tokens}
+        if cfg.family in CROSS_INPUT:   # on a seeded source, not zeros
+            n = (tokens.shape[1] if cfg.family == "encdec"
+                 else cfg.num_image_tokens)
+            gen = torch.Generator(device="cuda").manual_seed(0)
+            batch[CROSS_INPUT[cfg.family]] = _randn(
+                (1, n, cfg.d_model), gen, torch.bfloat16)
+        logits, _ = forward_prefill(params, batch, cfg)
     _check(bool(torch.isfinite(logits).all()), f"{phase} non-finite logits")
     # a decode tick reads every weight (all experts hold capacity rows at
-    # C = 4 for qwen3-moe), the embedding only as its `slots` rows unless
-    # it is also the (tied) head, and the whole decode state
+    # C = 4 for qwen3-moe) but the encoder's, which runs at prefill only,
+    # the embedding only as its `slots` rows unless it is also the (tied)
+    # head, and the whole decode state (self and cross)
     embed = params["embed"]
     cache_bytes = sum(t.numel() * t.element_size()
                       for c in eng.cache for t in c.values())
-    tick_bytes = param_bytes + cache_bytes
+    tick_bytes = param_bytes + cache_bytes - sum(
+        p.numel() * p.element_size() for name in ("encoder", "enc_norm")
+        if name in params for p in params[name].parameters())
     if not cfg.tie_embeddings:
         tick_bytes -= (embed.shape[0] - slots) * embed.shape[1] * embed.element_size()
     out = dict(
@@ -1925,20 +2018,25 @@ def main() -> int:
                     [3300, 2600, 1900, 900],
                     golden_kernels["serve_golden_rgemma"]))
     # the transformer archs of the JAX package at full width, qwen3-moe's
-    # traffic; qwen1.5-110b's 80 layers (~225 GB of bf16 weights) do not
-    # fit the card's 80 GB, so it keeps 20 of them
-    for phase, arch, layers in (
-            ("serve_full_deepseek", "deepseek-moe-16b", 0),
-            ("serve_full_smollm", "smollm-360m", 0),
-            ("serve_full_yi", "yi-9b", 0),
-            ("serve_full_stablelm", "stablelm-12b", 0),
-            ("serve_full_qwen15", "qwen1.5-110b", 20)):
+    # traffic; qwen1.5-110b's 80 layers (~225 GB of bf16 weights) and
+    # llama-3.2-vision-90b's 100 (~175 GB) do not fit the card's 80 GB, so
+    # they keep 20 and 35 (28 self + 7 cross) of them
+    for phase, arch, layers, why in (
+            ("serve_full_deepseek", "deepseek-moe-16b", 0, ""),
+            ("serve_full_smollm", "smollm-360m", 0, ""),
+            ("serve_full_yi", "yi-9b", 0, ""),
+            ("serve_full_stablelm", "stablelm-12b", 0, ""),
+            ("serve_full_qwen15", "qwen1.5-110b", 20,
+             "80 layers of bf16 weights need ~225 GB; 20 fit the card's "
+             "80 GB"),
+            ("serve_full_seamless", "seamless-m4t-large-v2", 0, ""),
+            ("serve_full_llama_vision", "llama-3.2-vision-90b", 35,
+             "100 layers of bf16 weights need ~175 GB; 35 (28 self + 7 "
+             "cross) fit the card's 80 GB")):
         runs.append(run(
             phase_serve_full, phase, arch, 4, 1024, 16, None,
             golden_kernels[phase.replace("serve_full", "serve_golden")],
-            layers=layers,
-            why="80 layers of bf16 weights need ~225 GB; 20 fit the "
-                "card's 80 GB" if layers else ""))
+            layers=layers, why=why))
 
     main_row = next(r for r in kern["rows"] if r["design"] == "k64-n1024-g4"
                     and r["state"] == "random" and r["vlb"])

@@ -2,10 +2,9 @@
 
 Copy of `repro.configs.base` without the dry-run input specs
 (`input_specs` builds `jax.ShapeDtypeStruct` stand-ins; the port has no
-dry run yet).  Every ported architecture is a `ModelConfig` registered
-under its public id; `get_config` raises `KeyError` for an architecture
-the port has not reached, naming ROADMAP.md where the order is kept.
-Keep the dataclasses in step with the JAX package.
+dry run yet).  Every architecture of the JAX package is a `ModelConfig`
+registered under its public id; `get_config` raises `KeyError` for any
+other name.  Keep the dataclasses in step with the JAX package.
 """
 from __future__ import annotations
 
@@ -174,9 +173,11 @@ def _load_archs() -> None:
     from repro_torch.configs import (  # noqa: F401
         deepseek_moe_16b,
         falcon_mamba_7b,
+        llama32_vision_90b,
         qwen3_moe_30b_a3b,
         qwen15_110b,
         recurrentgemma_2b,
+        seamless_m4t_large_v2,
         smollm_360m,
         stablelm_12b,
         yi_9b,
@@ -186,9 +187,7 @@ def _load_archs() -> None:
 def get_config(name: str) -> ModelConfig:
     _load_archs()
     if name not in _REGISTRY:
-        raise KeyError(
-            f"arch {name!r} is not ported to PyTorch yet (ported: "
-            f"{sorted(_REGISTRY)}); ROADMAP.md Queue 1 keeps the order")
+        raise KeyError(f"unknown arch {name!r}; known: {sorted(_REGISTRY)}")
     return _REGISTRY[name]()
 
 

@@ -97,13 +97,16 @@
 // the row's output dims; Q, K, V converted tiles in shared memory (rows
 // padded by one float against bank conflicts): 169 KB at hd 256.
 //
-// Head dims above 256 (hd 512, F1 in ROADMAP Queue 3) run only here, bf16
-// inputs widened to f32 around the call by the wrapper, so they keep p in
-// f32 as the TPU kernel does.  The same code on a smaller tiling
-// (F32Tiling): 16 query rows a block, 32-key tiles and eight threads a row
-// (one warp holds whole rows), so shared memory stays at 166 KB and each
-// thread holds hd/8 = 64 accumulators, as at hd 256.  No config has such a
-// head dim; it is held to the plain version, not made fast.
+// Head dims above 256 (hd 512 and 1024, F1 and F2 in ROADMAP Queue 3) run
+// only here, bf16 inputs widened to f32 around the call by the wrapper, so
+// they keep p in f32 as the TPU kernel does.  The same code on smaller
+// tilings (F32Tiling), each halving the query rows and keys and doubling
+// the threads a row (one warp holds whole rows): hd 512 takes 16 query
+// rows a block, 32-key tiles and eight threads a row (166 KB of shared
+// memory), hd 1024 8 rows, 16-key tiles and 16 threads a row (q 32 KB, k
+// 64 KB, v 64 KB: 161 KB); each thread holds hd / threads-a-row = 64
+// accumulators, as at hd 256.  No config has such a head dim; it is held
+// to the plain version, not made fast.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
@@ -118,13 +121,14 @@ constexpr float kNegInf = -1e30f;
 // ---------------- f32: CUDA cores ------------------------------------------
 
 // The f32 kernel's tiling at head dim HD: query rows a block, keys a tile
-// and threads a query row (a power of two, so a row lies in one warp).
+// and threads a query row (a power of two, so a row lies in one warp);
+// halved, halved and doubled at hd 512, again at hd 1024.
 template <int HD>
 struct F32Tiling {
-  static constexpr bool kWide = HD > 256;
-  static constexpr int kBQ = kWide ? 16 : 32;
-  static constexpr int kBK = kWide ? 32 : 64;
-  static constexpr int kTPR = kWide ? 8 : 4;
+  static constexpr int kWide = HD > 512 ? 2 : (HD > 256 ? 1 : 0);
+  static constexpr int kBQ = 32 >> kWide;
+  static constexpr int kBK = 64 >> kWide;
+  static constexpr int kTPR = 4 << kWide;
   static constexpr int kThreads = kBQ * kTPR;   // 128
   static constexpr int kPerThread = kBK / kTPR;  // scores of a tile a thread
   static constexpr int kDims = HD / kTPR;        // output dims a thread
@@ -776,7 +780,7 @@ extern "C" {
 // o (BHq, Sq, hd) = attention of q (BHq, Sq, hd) over k, v (BHq / group,
 // Sk, hd), all contiguous and of one type: dtype 0 is f32 (CUDA cores),
 // 1 is bf16 (wgmma; pointers 16-byte aligned).  hd is 16, 32, 64, 128 or
-// 256, and for f32 also 512.  Launches on `stream`; returns the
+// 256, and for f32 also 512 and 1024.  Launches on `stream`; returns the
 // cudaError_t of the launch (0 = success).
 int flash_attention_launch(const void* q, const void* k, const void* v,
                            void* o, int dtype, int bhq, int sq, int sk,
@@ -789,6 +793,9 @@ int flash_attention_launch(const void* q, const void* k, const void* v,
   if (dtype == 0 && hd == 512)
     return launch_f32<512>(q, k, v, o, bhq, sq, sk, group, causal, window,
                            scale, st);
+  if (dtype == 0 && hd == 1024)
+    return launch_f32<1024>(q, k, v, o, bhq, sq, sk, group, causal, window,
+                            scale, st);
   if (dtype == 0)
     return by_head_dim(hd, [&](auto h) {
       return launch_f32<decltype(h)::value>(q, k, v, o, bhq, sq, sk, group,

@@ -10,8 +10,9 @@ stream without synchronising, and raises on a non-zero ``cudaError_t``.
 A head dim between the instantiations is zero-padded to the next one
 (`padded_head_dim`): zero columns add nothing to Q K^T and give zero
 output columns, and the scale stays that of the true head dim.  Head
-dims above 256 run on the f32 kernel's hd-512 instantiation only: bf16
-inputs are widened to f32 for the call and the output rounded back once.
+dims above 256 run on the f32 kernel's hd-512 and hd-1024 instantiations
+only: bf16 inputs are widened to f32 for the call and the output rounded
+back once.  Above 1024 the wrapper raises.
 """
 from __future__ import annotations
 
@@ -25,8 +26,8 @@ from repro_torch.kernels import build_library, launch_counts
 
 NAME = "flash_attention"
 SOURCE = Path(__file__).resolve().parent / "csrc" / "flash_attention.cu"
-HEAD_DIMS = (16, 32, 64, 128, 256, 512)   # the f32 kernel's instantiations
-WGMMA_HEAD_DIMS = HEAD_DIMS[:-1]          # the bf16 (wgmma) kernel's
+HEAD_DIMS = (16, 32, 64, 128, 256, 512, 1024)  # the f32 kernel's
+WGMMA_HEAD_DIMS = HEAD_DIMS[:5]                # the bf16 (wgmma) kernel's
 DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
 _lib = None
@@ -81,7 +82,8 @@ def padded_head_dim(hd: int) -> int:
     for width in HEAD_DIMS:
         if 1 <= hd <= width:
             return width
-    raise ValueError(f"head_dim {hd} outside 1..{HEAD_DIMS[-1]}")
+    raise ValueError(f"head_dim {hd} outside 1..{HEAD_DIMS[-1]}: the flash "
+                     f"kernel's largest instantiation is {HEAD_DIMS[-1]}")
 
 
 def flash_attention_fwd(

@@ -1,19 +1,25 @@
 """Attention: GQA with RoPE and QK-norm, prefill through the flash
-attention kernel (causal, or within a sliding window), and decode against
-a KV cache or a ring-buffer window cache.
+attention kernel (causal, bidirectional, or within a sliding window),
+decode against a KV cache or a ring-buffer window cache, and
+cross-attention over encoder states or image embeddings.
 
-Port of `repro.models.attention` for causal self-attention with RoPE,
-the attention of the ported architectures, full or windowed (the
-local attention of recurrentgemma).  Where the JAX package runs
+Port of `repro.models.attention`.  Self-attention always applies RoPE
+(no caller of the JAX package turns it off); it is causal, full or
+windowed (the local attention of recurrentgemma), or bidirectional (the
+encoder of seamless-m4t).  Where the JAX package runs
 `chunked_attention` (attention.py:248), or `block_local_attention` for
 a window shorter than the sequence (:245-246), the port calls
 `kernels.flash_attention` with the window, the same function (mask
 ``0 <= q - k < window``), which on the card is the hand-written Hopper
 kernel.  `block_local_attention` is kept as a plain function beside it
-and tested against both.  Decode attention (one query against the
-cache) stays plain torch: no TPU kernel computes it in the JAX package.
-Attention without RoPE, non-causal attention and cross-attention wait
-for the slices whose models use them (ROADMAP.md Queue 1).
+and tested against both.  Cross-attention (attention.py:296-317) has no
+RoPE and no mask: its prefill goes through the same kernel, non-causal,
+over K/V projected once from the source (`project_cross_kv`).  Decode
+attention (one query against a cache, self or cross) stays plain torch:
+no TPU kernel computes it in the JAX package.  A cross cache may be
+longer than its source (a serving slot sized for the longest); decode
+masks it at the source's length (`cross_attention_decode`), where the
+JAX package attends over the zero padding too (ROADMAP.md Queue 3, R4).
 """
 from __future__ import annotations
 
@@ -37,7 +43,9 @@ NEG_INF = -1e30
 # ---------------- params ---------------------------------------------------
 
 
-def init_attention(gen: torch.Generator, cfg: ModelConfig) -> Dict:
+def init_attention(gen: torch.Generator, cfg: ModelConfig,
+                   cross: bool = False) -> Dict:
+    """A cross-attention layer has no QK-norm (attention.py:42)."""
     hd = cfg.head_dim_
     dq = cfg.num_heads * hd
     dkv = cfg.num_kv_heads * hd
@@ -53,7 +61,7 @@ def init_attention(gen: torch.Generator, cfg: ModelConfig) -> Dict:
         p["bq"] = torch.zeros((dq,), dtype=dt, device=dev)
         p["bk"] = torch.zeros((dkv,), dtype=dt, device=dev)
         p["bv"] = torch.zeros((dkv,), dtype=dt, device=dev)
-    if cfg.qk_norm:
+    if cfg.qk_norm and not cross:
         p["q_norm"] = torch.ones((hd,), dtype=torch.float32, device=dev)
         p["k_norm"] = torch.ones((hd,), dtype=torch.float32, device=dev)
     return p
@@ -158,10 +166,12 @@ def attention_block(
     cfg: ModelConfig,
     positions: torch.Tensor,          # (S,)
     window: int = 0,
+    causal: bool = True,
     return_kv: bool = False,
 ):
-    """Causal self-attention over a full sequence (prefill), within the
-    last `window` positions when window > 0.
+    """Self-attention over a full sequence (prefill): causal, within the
+    last `window` positions when window > 0, or bidirectional with
+    causal=False (an encoder layer).
 
     With return_kv=True also returns the (roped) K/V actually used — the
     exact tensors a decode cache must contain: for a window no longer
@@ -171,7 +181,7 @@ def attention_block(
     q = apply_rope(_project_q(p, x, cfg), positions, cfg.rope_theta)
     k, v = _project_kv(p, x, cfg)
     k = apply_rope(k, positions, cfg.rope_theta)
-    o = flash_attention(q, k, v, causal=True, window=window)
+    o = flash_attention(q, k, v, causal=causal, window=window)
     y = o.transpose(1, 2).reshape(B, S, -1) @ p["wo"].to(x.dtype)
     if return_kv:
         if window > 0 and S >= window:
@@ -207,3 +217,38 @@ def attention_block_decode(
     o = decode_attention(q, k_cache, v_cache, torch.clamp(pos + 1, max=S),
                          window=0 if ring else window)
     return o.reshape(x.shape[0], 1, -1) @ p["wo"].to(x.dtype), k_cache, v_cache
+
+
+def project_cross_kv(p, src: torch.Tensor, cfg: ModelConfig):
+    """Cross-attention K/V (B, Hkv, Sx, hd) from encoder states or image
+    embeddings (B, Sx, D), computed once a prefill (attention.py:313)."""
+    return _project_kv(p, src, cfg)
+
+
+def cross_attention_block(
+    p,
+    x: torch.Tensor,                  # (B, S, D)
+    cfg: ModelConfig,
+    cross_k: torch.Tensor,            # (B, Hkv, Sx, hd)
+    cross_v: torch.Tensor,
+) -> torch.Tensor:
+    """Every query attends every source position: no RoPE, no mask
+    (attention.py:296-310), through the flash kernel."""
+    B, S, _ = x.shape
+    o = flash_attention(_project_q(p, x, cfg), cross_k, cross_v,
+                        causal=False)
+    return o.transpose(1, 2).reshape(B, S, -1) @ p["wo"].to(x.dtype)
+
+
+def cross_attention_decode(
+    p,
+    x: torch.Tensor,                  # (B, 1, D)
+    cfg: ModelConfig,
+    cross_k: torch.Tensor,            # (B, Hkv, Lx, hd)
+    cross_v: torch.Tensor,
+    src_len: torch.Tensor,            # (B,): valid source positions
+) -> torch.Tensor:
+    """One decode step's cross-attention over the cache, masked past each
+    row's source length (the JAX package attends all Lx: R4)."""
+    o = decode_attention(_project_q(p, x, cfg), cross_k, cross_v, src_len)
+    return o.reshape(x.shape[0], 1, -1) @ p["wo"].to(x.dtype)

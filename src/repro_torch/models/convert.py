@@ -6,7 +6,9 @@ array (``jax.tree.map(np.asarray, params)``) and returns the port's
 `ParamTree`: the unrolled ``stack/prefix`` layers, then the scanned
 ``stack/blocks/<j>`` leaves (stacked over a leading ``n_scan`` axis)
 unstacked, then the unrolled ``stack/tail`` layers, into one entry per
-layer in `StackPlan.kinds` order (the JAX package's scan order); every
+layer in `StackPlan.kinds` order (the JAX package's scan order; a vlm
+superblock's ``blocks/0`` .. ``blocks/4`` interleave); an encdec model's
+``encoder`` stack likewise in `encoder_plan` order; every
 leaf keeps its ``(d_in, d_out)`` layout,
 and each is cast to its storage dtype (`layers.storage_dtype`) — the
 dtype the JAX forward casts it to at use, so the forwards agree bit for
@@ -22,7 +24,7 @@ import torch
 from repro_torch import DeviceLike, resolve_device
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models.layers import ParamTree, storage_dtype
-from repro_torch.models.transformer import stack_plan
+from repro_torch.models.transformer import StackPlan, encoder_plan, stack_plan
 
 
 def _leaves(cfg: ModelConfig, tree: Mapping, dev: torch.device) -> dict:
@@ -66,11 +68,8 @@ def tree_from_flat(flat: Mapping[str, np.ndarray]) -> dict:
     return tree
 
 
-def params_from_numpy(cfg: ModelConfig, tree: Mapping,
-                      device: DeviceLike = None) -> ParamTree:
-    dev = resolve_device(device)
-    plan = stack_plan(cfg)
-    stack = tree["stack"]
+def _layers(stack: Mapping, plan: StackPlan) -> list:
+    """A JAX stack's layers, one tree each, in `plan.kinds` order."""
     layers = _unrolled(stack, "prefix")
     layers += [_index(stack["blocks"][str(j)], i)
                for i in range(plan.n_scan) for j in range(len(plan.pattern))]
@@ -78,7 +77,18 @@ def params_from_numpy(cfg: ModelConfig, tree: Mapping,
     if len(layers) != len(plan.kinds):
         raise ValueError(f"{len(layers)} layers for a plan of "
                          f"{len(plan.kinds)}")
-    top = {name: v for name, v in tree.items() if name != "stack"}
-    out = _leaves(cfg, top, dev)
-    out["stack"] = [_leaves(cfg, layer, dev) for layer in layers]
+    return layers
+
+
+def params_from_numpy(cfg: ModelConfig, tree: Mapping,
+                      device: DeviceLike = None) -> ParamTree:
+    dev = resolve_device(device)
+    stacks = {"stack": stack_plan(cfg)}
+    if "encoder" in tree:
+        stacks["encoder"] = encoder_plan(cfg)
+    out = _leaves(cfg, {name: v for name, v in tree.items()
+                        if name not in stacks}, dev)
+    for name, plan in stacks.items():
+        out[name] = [_leaves(cfg, layer, dev)
+                     for layer in _layers(tree[name], plan)]
     return ParamTree(out)

@@ -1,6 +1,10 @@
-"""Decode state: KV caches, ring window caches, SSM and LRU states.
+"""Decode state: KV caches, ring window caches, cross-attention caches,
+SSM and LRU states.
 
-Port of `repro.models.kvcache` for the ported layer kinds.  The JAX
+Port of `repro.models.kvcache`.  A ``decoder`` layer (encdec) keeps its
+self K/V and the cross K/V of the encoder's output, both `L` long as in
+the JAX package (kvcache.py:28-35); a ``cross_attn`` layer (vlm) the
+cross K/V of `num_image_tokens` image embeddings.  The JAX
 package threads a cache pytree through `lax.scan`; the port keeps one
 dict per layer, in `StackPlan.kinds` order, each leaf a view of one
 zero-filled tensor stacked over the layers of that kind (kinds differ in
@@ -27,6 +31,11 @@ def layer_cache_shape(cfg: ModelConfig, kind: str, B: int, L: int) -> Dict:
     if kind == "local_attn":
         W = min(cfg.hybrid.local_window, L)
         return {"k": ((B, Hkv, W, hd), cd), "v": ((B, Hkv, W, hd), cd)}
+    if kind == "decoder":   # the encoder's length is at most L
+        return {name: ((B, Hkv, L, hd), cd) for name in ("k", "v", "ck", "cv")}
+    if kind == "cross_attn":
+        n = cfg.num_image_tokens
+        return {"ck": ((B, Hkv, n, hd), cd), "cv": ((B, Hkv, n, hd), cd)}
     if kind == "ssm":
         s = cfg.ssm
         Di = cfg.d_inner_
@@ -40,8 +49,7 @@ def layer_cache_shape(cfg: ModelConfig, kind: str, B: int, L: int) -> Dict:
             "conv": ((B, 3, Dl), cd),
             "lru": ((B, Dl), torch.float32),
         }
-    raise NotImplementedError(
-        f"decode state of {kind!r} layers is not ported yet; see ROADMAP.md")
+    raise ValueError(f"no decode state for {kind!r} layers")
 
 
 def init_cache(cfg: ModelConfig, B: int, L: int,

@@ -4,6 +4,10 @@ Port of the serving half of `repro.models.model` (training forwards and
 the losses wait for the training slice).  Entry points take parameters
 built by `init_params` (random, from a seed, on the card by default) or
 by `models.convert.params_from_numpy` (the JAX package's parameters).
+An encdec model's prefill takes ``batch["encoder_embeds"]`` (B, Sx, D),
+the frames its encoder reads (the modality frontend is a stub, as in the
+JAX package); a vlm's ``batch["image_embeds"]`` (B, Sx, D).  Either is
+cast to the compute dtype.
 """
 from __future__ import annotations
 
@@ -28,6 +32,11 @@ from repro_torch.models.layers import (
 )
 
 
+# the batch entry a family's cross-attention reads: (B, Sx, D) encoder
+# frames or image embeddings
+CROSS_INPUT = {"encdec": "encoder_embeds", "vlm": "image_embeds"}
+
+
 def init_params(cfg: ModelConfig, seed: int,
                 device: DeviceLike = None) -> ParamTree:
     """Random parameters with the JAX package's distributions, drawn on
@@ -44,6 +53,9 @@ def init_params(cfg: ModelConfig, seed: int,
     if not cfg.tie_embeddings:
         p["lm_head"] = dense_init(gen, cfg.d_model, cfg.vocab_size,
                                   torch.float32)
+    if cfg.family == "encdec":
+        p["encoder"] = T.init_stack(gen, cfg, T.encoder_plan(cfg))
+        p["enc_norm"] = init_norm(cfg.norm, cfg.d_model, dev)
     return ParamTree(p)
 
 
@@ -60,9 +72,21 @@ def _ffn_params(cfg: ModelConfig, kind: str, active_only: bool) -> int:
     return 3 * D * d_ff if gated(cfg) else 2 * D * d_ff + d_ff + D
 
 
-def _layer_params(cfg: ModelConfig, kind: str, active_only: bool) -> int:
+def _attn_params(cfg: ModelConfig, cross: bool) -> int:
     D, hd = cfg.d_model, cfg.head_dim_
-    norm = D * (2 if cfg.norm == "layernorm" else 1)
+    dq, dkv = cfg.num_heads * hd, cfg.num_kv_heads * hd
+    n = 2 * D * dq + 2 * D * dkv
+    n += (dq + 2 * dkv) if cfg.qkv_bias else 0
+    return n + (2 * hd if cfg.qk_norm and not cross else 0)
+
+
+def _norm_params(cfg: ModelConfig) -> int:
+    return cfg.d_model * (2 if cfg.norm == "layernorm" else 1)
+
+
+def _layer_params(cfg: ModelConfig, kind: str, active_only: bool) -> int:
+    D = cfg.d_model
+    norm = _norm_params(cfg)
     if kind == "ssm":   # ln1 and the mamba mixer (ssm.init_mamba)
         Di, N, R = cfg.d_inner_, cfg.ssm.state_dim, cfg.dt_rank_
         conv = Di * cfg.ssm.conv_kernel + Di
@@ -72,20 +96,21 @@ def _layer_params(cfg: ModelConfig, kind: str, active_only: bool) -> int:
         Dl = cfg.lru_width_
         mixer = 3 * D * Dl + 2 * Dl * Dl + (RG.CONV_KERNEL + 1) * Dl + Dl
     else:
-        dq, dkv = cfg.num_heads * hd, cfg.num_kv_heads * hd
-        mixer = 2 * D * dq + 2 * D * dkv
-        mixer += (dq + 2 * dkv) if cfg.qkv_bias else 0
-        mixer += 2 * hd if cfg.qk_norm else 0
+        mixer = _attn_params(cfg, cross=kind == "cross_attn")
+    if kind == "decoder":   # ln_x and the cross-attention
+        mixer += norm + _attn_params(cfg, cross=True)
     return 2 * norm + mixer + _ffn_params(cfg, kind, active_only)
 
 
 def count_params(cfg: ModelConfig, active_only: bool = False) -> int:
     """Analytic parameter count of the JAX package's parameter tree (no
     allocation); `active_only` counts top_k of the routed experts."""
-    kinds = T.stack_plan(cfg).kinds
+    kinds = T.stack_plan(cfg).kinds + T.encoder_plan(cfg).kinds
     total = sum(_layer_params(cfg, kind, active_only) for kind in kinds)
     total += cfg.vocab_size * cfg.d_model                       # embed
-    total += cfg.d_model * (2 if cfg.norm == "layernorm" else 1)  # final norm
+    total += _norm_params(cfg)                                  # final norm
+    if cfg.family == "encdec":
+        total += _norm_params(cfg)                              # enc_norm
     if not cfg.tie_embeddings:
         total += cfg.d_model * cfg.vocab_size                   # lm_head
     return total
@@ -101,6 +126,31 @@ def _logits(params, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
     return x.float() @ head.float()
 
 
+def _encode(params, encoder_embeds: torch.Tensor,
+            cfg: ModelConfig) -> torch.Tensor:
+    """The encoder stack over (B, Sx, D) frames, then its norm
+    (model.py:89-97)."""
+    S = encoder_embeds.shape[1]
+    ctx = T.LayerCtx(positions=torch.arange(S, device=encoder_embeds.device),
+                     mode="prefill")
+    x = encoder_embeds.to(torch_dtype(cfg.compute_dtype))
+    x, _, _ = T.apply_stack(params["encoder"], x, cfg, ctx,
+                            T.encoder_plan(cfg))
+    return apply_norm(cfg.norm, params["enc_norm"], x, upcast=cfg.norm_upcast)
+
+
+def _cross_src(params, batch: Dict[str, torch.Tensor],
+               cfg: ModelConfig) -> Optional[torch.Tensor]:
+    """What cross-attention reads (model.py:140-145): the encoder's output
+    (encdec) or the image embeddings (vlm)."""
+    name = CROSS_INPUT.get(cfg.family)
+    if name is None:
+        return None
+    if cfg.family == "encdec":
+        return _encode(params, batch[name], cfg)
+    return batch[name].to(torch_dtype(cfg.compute_dtype))
+
+
 def forward_prefill(
     params,
     batch: Dict[str, torch.Tensor],
@@ -109,15 +159,17 @@ def forward_prefill(
 ) -> Tuple[torch.Tensor, List[Dict[str, torch.Tensor]]]:
     """Returns (last-token logits (B, V) f32, decode caches).
 
-    With cache_len, the K/V caches are padded with zeros to that length
-    so decode steps have slots to write into; a local-attention cache to
-    min(cache_len, window), its ring's length (model.py:154-173).  SSM
-    and LRU states have no length and are left as they are."""
+    With cache_len, the self K/V caches are padded with zeros to that
+    length so decode steps have slots to write into; a local-attention
+    cache to min(cache_len, window), its ring's length (model.py:154-173).
+    Cross K/V keep the source's length, SSM and LRU states have none:
+    they are left as they are."""
     tokens = batch["tokens"]
     S = tokens.shape[1]
+    cross_src = _cross_src(params, batch, cfg)
     x = _embed(params, tokens, cfg)
     ctx = T.LayerCtx(positions=torch.arange(S, device=tokens.device),
-                     mode="prefill")
+                     cross_src=cross_src, mode="prefill")
     plan = T.stack_plan(cfg)
     x, _, caches = T.apply_stack(params["stack"], x, cfg, ctx, plan)
     if cache_len is not None and cache_len > S:
@@ -129,11 +181,12 @@ def forward_prefill(
 def _pad_kv(cache: Dict[str, torch.Tensor], kind: str, cfg: ModelConfig,
             S: int, cache_len: int) -> Dict[str, torch.Tensor]:
     if "k" not in cache or cache["k"].shape[2] != S:
-        return cache   # a recurrent state, or a ring already at its window
+        return cache   # recurrent or cross state, or a ring at its window
     target = cache_len
     if kind == "local_attn":
         target = min(cache_len, cfg.hybrid.local_window)
-    return {name: F.pad(t, (0, 0, 0, target - S)) if target > S else t
+    return {name: F.pad(t, (0, 0, 0, target - S))
+            if target > S and name in ("k", "v") else t
             for name, t in cache.items()}
 
 
@@ -143,11 +196,14 @@ def forward_decode(
     positions: torch.Tensor,     # (B,)
     caches: List[Dict[str, torch.Tensor]],
     cfg: ModelConfig,
+    cross_len: Optional[torch.Tensor] = None,
 ) -> Tuple[torch.Tensor, List[Dict[str, torch.Tensor]]]:
     """One decode step; writes the caches in place.  Returns (logits
-    (B, V) f32, caches)."""
+    (B, V) f32, caches).  `cross_len` (B,) is each row's source length in
+    the cross caches, which may be longer (a serving slot's); None reads
+    every cross position, as after `forward_prefill`."""
     x = _embed(params, tokens, cfg)
-    ctx = T.LayerCtx(pos=positions, mode="decode")
+    ctx = T.LayerCtx(pos=positions, cross_len=cross_len, mode="decode")
     x, _, caches = T.apply_stack(params["stack"], x, cfg, ctx,
                                  T.stack_plan(cfg), caches=caches)
     return _logits(params, x, cfg)[:, 0], caches

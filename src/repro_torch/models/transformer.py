@@ -1,15 +1,19 @@
 """Transformer stacks: stack plan, per-layer init and apply.
 
-Port of `repro.models.transformer` for the stacks of the ported
-architectures: uniform stacks of ``self_attn``, ``moe`` or ``ssm``
-layers, MoE stacks with leading ``dense`` layers (DeepSeekMoE), and the
-hybrid (Griffin) stack of ``rglru`` and ``local_attn`` layers with its
-tail; `stack_plan` raises `NotImplementedError` for the others.  The
-JAX package scans stacked superblocks with `lax.scan`; the port keeps the layers in an `nn.ModuleList` in `StackPlan.kinds` order
-and loops over them in Python.  Two modes, as serving needs them:
-"prefill" (full sequence, also returns the decode state) and "decode"
-(one token against the state, which it writes in place).  Training
-waits for its slice (ROADMAP.md Queue 1).
+Port of `repro.models.transformer`: uniform stacks of ``self_attn``,
+``moe`` or ``ssm`` layers, MoE stacks with leading ``dense`` layers
+(DeepSeekMoE), the hybrid (Griffin) stack of ``rglru`` and
+``local_attn`` layers with its tail, the vlm stack (Llama-3.2-Vision:
+every `cross_attn_every`-th layer a ``cross_attn`` layer over image
+embeddings) and the encoder-decoder (seamless-m4t: bidirectional
+``encoder`` layers, `encoder_plan`, then ``decoder`` layers with
+self-attention and cross-attention over the encoder's output).  The JAX
+package scans stacked superblocks with `lax.scan`; the port keeps the
+layers in an `nn.ModuleList` in `StackPlan.kinds` order and loops over
+them in Python.  Two modes, as serving needs them:
+"prefill" (full sequence, also returns the decode state; an encoder
+layer returns none) and "decode" (one token against the state, which it
+writes in place).  Training waits for its slice (ROADMAP.md Queue 1).
 """
 from __future__ import annotations
 
@@ -44,11 +48,11 @@ class StackPlan:
 
 
 def stack_plan(cfg: ModelConfig) -> StackPlan:
-    """The JAX package's split of the stack, kept so that parameters
-    convert layer by layer.  Ported: uniform dense (``self_attn``), MoE
-    (with or without leading dense layers) and SSM stacks, and the
-    hybrid pattern with its tail."""
+    """The JAX package's split of the stack (transformer.py:52-70), kept
+    so that parameters convert layer by layer."""
     kinds = cfg.layer_kinds()
+    if cfg.family == "encdec":
+        return StackPlan((), ("decoder",), cfg.num_layers)
     if cfg.family == "moe" and cfg.moe.first_dense_layers:
         r = cfg.moe.first_dense_layers
         return StackPlan(tuple(kinds[:r]), ("moe",), cfg.num_layers - r)
@@ -56,11 +60,19 @@ def stack_plan(cfg: ModelConfig) -> StackPlan:
         p = cfg.hybrid.pattern
         n = cfg.num_layers // len(p)
         return StackPlan((), tuple(p), n, tuple(kinds[len(p) * n:]))
-    if cfg.family not in ("dense", "moe", "ssm"):
-        raise NotImplementedError(
-            f"the {cfg.family} stack of {cfg.name!r} is not ported yet; "
-            "see ROADMAP.md Queue 1")
+    if cfg.family == "vlm" and cfg.cross_attn_every:
+        pe = cfg.cross_attn_every
+        if cfg.num_layers % pe:
+            raise ValueError(f"{cfg.num_layers} layers are no whole number "
+                             f"of {pe}-layer blocks")
+        return StackPlan((), kinds[:pe], cfg.num_layers // pe)
     return StackPlan((), (kinds[0],), cfg.num_layers)
+
+
+def encoder_plan(cfg: ModelConfig) -> StackPlan:
+    """The encoder's stack (transformer.py:73): `encoder_layers` of kind
+    ``encoder``; none outside the encdec family."""
+    return StackPlan((), ("encoder",), cfg.encoder_layers)
 
 
 # --------------------------------------------------------------------------
@@ -77,8 +89,11 @@ def init_layer(gen: torch.Generator, cfg: ModelConfig, kind: str) -> Dict:
     p = {"ln1": norm()}
     if kind == "rglru":
         p["rec"] = R.init_rglru_block(gen, cfg)
-    else:   # self_attn / moe / dense / local_attn
-        p["attn"] = A.init_attention(gen, cfg)
+    else:   # self_attn / moe / dense / local_attn / encoder / decoder
+        p["attn"] = A.init_attention(gen, cfg, cross=kind == "cross_attn")
+    if kind == "decoder":
+        p["ln_x"] = norm()
+        p["xattn"] = A.init_attention(gen, cfg, cross=True)
     p["ln2"] = norm()
     if kind == "moe":
         p["moe"] = M.init_moe(gen, cfg)
@@ -91,6 +106,8 @@ def init_layer(gen: torch.Generator, cfg: ModelConfig, kind: str) -> Dict:
 class LayerCtx:
     positions: Optional[torch.Tensor] = None   # (S,) prefill
     pos: Optional[torch.Tensor] = None          # (B,) decode position
+    cross_src: Optional[torch.Tensor] = None    # (B, Sx, D) prefill
+    cross_len: Optional[torch.Tensor] = None    # (B,) decode: valid Sx
     mode: str = "prefill"                       # prefill | decode
 
 
@@ -99,6 +116,21 @@ def _write(cache: Dict, new: Dict) -> Dict:
     for name, t in new.items():
         cache[name].copy_(t)
     return cache
+
+
+def _cross(p, h: torch.Tensor, cfg: ModelConfig, ctx: LayerCtx,
+           cache: Optional[Dict]) -> Tuple[torch.Tensor, Dict]:
+    """Cross-attention: prefill projects the source's K/V and returns
+    them as the decode state; decode reads them from `cache`, masked past
+    `ctx.cross_len` (all of it when None)."""
+    if ctx.mode == "decode":
+        ck, cv = cache["ck"], cache["cv"]
+        n = ctx.cross_len
+        if n is None:
+            n = torch.full((h.shape[0],), ck.shape[2], device=h.device)
+        return A.cross_attention_decode(p, h, cfg, ck, cv, n), cache
+    ck, cv = A.project_cross_kv(p, ctx.cross_src, cfg)
+    return A.cross_attention_block(p, h, cfg, ck, cv), {"ck": ck, "cv": cv}
 
 
 def apply_layer(
@@ -133,7 +165,12 @@ def apply_layer(
         else:
             y, cs, hs = R.rglru_block_mix(p["rec"], h, cfg, return_state=True)
             new_cache = {"conv": cs, "lru": hs}
-    else:   # self_attn / moe / dense / local_attn
+    elif kind == "cross_attn":
+        y, new_cache = _cross(p["attn"], h, cfg, ctx, cache)
+    elif kind == "encoder":   # bidirectional, no decode state
+        y = A.attention_block(p["attn"], h, cfg, ctx.positions, causal=False)
+        new_cache = None
+    else:   # self_attn / moe / dense / local_attn / decoder
         window = cfg.hybrid.local_window if kind == "local_attn" else 0
         if decode:
             y, nk, nv = A.attention_block_decode(
@@ -145,6 +182,11 @@ def apply_layer(
                                           window=window, return_kv=True)
             new_cache = {"k": kc, "v": vc}
     x = x + y
+    if kind == "decoder":   # then cross-attention over the encoder's output
+        h = apply_norm(cfg.norm, p["ln_x"], x, upcast=cfg.norm_upcast)
+        y, cross = _cross(p["xattn"], h, cfg, ctx, cache)
+        new_cache = cache if decode else {**new_cache, **cross}
+        x = x + y
 
     h = apply_norm(cfg.norm, p["ln2"], x, upcast=cfg.norm_upcast)
     if kind == "moe":

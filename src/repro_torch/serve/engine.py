@@ -8,14 +8,23 @@ every slot, idle ones included (token 0 at the slot's last position):
 their tokens take MoE capacity (T = slots), so skipping them would
 change the live slots' tokens.
 
+An encdec model's encoder reads zero frames of the prompt's length, and
+a vlm's cross-attention zero image embeddings of `num_image_tokens`, as
+in the JAX engine (engine.py:70-78): its modality frontends are stubs.
+A request may bring its own (`Request.embeds`, (Sx, D)) instead.
+
 The cache is written in place: a prefill's decode state is copied into
 its slot, each leaf by its kind (as the JAX engine's `put`,
-engine.py:82-99): K/V along the sequence, the rest of the slot zeroed (a
-local-attention ring of length W holds min(L, W) entries); conv, SSM and
-LRU states whole.  The port's conv states are always K-1 rows,
-right-aligned, where the JAX engine pads a shorter prompt's state at the
-end (ROADMAP.md Queue 3, R3).  Decode writes its K/V at each slot's
-position (or ring slot) and its recurrent states in place.  Greedy decoding is the tested path; with
+engine.py:82-99): self and cross K/V along the sequence, the rest of the
+slot zeroed (a local-attention ring of length W holds min(L, W)
+entries); conv, SSM and LRU states whole.  The engine keeps each slot's
+source length and decode masks the cross cache past it, so a slot
+decodes as a fresh prefill-then-decode does; the JAX engine attends the
+zero padding too (ROADMAP.md Queue 3, R4).  The port's conv states are
+always K-1 rows, right-aligned, where the JAX engine pads a shorter
+prompt's state at the end (ROADMAP.md Queue 3, R3).  Decode writes its
+K/V at each slot's position (or ring slot) and its recurrent states in
+place.  Greedy decoding is the tested path; with
 ``greedy=False`` the first token of a request is drawn from its
 softmax with a `torch.Generator` seeded by the request id (the JAX
 package draws it with `jax.random.categorical`, so the bits differ),
@@ -41,7 +50,12 @@ import torch
 from repro_torch import DeviceLike, resolve_device
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models.kvcache import init_cache
-from repro_torch.models.model import forward_decode, forward_prefill
+from repro_torch.models.layers import torch_dtype
+from repro_torch.models.model import (
+    CROSS_INPUT,
+    forward_decode,
+    forward_prefill,
+)
 
 
 @dataclasses.dataclass
@@ -52,6 +66,8 @@ class Request:
     eos_id: int = -1               # -1: never stop early
     out_tokens: List[int] = dataclasses.field(default_factory=list)
     done: bool = False
+    # (Sx, D) encoder frames (encdec) or image embeddings (vlm); None: zeros
+    embeds: Optional[np.ndarray] = None
 
 
 class ServeEngine:
@@ -72,6 +88,11 @@ class ServeEngine:
         self.device = resolve_device(device)
         self.cache = init_cache(cfg, slots, max_seq, device=self.device)
         self.pos = np.zeros(slots, np.int32)
+        # each slot's source length in its cross caches (encdec, vlm)
+        self.cross_len = None
+        if cfg.family in CROSS_INPUT:
+            self.cross_len = torch.zeros(slots, dtype=torch.int64,
+                                         device=self.device)
         self.active: List[Optional[Request]] = [None] * slots
         self.queue: List[Request] = []
         self.finished: List[Request] = []
@@ -93,15 +114,21 @@ class ServeEngine:
         t0 = time.perf_counter()
         tokens = torch.as_tensor(np.asarray(req.prompt, np.int64)[None, :],
                                  device=self.device)
-        logits, pc = forward_prefill(self.params, {"tokens": tokens}, self.cfg)
+        logits, pc = forward_prefill(self.params, self._batch(req, tokens),
+                                     self.cfg)
         # the single-request state into the batched slot
         for layer, pre in zip(self.cache, pc):
             for name, buf in layer.items():
                 src = pre[name][0].to(buf.dtype)
-                if name in ("k", "v"):   # (Hkv, len, hd); zero past len
+                if name in ("k", "v", "ck", "cv"):   # (Hkv, len, hd)
                     n = src.shape[1]
+                    if n > buf.shape[2]:
+                        raise ValueError(f"{n} source positions > the "
+                                         f"cache's {buf.shape[2]}")
                     buf[slot, :, :n] = src
                     buf[slot, :, n:] = 0
+                    if name == "ck":
+                        self.cross_len[slot] = n
                 else:                    # conv (K-1, C), ssm (Di, N), lru
                     buf[slot] = src
         if self.greedy:
@@ -116,6 +143,23 @@ class ServeEngine:
         req.out_tokens.append(tok)
         self.active[slot] = req
         self.pos[slot] = L
+
+    def _batch(self, req: Request, tokens: torch.Tensor) -> dict:
+        """The prefill's inputs: tokens, and the encoder's frames or the
+        image embeddings, zeros unless the request brings its own."""
+        cfg = self.cfg
+        name = CROSS_INPUT.get(cfg.family)
+        if name is None:
+            return {"tokens": tokens}
+        dt = torch_dtype(cfg.compute_dtype)
+        if req.embeds is not None:
+            src = torch.as_tensor(np.asarray(req.embeds, np.float32),
+                                  device=self.device).to(dt)
+        else:
+            n = len(req.prompt) if name == "encoder_embeds" else (
+                cfg.num_image_tokens)
+            src = torch.zeros((n, cfg.d_model), dtype=dt, device=self.device)
+        return {"tokens": tokens, name: src[None]}
 
     def _free_slots(self) -> List[int]:
         return [i for i, r in enumerate(self.active) if r is None]
@@ -140,7 +184,7 @@ class ServeEngine:
         logits, self.cache = forward_decode(
             self.params, torch.as_tensor(toks, device=self.device),
             torch.as_tensor(self.pos.astype(np.int64), device=self.device),
-            self.cache, self.cfg)
+            self.cache, self.cfg, cross_len=self.cross_len)
         nxt = torch.argmax(logits, dim=-1).cpu().numpy()
         self.ticks += 1
         self.decode_s += time.perf_counter() - t0

@@ -10,8 +10,12 @@ card's bf16 kernel rounds P to bf16 before P V (ROADMAP Queue 3, B3);
 its arithmetic, written out here in plain torch, stays within the bf16
 tolerance of the plain version.  A head dim between the kernel's
 instantiations runs zero-padded to the next one (above 256 on the f32
-kernel's hd-512 instantiation, bf16 widened to f32 around the call);
-that arithmetic, too, is held to the JAX package here.
+kernel's hd-512 and hd-1024 instantiations, bf16 widened to f32 around
+the call; above 1024 the wrapper raises); that arithmetic, too, is held
+to the JAX package here.  The cross-attention layers' modes (non-causal
+with Sq > Sk, non-causal over 1,600 keys at hd 128 with 8 query heads a
+KV head, MHA at hd 64 with ragged lengths) are held to the JAX kernel in
+interpret mode, in bf16 through the card's arithmetic too.
 """
 import jax.numpy as jnp
 import numpy as np
@@ -41,6 +45,11 @@ RAGGED = [  # B, Hq, Hkv, Sq, Sk, hd, causal, window
     (2, 4, 1, 70, 70, 64, True, 20),    # window over a ragged edge
     (1, 2, 2, 33, 65, 128, False, 0),   # qwen3's head_dim
     (1, 10, 1, 40, 40, 256, True, 24),  # recurrentgemma's heads, window
+]
+NON_CAUSAL = [  # B, Hq, Hkv, Sq, Sk, hd, bq, bk (the JAX kernel's blocks)
+    (1, 4, 2, 100, 30, 64, 20, 10),     # Sq > Sk: negative q_offset
+    (1, 8, 1, 40, 1600, 128, 40, 100),  # llama-vision's cross layout
+    (1, 4, 4, 77, 45, 64, 7, 9),        # seamless's MHA, ragged lengths
 ]
 DTYPES = {"float32": (jnp.float32, torch.float32),
           "bfloat16": (jnp.bfloat16, torch.bfloat16)}
@@ -160,15 +169,36 @@ def test_bf16_p_rounding_is_within_bf16_tolerance(case):
 
 @pytest.mark.parametrize("hd,width", [
     (1, 16), (16, 16), (17, 32), (48, 64), (80, 128), (160, 256), (256, 256),
-    (257, 512), (320, 512), (512, 512)])
+    (257, 512), (320, 512), (512, 512), (513, 1024), (640, 1024),
+    (1024, 1024)])
 def test_padded_head_dim_is_the_next_instantiation(hd, width):
     assert padded_head_dim(hd) == width and width in HEAD_DIMS
 
 
-@pytest.mark.parametrize("hd", [0, 513, 640])
+@pytest.mark.parametrize("hd", [0, 1025, 2048])
 def test_head_dim_outside_the_instantiations_raises(hd):
-    with pytest.raises(ValueError):
+    with pytest.raises(ValueError, match="largest instantiation is 1024"):
         padded_head_dim(hd)
+
+
+@pytest.mark.parametrize("dtype", list(DTYPES))
+@pytest.mark.parametrize("case", NON_CAUSAL)
+def test_non_causal_modes_match_jax_kernel(case, dtype):
+    B, Hq, Hkv, Sq, Sk, hd, bq, bk = case
+    jdt, tdt = DTYPES[dtype]
+    arrs = _inputs(B, Hq, Hkv, Sq, Sk, hd, seed=Sq + Sk + hd)
+    q, k, v = _port(arrs, tdt)
+    got = [flash_attention(q, k, v, causal=False)]
+    if dtype == "bfloat16":   # the card's bf16 kernel rounds P (B3)
+        got.append(_rounded_p_attention(q, k, v, False, 0))
+    jq, jk, jv = [jnp.asarray(a, jdt) for a in arrs]
+    kern = j_flash(jq, jk, jv, causal=False, block_q=bq, block_k=bk,
+                   interpret=True)
+    for out in got:
+        assert out.dtype == tdt and out.shape == (B, Hq, Sq, hd)
+        for ref in (kern, j_ref(jq, jk, jv, causal=False)):
+            np.testing.assert_allclose(_np(out), np.asarray(ref, np.float32),
+                                       **_tol(dtype))
 
 
 def _padded_attention(q, k, v, causal, window):
@@ -189,7 +219,7 @@ def _padded_attention(q, k, v, causal, window):
 
 @pytest.mark.parametrize("dtype", list(DTYPES))
 @pytest.mark.parametrize("hd,window", [(48, 0), (80, 16), (160, 0), (320, 0),
-                                       (512, 16)])
+                                       (512, 16), (768, 0), (1024, 16)])
 def test_zero_padded_head_dim_matches_jax(hd, window, dtype):
     jdt, tdt = DTYPES[dtype]
     arrs = _inputs(1, 4, 2, 40, 40, hd, seed=hd)

@@ -13,8 +13,9 @@ engine's on the card, and its results equal to its CPU run's).  The
 bf16 flash kernel's wgmma tile products are exact up to the f32
 summation order: within 1e-5 of the sum of the products' magnitudes.
 Head dims between the flash instantiations run zero-padded, above 256 on
-the f32 kernel alone; moe_gmm runs its scalar loads for rows or weights
-off 16 bytes.
+the f32 kernel alone (up to 1024); the cross-attention layers' modes
+(non-causal, Sq above or below Sk) run on both flash kernels; moe_gmm
+runs its scalar loads for rows or weights off 16 bytes.
 """
 import numpy as np
 import pytest
@@ -186,6 +187,11 @@ def _normal(shape, seed, device, dtype, scale=1.0):
     # tile edges; Sq > Sk, rows with no live key
     (1, 4, 2, 200, 200, 128, True, 0), (1, 4, 1, 130, 300, 256, True, 70),
     (1, 4, 1, 96, 40, 128, True, 0),
+    # cross-attention and the encoder: non-causal with Sq > Sk (negative
+    # q_offset), llama-vision's layout over 1,600 image tokens, seamless's
+    # MHA at hd 64, square and ragged
+    (1, 4, 2, 100, 30, 64, False, 0), (1, 64, 8, 455, 1600, 128, False, 0),
+    (1, 16, 16, 455, 455, 64, False, 0), (1, 4, 4, 77, 45, 64, False, 0),
 ])
 def test_flash_attention_matches_plain_version(card, case, dtype):
     B, Hq, Hkv, Sq, Sk, hd, causal, window = case
@@ -271,11 +277,11 @@ def test_moe_gmm_takes_weights_off_16_bytes(card, dtype):
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("hd,window", [(48, 0), (80, 24), (160, 0), (320, 0),
-                                       (512, 24)])
+                                       (512, 24), (768, 0), (1024, 24)])
 def test_flash_attention_takes_any_head_dim(card, hd, window, dtype):
     """Head dims between the instantiations run zero-padded to the next
-    one (stablelm-12b's is 160); above 256 on the f32 kernel's hd-512
-    instantiation, bf16 widened to f32 around the call."""
+    one (stablelm-12b's is 160); above 256 on the f32 kernel's hd-512 and
+    hd-1024 instantiations, bf16 widened to f32 around the call."""
     q = _normal((1, 8, 100, hd), 36, card, dtype)
     k = _normal((1, 2, 100, hd), 37, card, dtype)
     v = _normal((1, 2, 100, hd), 38, card, dtype)
@@ -336,8 +342,8 @@ def test_model_kernel_wrappers_check_their_inputs(card):
     with pytest.raises(ValueError):
         flash_attention_fwd(q.transpose(1, 2).contiguous().transpose(1, 2),
                             k, k, 2, True, 0)
-    wide = _normal((4, 32, 640), 16, card, torch.float32)
-    with pytest.raises(ValueError):   # hd 640: above every instantiation
+    wide = _normal((4, 32, 1088), 16, card, torch.float32)
+    with pytest.raises(ValueError):   # hd 1088: above every instantiation
         flash_attention_fwd(wide, wide[:2].contiguous(), wide[:2].contiguous(),
                             2, True, 0)
     with pytest.raises(ValueError):
@@ -402,6 +408,27 @@ def test_reduced_transformer_archs_count_their_launches(card, arch,
     if moe_layers:
         want["moe_gmm"] = moe_layers * (eng.prefills + eng.ticks)
     assert dict(launch_counts) == want
+
+
+@pytest.mark.parametrize("arch,flash_per_prefill", [
+    ("seamless-m4t-large-v2", 2 + 2 * 2), ("llama-3.2-vision-90b", 4)])
+def test_reduced_cross_archs_count_their_launches(card, arch,
+                                                  flash_per_prefill):
+    """flash_attention once an encoder, self_attn or cross_attn layer a
+    prefill and twice a decoder layer (self and cross); decode's
+    attention is plain torch, so a tick launches none."""
+    cfg = reduced_config(get_config(arch))
+    params = init_params(cfg, 0, device=card)
+    eng = ServeEngine(cfg, params, slots=2, max_seq=48, device=card)
+    rng = np.random.default_rng(0)
+    for rid in range(3):
+        eng.submit(Request(rid=rid, max_new_tokens=5, prompt=rng.integers(
+            0, cfg.vocab_size, int(rng.integers(5, 20))).astype(np.int32)))
+    launch_counts.clear()
+    done = eng.run_to_completion()
+    assert len(done) == 3 and eng.ticks > 0
+    assert all(0 <= t < cfg.vocab_size for r in done for t in r.out_tokens)
+    assert dict(launch_counts) == {"flash_attention": flash_per_prefill * 3}
 
 
 def _scan_tol(dtype):

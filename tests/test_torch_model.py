@@ -24,10 +24,12 @@ import pytest
 import torch
 
 from repro.configs import get_config as j_get_config
+from repro.configs.base import list_archs as j_list_archs
 from repro.configs.base import reduced_config as j_reduced
 from repro.kernels.moe_gmm.ref import moe_gmm_ref as j_moe_gmm_ref
 from repro.models import attention as JA
 from repro.models import moe as JM
+from repro.models import transformer as JT
 from repro.models.layers import apply_norm as j_apply_norm
 from repro.models.layers import apply_rope as j_apply_rope
 from repro.models.layers import rms_head_norm as j_rms_head_norm
@@ -90,23 +92,28 @@ class TestConfig:
         for j, t in ((jred, tred), (j_get_config(arch), get_config(arch))):
             assert dataclasses.asdict(t) == dataclasses.asdict(j)
 
-    def test_unported_arch_raises_and_names_roadmap(self):
-        assert list_archs() == (
-            "deepseek-moe-16b", "falcon-mamba-7b", "qwen1.5-110b", ARCH,
-            "recurrentgemma-2b", "smollm-360m", "stablelm-12b", "yi-9b")
-        with pytest.raises(KeyError, match="ROADMAP"):
-            get_config("seamless-m4t-large-v2")
+    def test_list_archs_lists_all_ten_and_unknown_raises(self):
+        assert list_archs() == j_list_archs() == (
+            "deepseek-moe-16b", "falcon-mamba-7b", "llama-3.2-vision-90b",
+            "qwen1.5-110b", ARCH, "recurrentgemma-2b",
+            "seamless-m4t-large-v2", "smollm-360m", "stablelm-12b", "yi-9b")
+        with pytest.raises(KeyError, match="unknown arch"):
+            get_config("no-such-arch")
 
     @pytest.mark.parametrize("change", [
         dict(family="encdec", encoder_layers=2),
         dict(family="vlm", cross_attn_every=3),
         dict(family="vlm", cross_attn_every=0, num_image_tokens=8)])
-    def test_unported_stack_raises_and_names_roadmap(self, change):
-        """The encdec stack, and the vlm family with or without its
-        cross-attention layers (its image inputs are not ported)."""
-        cfg = reduced_config(get_config(ARCH))
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            T.stack_plan(cfg.replace(**change))
+    def test_cross_stack_plans_match_jax(self, change):
+        """The encdec stack and its encoder, and the vlm family with or
+        without its cross-attention layers (uniform without), as the
+        JAX package splits them."""
+        jcfg = j_reduced(j_get_config(ARCH)).replace(**change)
+        cfg = reduced_config(get_config(ARCH)).replace(**change)
+        for plan, jplan in ((T.stack_plan, JT.stack_plan),
+                            (T.encoder_plan, JT.encoder_plan)):
+            assert dataclasses.astuple(plan(cfg)) == dataclasses.astuple(
+                jplan(jcfg))
 
     def test_full_width_param_count(self):
         cfg = get_config(ARCH)

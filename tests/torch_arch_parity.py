@@ -1,13 +1,15 @@
-"""Shared machinery of tests/test_torch_archs_moe.py and
-tests/test_torch_archs_dense.py: the port's transformer archs held to
-the JAX package at reduced size, each in its own head layout.
+"""Shared machinery of tests/test_torch_archs_moe.py,
+tests/test_torch_archs_dense.py and tests/test_torch_archs_cross.py: the
+port's transformer archs held to the JAX package at reduced size, each
+in its own head layout.
 
 `reduced_config` gives every arch head_dim 16 and two query heads a KV
 head, which would hide the layouts the kernels see at full width; so
 each arch runs reduced with its own layout (`LAYOUTS`): deepseek-moe-16b
 MHA at hd 128, smollm-360m hd 64 with 3 query heads a KV head,
 yi-9b and qwen1.5-110b hd 128 with 8, stablelm-12b hd 160 (which the
-card's flash wrapper zero-pads to 256) with 4.  The JAX package's
+card's flash wrapper zero-pads to 256) with 4, seamless-m4t-large-v2 MHA
+at hd 64, llama-3.2-vision-90b hd 128 with 8.  The JAX package's
 parameters are drawn from a seed and carried across with
 `params_from_numpy`; the leaves it initialises to constants (QKV and
 LayerNorm biases, norm scales) are perturbed from a numpy seed first, so
@@ -42,7 +44,11 @@ from repro.serve.engine import Request as JRequest
 from repro.serve.engine import ServeEngine as JServeEngine
 from repro_torch.configs.base import get_config, reduced_config
 from repro_torch.models.convert import params_from_numpy, tree_from_flat
-from repro_torch.models.model import forward_decode, forward_prefill
+from repro_torch.models.model import (
+    CROSS_INPUT,
+    forward_decode,
+    forward_prefill,
+)
 
 DATA = Path(__file__).resolve().parents[1] / "src" / "repro_torch" / "data"
 LAYOUTS = {
@@ -51,9 +57,14 @@ LAYOUTS = {
     "yi-9b": dict(num_heads=8, num_kv_heads=1, head_dim=128),
     "stablelm-12b": dict(num_heads=4, num_kv_heads=1, head_dim=160),
     "qwen1.5-110b": dict(num_heads=8, num_kv_heads=1, head_dim=128),
+    "seamless-m4t-large-v2": dict(num_heads=2, num_kv_heads=2, head_dim=64),
+    "llama-3.2-vision-90b": dict(num_heads=8, num_kv_heads=1, head_dim=128),
 }
+
 GOLDENS = {arch: DATA / f"{arch.replace('-', '_').replace('.', '')}"
            "_reduced_golden.npz" for arch in LAYOUTS}
+# named as its config module is
+GOLDENS["llama-3.2-vision-90b"] = DATA / "llama32_vision_90b_reduced_golden.npz"
 TOL = {"float32": dict(atol=1e-4, rtol=1e-4),      # whole forwards
        "bfloat16": dict(atol=2e-2, rtol=2e-2)}
 BLOCK_TOL = dict(atol=2e-5, rtol=2e-5)             # f32 blocks
@@ -120,18 +131,36 @@ def j_layers(c: dict) -> list:
     return list(c["prefix"]) + scanned + list(c["tail"])
 
 
-def forwards(jp, tp, jcfg, tcfg, steps: int = 3):
-    """Prefill 2 x 10 tokens into 24-slot caches, then `steps` decode
-    steps, through both packages.  Returns (port, JAX), each a list of
-    logits (prefill first) and the caches after the last step."""
+def batches(tcfg, toks: np.ndarray, src_len: int = 0, seed: int = 12):
+    """(port batch, JAX batch) of `toks`, with seeded (B, src_len, D)
+    encoder frames or image embeddings in the compute dtype where the
+    family reads them."""
+    tb, jb = {"tokens": torch.from_numpy(toks).long()}, {
+        "tokens": jnp.asarray(toks)}
+    name = CROSS_INPUT.get(tcfg.family)
+    if name:
+        tb[name], jb[name] = x_pair((toks.shape[0], src_len, tcfg.d_model),
+                                    tcfg.compute_dtype, seed)
+    return tb, jb
+
+
+def src_len(i: int, prompt_len: int) -> int:
+    """Request i's encoder length: below the prompt's, then above."""
+    return prompt_len // 2 + 1 if i % 2 == 0 else prompt_len + 5
+
+
+def forwards(jp, tp, jcfg, tcfg, steps: int = 3, src_len: int = 8):
+    """Prefill 2 x 10 tokens into 24-slot caches (with `src_len` seeded
+    source positions where the family has cross-attention), then `steps`
+    decode steps, through both packages.  Returns (port, JAX), each a list
+    of logits (prefill first) and the caches after the last step."""
     B, S, L = 2, 10, 24
     rng = np.random.default_rng(11)
     toks = rng.integers(0, 256, (B, S)).astype(np.int32)
     nxt = rng.integers(0, 256, (steps, B, 1)).astype(np.int32)
-    logits, caches = forward_prefill(
-        tp, {"tokens": torch.from_numpy(toks).long()}, tcfg, cache_len=L)
-    jlogits, jcaches = j_forward_prefill(
-        jp, {"tokens": jnp.asarray(toks)}, jcfg, PCTX, cache_len=L)
+    tb, jb = batches(tcfg, toks, src_len)
+    logits, caches = forward_prefill(tp, tb, tcfg, cache_len=L)
+    jlogits, jcaches = j_forward_prefill(jp, jb, jcfg, PCTX, cache_len=L)
     mine, theirs = [logits], [jlogits]
     for i in range(steps):
         pos = np.full((B,), S + i, np.int32)
@@ -250,7 +279,7 @@ def port_from_golden(arch: str, stored: dict):
     return cfg, params_from_numpy(cfg, tree, device="cpu")
 
 
-def stored_is_current(arch: str, golden: dict) -> None:
+def stored_is_current(arch: str, golden: dict, max_mib: int = 2) -> None:
     path = GOLDENS[arch]
     stored = dict(np.load(path))
     assert sorted(stored) == sorted(golden)
@@ -260,13 +289,14 @@ def stored_is_current(arch: str, golden: dict) -> None:
                                        atol=1e-6, err_msg=key)
         else:
             np.testing.assert_array_equal(stored[key], want, err_msg=key)
-    assert path.stat().st_size < 2 * 2**20
+    assert path.stat().st_size < max_mib * 2**20
 
 
-def write_goldens(archs) -> None:
-    """Regenerate the stored golden runs (a test file's ``__main__``)."""
+def write_goldens(archs, reference=None) -> None:
+    """Regenerate the stored golden runs (a test file's ``__main__``),
+    each from `reference(arch)` (by default `golden_reference`)."""
     for arch in archs:
-        data = golden_reference(arch)
+        data = (reference or golden_reference)(arch)
         path = GOLDENS[arch]
         path.parent.mkdir(parents=True, exist_ok=True)
         np.savez(path, **data)

@@ -7,8 +7,39 @@ Imports nothing of JAX or of the JAX package.  Builds the Hopper kernels
 from the sources in this checkout (each kernel's registers and spills
 from ptxas; the flash library's HGMMA instructions counted in its SASS,
 which must be above 0, and no spill in its bf16 kernel or in either scan
-kernel), then runs, each
+kernel; the flash backward library's 20 instantiations), then runs, each
 phase printing one JSON line and any failure raising:
+
+0. Training, first, so that a failure shows early.
+   flash_attention_bwd: the backward kernel's dq, dk, dv (through
+   `flash_attention`'s autograd function) against autograd through the
+   plain version, at f32 2e-5 and bf16 2e-2 of each gradient's largest
+   value plus the same of its own value, bit for bit against a second
+   run, and the forward's lse against torch.logsumexp of the plain
+   scores: the flash sweep and a causal row with Sq > Sk in both types,
+   then smollm-360m's training shape (B 8, Hq 15, Hkv 5, hd 64, S 4096,
+   causal, bf16), its layout in f32 at S 512, hd 128 group 8 (yi), hd 160
+   padded to 256 (stablelm), a window of 256 (f32) and a non-causal row
+   with Sq 455, Sk 1,600; each timed (events and profiler) beside its
+   bound (five products of 2 Sq Sk hd a head over the live entries, at
+   989 TFLOP/s bf16 or 67 f32), the plain version's backward (autograd,
+   one batch element at a time) and SDPA's (forward + backward less
+   forward, K/V repeated to the query heads).
+   train_golden: reduced smollm-360m in f32 in its head layout with the
+   JAX package's weights (src/repro_torch/data/
+   smollm_360m_reduced_train_golden.npz), 5 steps of `make_train_step`:
+   losses, grad norms and lr within rtol 1e-5 of the JAX run, the
+   parameters after steps 3 and 5 within atol/rtol 1e-5, 2 flash and 1
+   backward launches a layer a step; a checkpoint after step 3 restored
+   into a fresh state repeats steps 3-4 bit for bit.
+   train_full: smollm-360m at full width and depth, float32 masters made
+   on the card from seed 0, bf16 compute, full remat, S 4096, B 8 (printed
+   as `reduced`: train_4k's batch of 256 needs ~206 GB of f32 logits), 12
+   steps through `launch.train.main` with a checkpoint under build/:
+   every loss finite, the last 3 below the first 3 on average, 64 flash
+   and 32 backward launches a step; the checkpoint restored and 2 steps
+   profiled: step ms (host) and device ms, the idle share, tokens/s, the
+   backward kernel's share of a step, peak memory, init seconds.
 
 1. kernel: the `rotor_slice` CUDA kernel against its plain PyTorch
    version on the card, vlb on and off, at k8-n16-g1, k12-n108-g1,
@@ -154,8 +185,10 @@ phase printing one JSON line and any failure raising:
    counted, then a profiled window of decode ticks shows where a tick's
    time goes.  Each phase frees the last one's weights first.
 
-Then each phase's seconds and the script's total, the kernel table
-line, the card's name and power limit, and the device line.  Exits
+Then each phase's seconds and the script's total, the kernel table line
+(flash_attention's launches add the training runs'; flash_attention_bwd
+at the training shape), the card's name and power limit, and the device
+line.  Exits
 non-zero, printing no result, without a CUDA card or outside a checkout
 of the repository.
 """
@@ -322,11 +355,13 @@ def phase_build() -> dict:
 
     mods = (rotor, flash, gmm, mamba, rglru)
     specs = [("rotor_slice", [rotor.SOURCE])] + [
-        (m.NAME, [m.SOURCE]) for m in mods[1:]]
+        (m.NAME, [m.SOURCE]) for m in mods[1:]] + [
+        (flash.BWD_NAME, [flash.BWD_SOURCE])]
     t0 = time.perf_counter()
     build_libraries(specs)
     for mod in mods:
         mod.library()
+    flash.bwd_library()
     out = dict(phase="build", seconds=time.perf_counter() - t0)
     for name, sources in specs:
         log = library_path(name, sources).with_suffix(".log")
@@ -342,6 +377,10 @@ def phase_build() -> dict:
            if k.startswith("flash_fwd_f32")]
     _check(len(f32) == len(flash.HEAD_DIMS),
            f"flash f32 instantiations {sorted(f32)}")
+    bwd = [k for k in out[f"ptxas_{flash.BWD_NAME}"]
+           if k.startswith(("flash_bwd_dkdv", "flash_bwd_dq"))]
+    _check(len(bwd) == 2 * 2 * len(flash.BWD_HEAD_DIMS),
+           f"flash backward instantiations {sorted(bwd)}")
     sass = subprocess.run(
         [cuda_tool("cuobjdump"), "-sass",
          str(library_path(flash.NAME, [flash.SOURCE]))],
@@ -1379,6 +1418,441 @@ def phase_flash_attention() -> dict:
                 sweep_max_abs_err=sweep_err, rows=rows)
 
 
+# B, Hq, Hkv, Sq, Sk, hd, causal, window: the flash sweep and a causal row
+# with Sq > Sk (rows at negative positions: the mean of V, no dQ)
+FLASH_BWD_SWEEP = FLASH_SWEEP + [(1, 2, 1, 96, 32, 32, True, 0)]
+
+
+def _grad_held(got, want, dtype, what: str) -> tuple:
+    """A gradient within tol * max|want| + tol * |want| (tol `_tol`):
+    the kernels' tolerance, relative to the gradient's scale.  Returns
+    the largest difference and that over max|want|."""
+    g, w = got.float(), want.float()
+    tol, scale = _tol(dtype), float(w.abs().max())
+    err = (g - w).abs()
+    worst = float((err - tol * w.abs()).max())
+    _check(worst <= tol * scale,
+           f"{what}: |diff| {float(err.max())} beyond {tol} max|want| "
+           f"({scale}) + {tol} |want|")
+    return float(err.max()), float(err.max()) / max(scale, 1e-30)
+
+
+def _plain_grads(q, k, v, do, causal, window):
+    """dq, dk, dv and o by autograd through `flash_attention_ref`, one
+    batch element at a time (the full score matrix of B 8 at S 4096 is
+    8 GB a tensor)."""
+    import torch
+
+    from repro_torch.kernels.flash_attention.ref import flash_attention_ref
+
+    outs = [[], [], [], []]
+    for b in range(q.shape[0]):
+        qb, kb, vb = (t[b:b + 1].detach().requires_grad_() for t in (q, k, v))
+        with torch.enable_grad():
+            o = flash_attention_ref(qb, kb, vb, causal, window)
+            grads = torch.autograd.grad(o, (qb, kb, vb), do[b:b + 1])
+        for acc, t in zip(outs, (*grads, o.detach())):
+            acc.append(t)
+    return [torch.cat(ts) for ts in outs]
+
+
+def _plain_lse(q, k, causal, window):
+    """logsumexp of the plain version's scaled, masked scores, (B, Hq,
+    Sq), one batch element at a time."""
+    import torch
+
+    from repro_torch.kernels.flash_attention.ref import NEG_INF, attention_mask
+
+    B, Hq, Sq, hd = q.shape
+    Hkv, Sk = k.shape[1], k.shape[2]
+    mask = attention_mask(Sq, Sk, causal, window, device=q.device)
+    out = []
+    for b in range(B):
+        qg = q[b].reshape(Hkv, Hq // Hkv, Sq, hd).float()
+        s = torch.einsum("hgqd,hkd->hgqk", qg, k[b].float()) * hd**-0.5
+        out.append(torch.logsumexp(torch.where(mask, s, NEG_INF), -1)
+                   .reshape(Hq, Sq))
+    return torch.stack(out)
+
+
+def _flash_bwd_row(gen, dtype, B, Hq, Hkv, Sq, Sk, hd, causal, window,
+                   timed: bool = True) -> dict:
+    """One backward row: dq, dk, dv through `ops.flash_attention` (its
+    autograd function, the backward kernel) against autograd through the
+    plain version, the same bits from a second run, lse against
+    torch.logsumexp of the plain scores; then the backward kernel timed
+    (events and profiler) beside its bound, the plain version's backward
+    and SDPA's (forward + backward less forward)."""
+    import torch
+    import torch.nn.functional as F
+
+    from repro_torch.kernels.flash_attention.kernel import (
+        flash_attention_bwd,
+        flash_attention_fwd,
+    )
+    from repro_torch.kernels.flash_attention.ops import flash_attention
+    from repro_torch.kernels.flash_attention.ref import (
+        attention_mask,
+        flash_attention_ref,
+    )
+
+    what = (f"flash bwd B={B} Hq={Hq} Hkv={Hkv} Sq={Sq} Sk={Sk} hd={hd} "
+            f"causal={causal} window={window} {_dname(dtype)}")
+    q = _randn((B, Hq, Sq, hd), gen, dtype)
+    k = _randn((B, Hkv, Sk, hd), gen, dtype)
+    v = _randn((B, Hkv, Sk, hd), gen, dtype)
+    do = _randn((B, Hq, Sq, hd), gen, dtype)
+
+    def kernel_grads():
+        qq, kk, vv = (t.detach().requires_grad_() for t in (q, k, v))
+        o = flash_attention(qq, kk, vv, causal=causal, window=window)
+        return torch.autograd.grad(o, (qq, kk, vv), do)
+
+    got = kernel_grads()
+    again = kernel_grads()
+    _check(all(torch.equal(a, b) for a, b in zip(got, again)),
+           f"{what} not deterministic")
+    *want, _ = _plain_grads(q, k, v, do, causal, window)
+    held = [_grad_held(g, w, dtype, f"{what} {name}")
+            for g, w, name in zip(got, want, ("dq", "dk", "dv"))]
+    errs = [rel for _, rel in held]
+    del again, want
+    qf = q.reshape(-1, Sq, hd)
+    kf, vf = (t.reshape(-1, Sk, hd) for t in (k, v))
+    dof = do.reshape(-1, Sq, hd)
+    group = Hq // Hkv
+    o, lse = flash_attention_fwd(qf, kf, vf, group, causal, window,
+                                 return_lse=True)
+    lse_want = _plain_lse(q, k, causal, window).reshape(-1, Sq)
+    lse_err = _held(lse, lse_want, torch.float32 if dtype == torch.float32
+                    else dtype, f"{what} lse")
+    row = dict(dtype=_dname(dtype), B=B, Hq=Hq, Hkv=Hkv, S=Sq, Sk=Sk, hd=hd,
+               causal=causal, window=window,
+               max_abs_err=max(a for a, _ in held), max_rel_err=max(errs),
+               dq_rel_err=errs[0], dk_rel_err=errs[1], dv_rel_err=errs[2],
+               lse_max_abs_err=lse_err, deterministic=True)
+    if not timed:
+        return row
+    kernel = lambda: flash_attention_bwd(qf, kf, vf, o, dof, lse,  # noqa: E731
+                                         group, causal, window)
+    reps = 3 if Sq * Sk * B * Hq > 2**28 else 10
+    ms = _cuda_ms(kernel, reps=reps, warmup=1)
+    device_ms = _device_ms(kernel, ("flash_bwd",), reps=reps)
+
+    def plain_fwd():
+        with torch.enable_grad():
+            for b in range(B):
+                flash_attention_ref(q[b:b + 1], k[b:b + 1], v[b:b + 1],
+                                    causal, window)
+
+    plain_ms = (_cuda_ms(lambda: _plain_grads(q, k, v, do, causal, window),
+                         reps=1, warmup=1)
+                - _cuda_ms(plain_fwd, reps=1, warmup=1))
+    # SDPA on K/V repeated to the query heads (its flash and efficient
+    # backends take no group), windowed by a boolean mask
+    mask = attention_mask(Sq, Sk, causal, window, device="cuda")
+    sdpa = (dict(attn_mask=mask) if window or (causal and Sq != Sk)
+            else dict(is_causal=causal))
+    qs_, ks_, vs_ = (t.detach().requires_grad_() for t in (
+        q, k.repeat_interleave(group, 1), v.repeat_interleave(group, 1)))
+
+    def sdpa_fwd():
+        with torch.enable_grad():
+            return F.scaled_dot_product_attention(qs_, ks_, vs_, **sdpa)
+
+    library_ms = (
+        _cuda_ms(lambda: torch.autograd.grad(sdpa_fwd(), (qs_, ks_, vs_), do),
+                 reps=reps)
+        - _cuda_ms(sdpa_fwd, reps=reps))
+    live = int(mask.sum())
+    es = q.element_size()
+    # q, k, v, o, dO and lse read once; dq, dk, dv written once
+    nbytes = es * (4 * B * Hq * Sq * hd + 4 * B * Hkv * Sk * hd) \
+        + 4 * B * Hq * Sq
+    ops = 5 * 2 * B * Hq * hd * live
+    bound_ms, bound_by = _bound(nbytes, ops, dtype)
+    del qs_, ks_, vs_, mask, got, o, lse
+    torch.cuda.empty_cache()
+    row.update(ms=ms, device_ms=device_ms, plain_ms=plain_ms,
+               library_ms=library_ms, vs_library=ms / library_ms,
+               bound_ms=bound_ms, bound_by=bound_by,
+               fp32_core_bound_ms=ops / FP32_OPS_PER_S * 1e3,
+               tflops=ops / (ms * 1e-3) / 1e12)
+    return row
+
+
+def phase_flash_attention_bwd() -> dict:
+    """The backward kernel: the sweep in f32 and bf16, then smollm-360m's
+    training shape (B 8, Hq 15, Hkv 5, hd 64, S 4096, causal, bf16), its
+    layout in f32 at S 512, yi's hd 128 group 8, stablelm's hd 160 (padded
+    to 256), a window and a non-causal row with Sq != Sk."""
+    import torch
+
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    sweep = [_flash_bwd_row(gen, dtype, *case, timed=False)
+             for dtype in (torch.float32, torch.bfloat16)
+             for case in FLASH_BWD_SWEEP]
+    rows = [_flash_bwd_row(gen, dtype, *case) for dtype, case in (
+        (torch.bfloat16, (8, 15, 5, 4096, 4096, 64, True, 0)),
+        (torch.float32, (2, 15, 5, 512, 512, 64, True, 0)),
+        (torch.bfloat16, (1, 32, 4, 512, 512, 128, True, 0)),
+        (torch.bfloat16, (1, 32, 8, 512, 512, 160, True, 0)),
+        (torch.float32, (1, 8, 2, 1024, 1024, 64, True, 256)),
+        (torch.bfloat16, (1, 16, 8, 455, 1600, 128, False, 0)))]
+    return dict(phase="flash_attention_bwd", sweep_cases=len(sweep),
+                sweep_max_rel_err=max(r["max_rel_err"] for r in sweep),
+                sweep_lse_max_abs_err=max(r["lse_max_abs_err"]
+                                          for r in sweep),
+                rows=rows)
+
+
+TRAIN_GOLDEN = "smollm_360m_reduced_train_golden.npz"
+TRAIN_TOL = dict(atol=1e-5, rtol=1e-5)   # tests/test_trainer_serve.py:70-73
+
+
+def _train_state_from(stored: dict, prefix: str, cfg, device):
+    """A training state from the stored JAX parameters under `prefix`."""
+    from repro_torch.models.convert import params_from_numpy, tree_from_flat
+    from repro_torch.train.trainer import init_train_state
+
+    params = params_from_numpy(cfg, tree_from_flat(
+        {k[len(prefix):]: v for k, v in stored.items()
+         if k.startswith(prefix)}), device=device, masters=True)
+    return init_train_state(cfg, params)
+
+
+def _state_tensors(state) -> dict:
+    out = {f"params/{k}": v.detach()
+           for k, v in state["params"].named_parameters()}
+    for part in ("m", "v"):
+        out.update({f"{part}/{k}": v for k, v in state["opt"][part].items()})
+    out["step"] = state["opt"]["step"]
+    return out
+
+
+def phase_train_golden(root: Path) -> dict:
+    """Reduced smollm-360m in f32 in its own head layout (hd 64, 3 query
+    heads a KV head), the JAX package's weights from the stored file:
+    5 steps of `make_train_step` on SyntheticLM batches held to the JAX
+    package's run (losses, grad norms and lr rtol 1e-5; the parameters
+    after steps 3 and 5 atol/rtol 1e-5), flash launches 2 a layer and
+    backward launches 1 a layer a step (remat recomputes the forward);
+    then a checkpoint saved after step 3, restored into a fresh state, and
+    steps 3-4 again give the straight run's bits."""
+    import shutil
+
+    import numpy as np
+    import torch
+
+    from repro_torch.configs.base import get_config, reduced_config
+    from repro_torch.data.pipeline import SyntheticLM, device_batches
+    from repro_torch.kernels import launch_counts
+    from repro_torch.optim.adamw import AdamWConfig
+    from repro_torch.train.checkpoint import Checkpointer
+    from repro_torch.train.trainer import make_train_step
+
+    stored = dict(np.load(root / "src" / "repro_torch" / "data"
+                          / TRAIN_GOLDEN))
+    layout = json.loads(str(stored["config"]))
+    cfg = reduced_config(get_config("smollm-360m")).replace(
+        compute_dtype="float32", **layout)
+    data = json.loads(str(stored["data"]))
+    steps = len(stored["loss"])
+    step_fn = make_train_step(cfg, AdamWConfig(**json.loads(
+        str(stored["opt"]))))
+    src = SyntheticLM(cfg.vocab_size, data["seq"], data["batch"],
+                      seed=data["seed"])
+    ckpt_dir = root / "build" / "train_golden_ckpt"
+    shutil.rmtree(ckpt_dir, ignore_errors=True)
+    ckpt = Checkpointer(str(ckpt_dir))
+
+    state = _train_state_from(stored, "param/", cfg, "cuda")
+    rows, worst = [], 0.0
+    launch_counts.clear()
+    for i, batch in zip(range(steps), device_batches(src, 0, "cuda")):
+        state, m = step_fn(state, batch)
+        rows.append({k: float(v) for k, v in m.items()})
+        if i + 1 == 3:
+            ckpt.save(3, state)
+        if f"after{i + 1}/embed" in stored:
+            want = _train_state_from(stored, f"after{i + 1}/", cfg, "cuda")
+            got = dict(state["params"].named_parameters())
+            for name, w in want["params"].named_parameters():
+                g, w = got[name].detach(), w.detach()
+                err = (g - w).abs()
+                _check(bool((err <= TRAIN_TOL["atol"] + TRAIN_TOL["rtol"]
+                             * w.abs()).all()),
+                       f"train_golden {name} after {i + 1} steps: "
+                       f"{float(err.max())}")
+                worst = max(worst, float(err.max()))
+    launches = dict(launch_counts)
+    for k in ("loss", "grad_norm", "lr"):
+        got = np.array([r[k] for r in rows])
+        rel = float(np.max(np.abs(got - stored[k]) / np.abs(stored[k])))
+        _check(rel <= 1e-5, f"train_golden {k}: {got} != {stored[k]}")
+    layers = cfg.num_layers
+    _check(launches.get("flash_attention") == 2 * layers * steps
+           and launches.get("flash_attention_bwd") == layers * steps,
+           f"train_golden launches {launches}")
+    ckpt.wait()
+    fresh = _train_state_from(stored, "param/", cfg, "cuda")
+    fresh, start = ckpt.restore(fresh)
+    again = []
+    for _, batch in zip(range(start, steps), device_batches(src, start,
+                                                            "cuda")):
+        fresh, m = step_fn(fresh, batch)
+        again.append({k: float(v) for k, v in m.items()})
+    _check(again == rows[start:], f"train_golden restart metrics {again} "
+                                  f"!= {rows[start:]}")
+    want, got = _state_tensors(state), _state_tensors(fresh)
+    _check(all(torch.equal(want[k], got[k]) for k in want),
+           "train_golden restart is not bit-exact")
+    shutil.rmtree(ckpt_dir, ignore_errors=True)
+    return dict(phase="train_golden", arch=cfg.name, layout=layout,
+                layers=layers, steps=steps, batch=data["batch"],
+                seq=data["seq"], losses=[r["loss"] for r in rows],
+                jax_losses=stored["loss"].tolist(),
+                grad_norms=[r["grad_norm"] for r in rows],
+                params_max_abs_err=worst, restart_from=start,
+                restart_bit_exact=True,
+                **{f"{k}_launches": v for k, v in launches.items()})
+
+
+# train_4k's global batch of 256 at 4,096 tokens: the f32 logits alone
+# (256 x 4096 x 49,152 x 4 B) are ~206 GB
+TRAIN_REDUCED = {"global_batch": [256, 8]}
+TRAIN_REDUCED_WHY = ("train_4k's global batch of 256 at 4,096 tokens needs "
+                     "~206 GB for the f32 logits alone; the card has 80 GB")
+
+
+def _train_op_floor(cfg, B: int, S: int) -> dict:
+    """The least time a step's products could take on the card: the
+    layers' projections (forward, remat recompute, backward: 4 x 2 flops
+    a weight a token) and the attention (forward twice, backward five
+    products of 2 Sq Sk hd a head over the causal half) at the bf16
+    tensor-core rate, the f32 logits (forward and both backward products)
+    at the f32 rate."""
+    D, hd, T = cfg.d_model, cfg.head_dim_, B * S
+    proj = (D * hd * (2 * cfg.num_heads + 2 * cfg.num_kv_heads)
+            + 3 * D * cfg.d_ff)
+    live = S * (S + 1) // 2
+    attn = (2 * 4 + 5 * 2) * B * cfg.num_heads * hd * live
+    bf16 = cfg.num_layers * (4 * 2 * proj * T + attn)
+    f32 = 3 * 2 * T * D * cfg.vocab_size
+    return dict(step_bf16_tflop=bf16 / 1e12, step_f32_tflop=f32 / 1e12,
+                step_op_floor_ms=(bf16 / BF16_OPS_PER_S
+                                  + f32 / FP32_OPS_PER_S) * 1e3)
+
+
+def phase_train_full(root: Path) -> dict:
+    """smollm-360m at full width and depth (32 layers, d_model 960, 15
+    query heads over 5 KV heads at hd 64, vocab 49,152, tied), float32
+    masters made on the card from seed 0, bf16 compute, full remat, S
+    4096, B 8 (`TRAIN_REDUCED`): 12 steps of `launch.train.main` with a
+    checkpoint under build/.  Every loss finite, the last 3 below the
+    first 3 on average, 64 flash launches and 32 backward launches a
+    step.  Then the checkpoint restored into a fresh state and 2 steps
+    profiled: device ms a step, the backward kernel's share, the idle
+    share against the unprofiled steps' host ms."""
+    import shutil
+
+    import numpy as np
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.configs.base import get_config
+    from repro_torch.data.pipeline import SyntheticLM, device_batches
+    from repro_torch.kernels import launch_counts
+    from repro_torch.launch.train import main as train_main
+    from repro_torch.models.model import count_params, init_params
+    from repro_torch.optim.adamw import AdamWConfig
+    from repro_torch.train.checkpoint import Checkpointer
+    from repro_torch.train.trainer import init_train_state, make_train_step
+
+    _free_card()
+    cfg = get_config("smollm-360m")
+    steps, B, S = 12, 8, 4096
+    print(f"reduced: {json.dumps(TRAIN_REDUCED)} ({TRAIN_REDUCED_WHY})",
+          flush=True)
+    ckpt_dir = root / "build" / "train_full_ckpt"
+    shutil.rmtree(ckpt_dir, ignore_errors=True)
+    launch_counts.clear()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    run = train_main(["--arch", cfg.name, "--no-reduced", "--steps",
+                      str(steps), "--batch", str(B), "--seq", str(S),
+                      "--ckpt-dir", str(ckpt_dir), "--ckpt-every", "1000",
+                      "--log-every", "1", "--device", "cuda"])
+    wall = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated()
+    launches = dict(launch_counts)
+    losses = run["losses"]
+    _check(run["params"] == count_params(cfg) == FULL_PARAMS[cfg.name],
+           f"train_full params {run['params']}")
+    _check(len(losses) == steps and all(np.isfinite(losses)),
+           f"train_full losses {losses}")
+    _check(np.mean(losses[-3:]) < np.mean(losses[:3]),
+           f"train_full loss did not fall: {losses}")
+    L = cfg.num_layers
+    _check(launches.get("flash_attention") == 2 * L * steps
+           and launches.get("flash_attention_bwd") == L * steps,
+           f"train_full launches {launches}")
+    # the first step builds cuBLAS's plans and warms the allocator
+    step_ms = float(np.median(run["step_s"][1:])) * 1e3
+
+    _free_card()
+    state = init_train_state(cfg, init_params(cfg, 1, device="cuda",
+                                              masters=True))
+    state, at = Checkpointer(str(ckpt_dir)).restore(state)
+    _check(at == steps and int(state["opt"]["step"]) == steps,
+           f"train_full restored step {at}")
+    step_fn = make_train_step(cfg, AdamWConfig(lr=1e-3, total_steps=steps,
+                                               warmup_steps=5))
+    batches = device_batches(SyntheticLM(cfg.vocab_size, S, B, seed=0),
+                             steps, "cuda")
+    state, m = step_fn(state, next(batches))   # warm
+    float(m["loss"])
+    prof_steps = 2
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(prof_steps):
+            state, m = step_fn(state, next(batches))
+            float(m["loss"])
+    kern = [(e.key, getattr(e, "device_time_total", 0.0), e.count)
+            for e in prof.key_averages()
+            if getattr(e, "device_type", None) == DeviceType.CUDA]
+    device_ms = sum(us for _, us, _ in kern) / prof_steps / 1e3
+    bwd_ms = sum(us for k, us, _ in kern if "flash_bwd" in k) \
+        / prof_steps / 1e3
+    fwd_ms = sum(us for k, us, _ in kern if "flash_fwd" in k) \
+        / prof_steps / 1e3
+    kern.sort(key=lambda r: -r[1])
+    del state, m
+    shutil.rmtree(ckpt_dir, ignore_errors=True)
+    floor = _train_op_floor(cfg, B, S)
+    return dict(
+        **floor, floor_share=floor["step_op_floor_ms"] / step_ms,
+        phase="train_full", arch=cfg.name, layers=L, d_model=cfg.d_model,
+        params=run["params"], reduced=TRAIN_REDUCED,
+        reduced_why=TRAIN_REDUCED_WHY, batch=B, seq=S, steps=steps,
+        remat=cfg.remat, param_dtype=cfg.param_dtype,
+        compute_dtype=cfg.compute_dtype, init_s=run["init_s"], wall_s=wall,
+        losses=losses, grad_norms=run["grad_norms"], lrs=run["lrs"],
+        floor=run["floor"], step_s=run["step_s"], step_ms=step_ms,
+        tokens_per_s=B * S / (step_ms / 1e3), peak_bytes=peak,
+        peak_gb=peak / 1e9, device_ms_per_step=device_ms,
+        idle_share=1.0 - device_ms / step_ms,
+        flash_bwd_device_ms_per_step=bwd_ms,
+        flash_bwd_share_of_step=bwd_ms / step_ms,
+        flash_fwd_device_ms_per_step=fwd_ms,
+        launches_per_step=sum(c for _, _, c in kern) / prof_steps,
+        top=[dict(kernel=k[:90], ms_per_step=us / prof_steps / 1e3,
+                  launches_per_step=c / prof_steps)
+             for k, us, c in kern[:12]],
+        **{f"{k}_launches": v for k, v in launches.items()})
+
+
 def _bmm_trio(h, wg, wu, wd):
     """The expert FFN as three batched products and silu in h's type: a
     yardstick only (it rounds g and u to that type)."""
@@ -1984,6 +2458,10 @@ def main() -> int:
         return out
 
     run(phase_build)
+    # training first, so that a failure shows early
+    flash_bwd = run(phase_flash_attention_bwd)
+    train_runs = [run(phase_train_golden, root), run(phase_train_full, root)]
+    _free_card()
     t0 = time.perf_counter()
     topos = {dp.name: _topology(dp) for dp in appendix_b_grid()}
     seconds["topologies"] = time.perf_counter() - t0
@@ -2061,7 +2539,9 @@ def main() -> int:
                      if r["x_dtype"] == "bfloat16" and r["S"] == 512)
     rglru_row = next(r for r in rglru["rows"]
                      if r["dtype"] == "float32" and r["S"] == 3300)
-    # launches: every full serving run the kernel is on, summed
+    # launches: every full serving run the kernel is on, summed, and for
+    # flash the training runs too
+    runs += train_runs
     for name, row, phase, replaces in (
             ("flash_attention", flash_row, flash,
              "src/repro/kernels/flash_attention/kernel.py:22"),
@@ -2079,6 +2559,20 @@ def main() -> int:
                             + [r["max_abs_err"] for r in phase["rows"]]),
             ms=row["ms"], plain_ms=row["plain_ms"], bound_ms=row["bound_ms"],
             bound_by=row["bound_by"], library_ms=row["library_ms"]))
+    # the training path's shape: smollm-360m, B 8, S 4096, bf16, causal
+    bwd_row = next(r for r in flash_bwd["rows"] if r["S"] == 4096)
+    kernels.append(dict(
+        name="flash_attention_bwd", route="cuda",
+        source="src/repro_torch/kernels/flash_attention/csrc/"
+               "flash_attention_bwd.cu",
+        replaces="jax.grad of src/repro/models/attention.py:85 (the JAX "
+                 "package has no backward kernel)",
+        launches=sum(r.get("flash_attention_bwd_launches", 0)
+                     for r in train_runs),
+        max_abs_err=max(r["max_abs_err"] for r in flash_bwd["rows"]),
+        ms=bwd_row["ms"], plain_ms=bwd_row["plain_ms"],
+        bound_ms=bwd_row["bound_ms"], bound_by=bwd_row["bound_by"],
+        library_ms=bwd_row["library_ms"]))
     _emit({"phase_seconds": seconds,
            "total_seconds": time.perf_counter() - start})
     _emit({"kernels": kernels})

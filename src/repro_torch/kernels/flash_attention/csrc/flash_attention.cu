@@ -97,6 +97,11 @@
 // the row's output dims; Q, K, V converted tiles in shared memory (rows
 // padded by one float against bank conflicts): 169 KB at hd 256.
 //
+// Both kernels write each row's f32 logsumexp of its scaled, masked scores
+// when given an lse pointer (training: the backward in
+// flash_attention_bwd.cu reads it), from the running max and sum they hold
+// anyway; a null pointer leaves the serving launch as it was.
+//
 // Head dims above 256 (hd 512 and 1024, F1 and F2 in ROADMAP Queue 3) run
 // only here, bf16 inputs widened to f32 around the call by the wrapper, so
 // they keep p in f32 as the TPU kernel does.  The same code on smaller
@@ -144,8 +149,9 @@ constexpr size_t smem_bytes_f32() {
 template <int HD>
 __global__ void __launch_bounds__(F32Tiling<HD>::kThreads)
 flash_fwd_f32(const float* __restrict__ q, const float* __restrict__ k,
-              const float* __restrict__ v, float* __restrict__ o, int sq,
-              int sk, int group, int causal, int window, float scale) {
+              const float* __restrict__ v, float* __restrict__ o,
+              float* __restrict__ lse, int sq, int sk, int group, int causal,
+              int window, float scale) {
   constexpr int kBQ = F32Tiling<HD>::kBQ, kBK = F32Tiling<HD>::kBK;
   constexpr int kTPR = F32Tiling<HD>::kTPR;
   constexpr int kThreads = F32Tiling<HD>::kThreads;
@@ -252,13 +258,17 @@ flash_fwd_f32(const float* __restrict__ q, const float* __restrict__ k,
     float* ob = o + (static_cast<size_t>(bh) * sq + q0 + r) * HD;
 #pragma unroll
     for (int i = 0; i < kDims; ++i) ob[c + kTPR * i] = acc[i] * inv_l;
+    // m is uniform over the row's threads; a row masked everywhere has
+    // m = -1e30, and -1e30 + log(l) rounds to -1e30, as logsumexp gives
+    if (lse != nullptr && c == 0)
+      lse[static_cast<size_t>(bh) * sq + q0 + r] = m + logf(l);
   }
 }
 
 template <int HD>
-int launch_f32(const void* q, const void* k, const void* v, void* o, int bhq,
-               int sq, int sk, int group, int causal, int window, float scale,
-               cudaStream_t st) {
+int launch_f32(const void* q, const void* k, const void* v, void* o,
+               float* lse, int bhq, int sq, int sk, int group, int causal,
+               int window, float scale, cudaStream_t st) {
   constexpr size_t bytes = smem_bytes_f32<HD>();
   cudaError_t err = cudaFuncSetAttribute(
       flash_fwd_f32<HD>, cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -268,8 +278,8 @@ int launch_f32(const void* q, const void* k, const void* v, void* o, int bhq,
   const dim3 grid((sq + kBQ - 1) / kBQ, bhq);
   flash_fwd_f32<HD><<<grid, F32Tiling<HD>::kThreads, bytes, st>>>(
       static_cast<const float*>(q), static_cast<const float*>(k),
-      static_cast<const float*>(v), static_cast<float*>(o), sq, sk, group,
-      causal, window, scale);
+      static_cast<const float*>(v), static_cast<float*>(o), lse, sq, sk,
+      group, causal, window, scale);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -585,8 +595,9 @@ __device__ __forceinline__ void softmax_tile(float* s, float* m, float* l,
 template <int HD>
 __global__ void __launch_bounds__(kWG)
 flash_fwd_wgmma(const bf16* __restrict__ q, const bf16* __restrict__ k,
-                const bf16* __restrict__ v, bf16* __restrict__ o, int sq,
-                int sk, int group, int causal, int window, float scale) {
+                const bf16* __restrict__ v, bf16* __restrict__ o,
+                float* __restrict__ lse, int sq, int sk, int group, int causal,
+                int window, float scale) {
   extern __shared__ uint8_t smem_raw[];
   constexpr int kTile = Tile<HD>::kBytes;
   const uint32_t qs = aligned_smem(smem_raw);
@@ -666,6 +677,12 @@ flash_fwd_wgmma(const bf16* __restrict__ q, const bf16* __restrict__ k,
     l[h] += __shfl_xor_sync(0xffffffffu, l[h], 2);
     const int row = q0 + r0 + 8 * h;
     if (row >= sq) continue;
+    // m is in log2 units (scores pre-scaled by log2(e)) but for a row
+    // masked everywhere, whose m is the unscaled -1e30
+    if (lse != nullptr && (lane & 3) == 0)
+      lse[static_cast<size_t>(bh) * sq + row] =
+          m[h] == kNegInf ? kNegInf + logf(l[h])
+                          : m[h] * 0.6931471805599453f + logf(l[h]);
     const float inv_l = 1.f / fmaxf(l[h], 1e-30f);
     bf16* ob = o + (static_cast<size_t>(bh) * sq + row) * HD;
 #pragma unroll
@@ -681,8 +698,8 @@ flash_fwd_wgmma(const bf16* __restrict__ q, const bf16* __restrict__ k,
 
 template <int HD>
 int launch_bf16(const void* q, const void* k, const void* v, void* o,
-                int bhq, int sq, int sk, int group, int causal, int window,
-                float scale, cudaStream_t st) {
+                float* lse, int bhq, int sq, int sk, int group, int causal,
+                int window, float scale, cudaStream_t st) {
   constexpr size_t bytes = smem_bytes_bf16<HD>();
   cudaError_t err = cudaFuncSetAttribute(
       flash_fwd_wgmma<HD>, cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -691,8 +708,8 @@ int launch_bf16(const void* q, const void* k, const void* v, void* o,
   const dim3 grid((sq + kRows - 1) / kRows, bhq);
   flash_fwd_wgmma<HD><<<grid, kWG, bytes, st>>>(
       static_cast<const bf16*>(q), static_cast<const bf16*>(k),
-      static_cast<const bf16*>(v), static_cast<bf16*>(o), sq, sk, group,
-      causal, window, scale);
+      static_cast<const bf16*>(v), static_cast<bf16*>(o), lse, sq, sk,
+      group, causal, window, scale);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -780,31 +797,36 @@ extern "C" {
 // o (BHq, Sq, hd) = attention of q (BHq, Sq, hd) over k, v (BHq / group,
 // Sk, hd), all contiguous and of one type: dtype 0 is f32 (CUDA cores),
 // 1 is bf16 (wgmma; pointers 16-byte aligned).  hd is 16, 32, 64, 128 or
-// 256, and for f32 also 512 and 1024.  Launches on `stream`; returns the
-// cudaError_t of the launch (0 = success).
+// 256, and for f32 also 512 and 1024.  lse, when not null, receives each
+// row's f32 logsumexp of its scaled, masked scores (BHq, Sq), what the
+// backward pass reads.  Launches on `stream`; returns the cudaError_t of
+// the launch (0 = success).
 int flash_attention_launch(const void* q, const void* k, const void* v,
-                           void* o, int dtype, int bhq, int sq, int sk,
-                           int hd, int group, int causal, int window,
+                           void* o, void* lse, int dtype, int bhq, int sq,
+                           int sk, int hd, int group, int causal, int window,
                            float scale, void* stream) {
   if (bhq < 1 || bhq > 65535 || sq < 1 || sk < 1 || group < 1 ||
       bhq % group)
     return static_cast<int>(cudaErrorInvalidValue);
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  float* l = static_cast<float*>(lse);
   if (dtype == 0 && hd == 512)
-    return launch_f32<512>(q, k, v, o, bhq, sq, sk, group, causal, window,
+    return launch_f32<512>(q, k, v, o, l, bhq, sq, sk, group, causal, window,
                            scale, st);
   if (dtype == 0 && hd == 1024)
-    return launch_f32<1024>(q, k, v, o, bhq, sq, sk, group, causal, window,
+    return launch_f32<1024>(q, k, v, o, l, bhq, sq, sk, group, causal, window,
                             scale, st);
   if (dtype == 0)
     return by_head_dim(hd, [&](auto h) {
-      return launch_f32<decltype(h)::value>(q, k, v, o, bhq, sq, sk, group,
-                                            causal, window, scale, st);
+      return launch_f32<decltype(h)::value>(q, k, v, o, l, bhq, sq, sk,
+                                            group, causal, window, scale,
+                                            st);
     });
   if (dtype == 1)
     return by_head_dim(hd, [&](auto h) {
-      return launch_bf16<decltype(h)::value>(q, k, v, o, bhq, sq, sk, group,
-                                             causal, window, scale, st);
+      return launch_bf16<decltype(h)::value>(q, k, v, o, l, bhq, sq, sk,
+                                             group, causal, window, scale,
+                                             st);
     });
   return static_cast<int>(cudaErrorInvalidValue);
 }

@@ -1,5 +1,6 @@
-"""ctypes binding of the Hopper flash attention kernel
-(``csrc/flash_attention.cu``).
+"""ctypes binding of the Hopper flash attention kernels: the forward
+(``csrc/flash_attention.cu``) and the backward
+(``csrc/flash_attention_bwd.cu``, its own library).
 
 The CUDA source replaces the TPU kernel
 ``repro/kernels/flash_attention/kernel.py::_kernel``; its header states
@@ -13,6 +14,12 @@ output columns, and the scale stays that of the true head dim.  Head
 dims above 256 run on the f32 kernel's hd-512 and hd-1024 instantiations
 only: bf16 inputs are widened to f32 for the call and the output rounded
 back once.  Above 1024 the wrapper raises.
+
+The forward writes each row's logsumexp when asked (``return_lse``), for
+`flash_attention_bwd`, which computes dq, dk and dv from q, k, v, o, the
+output's gradient and that lse in three kernels (one call, counted once
+under ``flash_attention_bwd``), at head dims up to 256 (zero-padded as
+the forward pads them); above 256 it raises (ROADMAP item 6b).
 """
 from __future__ import annotations
 
@@ -26,11 +33,15 @@ from repro_torch.kernels import build_library, launch_counts
 
 NAME = "flash_attention"
 SOURCE = Path(__file__).resolve().parent / "csrc" / "flash_attention.cu"
+BWD_NAME = "flash_attention_bwd"
+BWD_SOURCE = SOURCE.with_name("flash_attention_bwd.cu")
 HEAD_DIMS = (16, 32, 64, 128, 256, 512, 1024)  # the f32 kernel's
 WGMMA_HEAD_DIMS = HEAD_DIMS[:5]                # the bf16 (wgmma) kernel's
+BWD_HEAD_DIMS = HEAD_DIMS[:5]                  # the backward's
 DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
 _lib = None
+_bwd_lib = None
 
 
 def library() -> ctypes.CDLL:
@@ -40,7 +51,7 @@ def library() -> ctypes.CDLL:
         lib = build_library(NAME, [SOURCE])
         ptr, i32 = ctypes.c_void_p, ctypes.c_int
         lib.flash_attention_launch.argtypes = [
-            ptr, ptr, ptr, ptr, i32, i32, i32, i32, i32, i32, i32, i32,
+            ptr, ptr, ptr, ptr, ptr, i32, i32, i32, i32, i32, i32, i32, i32,
             ctypes.c_float, ptr,
         ]
         lib.flash_attention_launch.restype = i32
@@ -48,6 +59,19 @@ def library() -> ctypes.CDLL:
         lib.flash_wgmma_probe_launch.restype = i32
         _lib = lib
     return _lib
+
+
+def bwd_library() -> ctypes.CDLL:
+    """Build (once per source content) and load the backward's library."""
+    global _bwd_lib
+    if _bwd_lib is None:
+        lib = build_library(BWD_NAME, [BWD_SOURCE])
+        ptr, i32 = ctypes.c_void_p, ctypes.c_int
+        lib.flash_attention_bwd_launch.argtypes = [ptr] * 10 + [i32] * 8 + [
+            ctypes.c_float, ptr]
+        lib.flash_attention_bwd_launch.restype = i32
+        _bwd_lib = lib
+    return _bwd_lib
 
 
 def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -86,6 +110,16 @@ def padded_head_dim(hd: int) -> int:
                      f"kernel's largest instantiation is {HEAD_DIMS[-1]}")
 
 
+def bwd_head_dim(hd: int) -> int:
+    """The backward's instantiation for a head dim, as the forward pads
+    it; above the backward's largest it raises."""
+    if hd > BWD_HEAD_DIMS[-1]:
+        raise ValueError(f"head_dim {hd}: the flash backward's largest "
+                         f"instantiation is {BWD_HEAD_DIMS[-1]} (ROADMAP "
+                         "Queue 1 item 6b)")
+    return padded_head_dim(hd)
+
+
 def flash_attention_fwd(
     q: torch.Tensor,   # (BHq, Sq, hd), heads folded
     k: torch.Tensor,   # (BHkv, Sk, hd)
@@ -93,8 +127,11 @@ def flash_attention_fwd(
     group: int,        # Hq // Hkv: q row bh reads kv row bh // group
     causal: bool,
     window: int,
-) -> torch.Tensor:
-    """Attention on the card; returns o (BHq, Sq, hd) in q's dtype."""
+    return_lse: bool = False,
+):
+    """Attention on the card; returns o (BHq, Sq, hd) in q's dtype, and
+    with `return_lse` also each row's f32 logsumexp of its scaled, masked
+    scores, lse (BHq, Sq)."""
     _check(q, k, v, group)
     lib = library()
     bhq, sq, hd = q.shape
@@ -106,16 +143,68 @@ def flash_attention_fwd(
         if width != hd:
             q, k, v = (F.pad(t, (0, width - hd)) for t in (q, k, v))
         o = torch.empty_like(q)
+        lse = (torch.empty((bhq, sq), dtype=torch.float32, device=q.device)
+               if return_lse else None)
         stream = torch.cuda.current_stream(q.device).cuda_stream
         err = lib.flash_attention_launch(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
+            None if lse is None else lse.data_ptr(),
             DTYPES[q.dtype], bhq, sq, k.shape[1], width, group,
             int(bool(causal)), int(window), hd**-0.5, stream)
     if err:
         raise RuntimeError(f"flash_attention launch failed: cudaError_t {err}")
     launch_counts[NAME] += 1
     o = o if width == hd else o[..., :hd]
-    return o.to(dtype).contiguous()
+    o = o.to(dtype).contiguous()
+    return (o, lse) if return_lse else o
+
+
+def flash_attention_bwd(
+    q: torch.Tensor,      # (BHq, Sq, hd), heads folded
+    k: torch.Tensor,      # (BHkv, Sk, hd)
+    v: torch.Tensor,
+    o: torch.Tensor,      # (BHq, Sq, hd): the forward's output
+    do: torch.Tensor,     # (BHq, Sq, hd): the loss's gradient by o
+    lse: torch.Tensor,    # (BHq, Sq) f32: the forward's logsumexp
+    group: int,
+    causal: bool,
+    window: int,
+):
+    """dq, dk, dv on the card, each in q's dtype and shape, for the
+    forward `flash_attention_fwd(q, k, v, group, causal, window)`."""
+    _check(q, k, v, group)
+    bhq, sq, hd = q.shape
+    width = bwd_head_dim(hd)
+    for name, t in (("o", o), ("do", do)):
+        if (t.shape != q.shape or t.dtype != q.dtype or t.device != q.device
+                or not t.is_contiguous()):
+            raise ValueError(f"{name} must be a contiguous {q.dtype} tensor "
+                             f"of q's shape {tuple(q.shape)} on {q.device}")
+    if (lse.shape != (bhq, sq) or lse.dtype != torch.float32
+            or lse.device != q.device or not lse.is_contiguous()):
+        raise ValueError(f"lse must be a contiguous float32 ({bhq}, {sq}) "
+                         f"tensor on {q.device}")
+    lib = bwd_library()
+    with torch.cuda.device(q.device):
+        if width != hd:
+            q, k, v, o, do = (F.pad(t, (0, width - hd))
+                              for t in (q, k, v, o, do))
+        dq, dk, dv = (torch.empty_like(t) for t in (q, k, v))
+        dsum = torch.empty((bhq, sq), dtype=torch.float32, device=q.device)
+        stream = torch.cuda.current_stream(q.device).cuda_stream
+        err = lib.flash_attention_bwd_launch(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
+            do.data_ptr(), lse.data_ptr(), dsum.data_ptr(), dq.data_ptr(),
+            dk.data_ptr(), dv.data_ptr(), DTYPES[q.dtype], bhq, sq,
+            k.shape[1], width, group, int(bool(causal)), int(window),
+            hd**-0.5, stream)
+    if err:
+        raise RuntimeError(
+            f"flash_attention_bwd launch failed: cudaError_t {err}")
+    launch_counts[BWD_NAME] += 1
+    if width != hd:
+        dq, dk, dv = (t[..., :hd].contiguous() for t in (dq, dk, dv))
+    return dq, dk, dv
 
 
 def wgmma_probe(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,

@@ -5,7 +5,7 @@ from typing import Tuple
 
 import torch
 
-from repro_torch.kernels import pick
+from repro_torch.kernels import forward_only, pick
 from repro_torch.kernels.mamba_scan.kernel import mamba_scan_fwd
 from repro_torch.kernels.mamba_scan.ref import mamba_scan_ref
 
@@ -22,7 +22,10 @@ def mamba_scan(
     h_S (B, D, N)), both float32.
 
     CUDA tensors launch the Hopper kernel (`kernel.mamba_scan_fwd`,
-    which counts the launch); CPU tensors run `ref.mamba_scan_ref`.  The
-    JAX op picks block sizes that divide S and D; the kernel masks ragged
-    edges itself, so none are picked here."""
-    return pick(x, mamba_scan_fwd, mamba_scan_ref)(x, dt, Bm, Cm, A, D)
+    which counts the launch; it has no backward kernel, so it raises where
+    autograd records, `forward_only`); CPU tensors run
+    `ref.mamba_scan_ref`, which autograd differentiates.  The JAX op picks
+    block sizes that divide S and D; the kernel masks ragged edges itself,
+    so none are picked here."""
+    kernel = forward_only("mamba_scan", mamba_scan_fwd)
+    return pick(x, kernel, mamba_scan_ref)(x, dt, Bm, Cm, A, D)

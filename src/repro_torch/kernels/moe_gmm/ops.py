@@ -3,7 +3,7 @@ from __future__ import annotations
 
 import torch
 
-from repro_torch.kernels import pick
+from repro_torch.kernels import forward_only, pick
 from repro_torch.kernels.moe_gmm.kernel import moe_gmm_fwd
 from repro_torch.kernels.moe_gmm.ref import moe_gmm_ref
 
@@ -18,5 +18,8 @@ def moe_gmm(
     dtype.
 
     CUDA tensors launch the Hopper kernel (`kernel.moe_gmm_fwd`, which
-    counts the launch); CPU tensors run `ref.moe_gmm_ref`."""
-    return pick(h, moe_gmm_fwd, moe_gmm_ref)(h, wg, wu, wd)
+    counts the launch; it has no backward kernel, so it raises where
+    autograd records, `forward_only`); CPU tensors run `ref.moe_gmm_ref`,
+    which autograd differentiates."""
+    kernel = forward_only("moe_gmm", moe_gmm_fwd)
+    return pick(h, kernel, moe_gmm_ref)(h, wg, wu, wd)

@@ -3,7 +3,7 @@ from __future__ import annotations
 
 import torch
 
-from repro_torch.kernels import pick
+from repro_torch.kernels import forward_only, pick
 from repro_torch.kernels.rglru_scan.kernel import rglru_scan_fwd
 from repro_torch.kernels.rglru_scan.ref import rglru_scan_ref
 
@@ -18,5 +18,8 @@ def rglru_scan(
 
     CUDA tensors launch the Hopper kernel (`kernel.rglru_scan_fwd`,
     which counts the launch and walks any S and D, so no block sizes are
-    picked here); CPU tensors run `ref.rglru_scan_ref`."""
-    return pick(a, rglru_scan_fwd, rglru_scan_ref)(a, bx, h0)
+    picked here; it has no backward kernel, so it raises where autograd
+    records, `forward_only`); CPU tensors run `ref.rglru_scan_ref`, which
+    autograd differentiates."""
+    kernel = forward_only("rglru_scan", rglru_scan_fwd)
+    return pick(a, kernel, rglru_scan_ref)(a, bx, h0)

@@ -12,7 +12,9 @@ superblock's ``blocks/0`` .. ``blocks/4`` interleave); an encdec model's
 leaf keeps its ``(d_in, d_out)`` layout,
 and each is cast to its storage dtype (`layers.storage_dtype`) — the
 dtype the JAX forward casts it to at use, so the forwards agree bit for
-bit in the casts.
+bit in the casts.  With ``masters=True`` every leaf stays float32
+(``param_dtype``) and requires grad: the training state, or a JAX
+gradient tree carried across for comparison.
 """
 from __future__ import annotations
 
@@ -23,7 +25,8 @@ import torch
 
 from repro_torch import DeviceLike, resolve_device
 from repro_torch.configs.base import ModelConfig
-from repro_torch.models.layers import ParamTree, storage_dtype
+from repro_torch.models.layers import (ParamTree, storage_config,
+                                      storage_dtype)
 from repro_torch.models.transformer import StackPlan, encoder_plan, stack_plan
 
 
@@ -81,8 +84,10 @@ def _layers(stack: Mapping, plan: StackPlan) -> list:
 
 
 def params_from_numpy(cfg: ModelConfig, tree: Mapping,
-                      device: DeviceLike = None) -> ParamTree:
+                      device: DeviceLike = None,
+                      masters: bool = False) -> ParamTree:
     dev = resolve_device(device)
+    cfg = storage_config(cfg, masters)
     stacks = {"stack": stack_plan(cfg)}
     if "encoder" in tree:
         stacks["encoder"] = encoder_plan(cfg)
@@ -91,4 +96,4 @@ def params_from_numpy(cfg: ModelConfig, tree: Mapping,
     for name, plan in stacks.items():
         out[name] = [_leaves(cfg, layer, dev)
                      for layer in _layers(tree[name], plan)]
-    return ParamTree(out)
+    return ParamTree(out).requires_grad_(masters)

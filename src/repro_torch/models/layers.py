@@ -3,9 +3,12 @@ embeddings, activations.
 
 Port of `repro.models.layers`.  Parameters live in `ParamTree`s, addressed by the same names as
 the JAX package's dict pytree.  The JAX package keeps float32 masters
-and casts most weights to the compute dtype at every use; the port
-stores each weight in the dtype its use casts it to (`storage_dtype`),
-which gives the same forward bits in a fraction of the memory.  Inits
+and casts most weights to the compute dtype at every use; for serving
+the port stores each weight in the dtype its use casts it to
+(`storage_dtype`), which gives the same forward bits in a fraction of
+the memory.  For training (`storage_config(cfg, masters=True)`) every
+leaf is a float32 master at ``param_dtype`` with ``requires_grad``:
+every use casts, so the forward's bits are the same.  Inits
 draw from an explicit `torch.Generator` with the JAX package's
 distributions (not its bits: tests carry JAX parameters across with
 `models.convert.params_from_numpy`).
@@ -41,6 +44,12 @@ def torch_dtype(name: str) -> torch.dtype:
             "float16": torch.float16}[name]
 
 
+def storage_config(cfg, masters: bool):
+    """The config a parameter tree is stored by: `cfg` itself (serving),
+    or with ``masters`` every leaf at ``param_dtype`` (training)."""
+    return cfg.replace(compute_dtype=cfg.param_dtype) if masters else cfg
+
+
 def storage_dtype(cfg, name: str) -> torch.dtype:
     """The dtype the port keeps parameter leaf `name` in."""
     if name in COMPUTE_STORED or (name == "embed" and not cfg.tie_embeddings):
@@ -51,8 +60,9 @@ def storage_dtype(cfg, name: str) -> torch.dtype:
 class ParamTree(nn.Module):
     """Nested parameters addressed like the JAX package's pytree
     (``tree["attn"]["wq"]``, ``"bq" in tree``).  Dict values become
-    subtrees, lists `nn.ModuleList`s, tensors frozen `nn.Parameter`s;
-    modules are kept as they are."""
+    subtrees, lists `nn.ModuleList`s, tensors frozen `nn.Parameter`s
+    (``requires_grad_()`` makes training masters of them); modules are
+    kept as they are."""
 
     def __init__(self, entries: Mapping):
         super().__init__()

@@ -1,9 +1,11 @@
-"""Public model API: init, parameter count, prefill and decode forwards.
+"""Public model API: init, parameter count, training forwards and losses,
+prefill and decode forwards.
 
-Port of the serving half of `repro.models.model` (training forwards and
-the losses wait for the training slice).  Entry points take parameters
-built by `init_params` (random, from a seed, on the card by default) or
-by `models.convert.params_from_numpy` (the JAX package's parameters).
+Port of `repro.models.model`.  Entry points take parameters built by
+`init_params` (random, from a seed, on the card by default) or by
+`models.convert.params_from_numpy` (the JAX package's parameters); with
+``masters=True`` both give trainable float32 masters, which
+`forward_train`, `loss_fn` and `train.trainer` differentiate.
 An encdec model's prefill takes ``batch["encoder_embeds"]`` (B, Sx, D),
 the frames its encoder reads (the modality frontend is a stub, as in the
 JAX package); a vlm's ``batch["image_embeds"]`` (B, Sx, D).  Either is
@@ -15,6 +17,7 @@ from typing import Dict, List, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch import DeviceLike, resolve_device
 from repro_torch.configs.base import ModelConfig
@@ -27,6 +30,7 @@ from repro_torch.models.layers import (
     dense_init,
     embed_init,
     init_norm,
+    storage_config,
     storage_dtype,
     torch_dtype,
 )
@@ -37,12 +41,14 @@ from repro_torch.models.layers import (
 CROSS_INPUT = {"encdec": "encoder_embeds", "vlm": "image_embeds"}
 
 
-def init_params(cfg: ModelConfig, seed: int,
-                device: DeviceLike = None) -> ParamTree:
+def init_params(cfg: ModelConfig, seed: int, device: DeviceLike = None,
+                masters: bool = False) -> ParamTree:
     """Random parameters with the JAX package's distributions, drawn on
     `device` from a `torch.Generator` seeded with `seed`, each weight in
-    its storage dtype (`layers.storage_dtype`)."""
+    its storage dtype (`layers.storage_dtype`); with `masters`, trainable
+    float32 masters (`layers.storage_config`) of the same draws."""
     dev = resolve_device(device)
+    cfg = storage_config(cfg, masters)
     gen = torch.Generator(device=dev).manual_seed(seed)
     p = {
         "embed": embed_init(gen, cfg.vocab_size, cfg.d_model,
@@ -56,7 +62,7 @@ def init_params(cfg: ModelConfig, seed: int,
     if cfg.family == "encdec":
         p["encoder"] = T.init_stack(gen, cfg, T.encoder_plan(cfg))
         p["enc_norm"] = init_norm(cfg.norm, cfg.d_model, dev)
-    return ParamTree(p)
+    return ParamTree(p).requires_grad_(masters)
 
 
 def _ffn_params(cfg: ModelConfig, kind: str, active_only: bool) -> int:
@@ -126,29 +132,140 @@ def _logits(params, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
     return x.float() @ head.float()
 
 
-def _encode(params, encoder_embeds: torch.Tensor,
-            cfg: ModelConfig) -> torch.Tensor:
+def _encode(params, encoder_embeds: torch.Tensor, cfg: ModelConfig,
+            mode: str = "prefill") -> torch.Tensor:
     """The encoder stack over (B, Sx, D) frames, then its norm
-    (model.py:89-97)."""
+    (model.py:89-97); `mode` "train" rematerialises its layers."""
     S = encoder_embeds.shape[1]
     ctx = T.LayerCtx(positions=torch.arange(S, device=encoder_embeds.device),
-                     mode="prefill")
+                     mode=mode)
     x = encoder_embeds.to(torch_dtype(cfg.compute_dtype))
     x, _, _ = T.apply_stack(params["encoder"], x, cfg, ctx,
                             T.encoder_plan(cfg))
     return apply_norm(cfg.norm, params["enc_norm"], x, upcast=cfg.norm_upcast)
 
 
-def _cross_src(params, batch: Dict[str, torch.Tensor],
-               cfg: ModelConfig) -> Optional[torch.Tensor]:
+def _cross_src(params, batch: Dict[str, torch.Tensor], cfg: ModelConfig,
+               mode: str = "prefill") -> Optional[torch.Tensor]:
     """What cross-attention reads (model.py:140-145): the encoder's output
     (encdec) or the image embeddings (vlm)."""
     name = CROSS_INPUT.get(cfg.family)
     if name is None:
         return None
     if cfg.family == "encdec":
-        return _encode(params, batch[name], cfg)
+        return _encode(params, batch[name], cfg, mode)
     return batch[name].to(torch_dtype(cfg.compute_dtype))
+
+
+def _train_hidden(params, batch: Dict[str, torch.Tensor],
+                  cfg: ModelConfig) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The stack's output over the whole sequence in train mode (no
+    decode state, layers rematerialised when ``cfg.remat == "full"``),
+    and the summed router aux loss."""
+    tokens = batch["tokens"]
+    S = tokens.shape[1]
+    cross_src = _cross_src(params, batch, cfg, mode="train")
+    x = _embed(params, tokens, cfg)
+    ctx = T.LayerCtx(positions=torch.arange(S, device=tokens.device),
+                     cross_src=cross_src, mode="train")
+    x, aux, _ = T.apply_stack(params["stack"], x, cfg, ctx,
+                              T.stack_plan(cfg))
+    return x, aux
+
+
+def forward_train(params, batch: Dict[str, torch.Tensor],
+                  cfg: ModelConfig) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Returns (logits (B, S, V) f32, aux_loss) (model.py:100-124)."""
+    x, aux = _train_hidden(params, batch, cfg)
+    return _logits(params, x, cfg), aux
+
+
+def forward_train_hidden(
+    params, batch: Dict[str, torch.Tensor], cfg: ModelConfig,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Like `forward_train` but stops before the LM head, at the final
+    norm (for `softmax_xent_chunked`; model.py:262-281)."""
+    x, aux = _train_hidden(params, batch, cfg)
+    return apply_norm(cfg.norm, params["final_norm"], x,
+                      upcast=cfg.norm_upcast), aux
+
+
+def softmax_xent(logits: torch.Tensor, targets: torch.Tensor,
+                 z_weight: float = 1e-4):
+    """Mean token cross-entropy (+ z-loss) in fp32: (ce + z, ce)."""
+    lse = torch.logsumexp(logits, dim=-1)
+    gold = torch.gather(logits, -1, targets.long()[..., None])[..., 0]
+    ce = (lse - gold).mean()
+    z = (lse**2).mean() * z_weight
+    return ce + z, ce
+
+
+def _pick_chunk(v: int, target: int) -> int:
+    c = min(target, v)
+    while v % c:
+        c -= 1
+    return max(c, 1)
+
+
+def _xent_chunk(m, s, gold, x32, h, targets, lo: int):
+    """One vocab chunk of the online logsumexp: logits (B, S, c) of the
+    chunk, the running max and sum, the gold logit where the target
+    falls in the chunk."""
+    c = h.shape[1]
+    logits = x32 @ h
+    m_new = torch.maximum(m, logits.amax(-1))
+    s = s * torch.exp(m - m_new) + torch.exp(logits - m_new[..., None]).sum(-1)
+    t_loc = targets - lo
+    in_chunk = (t_loc >= 0) & (t_loc < c)
+    g = torch.gather(logits, -1, t_loc.clamp(0, c - 1)[..., None])[..., 0]
+    return m_new, s, gold + torch.where(in_chunk, g, 0.0)
+
+
+def softmax_xent_chunked(
+    x: torch.Tensor,        # (B, S, D) final normed hidden
+    head: torch.Tensor,     # (D, V)
+    targets: torch.Tensor,  # (B, S)
+    chunk: int,
+    z_weight: float = 1e-4,
+):
+    """Vocab-chunked CE: the (B, S, V) logits are never materialized.
+
+    Online logsumexp over vocab chunks, each chunk rematerialised in the
+    backward pass (`torch.utils.checkpoint`, as the JAX package's
+    `jax.checkpoint` scan body; model.py:215-259)."""
+    D, V = head.shape
+    c = _pick_chunk(V, chunk)
+    x32, h32 = x.float(), head.float()
+    targets = targets.long()
+    B, S = targets.shape
+    m = torch.full((B, S), -1e30, dtype=torch.float32, device=x.device)
+    s = torch.zeros((B, S), dtype=torch.float32, device=x.device)
+    gold = torch.zeros((B, S), dtype=torch.float32, device=x.device)
+    for lo in range(0, V, c):
+        m, s, gold = checkpoint(_xent_chunk, m, s, gold, x32,
+                                h32[:, lo:lo + c], targets, lo,
+                                use_reentrant=False)
+    lse = m + torch.log(torch.clamp(s, min=1e-30))
+    ce = (lse - gold).mean()
+    z = (lse**2).mean() * z_weight
+    return ce + z, ce
+
+
+def loss_fn(params, batch: Dict[str, torch.Tensor], cfg: ModelConfig):
+    """(total, {"loss": ce, "aux": router aux, "total": total})
+    (model.py:284-301): cross-entropy with z-loss, vocab-chunked when
+    ``cfg.loss_chunk_vocab``, plus the router aux term for MoE configs."""
+    if cfg.loss_chunk_vocab:
+        x, aux = forward_train_hidden(params, batch, cfg)
+        head = params["embed"].T if cfg.tie_embeddings else params["lm_head"]
+        total, ce = softmax_xent_chunked(x, head, batch["targets"],
+                                         cfg.loss_chunk_vocab)
+    else:
+        logits, aux = forward_train(params, batch, cfg)
+        total, ce = softmax_xent(logits, batch["targets"])
+    if cfg.moe is not None:
+        total = total + cfg.moe.router_aux_weight * aux
+    return total, {"loss": ce, "aux": aux, "total": total}
 
 
 def forward_prefill(

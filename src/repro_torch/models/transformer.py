@@ -10,10 +10,12 @@ embeddings) and the encoder-decoder (seamless-m4t: bidirectional
 self-attention and cross-attention over the encoder's output).  The JAX
 package scans stacked superblocks with `lax.scan`; the port keeps the
 layers in an `nn.ModuleList` in `StackPlan.kinds` order and loops over
-them in Python.  Two modes, as serving needs them:
-"prefill" (full sequence, also returns the decode state; an encoder
-layer returns none) and "decode" (one token against the state, which it
-writes in place).  Training waits for its slice (ROADMAP.md Queue 1).
+them in Python.  Three modes: "train" (full sequence, no decode state;
+with ``cfg.remat == "full"`` each layer is rematerialised in the
+backward pass, `torch.utils.checkpoint`, as the JAX package checkpoints
+its scanned blocks), "prefill" (full sequence, also returns the decode
+state; an encoder layer returns none) and "decode" (one token against
+the state, which it writes in place).
 """
 from __future__ import annotations
 
@@ -22,6 +24,7 @@ from typing import Dict, List, Optional, Tuple
 
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import attention as A
@@ -108,7 +111,7 @@ class LayerCtx:
     pos: Optional[torch.Tensor] = None          # (B,) decode position
     cross_src: Optional[torch.Tensor] = None    # (B, Sx, D) prefill
     cross_len: Optional[torch.Tensor] = None    # (B,) decode: valid Sx
-    mode: str = "prefill"                       # prefill | decode
+    mode: str = "prefill"                       # train | prefill | decode
 
 
 def _write(cache: Dict, new: Dict) -> Dict:
@@ -142,9 +145,10 @@ def apply_layer(
     cache: Optional[Dict] = None,
 ) -> Tuple[torch.Tensor, torch.Tensor, Dict]:
     """Returns (x, aux_loss, new_cache); in decode mode new_cache is
-    `cache`, written in place."""
+    `cache`, written in place; in train mode None."""
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     decode = ctx.mode == "decode"
+    train = ctx.mode == "train"
 
     h = apply_norm(cfg.norm, p["ln1"], x, upcast=cfg.norm_upcast)
     if kind == "ssm":
@@ -152,6 +156,8 @@ def apply_layer(
             y, cs, ss = S.mamba_decode(p["mixer"], h, cfg, cache["conv"],
                                        cache["ssm"])
             new_cache = _write(cache, {"conv": cs, "ssm": ss})
+        elif train:
+            y, new_cache = S.mamba_mix(p["mixer"], h, cfg), None
         else:
             y, cs, ss = S.mamba_mix(p["mixer"], h, cfg, return_state=True)
             new_cache = {"conv": cs, "ssm": ss}
@@ -162,11 +168,14 @@ def apply_layer(
             y, cs, hs = R.rglru_block_decode(p["rec"], h, cfg, cache["conv"],
                                              cache["lru"])
             new_cache = _write(cache, {"conv": cs, "lru": hs})
+        elif train:
+            y, new_cache = R.rglru_block_mix(p["rec"], h, cfg), None
         else:
             y, cs, hs = R.rglru_block_mix(p["rec"], h, cfg, return_state=True)
             new_cache = {"conv": cs, "lru": hs}
     elif kind == "cross_attn":
         y, new_cache = _cross(p["attn"], h, cfg, ctx, cache)
+        new_cache = None if train else new_cache
     elif kind == "encoder":   # bidirectional, no decode state
         y = A.attention_block(p["attn"], h, cfg, ctx.positions, causal=False)
         new_cache = None
@@ -177,6 +186,10 @@ def apply_layer(
                 p["attn"], h, cfg, ctx.pos, cache["k"], cache["v"],
                 window=window)
             new_cache = {"k": nk, "v": nv}
+        elif train:
+            y = A.attention_block(p["attn"], h, cfg, ctx.positions,
+                                  window=window)
+            new_cache = None
         else:
             y, kc, vc = A.attention_block(p["attn"], h, cfg, ctx.positions,
                                           window=window, return_kv=True)
@@ -185,7 +198,10 @@ def apply_layer(
     if kind == "decoder":   # then cross-attention over the encoder's output
         h = apply_norm(cfg.norm, p["ln_x"], x, upcast=cfg.norm_upcast)
         y, cross = _cross(p["xattn"], h, cfg, ctx, cache)
-        new_cache = cache if decode else {**new_cache, **cross}
+        if decode:
+            new_cache = cache
+        elif not train:
+            new_cache = {**new_cache, **cross}
         x = x + y
 
     h = apply_norm(cfg.norm, p["ln2"], x, upcast=cfg.norm_upcast)
@@ -215,12 +231,20 @@ def apply_stack(
     plan: StackPlan,
     caches: Optional[List[Dict]] = None,
 ) -> Tuple[torch.Tensor, torch.Tensor, List[Dict]]:
-    """Run every layer in order.  Returns (x, total_aux, new_caches)."""
+    """Run every layer in order.  Returns (x, total_aux, new_caches);
+    new_caches is None in train mode."""
     aux_total = torch.zeros((), dtype=torch.float32, device=x.device)
-    new_caches = []
+    train = ctx.mode == "train"
+    remat = train and cfg.remat == "full"
+    new_caches = None if train else []
     for i, kind in enumerate(plan.kinds):
         c = caches[i] if caches is not None else None
-        x, aux, nc = apply_layer(kind, params[i], x, cfg, ctx, c)
+        if remat:
+            x, aux, nc = checkpoint(apply_layer, kind, params[i], x, cfg, ctx,
+                                    c, use_reentrant=False)
+        else:
+            x, aux, nc = apply_layer(kind, params[i], x, cfg, ctx, c)
         aux_total = aux_total + aux
-        new_caches.append(nc)
+        if not train:
+            new_caches.append(nc)
     return x, aux_total, new_caches

@@ -15,7 +15,12 @@ summation order: within 1e-5 of the sum of the products' magnitudes.
 Head dims between the flash instantiations run zero-padded, above 256 on
 the f32 kernel alone (up to 1024); the cross-attention layers' modes
 (non-causal, Sq above or below Sk) run on both flash kernels; moe_gmm
-runs its scalar loads for rows or weights off 16 bytes.
+runs its scalar loads for rows or weights off 16 bytes.  The flash
+backward kernel (training) is held to autograd through the plain
+version at the same tolerances relative to each gradient's largest
+value, bit for bit against itself; the forward's lse to torch.logsumexp
+at 2e-5; the forward-only kernels raise under autograd (F3); a reduced
+train step on the card matches the CPU's within 1e-5.
 """
 import numpy as np
 import pytest
@@ -30,6 +35,7 @@ from repro_torch.kernels import launch_counts
 from repro_torch.kernels.flash_attention import flash_attention, flash_attention_ref
 from repro_torch.kernels.flash_attention.kernel import (
     WGMMA_HEAD_DIMS,
+    flash_attention_bwd,
     flash_attention_fwd,
     wgmma_probe,
 )
@@ -739,3 +745,210 @@ def test_tiled_flows_on_the_card_match_cpu(card, faulted):
         assert abs(g.backlog_frac - r.backlog_frac) < 1e-5
         assert np.isclose(g.fct_mean_ms, r.fct_mean_ms, rtol=1e-5)
         np.testing.assert_allclose(grem, rrem, atol=s.sizes.max() * 1e-5)
+
+
+# ---------------- training: the flash backward kernel and F3 ----------------
+
+
+def _grad_close(got, want, dtype, what):
+    """The kernels' tolerance relative to the gradient's largest value:
+    |got - want| <= tol max|want| + tol |want| (chip_smoke.py)."""
+    tol = _tol(dtype)["atol"]
+    g, w = got.float(), want.float()
+    bound = tol * float(w.abs().max()) + tol * w.abs()
+    assert bool(((g - w).abs() <= bound).all()), (
+        f"{what}: {float((g - w).abs().max())} beyond {tol} of "
+        f"{float(w.abs().max())}")
+
+
+def _bwd_inputs(case, dtype, device, seed=40):
+    B, Hq, Hkv, Sq, Sk, hd, _, _ = case
+    return (_normal((B, Hq, Sq, hd), seed, device, dtype),
+            _normal((B, Hkv, Sk, hd), seed + 1, device, dtype),
+            _normal((B, Hkv, Sk, hd), seed + 2, device, dtype),
+            _normal((B, Hq, Sq, hd), seed + 3, device, dtype))
+
+
+def _attention_grads(fn, q, k, v, do, causal, window):
+    q, k, v = (t.detach().requires_grad_() for t in (q, k, v))
+    o = fn(q, k, v, causal, window)
+    return (o.detach(), *torch.autograd.grad(o, (q, k, v), do))
+
+
+BWD_CASES = [  # B, Hq, Hkv, Sq, Sk, hd, causal, window
+    (1, 2, 2, 64, 64, 32, True, 0), (2, 4, 2, 64, 64, 64, True, 0),
+    (1, 8, 1, 32, 32, 32, True, 0), (1, 2, 2, 64, 64, 32, False, 0),
+    (1, 2, 1, 64, 64, 32, True, 24), (1, 2, 2, 32, 96, 32, True, 0),
+    (1, 3, 1, 48, 48, 16, True, 0), (1, 2, 1, 96, 32, 32, True, 0),
+    # smollm's layout over ragged tiles, yi's group 8, stablelm's hd 160
+    # (padded to 256), hd 256 with a window, non-causal with Sq != Sk
+    (2, 6, 2, 200, 200, 64, True, 0), (1, 16, 2, 130, 130, 128, True, 0),
+    (1, 8, 2, 100, 100, 160, True, 0), (1, 4, 1, 90, 150, 256, True, 40),
+    (1, 4, 2, 77, 200, 128, False, 0), (1, 4, 4, 120, 45, 64, False, 0),
+]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("case", BWD_CASES)
+def test_flash_attention_bwd_matches_plain_autograd(card, case, dtype):
+    """dq, dk, dv through `flash_attention`'s autograd function (one
+    forward and one backward launch) against autograd through the plain
+    version."""
+    *_, causal, window = case
+    q, k, v, do = _bwd_inputs(case, dtype, card)
+    launch_counts.clear()
+    got = _attention_grads(
+        lambda *a: flash_attention(*a[:3], causal=a[3], window=a[4]),
+        q, k, v, do, causal, window)
+    assert dict(launch_counts) == {"flash_attention": 1,
+                                   "flash_attention_bwd": 1}
+    want = _attention_grads(flash_attention_ref, q, k, v, do, causal, window)
+    torch.cuda.synchronize()
+    for name, g, w in zip(("o", "dq", "dk", "dv"), got, want):
+        assert g.dtype == dtype and g.shape == w.shape, name
+        _grad_close(g, w, dtype, name)
+
+
+def test_flash_attention_bwd_is_deterministic(card):
+    case = (2, 6, 2, 300, 300, 64, True, 0)
+    q, k, v, do = _bwd_inputs(case, torch.bfloat16, card)
+    fn = lambda *a: flash_attention(*a[:3], causal=a[3])  # noqa: E731
+    a = _attention_grads(fn, q, k, v, do, True, 0)
+    b = _attention_grads(fn, q, k, v, do, True, 0)
+    assert all(torch.equal(x, y) for x, y in zip(a, b))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("case", [(1, 4, 2, 70, 70, 64, True, 0),
+                                  (1, 4, 1, 96, 40, 128, True, 0),
+                                  (1, 4, 2, 50, 80, 256, False, 0),
+                                  (1, 2, 1, 64, 64, 32, True, 24)])
+def test_flash_attention_lse_matches_logsumexp(card, case, dtype):
+    """The forward's lse against torch.logsumexp of the plain version's
+    scaled, masked scores (rows with no live key at -1e30, as both give)."""
+    from repro_torch.kernels.flash_attention.ref import NEG_INF, attention_mask
+
+    B, Hq, Hkv, Sq, Sk, hd, causal, window = case
+    q, k, v, _ = _bwd_inputs(case, dtype, card)
+    o, lse = flash_attention_fwd(q.reshape(-1, Sq, hd), k.reshape(-1, Sk, hd),
+                                 v.reshape(-1, Sk, hd), Hq // Hkv, causal,
+                                 window, return_lse=True)
+    assert lse.dtype == torch.float32 and lse.shape == (B * Hq, Sq)
+    assert torch.equal(o, flash_attention_fwd(
+        q.reshape(-1, Sq, hd), k.reshape(-1, Sk, hd), v.reshape(-1, Sk, hd),
+        Hq // Hkv, causal, window))
+    s = torch.einsum("bhgqd,bhkd->bhgqk",
+                     q.reshape(B, Hkv, Hq // Hkv, Sq, hd).float(),
+                     k.float()) * hd**-0.5
+    mask = attention_mask(Sq, Sk, causal, window, device=card)
+    want = torch.logsumexp(torch.where(mask, s, NEG_INF), -1).reshape(-1, Sq)
+    torch.testing.assert_close(lse, want, atol=2e-5, rtol=2e-5)
+
+
+def test_flash_attention_bwd_checks_its_inputs(card):
+    case = (1, 4, 2, 32, 32, 64, True, 0)
+    q, k, v, do = (t.reshape(-1, t.shape[2], t.shape[3])
+                   for t in _bwd_inputs(case, torch.float32, card))
+    o, lse = flash_attention_fwd(q, k, v, 2, True, 0, return_lse=True)
+    flash_attention_bwd(q, k, v, o, do, lse, 2, True, 0)
+    with pytest.raises(ValueError):   # o of another type
+        flash_attention_bwd(q, k, v, o.bfloat16(), do, lse, 2, True, 0)
+    with pytest.raises(ValueError):   # dO off the card
+        flash_attention_bwd(q, k, v, o, do.cpu(), lse, 2, True, 0)
+    with pytest.raises(ValueError):
+        flash_attention_bwd(q, k, v, o, do[:, :16].contiguous(), lse, 2,
+                            True, 0)
+    with pytest.raises(ValueError):   # lse of the wrong shape / type
+        flash_attention_bwd(q, k, v, o, do, lse[:, :16].contiguous(), 2,
+                            True, 0)
+    with pytest.raises(ValueError):
+        flash_attention_bwd(q, k, v, o, do, lse.double(), 2, True, 0)
+    with pytest.raises(ValueError):   # 4 rows != 2 x 3
+        flash_attention_bwd(q, k, v, o, do, lse, 3, True, 0)
+    with pytest.raises(TypeError):
+        flash_attention_bwd(q.double(), k.double(), v.double(), o, do, lse,
+                            2, True, 0)
+
+
+def test_flash_attention_bwd_raises_above_hd_256(card):
+    """The forward serves hd 320 (the f32 kernel's hd 512); autograd
+    through it raises where the backward has no instantiation."""
+    q = _normal((1, 4, 32, 320), 50, card, torch.float32)
+    k = _normal((1, 2, 32, 320), 51, card, torch.float32)
+    with torch.no_grad():
+        flash_attention(q, k, k)
+    with pytest.raises(ValueError, match="backward"):
+        flash_attention(q.requires_grad_(), k, k)
+    f = q.detach().reshape(4, 32, 320)
+    kf = k.reshape(2, 32, 320)
+    with pytest.raises(ValueError, match="backward"):
+        flash_attention_bwd(f, kf, kf, f, f, torch.zeros(4, 32, device=card),
+                            2, True, 0)
+
+
+def test_forward_only_kernels_raise_under_grad(card):
+    """F3: moe_gmm, mamba_scan and rglru_scan have no backward kernel, so
+    under autograd they raise on the card; their serving calls (no grad)
+    launch as before and give the same bits."""
+    h = _normal((4, 8, 64), 60, card, torch.float32)
+    w = _normal((4, 64, 32), 61, card, torch.float32, 0.125)
+    wd = _normal((4, 32, 64), 62, card, torch.float32, 0.125)
+    mamba = _mamba_inputs(1, 16, 32, 4, 63, card, torch.float32)
+    a = _normal((1, 16, 32), 64, card, torch.float32).sigmoid()
+    h0 = _normal((1, 32), 65, card, torch.float32)
+    calls = {"moe_gmm": (moe_gmm, (h, w, w, wd)),
+             "mamba_scan": (mamba_scan, tuple(mamba)),
+             "rglru_scan": (rglru_scan, (a, a, h0))}
+    for name, (fn, args) in calls.items():
+        want = fn(*args)   # nothing requires grad
+        with torch.no_grad():
+            served = fn(*(t.detach().requires_grad_() for t in args))
+        launch_counts.clear()
+        grad_args = [t.detach().requires_grad_(i == 0)
+                     for i, t in enumerate(args)]
+        with pytest.raises(RuntimeError, match=f"{name} has no backward"):
+            fn(*grad_args)
+        assert launch_counts[name] == 0, name
+        got = served if isinstance(served, tuple) else (served,)
+        ref = want if isinstance(want, tuple) else (want,)
+        assert all(torch.equal(x, y) for x, y in zip(got, ref)), name
+
+
+def test_reduced_train_step_on_the_card_equals_cpu(card):
+    """Two steps of reduced smollm-360m in f32 in its head layout (hd 64, 3
+    query heads a KV head) on the card and on the CPU from the same
+    masters: losses, grad norms rtol 1e-5, parameters atol/rtol 1e-5;
+    flash 2 launches a layer a step (remat), backward 1."""
+    import copy
+
+    from repro_torch.data.pipeline import SyntheticLM, device_batches
+    from repro_torch.optim.adamw import AdamWConfig
+    from repro_torch.train.trainer import init_train_state, make_train_step
+
+    cfg = reduced_config(get_config("smollm-360m")).replace(
+        compute_dtype="float32", num_heads=3, num_kv_heads=1, head_dim=64)
+    cpu = init_params(cfg, 0, device="cpu", masters=True)
+    on_card = copy.deepcopy(cpu).to(card)
+    step = make_train_step(cfg, AdamWConfig(lr=1e-4, warmup_steps=2,
+                                            total_steps=10))
+    src = SyntheticLM(cfg.vocab_size, 64, 4, seed=0)
+    runs = {}
+    for dev, params in (("cpu", cpu), ("cuda", on_card)):
+        state = init_train_state(cfg, params)
+        launch_counts.clear()
+        rows = []
+        for _, batch in zip(range(2), device_batches(src, 0, dev)):
+            state, m = step(state, batch)
+            rows.append({k: float(v) for k, v in m.items()})
+        runs[dev] = (state, rows, dict(launch_counts))
+    (cs, crows, _), (gs, grows, launches) = runs["cpu"], runs["cuda"]
+    L = cfg.num_layers
+    assert launches == {"flash_attention": 2 * 2 * L,
+                        "flash_attention_bwd": 2 * L}
+    for a, b in zip(grows, crows):
+        for k in ("loss", "grad_norm", "lr"):
+            assert a[k] == pytest.approx(b[k], rel=1e-5), k
+    got = dict(gs["params"].named_parameters())
+    for name, p in cs["params"].named_parameters():
+        torch.testing.assert_close(got[name].detach().cpu(), p.detach(),
+                                   atol=1e-5, rtol=1e-5)

@@ -5,10 +5,11 @@
 
 Imports nothing of JAX or of the JAX package.  Builds the Hopper kernels
 from the sources in this checkout (each kernel's registers and spills
-from ptxas; the flash library's HGMMA instructions counted in its SASS,
-which must be above 0, and no spill in its bf16 kernel or in either scan
-kernel; the flash backward library's 20 instantiations), then runs, each
-phase printing one JSON line and any failure raising:
+from ptxas; the HGMMA instructions of the flash library and of the flash
+backward library counted in their SASS, each of which must be above 0,
+and no spill in their bf16 (wgmma) kernels or in either scan kernel; the
+flash backward's 8 wgmma, 12 CUDA-core and 2 D instantiations), then
+runs, each phase printing one JSON line and any failure raising:
 
 0. Training, first, so that a failure shows early.
    flash_attention_bwd: the backward kernel's dq, dk, dv (through
@@ -342,11 +343,22 @@ def _kernel_name(mangled: str) -> str:
     return f"{name}<{', '.join(args)}>"
 
 
+def _hgmma(lib: Path) -> int:
+    """Tensor-core (HGMMA) instructions in a library's SASS."""
+    from repro_torch.kernels import cuda_tool
+
+    sass = subprocess.run([cuda_tool("cuobjdump"), "-sass", str(lib)],
+                          capture_output=True, text=True, check=True,
+                          timeout=300).stdout
+    return sum("HGMMA" in ln for ln in sass.splitlines())
+
+
 def phase_build() -> dict:
     """One nvcc per kernel source, all started together; each kernel's
-    registers and spills; the flash library's tensor-core (HGMMA)
-    instructions, counted in its SASS, and no spill in its bf16 kernel."""
-    from repro_torch.kernels import build_libraries, cuda_tool, library_path
+    registers and spills; the tensor-core (HGMMA) instructions of the
+    flash library and of the flash backward's, counted in their SASS, and
+    no spill in their bf16 (wgmma) kernels."""
+    from repro_torch.kernels import build_libraries, library_path
     from repro_torch.kernels.flash_attention import kernel as flash
     from repro_torch.kernels.mamba_scan import kernel as mamba
     from repro_torch.kernels.moe_gmm import kernel as gmm
@@ -377,18 +389,27 @@ def phase_build() -> dict:
            if k.startswith("flash_fwd_f32")]
     _check(len(f32) == len(flash.HEAD_DIMS),
            f"flash f32 instantiations {sorted(f32)}")
-    bwd = [k for k in out[f"ptxas_{flash.BWD_NAME}"]
-           if k.startswith(("flash_bwd_dkdv", "flash_bwd_dq"))]
-    _check(len(bwd) == 2 * 2 * len(flash.BWD_HEAD_DIMS),
-           f"flash backward instantiations {sorted(bwd)}")
-    sass = subprocess.run(
-        [cuda_tool("cuobjdump"), "-sass",
-         str(library_path(flash.NAME, [flash.SOURCE]))],
-        capture_output=True, text=True, check=True, timeout=300).stdout
-    out["flash_attention_hgmma"] = hgmma = sum(
-        "HGMMA" in ln for ln in sass.splitlines())
-    print(f"flash_attention HGMMA instructions: {hgmma}", flush=True)
-    _check(hgmma > 0, "the flash library holds no HGMMA")
+    # the backward: bf16 up to hd 128 on wgmma (dK/dV and dQ each), f32 at
+    # every hd and bf16 at hd 256 on the CUDA cores, D in both types
+    bwd = out[f"ptxas_{flash.BWD_NAME}"]
+    bwd_wgmma = {k: v for k, v in bwd.items()
+                 if k.startswith(("flash_bwd_dkdv_wgmma<",
+                                  "flash_bwd_dq_wgmma<"))}
+    _check(len(bwd_wgmma) == 2 * len(flash.BWD_WGMMA_HEAD_DIMS),
+           f"flash backward wgmma instantiations {sorted(bwd_wgmma)}")
+    _check(all(v["spill_bytes"] == 0 for v in bwd_wgmma.values()),
+           f"flash backward wgmma kernels spill: {bwd_wgmma}")
+    cores = [k for k in bwd if k.startswith(("flash_bwd_dkdv<",
+                                             "flash_bwd_dq<"))]
+    _check(len(cores) == 2 * (len(flash.BWD_HEAD_DIMS) + 1),
+           f"flash backward CUDA-core instantiations {sorted(cores)}")
+    _check(len([k for k in bwd if k.startswith("flash_bwd_dsum<")]) == 2,
+           f"flash backward D instantiations {sorted(bwd)}")
+    for name, src in ((flash.NAME, flash.SOURCE),
+                      (flash.BWD_NAME, flash.BWD_SOURCE)):
+        out[f"{name}_hgmma"] = hgmma = _hgmma(library_path(name, [src]))
+        print(f"{name} HGMMA instructions: {hgmma}", flush=True)
+        _check(hgmma > 0, f"the {name} library holds no HGMMA")
     scans = {k: v for name in (mamba.NAME, rglru.NAME)
              for k, v in out[f"ptxas_{name}"].items()}
     _check(len(scans) > 0

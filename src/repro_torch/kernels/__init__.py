@@ -83,11 +83,15 @@ def cuda_tool(name: str) -> str:
 
 
 def library_path(name: str, sources: Sequence[Path]) -> Path:
-    """Where `build_library` puts `name`: keyed by the sources' bytes and
-    the flags, so an edit to a source builds a new library."""
+    """Where `build_library` puts `name`: keyed by the flags and the bytes
+    of the sources and of the headers (``*.cuh``) beside them, which the
+    sources include but nvcc is not given, so an edit to either builds a
+    new library."""
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for src in sources:
-        h.update(Path(src).read_bytes())
+    headers = sorted({hdr for src in sources
+                      for hdr in Path(src).parent.glob("*.cuh")})
+    for path in [*sources, *headers]:
+        h.update(Path(path).read_bytes())
     return BUILD_DIR / f"lib{name}-{h.hexdigest()[:16]}.so"
 
 

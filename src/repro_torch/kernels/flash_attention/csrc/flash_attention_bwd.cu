@@ -15,42 +15,86 @@
 // (Sq > Sk) has no live key: the forward gives it the mean of V, so its
 // probabilities are 1 / Sk, its dV share is dO / Sk and its dQ is 0.
 //
-// FlashAttention-2's scheme, on the CUDA cores, f32 throughout (inputs
-// f32 or bf16, converted on load; grads returned in the input's type):
+// FlashAttention-2's scheme in three kernels on `stream`, with no atomics:
 //   flash_bwd_dsum  D = rowsum(dO * O), one warp a row;
-//   flash_bwd_dkdv  a block owns one KV head's key tile and walks the
-//                   group's query heads and, for each, the query tiles
-//                   that can see the tile: S = Q K^T and dP = dO V^T,
+//   dK/dV pass      a block owns one KV head's 64-key tile and walks the
+//                   group's query heads in order and, in each, the query
+//                   tiles that can see the tile: S = Q K^T and dP = dO V^T,
 //                   P = exp(scale S - lse), dS = P (dP - D), then
 //                   dV += P^T dO and dK += dS^T Q in registers;
-//   flash_bwd_dq    a block owns one query tile of one head and walks the
-//                   key tiles it can see (the forward's range): S, dP, dS
-//                   again, dQ += dS K.
+//   dQ pass         a block owns one query tile of one head and walks the
+//                   key tiles it can see (the forward's range), long causal
+//                   tiles first: S, dP, dS again, dQ += dS K.
 // lse is the forward's per-row logsumexp (flash_attention.cu writes it
-// when asked).  Every sum has one owner and a fixed order: no atomics, so
-// a second call gives the same bits (a restart from a checkpoint repeats
-// a run bit for bit).
-//
-// Tiles (BwdTiling): 64 query rows x 64 keys up to hd 128, 32 x 32 at hd
-// 256, 256 threads as a 16 x 16 grid.  Q, K, V, dO tiles are f32 in shared
-// memory with rows padded by 4 floats (16-byte loads along hd, conflict
-// free across 8 consecutive rows); each thread computes a 4 x 4 (2 x 2 at
-// hd 256) block of S and dP, strided by 16 rows and columns, with 16-byte
-// loads along hd, and holds its rows of dK and dV (or dQ) with 4
-// consecutive head dims a load.  Shared memory: 111 KB at hd 64 (two
-// blocks an SM), 177 KB at hd 128, 146 KB at hd 256 for flash_bwd_dkdv.
+// when asked).  Every sum has one owner and a fixed order, so a second
+// call gives the same bits (a restart from a checkpoint repeats a run bit
+// for bit).  The passes stay two: a single pass would sum dQ across key
+// tiles with atomics (no fixed order), or in per-key-tile partials (64
+// key tiles x 126 MB of f32 dQ at smollm's training shape, ~8 GB).
 //
 // Bound.  Five products of 2 Sq Sk hd operations a head (S, dP, dV, dK,
-// dQ; half the square under a causal mask) over 67 TFLOP/s of f32 CUDA
-// cores, or 989 TFLOP/s of bf16 tensor cores for the bf16 rows; this
-// two-pass scheme computes seven (S and dP twice).  At smollm-360m's
-// training shape (B 8, Hq 15, Hkv 5, hd 64, S 4096, causal, bf16) that is
-// 0.644 TFLOP, 0.65 ms at the bf16 tensor-core rate; on the CUDA cores the
-// floor of the seven products is 13.5 ms.  Measured there: 34.5 ms
-// (PERF.md; SDPA's backward takes 1.7 ms).  The tensor cores (wgmma), TMA
-// and a single fused pass are later speed work (ROADMAP).
-// ptxas (CUDA 12.8, -O3 -fmad=false): 77-184 registers; 4 bytes of spill
-// in flash_bwd_dkdv<*, 64>, 20 in flash_bwd_dq<*, 128>.
+// dQ; half the square under a causal mask) over 989 TFLOP/s of bf16
+// tensor cores, or 67 TFLOP/s of f32 CUDA cores; the two passes compute
+// seven (S and dP twice).  At smollm-360m's training shape (B 8, Hq 15,
+// Hkv 5, hd 64, S 4096, causal, bf16) the five are 0.644 TFLOP: 0.65 ms
+// (0.91 ms for the seven).  The bytes (q, k, v, o, dO, lse read once;
+// dq, dk, dv written once) take 0.10 ms at 3.35 TB/s.
+//
+// bf16, hd 16-128: the tensor cores, flash_bwd_dkdv_wgmma<HD> and
+// flash_bwd_dq_wgmma<HD>, one warpgroup (128 threads) a block, built from
+// the forward's pieces (flash_wgmma.cuh): 64 x HD tiles in swizzled
+// shared memory filled by cp.async, read K-major or MN-major by the wgmma
+// descriptors, so no operand is copied transposed.
+//   dK/dV: the K and V tiles stay in shared memory for the whole walk; Q,
+//     dO and the rows' lse and D come through a two-stage ring (the next
+//     step's copies go out while S^T is computed, as the forward's K/V).
+//     Per step: S^T = K Q^T (both K-major, m64n64k16); P^T on that
+//     fragment in registers, packed to bf16 as the A operand of
+//     dV += P^T dO (dO read MN-major), issued with dP^T = V dO^T;
+//     dS^T = P^T (dP^T - D), packed the same way, for dK += dS^T Q (Q read
+//     MN-major).  Registers at hd 128: dK and dV 64 f32 a thread each, dP^T
+//     32, the packed P^T or dS^T 16; S^T's 32 are free once P^T is packed,
+//     before dP^T is issued.
+//   dQ: Q and dO loaded once, K and V through a two-stage ring; S = Q K^T
+//     and dP = dO V^T in one wgmma batch, dS packed for dQ += dS K (K read
+//     MN-major).
+// Masking is on the fragment in registers, per entry as entry_grad does
+// it, only in tiles that cross the diagonal, the window's edge, Sq or Sk;
+// a causal row at a negative position has p = 1 / Sk and ds = 0.  dK (times
+// scale), dV and dQ (times scale) are rounded once to bf16.
+// One rounding is new (ROADMAP Queue 3, B4): P and dS go to bf16 before
+// the products they feed, as in every tensor-core flash backward and as
+// the forward rounds P (B3); dS is computed from the rounded P, in both
+// passes alike.  S, dP, D, lse and every sum stay f32.  Against autograd
+// through the plain version this stays within 2e-2 of each gradient's
+// largest value (tests/test_torch_flash_attention.py holds the arithmetic
+// to jax.vjp of chunked_attention on the CPU).
+// Shared memory: dK/dV 6 tiles of 64 x HD bf16 + 1 KB of lse and D + 1 KB
+// alignment (98 KB at hd 128, 50 KB at hd 64); dQ 6 tiles + 1 KB.
+// ptxas (CUDA 12.8, -O3 -fmad=false) for hd 16, 32, 64, 128:
+// flash_bwd_dkdv_wgmma 96, 124, 160, 227 registers, flash_bwd_dq_wgmma
+// 124, 138, 154, 186, no spill (chip_smoke.py's build phase prints them
+// and fails on a spill).  Measured at smollm's training shape (H100 SXM,
+// PERF.md): 3.0 ms (dK/dV 1.58, dQ 1.33, D 0.09), each pass near 30 % of
+// its products' tensor-core time; SDPA's backward takes 1.7 ms.  Each
+// step waits for each of its products in turn; TMA loads from a producer
+// warp and the next step's S^T issued before this step's dK is waited
+// for are the next speed work (ROADMAP).
+//
+// f32 (every hd), and bf16 at hd 256: the CUDA cores, flash_bwd_dkdv<T, HD>
+// and flash_bwd_dq<T, HD>, f32 throughout (bf16 inputs converted on load,
+// grads returned in the input's type); TF32 could not meet the f32
+// tolerance (2e-5), and at hd 256 dK plus dV alone would take 256
+// registers a thread of one warpgroup.  Tiles (BwdTiling): 64 query rows x
+// 64 keys up to hd 128, 32 x 32 at hd 256, 256 threads as a 16 x 16 grid.
+// Q, K, V, dO tiles are f32 in shared memory with rows padded by 4 floats
+// (16-byte loads along hd, conflict free across 8 consecutive rows); each
+// thread computes a 4 x 4 (2 x 2 at hd 256) block of S and dP, strided by
+// 16 rows and columns, and holds its rows of dK and dV (or dQ) with 4
+// consecutive head dims a load.  Shared memory: 111 KB at hd 64 (two
+// blocks an SM), 177 KB at hd 128, 146 KB at hd 256 for flash_bwd_dkdv.
+// ptxas (CUDA 12.8, -O3 -fmad=false): 77-184 registers; 4 bytes of
+// spill in flash_bwd_dkdv<*, 64>, 20 in flash_bwd_dq<*, 128>.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
@@ -58,9 +102,9 @@
 
 #include <type_traits>
 
-namespace {
+#include "flash_wgmma.cuh"
 
-using bf16 = __nv_bfloat16;
+namespace {
 
 constexpr int kThreads = 256;   // a 16 x 16 grid
 
@@ -180,6 +224,16 @@ flash_bwd_dsum(const T* __restrict__ o, const T* __restrict__ dout,
 #pragma unroll
   for (int x = 16; x > 0; x >>= 1) acc += __shfl_xor_sync(0xffffffffu, acc, x);
   if (lane == 0) dsum[row] = acc;
+}
+
+// D = rowsum(dO * O) over `rows` rows of hd, one warp a row
+template <typename T>
+cudaError_t launch_dsum(const void* o, const T* dout, float* dsum, int rows,
+                        int hd, cudaStream_t st) {
+  constexpr int kWarps = kThreads / 32;
+  flash_bwd_dsum<T><<<(rows + kWarps - 1) / kWarps, kThreads, 0, st>>>(
+      static_cast<const T*>(o), dout, dsum, rows, hd);
+  return cudaGetLastError();
 }
 
 // ---------------- dK, dV -----------------------------------------------------
@@ -440,11 +494,7 @@ int launch_bwd(const void* q, const void* k, const void* v, const void* o,
   const T* kt = static_cast<const T*>(k);
   const T* vt = static_cast<const T*>(v);
   const T* dot = static_cast<const T*>(dout);
-  const int rows = bhq * sq;
-  constexpr int kWarps = kThreads / 32;
-  flash_bwd_dsum<T><<<(rows + kWarps - 1) / kWarps, kThreads, 0, st>>>(
-      static_cast<const T*>(o), dot, dsum, rows, HD);
-  err = cudaGetLastError();
+  err = launch_dsum<T>(o, dot, dsum, bhq * sq, HD, st);
   if (err != cudaSuccess) return static_cast<int>(err);
   const dim3 kv_grid((sk + Tl::kBK - 1) / Tl::kBK, bhq / group);
   flash_bwd_dkdv<T, HD><<<kv_grid, kThreads, kv_bytes, st>>>(
@@ -459,6 +509,366 @@ int launch_bwd(const void* q, const void* k, const void* v, const void* o,
   return static_cast<int>(cudaGetLastError());
 }
 
+// ---------------- bf16: tensor cores (wgmma) ---------------------------------
+
+constexpr float kLog2e = 1.4426950408889634f;
+
+// 4 bytes global -> shared; src_bytes 0 writes zeros and reads nothing
+__device__ __forceinline__ void cp_async4(uint32_t dst, const void* src,
+                                          int src_bytes) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n"
+               :: "r"(dst), "l"(src), "r"(src_bytes) : "memory");
+}
+
+// Element `hi` (0 or 1) of a bf16x2 pair, as f32
+__device__ __forceinline__ float unpack_bf16(uint32_t a, int hi) {
+  return __uint_as_float(hi ? a & 0xffff0000u : a << 16);
+}
+
+// x rounded to bf16 (to nearest even, as pack_bf16x2 rounds), as f32
+__device__ __forceinline__ float round_bf16(float x) {
+  return __bfloat162float(__float2bfloat16_rn(x));
+}
+
+// p of one entry of a tile that crosses the mask, Sq or Sk, as entry_grad
+// gives it, from its score s and its row's lse in log2 units; *live is
+// false where ds is 0 (a masked entry, one past Sq or Sk, and a causal
+// row at a negative position, whose p is 1 / Sk).
+__device__ __forceinline__ float masked_p(float s, float lse2, int row,
+                                          int key, int off, int sq, int sk,
+                                          int causal, int window,
+                                          float scale2, bool* live) {
+  *live = false;
+  if (row >= sq || key >= sk) return 0.f;
+  const int pos = row + off;
+  if (causal && pos < 0) return 1.f / static_cast<float>(sk);
+  if ((causal && key > pos) || (window > 0 && pos - key >= window)) return 0.f;
+  *live = true;
+  return exp2f(fmaf(s, scale2, -lse2));
+}
+
+// Rows row0 + r0 and row0 + r0 + 8 of a 64 x HD f32 fragment, times mul,
+// as bf16 rows of HD at out (rows at or past `rows` are not stored), the
+// columns as the fragment holds them (cq = 2 (lane mod 4)).
+template <int HD>
+__device__ __forceinline__ void store_rows(bf16* out, const float* acc,
+                                           int row0, int r0, int cq,
+                                           int rows, float mul) {
+  constexpr int N = HD < 64 ? HD : 64;
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int row = row0 + r0 + 8 * h;
+    if (row >= rows) continue;
+    bf16* ob = out + static_cast<size_t>(row) * HD;
+#pragma unroll
+    for (int j = 0; j < HD / N; ++j)
+#pragma unroll
+      for (int i = 0; i < N / 8; ++i) {
+        const float* x = acc + j * (N / 2) + 4 * i + 2 * h;
+        *reinterpret_cast<__nv_bfloat162*>(ob + j * N + 8 * i + cq) =
+            __floats2bfloat162_rn(x[0] * mul, x[1] * mul);
+      }
+  }
+}
+
+template <int HD>
+constexpr size_t smem_bytes_dkdv_wgmma() {
+  // K, V, 2 x (Q, dO); 2 x (lse, D) of 64 f32; alignment
+  return 6 * Tile<HD>::kBytes + 2 * 2 * kRows * sizeof(float) + 1024;
+}
+
+// dK, dV of one 64-key tile of one KV head: the group's query heads in
+// order and, in each, the query tiles that can see the tile, through a
+// two-stage ring of (Q, dO, lse, D).  Fragment rows are keys k0 + r0,
+// + 8; columns queries q0 + 8i + cq + 0, 1.
+template <int HD>
+__global__ void __launch_bounds__(kWG, 1)
+flash_bwd_dkdv_wgmma(const bf16* __restrict__ q, const bf16* __restrict__ k,
+                     const bf16* __restrict__ v,
+                     const bf16* __restrict__ dout,
+                     const float* __restrict__ lse,
+                     const float* __restrict__ dsum, bf16* __restrict__ dk,
+                     bf16* __restrict__ dv, int sq, int sk, int group,
+                     int causal, int window, float scale) {
+  extern __shared__ uint8_t smem_raw[];
+  constexpr int kTile = Tile<HD>::kBytes;
+  const uint32_t ks = aligned_smem(smem_raw);
+  const uint32_t vs = ks + kTile;
+  const uint32_t ring = vs + kTile;   // stage s: Q at + 2s, dO at + 2s + 1
+  const uint32_t stats = ring + 4 * kTile;   // stage s: lse, D at + 128 s
+  const float* stats_f = reinterpret_cast<const float*>(
+      smem_raw + (stats - smem_addr(smem_raw)));
+
+  const int bkv = blockIdx.y;
+  const int k0 = blockIdx.x * kRows;
+  const int t = threadIdx.x;
+  const int lane = t & 31;
+  const int r0 = 16 * (t >> 5) + (lane >> 2);   // keys k0 + r0, + 8
+  const int cq = 2 * (lane & 3);                // queries 8i + cq + 0, 1
+  const int off = sk - sq;
+
+  // query tiles that can reach this key tile (as flash_bwd_dkdv)
+  const int k_last = min(k0 + kRows, sk) - 1;
+  int i_begin = causal && off >= 0 ? max(0, k0 - off) : 0;
+  const int i_end = window > 0 ? min(sq, k_last + window - off) : sq;
+  i_begin = (i_begin / kRows) * kRows;
+  const int tiles =
+      i_end > i_begin ? (i_end - i_begin + kRows - 1) / kRows : 0;
+  const int steps = group * tiles;   // (query head, query tile) pairs
+
+  // step n's Q and dO tiles into stage s, with its rows' lse (threads
+  // 0-63) and D (64-127); rows past Sq are zeros
+  auto load_step = [&](int n, int s) {
+    const size_t head = static_cast<size_t>(bkv) * group + n / tiles;
+    const int q0 = i_begin + (n % tiles) * kRows;
+    load_tile<HD>(ring + 2 * s * kTile, q + head * sq * HD, q0, sq, t);
+    load_tile<HD>(ring + (2 * s + 1) * kTile, dout + head * sq * HD, q0, sq,
+                  t);
+    const int row = q0 + (t & (kRows - 1));
+    const float* src = (t < kRows ? lse : dsum) + head * sq + row;
+    cp_async4(stats + 4 * (2 * kRows * s + t), row < sq ? src : lse,
+              row < sq ? 4 : 0);
+  };
+  if (steps > 0) {   // else no query sees the tile: dK = dV = 0
+    load_tile<HD>(ks, k + static_cast<size_t>(bkv) * sk * HD, k0, sk, t);
+    load_tile<HD>(vs, v + static_cast<size_t>(bkv) * sk * HD, k0, sk, t);
+    load_step(0, 0);
+    cp_async_commit();
+  }
+
+  const float scale2 = scale * kLog2e;
+  float dk_acc[HD / 2], dv_acc[HD / 2], s[32], dp[32];
+  uint32_t a[16];
+#pragma unroll
+  for (int i = 0; i < HD / 2; ++i) dk_acc[i] = dv_acc[i] = 0.f;
+
+  int stage = 0;
+  for (int n = 0; n < steps; ++n, stage ^= 1) {
+    const int q0 = i_begin + (n % tiles) * kRows;
+    cp_async_wait();
+    fence_proxy_async();
+    // everyone's copies of this step landed, and everyone is done with
+    // the last step, whose stage the copies below refill
+    __syncthreads();
+    const uint32_t qs = ring + 2 * stage * kTile, dos = qs + kTile;
+    const float* lse_s = stats_f + 2 * kRows * stage;
+    const float* d_s = lse_s + kRows;
+    start_ss<HD>(s, ks, qs);   // S^T = K Q^T
+    if (n + 1 < steps) {
+      load_step(n + 1, stage ^ 1);
+      cp_async_commit();
+    }
+    wgmma_wait();
+    fence_regs<32>(s);
+    // mask only where the tile crosses the diagonal, the window's edge, Sq
+    // or Sk (uniform over the block)
+    const bool masked =
+        q0 + kRows > sq || k0 + kRows > sk ||
+        (causal && k0 + kRows - 1 > q0 + off) ||
+        (window > 0 && q0 + kRows - 1 + off - k0 >= window);
+    uint32_t live = ~0u;
+#pragma unroll
+    for (int i = 0; i < 32; ++i) {
+      const int col = 8 * (i >> 2) + cq + (i & 1);
+      const float lse2 = lse_s[col] * kLog2e;
+      if (masked) {
+        bool on;
+        s[i] = masked_p(s[i], lse2, q0 + col, k0 + r0 + 8 * ((i >> 1) & 1),
+                        off, sq, sk, causal, window, scale2, &on);
+        if (!on) live &= ~(1u << i);
+      } else {
+        s[i] = exp2f(fmaf(s[i], scale2, -lse2));
+      }
+    }
+    pack_p(a, s);                     // P^T, rounded to bf16
+    start_ss<HD>(dp, vs, dos);        // dP^T = V dO^T
+    start_rs<HD>(dv_acc, a, dos);     // dV += P^T dO
+    wgmma_wait();
+    fence_regs<32>(dp);
+    fence_regs<HD / 2>(dv_acc);
+    // dS^T = P^T (dP^T - D), from the rounded P^T
+#pragma unroll
+    for (int i = 0; i < 32; ++i) {
+      const int col = 8 * (i >> 2) + cq + (i & 1);
+      dp[i] = (live >> i) & 1u
+                  ? unpack_bf16(a[i >> 1], i & 1) * (dp[i] - d_s[col])
+                  : 0.f;
+    }
+    pack_p(a, dp);                    // dS^T, rounded to bf16
+    start_rs<HD>(dk_acc, a, qs);      // dK += dS^T Q
+    wgmma_wait();
+    fence_regs<HD / 2>(dk_acc);
+  }
+
+  const size_t at = static_cast<size_t>(bkv) * sk * HD;
+  store_rows<HD>(dk + at, dk_acc, k0, r0, cq, sk, scale);
+  store_rows<HD>(dv + at, dv_acc, k0, r0, cq, sk, 1.f);
+}
+
+template <int HD>
+constexpr size_t smem_bytes_dq_wgmma() {
+  return 6 * Tile<HD>::kBytes + 1024;   // Q, dO, 2 x (K, V), alignment
+}
+
+// dQ of one 64-query tile of one head: the key tiles the forward walks,
+// long causal tiles first, K and V through a two-stage ring.  Fragment
+// rows are queries q0 + r0, + 8; columns keys k0 + 8i + cq + 0, 1.
+template <int HD>
+__global__ void __launch_bounds__(kWG, 1)
+flash_bwd_dq_wgmma(const bf16* __restrict__ q, const bf16* __restrict__ k,
+                   const bf16* __restrict__ v, const bf16* __restrict__ dout,
+                   const float* __restrict__ lse,
+                   const float* __restrict__ dsum, bf16* __restrict__ dq,
+                   int sq, int sk, int group, int causal, int window,
+                   float scale) {
+  extern __shared__ uint8_t smem_raw[];
+  constexpr int kTile = Tile<HD>::kBytes;
+  const uint32_t qs = aligned_smem(smem_raw);
+  const uint32_t dos = qs + kTile;
+  const uint32_t ring = dos + kTile;   // stage s: K at + 2s, V at + 2s + 1
+
+  const int bh = blockIdx.y;
+  const int q0 = (gridDim.x - 1 - blockIdx.x) * kRows;
+  const int t = threadIdx.x;
+  const int lane = t & 31;
+  const int r0 = 16 * (t >> 5) + (lane >> 2);   // queries q0 + r0, + 8
+  const int cq = 2 * (lane & 3);                // keys 8i + cq + 0, 1
+  const int off = sk - sq;
+  const bf16* kb = k + static_cast<size_t>(bh / group) * sk * HD;
+  const bf16* vb = v + static_cast<size_t>(bh / group) * sk * HD;
+
+  // keys any row of this tile can see (as the forward walks them)
+  const int pos_lo = q0 + off;
+  const int pos_hi = min(q0 + kRows, sq) - 1 + off;
+  int k_begin = 0, k_end = sk;
+  if (!(causal && pos_lo < 0)) {
+    if (causal) k_end = min(sk, pos_hi + 1);
+    if (window > 0) k_begin = max(0, pos_lo - window + 1);
+  }
+  k_begin = (k_begin / kRows) * kRows;
+
+  const size_t head = static_cast<size_t>(bh) * sq;
+  load_tile<HD>(qs, q + head * HD, q0, sq, t);
+  load_tile<HD>(dos, dout + head * HD, q0, sq, t);
+  load_tile<HD>(ring, kb, k_begin, sk, t);
+  load_tile<HD>(ring + kTile, vb, k_begin, sk, t);
+  cp_async_commit();
+
+  // lse (log2 units) and D of rows r0, r0 + 8
+  float lse2[2], dd[2];
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int row = q0 + r0 + 8 * h;
+    lse2[h] = row < sq ? lse[head + row] * kLog2e : 0.f;
+    dd[h] = row < sq ? dsum[head + row] : 0.f;
+  }
+
+  const float scale2 = scale * kLog2e;
+  float acc[HD / 2], s[32], dp[32];
+  uint32_t a[16];
+#pragma unroll
+  for (int i = 0; i < HD / 2; ++i) acc[i] = 0.f;
+
+  int stage = 0;
+  for (int k0 = k_begin; k0 < k_end; k0 += kRows, stage ^= 1) {
+    cp_async_wait();
+    fence_proxy_async();
+    __syncthreads();
+    const uint32_t ks = ring + 2 * stage * kTile, vs = ks + kTile;
+    start_ss<HD>(s, qs, ks);     // S = Q K^T
+    start_ss<HD>(dp, dos, vs);   // dP = dO V^T
+    if (k0 + kRows < k_end) {
+      const uint32_t next = ring + 2 * (stage ^ 1) * kTile;
+      load_tile<HD>(next, kb, k0 + kRows, sk, t);
+      load_tile<HD>(next + kTile, vb, k0 + kRows, sk, t);
+      cp_async_commit();
+    }
+    wgmma_wait();
+    fence_regs<32>(s);
+    fence_regs<32>(dp);
+    // as the forward masks (rows past Sq are zeros and never stored)
+    const bool masked =
+        k0 + kRows > sk || (causal && k0 + kRows - 1 > pos_lo) ||
+        (window > 0 && q0 + kRows - 1 + off - k0 >= window);
+    uint32_t live = ~0u;
+#pragma unroll
+    for (int i = 0; i < 32; ++i) {
+      const int h = (i >> 1) & 1;
+      if (masked) {
+        bool on;
+        s[i] = masked_p(s[i], lse2[h], q0 + r0 + 8 * h,
+                        k0 + 8 * (i >> 2) + cq + (i & 1), off, sq, sk,
+                        causal, window, scale2, &on);
+        if (!on) live &= ~(1u << i);
+      } else {
+        s[i] = exp2f(fmaf(s[i], scale2, -lse2[h]));
+      }
+    }
+    // dS = P (dP - D) from P rounded to bf16, as the dK/dV pass has it
+#pragma unroll
+    for (int i = 0; i < 32; ++i)
+      dp[i] = (live >> i) & 1u
+                  ? round_bf16(s[i]) * (dp[i] - dd[(i >> 1) & 1])
+                  : 0.f;
+    pack_p(a, dp);                  // dS, rounded to bf16
+    start_rs<HD>(acc, a, ks);       // dQ += dS K
+    wgmma_wait();
+    fence_regs<HD / 2>(acc);
+  }
+
+  store_rows<HD>(dq + head * HD, acc, q0, r0, cq, sq, scale);
+}
+
+template <int HD>
+int launch_bwd_wgmma(const void* q, const void* k, const void* v,
+                     const void* o, const void* dout, const float* lse,
+                     float* dsum, void* dq, void* dk, void* dv, int bhq,
+                     int sq, int sk, int group, int causal, int window,
+                     float scale, cudaStream_t st) {
+  constexpr size_t kv_bytes = smem_bytes_dkdv_wgmma<HD>();
+  constexpr size_t q_bytes = smem_bytes_dq_wgmma<HD>();
+  cudaError_t err = cudaFuncSetAttribute(
+      flash_bwd_dkdv_wgmma<HD>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      static_cast<int>(kv_bytes));
+  if (err != cudaSuccess) return static_cast<int>(err);
+  err = cudaFuncSetAttribute(flash_bwd_dq_wgmma<HD>,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             static_cast<int>(q_bytes));
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const bf16* qt = static_cast<const bf16*>(q);
+  const bf16* kt = static_cast<const bf16*>(k);
+  const bf16* vt = static_cast<const bf16*>(v);
+  const bf16* dot = static_cast<const bf16*>(dout);
+  err = launch_dsum<bf16>(o, dot, dsum, bhq * sq, HD, st);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const dim3 kv_grid((sk + kRows - 1) / kRows, bhq / group);
+  flash_bwd_dkdv_wgmma<HD><<<kv_grid, kWG, kv_bytes, st>>>(
+      qt, kt, vt, dot, lse, dsum, static_cast<bf16*>(dk),
+      static_cast<bf16*>(dv), sq, sk, group, causal, window, scale);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const dim3 q_grid((sq + kRows - 1) / kRows, bhq);
+  flash_bwd_dq_wgmma<HD><<<q_grid, kWG, q_bytes, st>>>(
+      qt, kt, vt, dot, lse, dsum, static_cast<bf16*>(dq), sq, sk, group,
+      causal, window, scale);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// bf16 up to hd 128 on the tensor cores; f32, and bf16 at hd 256, on the
+// CUDA cores
+template <typename T, int HD>
+int launch_any(const void* q, const void* k, const void* v, const void* o,
+               const void* dout, const float* lse, float* dsum, void* dq,
+               void* dk, void* dv, int bhq, int sq, int sk, int group,
+               int causal, int window, float scale, cudaStream_t st) {
+  if constexpr (std::is_same<T, bf16>::value && HD <= 128)
+    return launch_bwd_wgmma<HD>(q, k, v, o, dout, lse, dsum, dq, dk, dv, bhq,
+                                sq, sk, group, causal, window, scale, st);
+  else
+    return launch_bwd<T, HD>(q, k, v, o, dout, lse, dsum, dq, dk, dv, bhq,
+                             sq, sk, group, causal, window, scale, st);
+}
+
 template <typename T>
 int by_head_dim(int hd, const void* q, const void* k, const void* v,
                 const void* o, const void* dout, const float* lse, float* dsum,
@@ -467,7 +877,7 @@ int by_head_dim(int hd, const void* q, const void* k, const void* v,
                 cudaStream_t st) {
 #define FLASH_BWD_CASE(HD)                                                   \
   case HD:                                                                   \
-    return launch_bwd<T, HD>(q, k, v, o, dout, lse, dsum, dq, dk, dv, bhq,   \
+    return launch_any<T, HD>(q, k, v, o, dout, lse, dsum, dq, dk, dv, bhq,   \
                              sq, sk, group, causal, window, scale, st);
   switch (hd) {
     FLASH_BWD_CASE(16)

@@ -19,7 +19,9 @@ The forward writes each row's logsumexp when asked (``return_lse``), for
 `flash_attention_bwd`, which computes dq, dk and dv from q, k, v, o, the
 output's gradient and that lse in three kernels (one call, counted once
 under ``flash_attention_bwd``), at head dims up to 256 (zero-padded as
-the forward pads them); above 256 it raises (ROADMAP item 6b).
+the forward pads them); above 256 it raises (ROADMAP item 6b).  bf16 up
+to hd 128 (`BWD_WGMMA_HEAD_DIMS`) runs on the tensor cores (wgmma); f32,
+and bf16 at hd 256, on the CUDA cores.
 """
 from __future__ import annotations
 
@@ -38,6 +40,7 @@ BWD_SOURCE = SOURCE.with_name("flash_attention_bwd.cu")
 HEAD_DIMS = (16, 32, 64, 128, 256, 512, 1024)  # the f32 kernel's
 WGMMA_HEAD_DIMS = HEAD_DIMS[:5]                # the bf16 (wgmma) kernel's
 BWD_HEAD_DIMS = HEAD_DIMS[:5]                  # the backward's
+BWD_WGMMA_HEAD_DIMS = HEAD_DIMS[:4]            # its bf16 (wgmma) kernels'
 DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
 _lib = None
@@ -180,6 +183,8 @@ def flash_attention_bwd(
                 or not t.is_contiguous()):
             raise ValueError(f"{name} must be a contiguous {q.dtype} tensor "
                              f"of q's shape {tuple(q.shape)} on {q.device}")
+    if do.dtype == torch.bfloat16 and do.data_ptr() % 16:
+        raise ValueError("do must start on 16 bytes (cp.async)")
     if (lse.shape != (bhq, sq) or lse.dtype != torch.float32
             or lse.device != q.device or not lse.is_contiguous()):
         raise ValueError(f"lse must be a contiguous float32 ({bhq}, {sq}) "

@@ -15,8 +15,14 @@ the call; above 1024 the wrapper raises); that arithmetic, too, is held
 to the JAX package here.  The cross-attention layers' modes (non-causal
 with Sq > Sk, non-causal over 1,600 keys at hd 128 with 8 query heads a
 KV head, MHA at hd 64 with ragged lengths) are held to the JAX kernel in
-interpret mode, in bf16 through the card's arithmetic too.
+interpret mode, in bf16 through the card's arithmetic too.  The card's
+bf16 backward kernels round P and dS to bf16 before the products they
+feed (ROADMAP Queue 3, B4); their arithmetic, written out here in plain
+torch, stays within 2e-2 of each gradient's largest value of `jax.vjp`
+of the model's `chunked_attention`.  The build keys each library by the
+headers beside its sources too, which nvcc is not given.
 """
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -26,8 +32,14 @@ import torch.nn.functional as F
 from repro.kernels.flash_attention import flash_attention as j_flash
 from repro.kernels.flash_attention import flash_attention_ref as j_ref
 from repro.models.attention import chunked_attention
+from repro_torch import kernels
 from repro_torch.kernels.flash_attention import flash_attention, flash_attention_ref
-from repro_torch.kernels.flash_attention.kernel import HEAD_DIMS, padded_head_dim
+from repro_torch.kernels.flash_attention.kernel import (
+    BWD_SOURCE,
+    HEAD_DIMS,
+    SOURCE,
+    padded_head_dim,
+)
 from repro_torch.kernels.flash_attention.ref import NEG_INF, attention_mask
 
 SWEEP = [  # B, Hq, Hkv, Sq, Sk, hd, causal, window, bq, bk
@@ -234,3 +246,100 @@ def test_zero_padded_head_dim_matches_jax(hd, window, dtype):
     for ref in (kern, j_ref(jq, jk, jv, causal=True, window=window)):
         np.testing.assert_allclose(_np(got), np.asarray(ref, np.float32),
                                    **_tol(dtype))
+
+
+def _rounded_backward(q, k, v, o, do, causal, window):
+    """The bf16 backward kernels' arithmetic (B4): S, dP, D = rowsum(dO O),
+    lse and every sum in f32; P rounded to bf16 before dV += P^T dO; dS =
+    P (dP - D) from the rounded P, itself rounded to bf16 before dK +=
+    dS^T Q and dQ += dS K; a causal row with no live key has p = 1 / Sk
+    and ds = 0; dq, dk, dv rounded once to bf16."""
+    B, Hq, Sq, hd = q.shape
+    Hkv, Sk = k.shape[1], k.shape[2]
+    G = Hq // Hkv
+    qf = q.float().reshape(B, Hkv, G, Sq, hd)
+    dof = do.float().reshape(B, Hkv, G, Sq, hd)
+    kf, vf = k.float(), v.float()
+    scale = hd**-0.5
+    mask = attention_mask(Sq, Sk, causal, window)
+    s = torch.where(mask, torch.einsum("bhgqd,bhkd->bhgqk", qf, kf) * scale,
+                    NEG_INF)
+    lse = torch.logsumexp(s, -1, keepdim=True)
+    none_live = ~mask.any(-1, keepdim=True)
+    p = torch.where(mask, torch.exp(s - lse), 0.0)
+    p = torch.where(none_live, 1.0 / Sk, p).bfloat16().float()
+    d = (dof * o.float().reshape(B, Hkv, G, Sq, hd)).sum(-1, keepdim=True)
+    dp = torch.einsum("bhgqd,bhkd->bhgqk", dof, vf)
+    ds = torch.where(mask, p * (dp - d), 0.0).bfloat16().float()
+    dq = torch.einsum("bhgqk,bhkd->bhgqd", ds, kf) * scale
+    dk = torch.einsum("bhgqk,bhgqd->bhkd", ds, qf) * scale
+    dv = torch.einsum("bhgqk,bhgqd->bhkd", p, dof)
+    return dq.reshape(B, Hq, Sq, hd).bfloat16(), dk.bfloat16(), dv.bfloat16()
+
+
+@pytest.mark.parametrize("case", [  # B, Hq, Hkv, Sq, Sk, hd, causal, window
+    (1, 15, 5, 256, 256, 64, True, 0),   # smollm-360m's layout
+    (1, 8, 1, 200, 200, 128, True, 0),   # group 8 at hd 128 (yi)
+    (1, 4, 2, 160, 160, 64, True, 48),   # a window
+    (1, 4, 2, 96, 40, 32, True, 0),      # rows at negative positions
+])
+def test_bf16_backward_rounding_is_within_bf16_tolerance(case):
+    """dq, dk, dv of the kernels' bf16 arithmetic on bf16 inputs against
+    jax.vjp of `chunked_attention` (f32 on the same values) within 2e-2 of
+    each gradient's largest value plus 2e-2 of its own."""
+    B, Hq, Hkv, Sq, Sk, hd, causal, window = case
+    rng = np.random.default_rng(sum(case[:6]))
+    arrs = [rng.normal(size=shape).astype(np.float32) for shape in (
+        (B, Hq, Sq, hd), (B, Hkv, Sk, hd), (B, Hkv, Sk, hd), (B, Hq, Sq, hd))]
+    q, k, v, do = _port(arrs, torch.bfloat16)
+    qpos = jnp.arange(Sq, dtype=jnp.int32) + (Sk - Sq)
+    kpos = jnp.arange(Sk, dtype=jnp.int32)
+    _, vjp = jax.vjp(lambda a, b, c: chunked_attention(
+        a, b, c, qpos, kpos, causal=causal, window=window, chunk_q=32,
+        chunk_k=32), *(jnp.asarray(_np(t)) for t in (q, k, v)))
+    want = vjp(jnp.asarray(_np(do)))
+    o = _rounded_p_attention(q, k, v, causal, window)
+    got = _rounded_backward(q, k, v, o, do, causal, window)
+    for name, g, w in zip(("dq", "dk", "dv"), got, want):
+        assert g.dtype == torch.bfloat16 and g.shape == w.shape, name
+        w = np.asarray(w)
+        np.testing.assert_allclose(_np(g), w, rtol=2e-2,
+                                   atol=2e-2 * np.abs(w).max(), err_msg=name)
+
+
+def test_flash_sources_share_the_wgmma_header():
+    """Both flash sources include the one header of wgmma pieces, and it
+    keys both libraries."""
+    header = SOURCE.with_name("flash_wgmma.cuh")
+    assert header.exists()
+    for src in (SOURCE, BWD_SOURCE):
+        assert '#include "flash_wgmma.cuh"' in src.read_text(), src.name
+
+
+def test_header_keys_the_library_path(tmp_path, monkeypatch):
+    """Two contents of a header beside a source give two library paths,
+    and the header is not handed to nvcc as a translation unit."""
+    src, hdr = tmp_path / "k.cu", tmp_path / "k.cuh"
+    src.write_text('#include "k.cuh"\n')
+    hdr.write_text("// one\n")
+    first = kernels.library_path("k", [src])
+    hdr.write_text("// two\n")
+    second = kernels.library_path("k", [src])
+    assert first != second
+    assert kernels.library_path("k", [src]) == second
+
+    cmds = []
+
+    class Refused:
+        returncode = 1
+
+        def communicate(self):
+            return "", "refused"
+
+    monkeypatch.setattr(kernels, "BUILD_DIR", tmp_path / "build")
+    monkeypatch.setattr(kernels, "cuda_tool", lambda name: name)
+    monkeypatch.setattr(kernels.subprocess, "Popen",
+                        lambda cmd, **kw: cmds.append(cmd) or Refused())
+    with pytest.raises(RuntimeError, match="nvcc failed to build k"):
+        kernels.build_libraries([("k", [src])])
+    assert str(src) in cmds[0] and str(hdr) not in cmds[0]

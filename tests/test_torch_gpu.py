@@ -18,7 +18,8 @@ the f32 kernel alone (up to 1024); the cross-attention layers' modes
 runs its scalar loads for rows or weights off 16 bytes.  The flash
 backward kernel (training) is held to autograd through the plain
 version at the same tolerances relative to each gradient's largest
-value, bit for bit against itself; the forward's lse to torch.logsumexp
+value, bit for bit against itself, and its bf16 path up to hd 128 is
+seen to launch the wgmma kernels; the forward's lse to torch.logsumexp
 at 2e-5; the forward-only kernels raise under autograd (F3); a reduced
 train step on the card matches the CPU's within 1e-5.
 """
@@ -34,6 +35,7 @@ from repro_torch.configs.base import get_config, reduced_config
 from repro_torch.kernels import launch_counts
 from repro_torch.kernels.flash_attention import flash_attention, flash_attention_ref
 from repro_torch.kernels.flash_attention.kernel import (
+    BWD_WGMMA_HEAD_DIMS,
     WGMMA_HEAD_DIMS,
     flash_attention_bwd,
     flash_attention_fwd,
@@ -785,6 +787,14 @@ BWD_CASES = [  # B, Hq, Hkv, Sq, Sk, hd, causal, window
     (2, 6, 2, 200, 200, 64, True, 0), (1, 16, 2, 130, 130, 128, True, 0),
     (1, 8, 2, 100, 100, 160, True, 0), (1, 4, 1, 90, 150, 256, True, 40),
     (1, 4, 2, 77, 200, 128, False, 0), (1, 4, 4, 120, 45, 64, False, 0),
+    # the bf16 (wgmma) kernels' edges: Sq, Sk off 64 with Sq != Sk, causal;
+    # a single query row; group 8 at hd 128 (causal with a window, and
+    # non-causal); causal rows at negative positions over ragged tiles;
+    # key tiles behind the window of every query (dK = dV = 0)
+    (1, 4, 2, 100, 170, 64, True, 0), (2, 4, 2, 1, 130, 64, True, 0),
+    (1, 8, 1, 192, 192, 128, True, 70), (1, 8, 1, 200, 330, 128, False, 0),
+    (2, 3, 1, 130, 70, 32, True, 0), (1, 2, 1, 70, 70, 16, False, 0),
+    (1, 4, 2, 40, 300, 64, True, 30),
 ]
 
 
@@ -807,6 +817,32 @@ def test_flash_attention_bwd_matches_plain_autograd(card, case, dtype):
     for name, g, w in zip(("o", "dq", "dk", "dv"), got, want):
         assert g.dtype == dtype and g.shape == w.shape, name
         _grad_close(g, w, dtype, name)
+
+
+@pytest.mark.parametrize("dtype,hd", [
+    (torch.bfloat16, 16), (torch.bfloat16, 32), (torch.bfloat16, 64),
+    (torch.bfloat16, 128), (torch.bfloat16, 256), (torch.float32, 64)])
+def test_flash_attention_bwd_runs_wgmma_for_bf16_up_to_hd_128(card, dtype,
+                                                              hd):
+    """The profiler's kernel names: bf16 at hd 16-128 launches the wgmma
+    dK/dV and dQ kernels, f32 and bf16 hd 256 the CUDA-core ones, each
+    after the D pass."""
+    from torch.profiler import ProfilerActivity, profile
+
+    case = (1, 4, 2, 96, 96, hd, True, 0)
+    q, k, v, do = (t.reshape(-1, 96, hd)
+                   for t in _bwd_inputs(case, dtype, card))
+    o, lse = flash_attention_fwd(q, k, v, 2, True, 0, return_lse=True)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        flash_attention_bwd(q, k, v, o, do, lse, 2, True, 0)
+        torch.cuda.synchronize()
+    names = {e.key for e in prof.key_averages() if "flash_bwd" in e.key}
+    wgmma = dtype == torch.bfloat16 and hd in BWD_WGMMA_HEAD_DIMS
+    assert any("flash_bwd_dsum" in n for n in names), names
+    for part in ("flash_bwd_dkdv", "flash_bwd_dq"):
+        hits = [n for n in names if part in n]
+        assert len(hits) == 1 and ("wgmma" in hits[0]) == wgmma, names
 
 
 def test_flash_attention_bwd_is_deterministic(card):
@@ -868,6 +904,13 @@ def test_flash_attention_bwd_checks_its_inputs(card):
     with pytest.raises(TypeError):
         flash_attention_bwd(q.double(), k.double(), v.double(), o, do, lse,
                             2, True, 0)
+    qb, kb, vb = (t.bfloat16() for t in (q, k, v))
+    ob, lb = flash_attention_fwd(qb, kb, vb, 2, True, 0, return_lse=True)
+    buf = torch.empty(do.numel() + 1, dtype=torch.bfloat16, device=card)
+    dob = buf[1:].view(do.shape)   # 2 bytes past an aligned start
+    dob.copy_(do)
+    with pytest.raises(ValueError, match="16 bytes"):   # cp.async
+        flash_attention_bwd(qb, kb, vb, ob, dob, lb, 2, True, 0)
 
 
 def test_flash_attention_bwd_raises_above_hd_256(card):

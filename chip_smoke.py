@@ -4,11 +4,13 @@
     python3 chip_smoke.py
 
 Imports nothing of JAX or of the JAX package.  Builds the Hopper kernels
-from the sources in this checkout (each kernel's registers and spills
-from ptxas; the HGMMA instructions of the flash library and of the flash
-backward library counted in their SASS, each of which must be above 0,
-and no spill in their bf16 (wgmma) kernels or in either scan kernel; the
-flash backward's 8 wgmma, 12 CUDA-core and 2 D instantiations), then
+from the sources in this checkout, nine libraries (the five forward
+kernels and the backward kernels of flash_attention, moe_gmm, mamba_scan
+and rglru_scan; each kernel's registers and spills from ptxas; the HGMMA
+instructions of the flash library and of the flash backward library
+counted in their SASS, each of which must be above 0, and no spill in
+their bf16 (wgmma) kernels or in either scan kernel, forward or backward;
+the flash backward's 8 wgmma, 12 CUDA-core and 2 D instantiations), then
 runs, each phase printing one JSON line and any failure raising:
 
 0. Training, first, so that a failure shows early.
@@ -26,13 +28,30 @@ runs, each phase printing one JSON line and any failure raising:
    989 TFLOP/s bf16 or 67 f32), the plain version's backward (autograd,
    one batch element at a time) and SDPA's (forward + backward less
    forward, K/V repeated to the query heads).
-   train_golden: reduced smollm-360m in f32 in its head layout with the
-   JAX package's weights (src/repro_torch/data/
-   smollm_360m_reduced_train_golden.npz), 5 steps of `make_train_step`:
-   losses, grad norms and lr within rtol 1e-5 of the JAX run, the
-   parameters after steps 3 and 5 within atol/rtol 1e-5, 2 flash and 1
-   backward launches a layer a step; a checkpoint after step 3 restored
-   into a fresh state repeats steps 3-4 bit for bit.
+   moe_gmm_bwd, rglru_scan_bwd, mamba_scan_bwd: the three backward
+   kernels the same way (through each op's autograd function against
+   autograd through its plain version, or at falcon-mamba's full shape
+   against the explicit `mamba_scan_bwd_ref`; f32 2e-5 and bf16 2e-2 of
+   each gradient's largest value; bit for bit against a second run): the
+   kernel sweeps in both types (mamba with and without h_S's gradient,
+   moe_gmm with a quarter of its capacity rows empty, whose dh must be
+   zero), then the training shapes (qwen3-moe E 128, C 320, D 2048, F 768
+   and deepseek-moe E 64, C 480, F 1408, bf16; recurrentgemma B 1, S 4096,
+   D 2560, f32; falcon-mamba B 1, S 4096, D 8192, N 16, x bf16), a small
+   f32 row and a ragged row each; timed (events and profiler; rglru's
+   three passes apart) beside the bound, the plain version's backward,
+   mamba's SFU floor, and for moe_gmm autograd through three `torch.bmm`
+   (`bmm_trio_bwd_ms`), a yardstick never on the path.
+   train_golden, train_golden_qwen3, train_golden_mamba,
+   train_golden_rgemma: reduced smollm-360m (f32, in its head layout),
+   qwen3-moe-30b-a3b, falcon-mamba-7b and recurrentgemma-2b (f32, their
+   reduced layouts) with the JAX package's weights
+   (src/repro_torch/data/<arch>_reduced_train_golden.npz), 5 steps of
+   `make_train_step`: losses, grad norms and lr within rtol 1e-5 of the
+   JAX run, the parameters after steps 3 and 5 within atol/rtol 1e-5,
+   each kernel's forward 2 launches and its backward 1 a layer of its
+   kind a step; a checkpoint after step 3 restored into a fresh state
+   repeats steps 3-4 bit for bit.
    train_full: smollm-360m at full width and depth, float32 masters made
    on the card from seed 0, bf16 compute, full remat, S 4096, B 8 (printed
    as `reduced`: train_4k's batch of 256 needs ~206 GB of f32 logits), 12
@@ -41,6 +60,16 @@ runs, each phase printing one JSON line and any failure raising:
    and 32 backward launches a step; the checkpoint restored and 2 steps
    profiled: step ms (host) and device ms, the idle share, tokens/s, the
    backward kernel's share of a step, peak memory, init seconds.
+   train_full_qwen3, train_full_falcon_mamba, train_full_rgemma: the
+   MoE, SSM and hybrid archs at full width, the same way at B 1, S 4096
+   (printed as `reduced`), 10 steps without a checkpoint: qwen3-moe at 4
+   of its 48 layers and falcon-mamba at 30 of its 64 (80 GB force both
+   cuts, printed with the reason) through `make_train_step`,
+   recurrentgemma-2b at all 26 through `launch.train.main`; every loss
+   finite and falling, the parameter count `count_params`'s, every
+   kernel's launches exact; 2 profiled steps: step ms, device ms, the idle
+   share, tokens/s, peak memory, each backward kernel's device ms a step
+   and share, the top kernels.
 
 1. kernel: the `rotor_slice` CUDA kernel against its plain PyTorch
    version on the card, vlb on and off, at k8-n16-g1, k12-n108-g1,
@@ -187,9 +216,9 @@ runs, each phase printing one JSON line and any failure raising:
    time goes.  Each phase frees the last one's weights first.
 
 Then each phase's seconds and the script's total, the kernel table line
-(flash_attention's launches add the training runs'; flash_attention_bwd
-at the training shape), the card's name and power limit, and the device
-line.  Exits
+(flash_attention's launches add the training runs'; the four backward
+kernels at their training shapes, their launches summed over the
+training runs), the card's name and power limit, and the device line.  Exits
 non-zero, printing no result, without a CUDA card or outside a checkout
 of the repository.
 """
@@ -366,14 +395,16 @@ def phase_build() -> dict:
     from repro_torch.kernels.rotor_slice import kernel as rotor
 
     mods = (rotor, flash, gmm, mamba, rglru)
+    bwd_mods = (flash, gmm, mamba, rglru)
     specs = [("rotor_slice", [rotor.SOURCE])] + [
         (m.NAME, [m.SOURCE]) for m in mods[1:]] + [
-        (flash.BWD_NAME, [flash.BWD_SOURCE])]
+        (m.BWD_NAME, [m.BWD_SOURCE]) for m in bwd_mods]
     t0 = time.perf_counter()
     build_libraries(specs)
     for mod in mods:
         mod.library()
-    flash.bwd_library()
+    for mod in bwd_mods:
+        mod.bwd_library()
     out = dict(phase="build", seconds=time.perf_counter() - t0)
     for name, sources in specs:
         log = library_path(name, sources).with_suffix(".log")
@@ -410,7 +441,8 @@ def phase_build() -> dict:
         out[f"{name}_hgmma"] = hgmma = _hgmma(library_path(name, [src]))
         print(f"{name} HGMMA instructions: {hgmma}", flush=True)
         _check(hgmma > 0, f"the {name} library holds no HGMMA")
-    scans = {k: v for name in (mamba.NAME, rglru.NAME)
+    scans = {k: v for name in (mamba.NAME, rglru.NAME, mamba.BWD_NAME,
+                               rglru.BWD_NAME)
              for k, v in out[f"ptxas_{name}"].items()}
     _check(len(scans) > 0
            and all(v["spill_bytes"] == 0 for v in scans.values()),
@@ -1627,8 +1659,309 @@ def phase_flash_attention_bwd() -> dict:
                 rows=rows)
 
 
-TRAIN_GOLDEN = "smollm_360m_reduced_train_golden.npz"
+def _autograd_ms(fn, leaves, grads, reps: int) -> float:
+    """Events ms of autograd through `fn` (forward and backward) less the
+    forward alone: the backward's time."""
+    import torch
+
+    def both():
+        with torch.enable_grad():
+            out = fn(*leaves)
+            outs = out if isinstance(out, tuple) else (out,)
+            used = [(o, g) for o, g in zip(outs, grads) if g is not None]
+            torch.autograd.grad([o for o, _ in used], leaves,
+                                [g for _, g in used])
+
+    def fwd():
+        with torch.enable_grad():
+            fn(*leaves)
+
+    return _cuda_ms(both, reps=reps, warmup=1) - _cuda_ms(fwd, reps=reps,
+                                                          warmup=1)
+
+
+def _bwd_row(what, dtype, fn, leaves, grads, kernel, names, plain=None,
+             timed=True, reps=10) -> dict:
+    """One backward-kernel row: the gradients through `fn` (the op, whose
+    autograd function launches the forward and backward kernels) against
+    autograd through `plain[0]` (the plain version) or, where `plain[1]` is
+    given, the explicit backward `plain[1]()`; the same bits from a second
+    run; then `kernel` (the backward kernel alone) timed with events and
+    the profiler (kernels named with one of `names`) beside autograd
+    through the plain version's backward."""
+    import torch
+
+    def grads_of(f):
+        ls = [t.detach().requires_grad_() for t in leaves]
+        with torch.enable_grad():
+            out = f(*ls)
+            outs = out if isinstance(out, tuple) else (out,)
+            used = [(o, g) for o, g in zip(outs, grads) if g is not None]
+            return torch.autograd.grad([o for o, _ in used], ls,
+                                       [g for _, g in used])
+
+    got = grads_of(fn)
+    _check(all(torch.equal(a, b) for a, b in zip(got, grads_of(fn))),
+           f"{what} not deterministic")
+    plain_fn, explicit = plain
+    want = explicit() if explicit is not None else grads_of(plain_fn)
+    held = [_grad_held(g, w, dtype, f"{what} d{i}")
+            for i, (g, w) in enumerate(zip(got, want))]
+    row = dict(max_abs_err=max(a for a, _ in held),
+               max_rel_err=max(r for _, r in held),
+               held_against=("the explicit backward" if explicit is not None
+                             else "autograd through ref.py"),
+               deterministic=True)
+    del got, want
+    if not timed:
+        return row
+    row["ms"] = _cuda_ms(kernel, reps=reps, warmup=1)
+    row["device_ms"] = _device_ms(kernel, names, reps=reps)
+    if explicit is not None:
+        row["plain_ms"] = _cuda_ms(explicit, reps=1, warmup=1)
+        row["plain_is"] = "the explicit backward (*_bwd_ref)"
+    else:
+        row["plain_ms"] = _autograd_ms(
+            plain_fn, [t.detach().requires_grad_() for t in leaves], grads,
+            reps=1)
+        row["plain_is"] = "autograd through ref.py, less its forward"
+    torch.cuda.empty_cache()
+    return row
+
+
+GMM_BWD_SWEEP = GMM_SWEEP + [(2, 67, 130, 70), (1, 5, 33, 17)]
+
+
+def phase_moe_gmm_bwd() -> dict:
+    """The expert FFN's backward kernel: the sweep (and two ragged
+    shapes) in f32 and bf16, then qwen3-moe's training shape (E 128, C
+    320: 4,096 tokens, top 8, capacity factor 1.25; D 2048, F 768, bf16),
+    deepseek-moe-16b's (E 64, C 480, F 1408), a small f32 row and a
+    ragged bf16 row; each held to autograd through `moe_gmm_ref`, a
+    quarter of the capacity rows empty (their dh must be zero), bit for
+    bit against a second run; timed beside its bound (16 E C D F
+    operations at the inputs' type's rate) and, as a yardstick never on
+    the path, autograd through three `torch.bmm` (`_bmm_trio`)."""
+    import torch
+
+    from repro_torch.kernels.moe_gmm import kernel as gmm
+    from repro_torch.kernels.moe_gmm.ops import moe_gmm
+    from repro_torch.kernels.moe_gmm.ref import moe_gmm_ref
+
+    gen = torch.Generator(device="cuda").manual_seed(5)
+
+    def row(dtype, E, C, D, Fd, timed=True):
+        h = _randn((E, C, D), gen, dtype)
+        h[:, C - C // 4:] = 0
+        w = [_randn((E, D, Fd), gen, dtype, D**-0.5),
+             _randn((E, D, Fd), gen, dtype, D**-0.5),
+             _randn((E, Fd, D), gen, dtype, Fd**-0.5)]
+        dout = _randn((E, C, D), gen, dtype)
+        what = f"moe_gmm_bwd E={E} C={C} D={D} F={Fd} {_dname(dtype)}"
+        dh = gmm.moe_gmm_bwd(h, *w, dout)[0]
+        _check(not dh[:, C - C // 4:].any(), f"{what}: empty rows' dh")
+        out = dict(dtype=_dname(dtype), E=E, C=C, D=D, F=Fd,
+                   empty_rows=C // 4, **_bwd_row(
+                       what, dtype, moe_gmm, [h, *w], [dout],
+                       lambda: gmm.moe_gmm_bwd(h, *w, dout), ("moe_bwd",),
+                       plain=(moe_gmm_ref, None), timed=timed, reps=3))
+        if timed:
+            ops = 16 * E * C * D * Fd
+            nbytes = h.element_size() * (3 * E * C * D + 6 * E * D * Fd)
+            bound_ms, bound_by = _bound(nbytes, ops, dtype)
+            out.update(
+                bound_ms=bound_ms, bound_by=bound_by,
+                fp32_core_bound_ms=ops / FP32_OPS_PER_S * 1e3,
+                tflops=ops / (out["ms"] * 1e-3) / 1e12, library_ms=None,
+                bmm_trio_bwd_ms=_autograd_ms(
+                    _bmm_trio, [t.detach().requires_grad_()
+                                for t in (h, *w)], [dout], reps=3))
+        del h, w, dout, dh
+        torch.cuda.empty_cache()
+        return out
+
+    sweep = [row(dtype, *case, timed=False)
+             for dtype in (torch.float32, torch.bfloat16)
+             for case in GMM_BWD_SWEEP]
+    rows = [dict(arch="qwen3-moe-30b-a3b", **row(torch.bfloat16, 128, 320,
+                                                 2048, 768)),
+            dict(arch="deepseek-moe-16b", **row(torch.bfloat16, 64, 480,
+                                                2048, 1408)),
+            dict(arch="small f32", **row(torch.float32, 16, 40, 2048, 768)),
+            dict(arch="ragged", **row(torch.bfloat16, 8, 67, 200, 130))]
+    return dict(phase="moe_gmm_bwd", sweep_cases=len(sweep),
+                sweep_max_rel_err=max(r["max_rel_err"] for r in sweep),
+                rows=rows)
+
+
+def phase_rglru_scan_bwd() -> dict:
+    """The RG-LRU scan's backward kernel: the sweep in f32 and bf16 (with
+    h0's gradient), then recurrentgemma-2b's training shape (B 1, S 4096,
+    D 2560, f32 gates as the model's), a small f32 row and a ragged bf16
+    row, each held to autograd through `rglru_scan_ref`, bit for bit
+    against a second run; timed (the three passes together and each)
+    beside its byte bound and the design's 28 B an element."""
+    import torch
+
+    from repro_torch.kernels.rglru_scan import kernel as rg
+    from repro_torch.kernels.rglru_scan.ops import rglru_scan
+    from repro_torch.kernels.rglru_scan.ref import rglru_scan_ref
+
+    gen = torch.Generator(device="cuda").manual_seed(6)
+
+    def row(dtype, B, S, D, timed=True):
+        a = _uniform((B, S, D), gen, 0.7, 0.999, dtype)
+        bx = _randn((B, S, D), gen, dtype)
+        h0 = _randn((B, D), gen, torch.float32)
+        dhs = _randn((B, S, D), gen, torch.float32)
+        hs = rg.rglru_scan_fwd(a, bx, h0)
+        what = f"rglru_scan_bwd B={B} S={S} D={D} {_dname(dtype)}"
+        fn = lambda: rg.rglru_scan_bwd(a, hs, h0, dhs)  # noqa: E731
+        out = dict(dtype=_dname(dtype), B=B, S=S, D=D, **_bwd_row(
+            what, dtype, rglru_scan, [a, bx, h0], [dhs], fn, ("rglru_bwd",),
+            plain=(rglru_scan_ref, None), timed=timed, reps=20))
+        if timed:
+            passes = ("rglru_bwd_chunk_ends", "rglru_bwd_chunk_carry",
+                      "rglru_bwd_chunk_scan")
+            for p_ in passes:
+                out[f"{p_}_device_ms"] = _device_ms(fn, (p_,), reps=20)
+            es = a.element_size()
+            # a, hs, dhs read once, da and dbx written once; h0, dh0
+            nbytes = B * S * D * (3 * es + 8) + 8 * B * D
+            bound_ms, bound_by = _bound(nbytes, 4 * B * S * D,
+                                        torch.float32)
+            design = B * S * D * (5 * es + 12) + 8 * B * D
+            out.update(bound_ms=bound_ms, bound_by=bound_by,
+                       library_ms=None, design_bytes=design,
+                       design_ms=design / HBM_BYTES_PER_S * 1e3)
+        del a, bx, h0, dhs, hs
+        torch.cuda.empty_cache()
+        return out
+
+    sweep = [row(dtype, *case, timed=False)
+             for dtype in (torch.float32, torch.bfloat16)
+             for case in RGLRU_SWEEP + [(1, 65, 130)]]
+    rows = [dict(arch="recurrentgemma-2b", **row(torch.float32, 1, 4096,
+                                                 2560)),
+            dict(arch="small f32", **row(torch.float32, 1, 512, 2560)),
+            dict(arch="ragged", **row(torch.bfloat16, 2, 1000, 2500))]
+    return dict(phase="rglru_scan_bwd", sweep_cases=len(sweep),
+                sweep_max_rel_err=max(r["max_rel_err"] for r in sweep),
+                rows=rows)
+
+
+def phase_mamba_scan_bwd() -> dict:
+    """The selective scan's backward kernel: the sweep in f32 and bf16,
+    with and without h_S's gradient, then falcon-mamba-7b's training shape
+    (B 1, S 4096, D 8192, N 16; x bf16, dt, B, C f32 as the model's), held
+    to the explicit backward `mamba_scan_bwd_ref` (autograd through the
+    plain version's 4,096 steps would keep ~10 GB), a small f32 row (S
+    512) and a ragged row (S 300, D 1000), held to autograd through
+    `mamba_scan_ref`; bit for bit against a second run; timed beside its
+    bound (~22 f32 operations a state and step) and the floor of its
+    exponentials on the SFU at the sampled SM clock (one a state and
+    step; the design computes three)."""
+    import math
+
+    import torch
+
+    from repro_torch.kernels.mamba_scan import kernel as mk
+    from repro_torch.kernels.mamba_scan.ops import mamba_scan
+    from repro_torch.kernels.mamba_scan.ref import (
+        mamba_scan_bwd_ref,
+        mamba_scan_ref,
+    )
+
+    gen = torch.Generator(device="cuda").manual_seed(7)
+
+    def row(x_dtype, p_dtype, B, S, D, N, with_hs, timed=True,
+            explicit=False):
+        args = [_randn((B, S, D), gen, x_dtype),
+                torch.exp(_uniform((B, S, D), gen, math.log(1e-3),
+                                   math.log(1e-1), torch.float32)).to(p_dtype),
+                _randn((B, S, N), gen, p_dtype),
+                _randn((B, S, N), gen, p_dtype),
+                -torch.arange(1, N + 1, device="cuda",
+                              dtype=torch.float32).repeat(D, 1),
+                torch.ones(D, device="cuda")]
+        dy = _randn((B, S, D), gen, torch.float32)
+        dhs = _randn((B, D, N), gen, torch.float32) if with_hs else None
+        what = (f"mamba_scan_bwd B={B} S={S} D={D} N={N} x {_dname(x_dtype)}"
+                f" p {_dname(p_dtype)} dhS={with_hs}")
+        fn = lambda: mk.mamba_scan_bwd(*args, dy, dhs)  # noqa: E731
+        tol_dtype = torch.bfloat16 if torch.bfloat16 in (x_dtype, p_dtype) \
+            else torch.float32
+        out = dict(x_dtype=_dname(x_dtype), p_dtype=_dname(p_dtype), B=B,
+                   S=S, D=D, N=N, dhS=with_hs, **_bwd_row(
+                       what, tol_dtype, mamba_scan, args, [dy, dhs], fn,
+                       ("mamba_scan_bwd",),
+                       plain=(mamba_scan_ref,
+                              (lambda: mamba_scan_bwd_ref(*args, dy, dhs))
+                              if explicit else None),
+                       timed=timed, reps=5))
+        if timed:
+            xs, ps = args[0].element_size(), args[1].element_size()
+            # x, dt, dy read, dx, ddt written; B, C read, dB, dC written;
+            # A, D read, dA, dD written; h_S's gradient read
+            nbytes = (B * S * D * (2 * xs + 2 * ps + 4) + 4 * B * S * N * ps
+                      + 8 * D * N + 8 * D + (4 * B * D * N if with_hs else 0))
+            ops = 22 * B * S * D * N
+            bound_ms, bound_by = _bound(nbytes, ops, torch.float32)
+            mhz = _sm_clock_mhz(fn, calls=200)
+            exps = B * S * D * N
+            out.update(bound_ms=bound_ms, bound_by=bound_by, library_ms=None,
+                       exps=exps, sm_clock_mhz=mhz,
+                       sfu_floor_ms=exps / (SFU_PER_CLOCK * SMS * mhz * 1e6)
+                       * 1e3)
+        del args, dy, dhs
+        torch.cuda.empty_cache()
+        return out
+
+    sweep = [row(dtype, dtype, B, S, D, N, with_hs, timed=False)
+             for dtype in (torch.float32, torch.bfloat16)
+             for B, S, D, N in MAMBA_SWEEP + [(1, 37, 33, 5)]
+             for with_hs in (False, True)]
+    rows = [dict(arch="falcon-mamba-7b", **row(
+                torch.bfloat16, torch.float32, 1, 4096, 8192, 16, False,
+                explicit=True)),
+            dict(arch="small f32", **row(torch.float32, torch.float32, 1,
+                                         512, 8192, 16, True)),
+            dict(arch="ragged", **row(torch.bfloat16, torch.float32, 2, 300,
+                                      1000, 16, True))]
+    return dict(phase="mamba_scan_bwd", sweep_cases=len(sweep),
+                sweep_max_rel_err=max(r["max_rel_err"] for r in sweep),
+                rows=rows)
+
+
 TRAIN_TOL = dict(atol=1e-5, rtol=1e-5)   # tests/test_trainer_serve.py:70-73
+# Each stored training run: (phase, arch, the kernels a layer of each kind
+# launches in training: forward twice a step (remat), backward once)
+TRAIN_RUNS = [
+    ("train_golden", "smollm-360m", {"flash_attention": "self_attn"}),
+    ("train_golden_qwen3", "qwen3-moe-30b-a3b",
+     {"flash_attention": "moe", "moe_gmm": "moe"}),
+    ("train_golden_mamba", "falcon-mamba-7b", {"mamba_scan": "ssm"}),
+    ("train_golden_rgemma", "recurrentgemma-2b",
+     {"rglru_scan": "rglru", "flash_attention": "local_attn"}),
+]
+
+
+def _train_golden_file(arch: str) -> str:
+    return f"{arch.replace('-', '_')}_reduced_train_golden.npz"
+
+
+def _train_launches(cfg, kernels: dict, steps: int) -> dict:
+    """Launches a training run of `steps` steps must count: each kernel's
+    forward twice a layer of its kind a step (remat), its backward once."""
+    from repro_torch.models.transformer import stack_plan
+
+    kinds = stack_plan(cfg).kinds
+    out = {}
+    for name, kind in kernels.items():
+        n = kinds.count(kind) * steps
+        out[name] = 2 * n
+        out[f"{name}_bwd"] = n
+    return out
 
 
 def _train_state_from(stored: dict, prefix: str, cfg, device):
@@ -1651,15 +1984,17 @@ def _state_tensors(state) -> dict:
     return out
 
 
-def phase_train_golden(root: Path) -> dict:
-    """Reduced smollm-360m in f32 in its own head layout (hd 64, 3 query
-    heads a KV head), the JAX package's weights from the stored file:
+def phase_train_golden(root: Path, phase: str, arch: str,
+                       kernels: dict) -> dict:
+    """Reduced `arch` in f32 (smollm-360m in its own head layout, hd 64,
+    3 query heads a KV head; qwen3-moe, falcon-mamba and recurrentgemma in
+    their reduced one), the JAX package's weights from the stored file:
     5 steps of `make_train_step` on SyntheticLM batches held to the JAX
     package's run (losses, grad norms and lr rtol 1e-5; the parameters
-    after steps 3 and 5 atol/rtol 1e-5), flash launches 2 a layer and
-    backward launches 1 a layer a step (remat recomputes the forward);
-    then a checkpoint saved after step 3, restored into a fresh state, and
-    steps 3-4 again give the straight run's bits."""
+    after steps 3 and 5 atol/rtol 1e-5), each kernel's forward launched 2
+    times a layer of its kind a step (remat recomputes the forward) and
+    its backward once; then a checkpoint saved after step 3, restored into
+    a fresh state, and steps 3-4 again give the straight run's bits."""
     import shutil
 
     import numpy as np
@@ -1673,9 +2008,9 @@ def phase_train_golden(root: Path) -> dict:
     from repro_torch.train.trainer import make_train_step
 
     stored = dict(np.load(root / "src" / "repro_torch" / "data"
-                          / TRAIN_GOLDEN))
+                          / _train_golden_file(arch)))
     layout = json.loads(str(stored["config"]))
-    cfg = reduced_config(get_config("smollm-360m")).replace(
+    cfg = reduced_config(get_config(arch)).replace(
         compute_dtype="float32", **layout)
     data = json.loads(str(stored["data"]))
     steps = len(stored["loss"])
@@ -1683,7 +2018,7 @@ def phase_train_golden(root: Path) -> dict:
         str(stored["opt"]))))
     src = SyntheticLM(cfg.vocab_size, data["seq"], data["batch"],
                       seed=data["seed"])
-    ckpt_dir = root / "build" / "train_golden_ckpt"
+    ckpt_dir = root / "build" / f"{phase}_ckpt"
     shutil.rmtree(ckpt_dir, ignore_errors=True)
     ckpt = Checkpointer(str(ckpt_dir))
 
@@ -1703,18 +2038,18 @@ def phase_train_golden(root: Path) -> dict:
                 err = (g - w).abs()
                 _check(bool((err <= TRAIN_TOL["atol"] + TRAIN_TOL["rtol"]
                              * w.abs()).all()),
-                       f"train_golden {name} after {i + 1} steps: "
+                       f"{phase} {name} after {i + 1} steps: "
                        f"{float(err.max())}")
                 worst = max(worst, float(err.max()))
     launches = dict(launch_counts)
     for k in ("loss", "grad_norm", "lr"):
         got = np.array([r[k] for r in rows])
         rel = float(np.max(np.abs(got - stored[k]) / np.abs(stored[k])))
-        _check(rel <= 1e-5, f"train_golden {k}: {got} != {stored[k]}")
+        _check(rel <= 1e-5, f"{phase} {k}: {got} != {stored[k]}")
     layers = cfg.num_layers
-    _check(launches.get("flash_attention") == 2 * layers * steps
-           and launches.get("flash_attention_bwd") == layers * steps,
-           f"train_golden launches {launches}")
+    want_launches = _train_launches(cfg, kernels, steps)
+    _check(launches == want_launches,
+           f"{phase} launches {launches} != {want_launches}")
     ckpt.wait()
     fresh = _train_state_from(stored, "param/", cfg, "cuda")
     fresh, start = ckpt.restore(fresh)
@@ -1723,13 +2058,13 @@ def phase_train_golden(root: Path) -> dict:
                                                             "cuda")):
         fresh, m = step_fn(fresh, batch)
         again.append({k: float(v) for k, v in m.items()})
-    _check(again == rows[start:], f"train_golden restart metrics {again} "
+    _check(again == rows[start:], f"{phase} restart metrics {again} "
                                   f"!= {rows[start:]}")
     want, got = _state_tensors(state), _state_tensors(fresh)
-    _check(all(torch.equal(want[k], got[k]) for k in want),
-           "train_golden restart is not bit-exact")
+    differ = [k for k in want if not torch.equal(want[k], got[k])]
+    _check(not differ, f"{phase} restart is not bit-exact: {differ[:8]}")
     shutil.rmtree(ckpt_dir, ignore_errors=True)
-    return dict(phase="train_golden", arch=cfg.name, layout=layout,
+    return dict(phase=phase, arch=cfg.name, layout=layout,
                 layers=layers, steps=steps, batch=data["batch"],
                 seq=data["seq"], losses=[r["loss"] for r in rows],
                 jax_losses=stored["loss"].tolist(),
@@ -1867,6 +2202,165 @@ def phase_train_full(root: Path) -> dict:
         flash_bwd_device_ms_per_step=bwd_ms,
         flash_bwd_share_of_step=bwd_ms / step_ms,
         flash_fwd_device_ms_per_step=fwd_ms,
+        launches_per_step=sum(c for _, _, c in kern) / prof_steps,
+        top=[dict(kernel=k[:90], ms_per_step=us / prof_steps / 1e3,
+                  launches_per_step=c / prof_steps)
+             for k, us, c in kern[:12]],
+        **{f"{k}_launches": v for k, v in launches.items()})
+
+
+# The MoE, SSM and hybrid archs' full-width training runs: (phase, arch,
+# layers kept (0: all), why, the kernels a layer of each kind launches,
+# whether the run goes through `launch.train.main`, and the backward
+# kernels' names in the profiler's trace)
+ARCH_TRAIN_RUNS = [
+    ("train_full_qwen3", "qwen3-moe-30b-a3b", 4,
+     "48 layers of f32 masters, gradients and two moments need ~16 B a "
+     "parameter, ~10 GB a layer (~489 GB), and the untied embedding and "
+     "head ~10 GB; 4 layers fit the card's 80 GB beside the f32 logits",
+     {"flash_attention": "moe", "moe_gmm": "moe"}, False,
+     ("moe_bwd", "flash_bwd")),
+    ("train_full_falcon_mamba", "falcon-mamba-7b", 30,
+     "64 layers at ~16 B a parameter need ~116 GB (1.7 GB a layer, 8.5 GB "
+     "for the untied embedding and head); 30 fit the card's 80 GB",
+     {"mamba_scan": "ssm"}, False, ("mamba_scan_bwd",)),
+    ("train_full_rgemma", "recurrentgemma-2b", 0, "",
+     {"rglru_scan": "rglru", "flash_attention": "local_attn"}, True,
+     ("rglru_bwd", "flash_bwd")),
+]
+ARCH_TRAIN_STEPS, ARCH_TRAIN_BATCH, ARCH_TRAIN_SEQ = 10, 1, 4096
+# AdamW's peak lr: the launcher's 1e-3, but 3e-4 for falcon-mamba, whose
+# 30-layer cut's loss rose after the warmup at 1e-3, while at 8 layers its
+# runs through the kernels and through the plain versions followed each
+# other there (PERF.md §6)
+ARCH_TRAIN_LR = {"falcon-mamba-7b": 3e-4}
+
+
+def phase_train_arch_full(phase: str, arch: str, layers: int, why: str,
+                          kernels: dict, via_main: bool,
+                          bwd_names: tuple) -> dict:
+    """`arch` at full width (its depth cut to `layers` where 80 GB force
+    it, printed as `reduced` with the reason), float32 masters made on the
+    card from seed 0, bf16 compute, full remat, S 4096, B 1 (train_4k's
+    global batch of 256 is cut as the card forces: printed too): 10 steps
+    of `make_train_step` (or of `launch.train.main` where `via_main`) at
+    `ARCH_TRAIN_LR`.
+    Every loss finite, the last 3 below the first 3 on average, the
+    parameter count `count_params`'s, every kernel's launches exact (its
+    forward 2 a layer of its kind a step, its backward 1).  Then 2 steps
+    profiled (after a warm one): step ms (host), device ms, the idle share,
+    tokens/s, peak memory and each backward kernel's device ms a step and
+    share of the step."""
+    import numpy as np
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.configs.base import get_config
+    from repro_torch.data.pipeline import SyntheticLM, device_batches
+    from repro_torch.kernels import launch_counts
+    from repro_torch.launch.train import main as train_main
+    from repro_torch.models.model import count_params, init_params
+    from repro_torch.optim.adamw import AdamWConfig
+    from repro_torch.train.trainer import init_train_state, make_train_step
+
+    _free_card()
+    cfg = get_config(arch)
+    steps, B, S = ARCH_TRAIN_STEPS, ARCH_TRAIN_BATCH, ARCH_TRAIN_SEQ
+    reduced = {"global_batch": [256, B]}
+    whys = [f"train_4k's global batch of 256 at 4,096 tokens needs its f32 "
+            f"logits alone ({256 * S * cfg.vocab_size * 4 / 1e9:.0f} GB); "
+            f"B {B} fits beside the weights and optimizer state"]
+    if layers:
+        reduced["num_layers"] = [cfg.num_layers, layers]
+        whys.append(why)
+        cfg = cfg.replace(num_layers=layers)
+    print(f"reduced: {json.dumps(reduced)} ({'; '.join(whys)})", flush=True)
+    lr = ARCH_TRAIN_LR.get(arch, 1e-3)
+    opt = AdamWConfig(lr=lr, total_steps=steps,
+                      warmup_steps=max(steps // 20, 5))
+    launch_counts.clear()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    if via_main:
+        run = train_main(["--arch", arch, "--no-reduced", "--steps",
+                          str(steps), "--batch", str(B), "--seq", str(S),
+                          "--lr", str(lr), "--log-every", "1", "--device",
+                          "cuda"])
+        state = None
+    else:
+        t1 = time.perf_counter()
+        params = init_params(cfg, 0, device="cuda", masters=True)
+        state = init_train_state(cfg, params)
+        torch.cuda.synchronize()
+        run = dict(losses=[], grad_norms=[], lrs=[], step_s=[],
+                   init_s=time.perf_counter() - t1,
+                   params=sum(p.numel() for p in params.parameters()))
+        step_fn = make_train_step(cfg, opt)
+        batches = device_batches(SyntheticLM(cfg.vocab_size, S, B, seed=0),
+                                 0, "cuda")
+        for step in range(steps):
+            t1 = time.perf_counter()
+            state, m = step_fn(state, next(batches))
+            run["losses"].append(float(m["loss"]))   # waits for the step
+            run["step_s"].append(time.perf_counter() - t1)
+            run["grad_norms"].append(float(m["grad_norm"]))
+            run["lrs"].append(float(m["lr"]))
+            print(f"[{phase}] step {step} loss {run['losses'][-1]:.4f} "
+                  f"gnorm {run['grad_norms'][-1]:.3f}", flush=True)
+    wall = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated()
+    launches = dict(launch_counts)
+    losses = run["losses"]
+    _check(run["params"] == count_params(cfg), f"{phase} params "
+                                               f"{run['params']}")
+    _check(len(losses) == steps and all(np.isfinite(losses)),
+           f"{phase} losses {losses}")
+    _check(np.mean(losses[-3:]) < np.mean(losses[:3]),
+           f"{phase} loss did not fall: {losses}")
+    want = _train_launches(cfg, kernels, steps)
+    _check(launches == want, f"{phase} launches {launches} != {want}")
+    # the first step builds cuBLAS's plans and warms the allocator
+    step_ms = float(np.median(run["step_s"][1:])) * 1e3
+
+    if state is None:   # launch.train.main keeps no state: a fresh one
+        _free_card()
+        state = init_train_state(cfg, init_params(cfg, 1, device="cuda",
+                                                  masters=True))
+        step_fn = make_train_step(cfg, opt)
+        batches = device_batches(SyntheticLM(cfg.vocab_size, S, B, seed=0),
+                                 steps, "cuda")
+        state, m = step_fn(state, next(batches))   # warm
+        float(m["loss"])
+    prof_steps = 2
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(prof_steps):
+            state, m = step_fn(state, next(batches))
+            float(m["loss"])
+    kern = [(e.key, getattr(e, "device_time_total", 0.0), e.count)
+            for e in prof.key_averages()
+            if getattr(e, "device_type", None) == DeviceType.CUDA]
+    device_ms = sum(us for _, us, _ in kern) / prof_steps / 1e3
+    bwd = {name: sum(us for k, us, _ in kern if name in k) / prof_steps / 1e3
+           for name in bwd_names}
+    kern.sort(key=lambda r: -r[1])
+    del state, m
+    _free_card()
+    return dict(
+        phase=phase, arch=cfg.name, layers=cfg.num_layers,
+        d_model=cfg.d_model, params=run["params"], reduced=reduced,
+        reduced_why=whys, batch=B, seq=S, steps=steps, lr=lr,
+        via="launch.train.main" if via_main else "make_train_step",
+        remat=cfg.remat, param_dtype=cfg.param_dtype,
+        compute_dtype=cfg.compute_dtype, init_s=run["init_s"], wall_s=wall,
+        losses=losses, grad_norms=run["grad_norms"], lrs=run["lrs"],
+        step_s=run["step_s"], step_ms=step_ms,
+        tokens_per_s=B * S / (step_ms / 1e3), peak_bytes=peak,
+        peak_gb=peak / 1e9, device_ms_per_step=device_ms,
+        idle_share=1.0 - device_ms / step_ms,
+        **{f"{k}_device_ms_per_step": v for k, v in bwd.items()},
+        **{f"{k}_share_of_step": v / step_ms for k, v in bwd.items()},
         launches_per_step=sum(c for _, _, c in kern) / prof_steps,
         top=[dict(kernel=k[:90], ms_per_step=us / prof_steps / 1e3,
                   launches_per_step=c / prof_steps)
@@ -2481,7 +2975,14 @@ def main() -> int:
     run(phase_build)
     # training first, so that a failure shows early
     flash_bwd = run(phase_flash_attention_bwd)
-    train_runs = [run(phase_train_golden, root), run(phase_train_full, root)]
+    bwd_phases = {p["phase"]: p for p in (
+        run(phase_moe_gmm_bwd), run(phase_rglru_scan_bwd),
+        run(phase_mamba_scan_bwd))}
+    train_runs = [run(phase_train_golden, root, *spec)
+                  for spec in TRAIN_RUNS]
+    train_runs.append(run(phase_train_full, root))
+    train_runs += [run(phase_train_arch_full, *spec)
+                   for spec in ARCH_TRAIN_RUNS]
     _free_card()
     t0 = time.perf_counter()
     topos = {dp.name: _topology(dp) for dp in appendix_b_grid()}
@@ -2594,6 +3095,28 @@ def main() -> int:
         ms=bwd_row["ms"], plain_ms=bwd_row["plain_ms"],
         bound_ms=bwd_row["bound_ms"], bound_by=bwd_row["bound_by"],
         library_ms=bwd_row["library_ms"]))
+    # the training paths' shapes: qwen3-moe's experts at 4,096 tokens (C
+    # 320, bf16), recurrentgemma's scan (f32), falcon-mamba's (x bf16)
+    for name, arch, model_site in (
+            ("moe_gmm_bwd", "qwen3-moe-30b-a3b",
+             "src/repro/models/moe.py:129-131 (the einsum trio)"),
+            ("rglru_scan_bwd", "recurrentgemma-2b",
+             "src/repro/models/rglru.py:55 (an associative scan)"),
+            ("mamba_scan_bwd", "falcon-mamba-7b",
+             "src/repro/models/ssm.py:58-118 (an associative scan)")):
+        rows = bwd_phases[name]["rows"]
+        row = next(r for r in rows if r["arch"] == arch)
+        kname = name.replace("_bwd", "")
+        kernels.append(dict(
+            name=name, route="cuda",
+            source=f"src/repro_torch/kernels/{kname}/csrc/{name}.cu",
+            replaces=f"jax.grad of {model_site}; the JAX package trains "
+                     "through plain jnp and has no backward kernel",
+            launches=sum(r.get(f"{name}_launches", 0) for r in train_runs),
+            max_abs_err=max(r["max_abs_err"] for r in rows),
+            ms=row["ms"], plain_ms=row["plain_ms"],
+            bound_ms=row["bound_ms"], bound_by=row["bound_by"],
+            library_ms=row["library_ms"]))
     _emit({"phase_seconds": seconds,
            "total_seconds": time.perf_counter() - start})
     _emit({"kernels": kernels})

@@ -5,11 +5,11 @@ CUDA kernel, ``ref.py`` is the plain PyTorch version of the same
 function, and ``ops.py`` picks between them by the device of the
 tensors it is given (`pick`): a CPU tensor goes to the plain version,
 a CUDA tensor launches the kernel (which raises on what it cannot
-take).  Nothing falls back from the kernel to the plain version.  A
-kernel with no backward kernel (`forward_only`) raises on the card when
-autograd would record it: its output is cut off from autograd, and
-training through it would get no gradient without a word.  On the CPU
-autograd differentiates the plain versions.
+take).  Nothing falls back from the kernel to the plain version.  Where
+autograd records (`records`), a CUDA tensor goes through the package's
+`torch.autograd.Function`, whose forward launches the forward kernel and
+whose backward launches the backward kernel; on the CPU autograd
+differentiates the plain versions.
 
 Kernels are compiled at first use from the sources in the package, with
 ``nvcc`` for ``sm_90a``, into ``build/`` at the repository root, and
@@ -55,18 +55,10 @@ def pick(t: torch.Tensor, kernel: Callable, plain: Callable) -> Callable:
     raise ValueError(f"no kernel or plain version for device {t.device}")
 
 
-def forward_only(name: str, kernel: Callable) -> Callable:
-    """`kernel`, refusing to run where autograd records: grad mode on and
-    an input that requires grad."""
-    def run(*args):
-        if torch.is_grad_enabled() and any(
-                isinstance(a, torch.Tensor) and a.requires_grad for a in args):
-            raise RuntimeError(
-                f"{name} has no backward kernel yet (ROADMAP Queue 1 item "
-                "6b): its card output would carry no gradient.  Serve under "
-                "torch.no_grad(), or train this architecture on the CPU")
-        return kernel(*args)
-    return run
+def records(*tensors: torch.Tensor) -> bool:
+    """Whether autograd records a call on `tensors`: grad mode on and one
+    of them requires grad."""
+    return torch.is_grad_enabled() and any(t.requires_grad for t in tensors)
 
 
 def cuda_tool(name: str) -> str:

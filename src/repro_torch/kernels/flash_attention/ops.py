@@ -3,7 +3,7 @@ from __future__ import annotations
 
 import torch
 
-from repro_torch.kernels import pick
+from repro_torch.kernels import pick, records
 from repro_torch.kernels.flash_attention.kernel import (
     bwd_head_dim,
     flash_attention_bwd,
@@ -42,7 +42,7 @@ def _on_card(q, k, v, causal, window):
     args = (q.reshape(B * Hq, Sq, hd).contiguous(),
             k.reshape(B * Hkv, Sk, hd).contiguous(),
             v.reshape(B * Hkv, Sk, hd).contiguous(), Hq // Hkv, causal, window)
-    if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
+    if records(q, k, v):
         o = FlashAttentionFn.apply(*args)
     else:
         o = flash_attention_fwd(*args)

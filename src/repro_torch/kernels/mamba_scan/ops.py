@@ -1,13 +1,47 @@
-"""Public entry of the selective-scan kernel."""
+"""Public entry of the selective-scan kernel, differentiable on the card."""
 from __future__ import annotations
 
 from typing import Tuple
 
 import torch
 
-from repro_torch.kernels import forward_only, pick
-from repro_torch.kernels.mamba_scan.kernel import mamba_scan_fwd
+from repro_torch.kernels import pick, records
+from repro_torch.kernels.mamba_scan.kernel import (
+    mamba_scan_bwd,
+    mamba_scan_fwd,
+)
 from repro_torch.kernels.mamba_scan.ref import mamba_scan_ref
+
+
+class MambaScanFn(torch.autograd.Function):
+    """`fwd` as one differentiable function of (x, dt, Bm, Cm, A, D) with
+    `bwd` as its backward: on the card the kernels, `mamba_scan_fwd` and
+    `mamba_scan_bwd`.  The forward saves its six inputs; the backward
+    rebuilds the states from them and takes the gradients of both outputs,
+    y and h_S (h_S's None when it is unused)."""
+
+    @staticmethod
+    def forward(ctx, x, dt, Bm, Cm, A, D, fwd, bwd):
+        y, h = fwd(x, dt, Bm, Cm, A, D)
+        ctx.save_for_backward(x, dt, Bm, Cm, A, D)
+        ctx.bwd = bwd
+        ctx.set_materialize_grads(False)   # an unused h_S's gradient: None
+        return y, h
+
+    @staticmethod
+    def backward(ctx, dy, dhS):
+        dy = torch.zeros_like(ctx.saved_tensors[0], dtype=torch.float32) \
+            if dy is None else dy.contiguous()
+        dhS = None if dhS is None else dhS.contiguous()
+        grads = ctx.bwd(*ctx.saved_tensors, dy, dhS)
+        return (*grads, None, None)
+
+
+def _on_card(x, dt, Bm, Cm, A, D):
+    args = (x, dt, Bm, Cm, A, D)
+    if records(*args):
+        return MambaScanFn.apply(*args, mamba_scan_fwd, mamba_scan_bwd)
+    return mamba_scan_fwd(*args)
 
 
 def mamba_scan(
@@ -22,10 +56,9 @@ def mamba_scan(
     h_S (B, D, N)), both float32.
 
     CUDA tensors launch the Hopper kernel (`kernel.mamba_scan_fwd`,
-    which counts the launch; it has no backward kernel, so it raises where
-    autograd records, `forward_only`); CPU tensors run
+    which counts the launch); when autograd records, through
+    `MambaScanFn`, whose backward is the backward kernel.  CPU tensors run
     `ref.mamba_scan_ref`, which autograd differentiates.  The JAX op picks
-    block sizes that divide S and D; the kernel masks ragged edges itself,
-    so none are picked here."""
-    kernel = forward_only("mamba_scan", mamba_scan_fwd)
-    return pick(x, kernel, mamba_scan_ref)(x, dt, Bm, Cm, A, D)
+    block sizes that divide S and D; the kernels mask ragged edges
+    themselves, so none are picked here."""
+    return pick(x, _on_card, mamba_scan_ref)(x, dt, Bm, Cm, A, D)

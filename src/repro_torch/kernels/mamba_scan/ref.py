@@ -4,12 +4,14 @@ Port of `repro.kernels.mamba_scan.ref.mamba_scan_ref`, the sequential
 recurrence in float32, which also returns the final state ``h_S``: the
 state the kernel carries across the sequence and decode continues from
 (the JAX model's `mamba_mix` returns it beside ``y``, ssm.py:117-118).
-`ops.mamba_scan` runs it on CPU tensors; the CUDA kernel in
-``csrc/mamba_scan.cu`` is held against it on the card.
+`mamba_scan_bwd_ref` is its explicit backward.  `ops.mamba_scan` runs
+the first on CPU tensors, where autograd differentiates it; the CUDA
+kernels in ``csrc/mamba_scan.cu`` and ``csrc/mamba_scan_bwd.cu`` are held
+against the two on the card.
 """
 from __future__ import annotations
 
-from typing import Tuple
+from typing import Optional, Tuple
 
 import torch
 
@@ -38,3 +40,45 @@ def mamba_scan_ref(
         ys.append(torch.einsum("bdn,bn->bd", h, C32[:, t]))
     y = torch.stack(ys, dim=1)
     return y + x32 * D.float(), h
+
+
+def mamba_scan_bwd_ref(x, dt, Bm, Cm, A, D, dy: torch.Tensor,
+                       dhS: Optional[torch.Tensor] = None):
+    """The explicit backward of `mamba_scan_ref`: the states rebuilt from
+    zero, then the state's gradient g walked from the end from dhS (zero
+    when None), g_t = exp(dt_{t+1} A) g_{t+1} + C_t dy_t; from g and the
+    states h_t (h_{-1} = 0),
+        dx = dy D + dt sum_n g B,   ddt = sum_n g (A exp(dt A) h_{t-1} + x B),
+        dB_t = sum_d g dt x,   dC_t = sum_d dy h_t,
+        dA = sum_{b,t} g dt exp(dt A) h_{t-1},   dD = sum_{b,t} dy x.
+    Returns (dx in x's dtype, ddt, dBm, dCm in their inputs' dtypes, dA,
+    dD float32), what the CUDA kernel in ``csrc/mamba_scan_bwd.cu``
+    computes."""
+    Bsz, S, Dd = x.shape
+    x32, dt32, dy32 = x.float(), dt.float(), dy.float()
+    B32, C32, A32 = Bm.float(), Cm.float(), A.float()
+    h = torch.zeros((Bsz, Dd, A.shape[1]), dtype=torch.float32,
+                    device=x.device)
+    hs, es = [], []
+    for t in range(S):
+        e = torch.exp(dt32[:, t, :, None] * A32)
+        h = e * h + (dt32[:, t] * x32[:, t])[..., None] * B32[:, t, None, :]
+        hs.append(h)
+        es.append(e)
+    g = torch.zeros_like(h) if dhS is None else dhS.float()
+    dA = torch.zeros_like(A32)
+    dx, ddt, dB, dC = [], [], [], []
+    for t in range(S - 1, -1, -1):
+        g = g + C32[:, t, None, :] * dy32[:, t, :, None]
+        prev = hs[t - 1] if t else torch.zeros_like(h)
+        dx.append(dt32[:, t] * (g * B32[:, t, None, :]).sum(-1))
+        ddt.append((g * (A32 * es[t] * prev + x32[:, t, :, None]
+                         * B32[:, t, None, :])).sum(-1))
+        dB.append(torch.einsum("bdn,bd->bn", g, dt32[:, t] * x32[:, t]))
+        dC.append(torch.einsum("bdn,bd->bn", hs[t], dy32[:, t]))
+        dA = dA + (g * dt32[:, t, :, None] * es[t] * prev).sum(0)
+        g = es[t] * g
+    flip = lambda parts: torch.stack(parts[::-1], dim=1)  # noqa: E731
+    return ((flip(dx) + dy32 * D.float()).to(x.dtype), flip(ddt).to(dt.dtype),
+            flip(dB).to(Bm.dtype), flip(dC).to(Cm.dtype), dA,
+            (dy32 * x32).sum((0, 1)))

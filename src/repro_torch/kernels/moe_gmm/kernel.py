@@ -11,6 +11,11 @@ load width from the shapes alone; the wrapper checks what
 it is given, allocates the scratch and the output with `torch.empty`,
 launches on the current stream without synchronising, counts one launch
 and raises on a non-zero ``cudaError_t``.
+
+`moe_gmm_bwd` binds the backward (``csrc/moe_gmm_bwd.cu``, a library of
+its own): dh, dWg, dWu and dWd from h, the weights and the output's
+gradient, five launches of tiled f32 products (the activation pass, then
+the three weight gradients and dh) counted once under ``moe_gmm_bwd``.
 """
 from __future__ import annotations
 
@@ -24,6 +29,8 @@ from repro_torch.kernels import build_library, launch_counts
 
 NAME = "moe_gmm"
 SOURCE = Path(__file__).resolve().parent / "csrc" / "moe_gmm.cu"
+BWD_NAME = "moe_gmm_bwd"
+BWD_SOURCE = SOURCE.with_name("moe_gmm_bwd.cu")
 DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 # The source's tiling: kWarps warps of 32 lanes, kLanesX lanes across a
 # weight row (16-byte loads each), so 32 / kLanesX slices of the summed
@@ -33,6 +40,7 @@ LANES_X = 16
 LOAD_BYTES = 16
 
 _lib = None
+_bwd_lib = None
 
 
 class Plan(NamedTuple):
@@ -75,6 +83,18 @@ def library() -> ctypes.CDLL:
         lib.moe_gmm_launch.restype = i32
         _lib = lib
     return _lib
+
+
+def bwd_library() -> ctypes.CDLL:
+    """Build (once per source content) and load the backward's library."""
+    global _bwd_lib
+    if _bwd_lib is None:
+        lib = build_library(BWD_NAME, [BWD_SOURCE])
+        ptr, i32 = ctypes.c_void_p, ctypes.c_int
+        lib.moe_gmm_bwd_launch.argtypes = [ptr] * 10 + [i32] * 5 + [ptr]
+        lib.moe_gmm_bwd_launch.restype = i32
+        _bwd_lib = lib
+    return _bwd_lib
 
 
 def _check(h, wg, wu, wd) -> None:
@@ -120,3 +140,34 @@ def moe_gmm_fwd(h: torch.Tensor, wg: torch.Tensor, wu: torch.Tensor,
         raise RuntimeError(f"moe_gmm launch failed: cudaError_t {err}")
     launch_counts[NAME] += 1
     return out
+
+
+def moe_gmm_bwd(h: torch.Tensor, wg: torch.Tensor, wu: torch.Tensor,
+                wd: torch.Tensor, dout: torch.Tensor):
+    """The backward on the card: (dh (E, C, D), dwg, dwu (E, D, F), dwd
+    (E, F, D)) in h's dtype from the forward's inputs and the output's
+    gradient dout (E, C, D), of h's dtype."""
+    _check(h, wg, wu, wd)
+    if dout.shape != h.shape or dout.dtype != h.dtype:
+        raise ValueError(f"dout {tuple(dout.shape)} {dout.dtype}: expected "
+                         f"{tuple(h.shape)} {h.dtype}")
+    if dout.device != h.device or not dout.is_contiguous():
+        raise ValueError(f"dout must be contiguous on {h.device}")
+    lib = bwd_library()
+    e, c, d = h.shape
+    f = wg.shape[2]
+    with torch.cuda.device(h.device):
+        scratch = torch.empty(3 * e * c * f, dtype=torch.float32,
+                              device=h.device)
+        dh = torch.empty_like(h)
+        dwg, dwu, dwd = (torch.empty_like(w) for w in (wg, wu, wd))
+        stream = torch.cuda.current_stream(h.device).cuda_stream
+        err = lib.moe_gmm_bwd_launch(
+            h.data_ptr(), wg.data_ptr(), wu.data_ptr(), wd.data_ptr(),
+            dout.data_ptr(), scratch.data_ptr(), dh.data_ptr(),
+            dwg.data_ptr(), dwu.data_ptr(), dwd.data_ptr(), DTYPES[h.dtype],
+            e, c, d, f, stream)
+    if err:
+        raise RuntimeError(f"moe_gmm_bwd launch failed: cudaError_t {err}")
+    launch_counts[BWD_NAME] += 1
+    return dh, dwg, dwu, dwd

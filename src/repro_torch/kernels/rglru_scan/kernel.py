@@ -12,6 +12,11 @@ one call, counted once) on the current stream without synchronising, and
 raises on a non-zero ``cudaError_t``.
 ``a`` and ``bx`` come in one type, float32 (the model's gates) or
 bfloat16; ``h0`` is float32.  Nothing is cast.
+
+`rglru_scan_bwd` binds the backward (``csrc/rglru_scan_bwd.cu``, a
+library of its own): da, dbx and dh0 from a, the forward's states, h0
+and the states' gradient, in three passes that walk the forward's chunks
+from the end, counted once under ``rglru_scan_bwd``.
 """
 from __future__ import annotations
 
@@ -24,9 +29,12 @@ from repro_torch.kernels import build_library, launch_counts
 
 NAME = "rglru_scan"
 SOURCE = Path(__file__).resolve().parent / "csrc" / "rglru_scan.cu"
+BWD_NAME = "rglru_scan_bwd"
+BWD_SOURCE = SOURCE.with_name("rglru_scan_bwd.cu")
 DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
 _lib = None
+_bwd_lib = None
 
 
 def library() -> ctypes.CDLL:
@@ -42,6 +50,20 @@ def library() -> ctypes.CDLL:
         lib.rglru_scan_scratch_floats.restype = ctypes.c_longlong
         _lib = lib
     return _lib
+
+
+def bwd_library() -> ctypes.CDLL:
+    """Build (once per source content) and load the backward's library."""
+    global _bwd_lib
+    if _bwd_lib is None:
+        lib = build_library(BWD_NAME, [BWD_SOURCE])
+        ptr, i32 = ctypes.c_void_p, ctypes.c_int
+        lib.rglru_scan_bwd_launch.argtypes = [ptr] * 8 + [i32] * 4 + [ptr]
+        lib.rglru_scan_bwd_launch.restype = i32
+        lib.rglru_scan_bwd_scratch_floats.argtypes = [i32, i32, i32]
+        lib.rglru_scan_bwd_scratch_floats.restype = ctypes.c_longlong
+        _bwd_lib = lib
+    return _bwd_lib
 
 
 def _check(a: torch.Tensor, bx: torch.Tensor, h0: torch.Tensor) -> None:
@@ -82,3 +104,34 @@ def rglru_scan_fwd(a: torch.Tensor, bx: torch.Tensor,
         raise RuntimeError(f"rglru_scan launch failed: cudaError_t {err}")
     launch_counts[NAME] += 1
     return out
+
+
+def rglru_scan_bwd(a: torch.Tensor, hs: torch.Tensor, h0: torch.Tensor,
+                   dhs: torch.Tensor):
+    """The backward on the card: (da, dbx) in a's dtype and dh0 (B, D)
+    float32 from a (B, S, D), the forward's states hs (B, S, D) float32,
+    h0 and the states' gradient dhs (B, S, D) float32."""
+    _check(a, a, h0)
+    for name, t in (("hs", hs), ("dhs", dhs)):
+        if t.shape != a.shape or t.dtype != torch.float32:
+            raise ValueError(f"{name} {tuple(t.shape)} {t.dtype}: expected "
+                             f"{tuple(a.shape)} float32")
+        if t.device != a.device or not t.is_contiguous():
+            raise ValueError(f"{name} must be contiguous on {a.device}")
+    lib = bwd_library()
+    bsz, s, d = a.shape
+    with torch.cuda.device(a.device):
+        da = torch.empty_like(a)
+        dbx = torch.empty_like(a)
+        dh0 = torch.empty((bsz, d), dtype=torch.float32, device=a.device)
+        ends = torch.empty(lib.rglru_scan_bwd_scratch_floats(bsz, s, d),
+                           dtype=torch.float32, device=a.device)
+        stream = torch.cuda.current_stream(a.device).cuda_stream
+        err = lib.rglru_scan_bwd_launch(
+            a.data_ptr(), hs.data_ptr(), h0.data_ptr(), dhs.data_ptr(),
+            ends.data_ptr(), da.data_ptr(), dbx.data_ptr(), dh0.data_ptr(),
+            DTYPES[a.dtype], bsz, s, d, stream)
+    if err:
+        raise RuntimeError(f"rglru_scan_bwd launch failed: cudaError_t {err}")
+    launch_counts[BWD_NAME] += 1
+    return da, dbx, dh0

@@ -20,8 +20,11 @@ backward kernel (training) is held to autograd through the plain
 version at the same tolerances relative to each gradient's largest
 value, bit for bit against itself, and its bf16 path up to hd 128 is
 seen to launch the wgmma kernels; the forward's lse to torch.logsumexp
-at 2e-5; the forward-only kernels raise under autograd (F3); a reduced
-train step on the card matches the CPU's within 1e-5.
+at 2e-5.  The backward kernels of moe_gmm, rglru_scan and mamba_scan
+(training, F3 repaired) are held to autograd through their plain
+versions alike, bit for bit against themselves; a reduced train step of
+smollm, qwen3-moe, falcon-mamba and recurrentgemma on the card matches
+the CPU's within 1e-5, with each kernel's launches counted.
 """
 import numpy as np
 import pytest
@@ -749,7 +752,7 @@ def test_tiled_flows_on_the_card_match_cpu(card, faulted):
         np.testing.assert_allclose(grem, rrem, atol=s.sizes.max() * 1e-5)
 
 
-# ---------------- training: the flash backward kernel and F3 ----------------
+# ---------------- training: the backward kernels ----------------------------
 
 
 def _grad_close(got, want, dtype, what):
@@ -929,32 +932,169 @@ def test_flash_attention_bwd_raises_above_hd_256(card):
                             2, True, 0)
 
 
-def test_forward_only_kernels_raise_under_grad(card):
-    """F3: moe_gmm, mamba_scan and rglru_scan have no backward kernel, so
-    under autograd they raise on the card; their serving calls (no grad)
-    launch as before and give the same bits."""
+def _model_kernel_calls(card):
+    """A small call of each of moe_gmm, mamba_scan and rglru_scan."""
     h = _normal((4, 8, 64), 60, card, torch.float32)
     w = _normal((4, 64, 32), 61, card, torch.float32, 0.125)
     wd = _normal((4, 32, 64), 62, card, torch.float32, 0.125)
     mamba = _mamba_inputs(1, 16, 32, 4, 63, card, torch.float32)
     a = _normal((1, 16, 32), 64, card, torch.float32).sigmoid()
     h0 = _normal((1, 32), 65, card, torch.float32)
-    calls = {"moe_gmm": (moe_gmm, (h, w, w, wd)),
-             "mamba_scan": (mamba_scan, tuple(mamba)),
-             "rglru_scan": (rglru_scan, (a, a, h0))}
-    for name, (fn, args) in calls.items():
+    return {"moe_gmm": (moe_gmm, moe_gmm_ref, (h, w, w, wd)),
+            "mamba_scan": (mamba_scan, mamba_scan_ref, tuple(mamba)),
+            "rglru_scan": (rglru_scan, rglru_scan_ref, (a, a, h0))}
+
+
+def test_model_kernels_carry_gradients_on_the_card(card):
+    """F3 repaired: under autograd moe_gmm, mamba_scan and rglru_scan run
+    their forward kernel once and their backward kernel once, with the
+    gradients of autograd through the plain version; a serving call (no
+    grad) launches the forward alone and gives the same bits as a call
+    on tensors that require nothing."""
+    for name, (fn, ref, args) in _model_kernel_calls(card).items():
         want = fn(*args)   # nothing requires grad
+        launch_counts.clear()
         with torch.no_grad():
             served = fn(*(t.detach().requires_grad_() for t in args))
-        launch_counts.clear()
-        grad_args = [t.detach().requires_grad_(i == 0)
-                     for i, t in enumerate(args)]
-        with pytest.raises(RuntimeError, match=f"{name} has no backward"):
-            fn(*grad_args)
-        assert launch_counts[name] == 0, name
+        assert dict(launch_counts) == {name: 1}, name
         got = served if isinstance(served, tuple) else (served,)
-        ref = want if isinstance(want, tuple) else (want,)
-        assert all(torch.equal(x, y) for x, y in zip(got, ref)), name
+        ref_out = want if isinstance(want, tuple) else (want,)
+        assert all(torch.equal(x, y) for x, y in zip(got, ref_out)), name
+        grads = []
+        for f in (fn, ref):
+            leaves = [t.detach().requires_grad_() for t in args]
+            out = f(*leaves)
+            out = out[0] if isinstance(out, tuple) else out
+            grads.append(torch.autograd.grad(out, leaves,
+                                             torch.ones_like(out)))
+            if f is fn:
+                assert dict(launch_counts) == {name: 2, f"{name}_bwd": 1}, \
+                    name
+        for g, w in zip(*grads):
+            _grad_close(g, w, torch.float32, name)
+
+
+GMM_BWD_CASES = [  # E, C, D, F: ragged against the 64 x 64 tiles
+    (2, 16, 16, 32), (4, 8, 32, 64), (3, 12, 8, 24), (2, 67, 130, 70),
+    (1, 5, 33, 17), (8, 40, 256, 96)]
+
+
+def _gmm_bwd_grads(fn, h, ws, dout):
+    leaves = [t.detach().requires_grad_() for t in (h, *ws)]
+    return torch.autograd.grad(fn(*leaves), leaves, dout)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("case", GMM_BWD_CASES)
+def test_moe_gmm_bwd_matches_plain_autograd(card, case, dtype):
+    """dh, dWg, dWu, dWd through `moe_gmm`'s autograd function (one
+    forward, one backward launch) against autograd through the plain
+    version, empty capacity rows giving zero dh; bit for bit on a rerun."""
+    E, C, D, F = case
+    h = _normal((E, C, D), 70, card, dtype)
+    h[:, C - C // 4:] = 0   # empty capacity rows
+    ws = [_normal(s, 71 + i, card, dtype, s[1] ** -0.5)
+          for i, s in enumerate(((E, D, F), (E, D, F), (E, F, D)))]
+    dout = _normal((E, C, D), 74, card, dtype)
+    launch_counts.clear()
+    got = _gmm_bwd_grads(moe_gmm, h, ws, dout)
+    assert dict(launch_counts) == {"moe_gmm": 1, "moe_gmm_bwd": 1}
+    want = _gmm_bwd_grads(moe_gmm_ref, h, ws, dout)
+    torch.cuda.synchronize()
+    for name, g, w in zip(("dh", "dwg", "dwu", "dwd"), got, want):
+        assert g.dtype == dtype and g.shape == w.shape, name
+        _grad_close(g, w, dtype, name)
+    assert not got[0][:, C - C // 4:].any()
+    again = _gmm_bwd_grads(moe_gmm, h, ws, dout)
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
+
+
+def _rglru_bwd_grads(fn, a, bx, h0, dhs):
+    leaves = [t.detach().requires_grad_() for t in (a, bx, h0)]
+    return torch.autograd.grad(fn(*leaves), leaves, dhs)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B,S,D", [
+    (1, 32, 16), (2, 64, 8), (1, 48, 24), (1, 65, 130), (2, 300, 200),
+    (1, 1, 5), (1, 4096, 256)])
+def test_rglru_scan_bwd_matches_plain_autograd(card, B, S, D, dtype):
+    """da, dbx, dh0 through `rglru_scan`'s autograd function against
+    autograd through the plain version: one chunk, several, ragged S and
+    D, and 64 chunks; bit for bit on a rerun."""
+    a = _normal((B, S, D), 80, card, torch.float32).sigmoid() * 0.3 + 0.69
+    a = a.to(dtype)
+    bx = _normal((B, S, D), 81, card, dtype)
+    h0 = _normal((B, D), 82, card, torch.float32)
+    dhs = _normal((B, S, D), 83, card, torch.float32)
+    launch_counts.clear()
+    got = _rglru_bwd_grads(rglru_scan, a, bx, h0, dhs)
+    assert dict(launch_counts) == {"rglru_scan": 1, "rglru_scan_bwd": 1}
+    want = _rglru_bwd_grads(rglru_scan_ref, a, bx, h0, dhs)
+    torch.cuda.synchronize()
+    for name, g, w in zip(("da", "dbx", "dh0"), got, want):
+        assert g.dtype == w.dtype and g.shape == w.shape, name
+        _grad_close(g, w, dtype, name)
+    again = _rglru_bwd_grads(rglru_scan, a, bx, h0, dhs)
+    assert all(torch.equal(x, y) for x, y in zip(got, again))
+
+
+def _mamba_bwd_grads(fn, args, dy, dhs):
+    leaves = [t.detach().requires_grad_() for t in args]
+    y, h = fn(*leaves)
+    outs, grads = ((y, h), (dy, dhs)) if dhs is not None else ((y,), (dy,))
+    return torch.autograd.grad(outs, leaves, grads)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B,S,D,N,with_hs", [
+    (1, 16, 8, 4, False), (2, 32, 16, 4, True), (1, 24, 12, 2, False),
+    (2, 16, 8, 8, True), (1, 40, 300, 16, True), (2, 33, 70, 3, False),
+    (1, 20, 16, 32, True), (1, 1, 9, 1, True), (1, 512, 256, 16, False)])
+def test_mamba_scan_bwd_matches_plain_autograd(card, B, S, D, N, with_hs,
+                                               dtype):
+    """dx, ddt, dB, dC, dA, dD through `mamba_scan`'s autograd function
+    against autograd through the plain version, with and without h_S's
+    gradient, N from 1 to 32 and ragged S and D; bit for bit on a
+    rerun."""
+    args = _mamba_inputs(B, S, D, N, 90, card, dtype)
+    dy = _normal((B, S, D), 91, card, torch.float32)
+    dhs = _normal((B, D, N), 92, card, torch.float32) if with_hs else None
+    launch_counts.clear()
+    got = _mamba_bwd_grads(mamba_scan, args, dy, dhs)
+    assert dict(launch_counts) == {"mamba_scan": 1, "mamba_scan_bwd": 1}
+    want = _mamba_bwd_grads(mamba_scan_ref, args, dy, dhs)
+    torch.cuda.synchronize()
+    for name, g, w in zip(("dx", "ddt", "dB", "dC", "dA", "dD"), got, want):
+        assert g.dtype == w.dtype and g.shape == w.shape, name
+        _grad_close(g, w, dtype, name)
+    again = _mamba_bwd_grads(mamba_scan, args, dy, dhs)
+    assert all(torch.equal(x, y) for x, y in zip(got, again))
+
+
+def test_backward_kernel_wrappers_check_their_inputs(card):
+    from repro_torch.kernels.mamba_scan.kernel import mamba_scan_bwd
+    from repro_torch.kernels.moe_gmm.kernel import moe_gmm_bwd
+    from repro_torch.kernels.rglru_scan.kernel import rglru_scan_bwd
+
+    h = _normal((2, 8, 16), 100, card, torch.float32)
+    w = _normal((2, 16, 8), 101, card, torch.float32)
+    wd = _normal((2, 8, 16), 102, card, torch.float32)
+    with pytest.raises(ValueError):
+        moe_gmm_bwd(h, w, w, wd, h[:, :4].contiguous())
+    with pytest.raises(ValueError):
+        moe_gmm_bwd(h, w, w, wd, h.bfloat16())
+    a = _normal((1, 8, 16), 103, card, torch.float32)
+    h0 = _normal((1, 16), 104, card, torch.float32)
+    with pytest.raises(ValueError):
+        rglru_scan_bwd(a, a.bfloat16(), h0, a)      # hs not f32
+    with pytest.raises(ValueError):
+        rglru_scan_bwd(a, a, h0, a.cpu())
+    args = _mamba_inputs(1, 8, 16, 4, 105, card, torch.float32)
+    with pytest.raises(ValueError):
+        mamba_scan_bwd(*args, a[:, :4].contiguous())
+    with pytest.raises(ValueError):
+        mamba_scan_bwd(*args, a, torch.zeros(1, 16, 5, device=card))
 
 
 def test_reduced_train_step_on_the_card_equals_cpu(card):
@@ -988,6 +1128,60 @@ def test_reduced_train_step_on_the_card_equals_cpu(card):
     L = cfg.num_layers
     assert launches == {"flash_attention": 2 * 2 * L,
                         "flash_attention_bwd": 2 * L}
+    for a, b in zip(grows, crows):
+        for k in ("loss", "grad_norm", "lr"):
+            assert a[k] == pytest.approx(b[k], rel=1e-5), k
+    got = dict(gs["params"].named_parameters())
+    for name, p in cs["params"].named_parameters():
+        torch.testing.assert_close(got[name].detach().cpu(), p.detach(),
+                                   atol=1e-5, rtol=1e-5)
+
+
+# kernels a layer of each kind launches in training, by arch
+TRAIN_KERNELS = {
+    "qwen3-moe-30b-a3b": {"flash_attention": "moe", "moe_gmm": "moe"},
+    "falcon-mamba-7b": {"mamba_scan": "ssm"},
+    "recurrentgemma-2b": {"rglru_scan": "rglru",
+                          "flash_attention": "local_attn"},
+}
+
+
+@pytest.mark.parametrize("arch", list(TRAIN_KERNELS))
+def test_reduced_arch_train_step_on_the_card_equals_cpu(card, arch):
+    """Two steps of a reduced MoE, SSM or hybrid arch in f32 on the card
+    and on the CPU from the same masters: losses, grad norms rtol 1e-5,
+    parameters atol/rtol 1e-5; each kernel 2 forward launches a layer of
+    its kind a step (remat) and 1 backward launch."""
+    import copy
+
+    from repro_torch.data.pipeline import SyntheticLM, device_batches
+    from repro_torch.models.transformer import stack_plan
+    from repro_torch.optim.adamw import AdamWConfig
+    from repro_torch.train.trainer import init_train_state, make_train_step
+
+    cfg = reduced_config(get_config(arch)).replace(compute_dtype="float32")
+    cpu = init_params(cfg, 0, device="cpu", masters=True)
+    on_card = copy.deepcopy(cpu).to(card)
+    step = make_train_step(cfg, AdamWConfig(lr=1e-4, warmup_steps=2,
+                                            total_steps=10))
+    src = SyntheticLM(cfg.vocab_size, 64, 4, seed=0)
+    runs = {}
+    for dev, params in (("cpu", cpu), ("cuda", on_card)):
+        state = init_train_state(cfg, params)
+        launch_counts.clear()
+        rows = []
+        for _, batch in zip(range(2), device_batches(src, 0, dev)):
+            state, m = step(state, batch)
+            rows.append({k: float(v) for k, v in m.items()})
+        runs[dev] = (state, rows, dict(launch_counts))
+    (cs, crows, _), (gs, grows, launches) = runs["cpu"], runs["cuda"]
+    kinds = stack_plan(cfg).kinds
+    want = {}
+    for name, kind in TRAIN_KERNELS[arch].items():
+        n = kinds.count(kind)
+        want[name] = 2 * 2 * n
+        want[f"{name}_bwd"] = 2 * n
+    assert launches == want
     for a, b in zip(grows, crows):
         for k in ("loss", "grad_norm", "lr"):
             assert a[k] == pytest.approx(b[k], rel=1e-5), k

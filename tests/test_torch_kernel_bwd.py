@@ -1,0 +1,246 @@
+"""The plain backward versions of the port's moe_gmm, rglru_scan and
+mamba_scan kernels against the JAX package, on the CPU.
+
+Each `*_bwd_ref` (the explicit backward the CUDA kernel in
+``csrc/*_bwd.cu`` is held to on the card) is checked against `jax.vjp` of
+the JAX package's plain function (`repro.kernels.*.ref`, which its models
+differentiate in training) and against torch autograd through the port's
+`ref.py`, on the same seeded numpy inputs: f32 within 2e-5 (atol = rtol,
+tests/test_kernels.py:15-18), the atol relative to each gradient's
+largest value (the sums run in other orders); bf16 inputs within 2e-2.
+The cases take ragged shapes, mamba's gradient of h_S (which the JAX
+function does not return, so only autograd holds it), rglru's dh0 and
+empty MoE capacity rows (zero h rows give zero dh rows whatever their
+output gradient).
+
+Each `torch.autograd.Function` is also run here with the plain forward
+and the plain backward put in the place of its kernels: its gradients
+equal autograd through `ref.py`, and its backward gives None for the
+arguments that are not tensors.  That holds the wiring the card alone
+would otherwise see.
+"""
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.kernels.mamba_scan.ref import mamba_scan_ref as j_mamba_ref
+from repro.kernels.moe_gmm.ref import moe_gmm_ref as j_moe_gmm_ref
+from repro.kernels.rglru_scan.ref import rglru_scan_ref as j_rglru_ref
+from repro_torch.kernels.mamba_scan.ops import MambaScanFn
+from repro_torch.kernels.mamba_scan.ref import (
+    mamba_scan_bwd_ref,
+    mamba_scan_ref,
+)
+from repro_torch.kernels.moe_gmm.ops import MoeGmmFn
+from repro_torch.kernels.moe_gmm.ref import moe_gmm_bwd_ref, moe_gmm_ref
+from repro_torch.kernels.rglru_scan.ops import RglruScanFn
+from repro_torch.kernels.rglru_scan.ref import (
+    rglru_scan_bwd_ref,
+    rglru_scan_ref,
+)
+
+DTYPES = {"float32": (jnp.float32, torch.float32),
+          "bfloat16": (jnp.bfloat16, torch.bfloat16)}
+TOL = {"float32": 2e-5, "bfloat16": 2e-2}
+
+
+def _close(got, want, dtype: str, what: str) -> None:
+    """Within tol |want| + tol max|want|."""
+    g, w = (np.asarray(t.float().numpy() if isinstance(t, torch.Tensor)
+                       else t, np.float32) for t in (got, want))
+    tol = TOL[dtype]
+    np.testing.assert_allclose(g, w, rtol=tol,
+                               atol=tol * max(float(np.abs(w).max()), 1e-30),
+                               err_msg=what)
+
+
+def _pair(a: np.ndarray, dtype: str):
+    """(torch, jax) of the same values, rounded to `dtype` once."""
+    jdt, tdt = DTYPES[dtype]
+    return torch.from_numpy(a).to(tdt), jnp.asarray(a, jdt)
+
+
+def _jax_vjp(fn, primals, cotangent):
+    """`jax.vjp` of `fn` at `primals` applied to `cotangent`, jitted."""
+    return jax.jit(lambda p, c: jax.vjp(fn, *p)[1](c))(primals, cotangent)
+
+
+def _autograd(fn, inputs, grads_out):
+    leaves = [t.detach().requires_grad_() for t in inputs]
+    outs = fn(*leaves)
+    outs = outs if isinstance(outs, tuple) else (outs,)
+    used = [(o, g) for o, g in zip(outs, grads_out) if g is not None]
+    return torch.autograd.grad([o for o, _ in used], leaves,
+                               [g for _, g in used])
+
+
+# ---------------- moe_gmm ---------------------------------------------------
+
+# E, C, D, F (ragged against the kernel's 64 x 64 tiles and its 16-row steps)
+GMM_CASES = [(2, 8, 16, 32), (3, 12, 8, 24), (2, 67, 20, 70), (1, 5, 33, 17)]
+
+
+def _gmm_inputs(E, C, D, F, seed, empty: int = 0):
+    rng = np.random.default_rng(seed)
+    h = rng.normal(size=(E, C, D)).astype(np.float32)
+    if empty:   # the dispatch leaves a full expert's last rows empty
+        h[:, C - empty:] = 0
+    ws = [(rng.normal(size=s) * s[1] ** -0.5).astype(np.float32)
+          for s in ((E, D, F), (E, D, F), (E, F, D))]
+    dout = rng.normal(size=(E, C, D)).astype(np.float32)
+    return [h, *ws], dout
+
+
+@pytest.mark.parametrize("dtype", list(DTYPES))
+@pytest.mark.parametrize("case", GMM_CASES)
+def test_moe_gmm_bwd_ref_equals_jax_vjp_and_autograd(case, dtype):
+    E, C, D, F = case
+    ins, dout = _gmm_inputs(*case, seed=sum(case), empty=C // 4)
+    pairs = [_pair(a, dtype) for a in ins]
+    tdout, jdout = _pair(dout, dtype)
+    got = moe_gmm_bwd_ref(*(t for t, _ in pairs), tdout)
+    for g, t in zip(got, (t for t, _ in pairs)):
+        assert g.dtype == t.dtype and g.shape == t.shape
+    want = _jax_vjp(j_moe_gmm_ref, [j for _, j in pairs], jdout)
+    plain = _autograd(moe_gmm_ref, [t for t, _ in pairs], [tdout])
+    for name, g, w, p in zip(("dh", "dwg", "dwu", "dwd"), got, want, plain):
+        _close(g, w, dtype, f"{name} vs jax.vjp")
+        _close(g, p, dtype, f"{name} vs autograd")
+    # empty capacity rows: zero dh, though their dout is not zero
+    assert not got[0][:, C - C // 4:].any()
+    assert np.abs(dout[:, C - C // 4:]).max() > 0
+
+
+# ---------------- rglru_scan ------------------------------------------------
+
+RGLRU_CASES = [(1, 32, 16), (2, 40, 8), (1, 23, 24), (3, 7, 5)]   # B, S, D
+
+
+def _rglru_inputs(B, S, D, seed):
+    rng = np.random.default_rng(seed)
+    return [rng.uniform(0.7, 0.999, size=(B, S, D)).astype(np.float32),
+            rng.normal(size=(B, S, D)).astype(np.float32),
+            rng.normal(size=(B, D)).astype(np.float32)], \
+        rng.normal(size=(B, S, D)).astype(np.float32)
+
+
+@pytest.mark.parametrize("dtype", list(DTYPES))
+@pytest.mark.parametrize("case", RGLRU_CASES)
+def test_rglru_scan_bwd_ref_equals_jax_vjp_and_autograd(case, dtype):
+    (a, bx, h0), dhs = _rglru_inputs(*case, seed=sum(case))
+    (ta, ja), (tb, jb) = _pair(a, dtype), _pair(bx, dtype)
+    th0, tdhs = torch.from_numpy(h0), torch.from_numpy(dhs)
+    hs = rglru_scan_ref(ta, tb, th0)
+    got = rglru_scan_bwd_ref(ta, hs, th0, tdhs)
+    assert [g.dtype for g in got] == [ta.dtype, ta.dtype, torch.float32]
+    want = _jax_vjp(j_rglru_ref, [ja, jb, jnp.asarray(h0)],
+                    jnp.asarray(dhs))
+    plain = _autograd(rglru_scan_ref, [ta, tb, th0], [tdhs])
+    for name, g, w, p in zip(("da", "dbx", "dh0"), got, want, plain):
+        _close(g, w, dtype, f"{name} vs jax.vjp")
+        _close(g, p, dtype, f"{name} vs autograd")
+    assert float(got[2].abs().max()) > 0   # dh0 takes part
+
+
+# ---------------- mamba_scan ------------------------------------------------
+
+# B, S, D, N: from the sweep of tests/test_kernels.py:47-53, and ragged
+MAMBA_CASES = [(1, 16, 8, 4), (2, 16, 8, 8), (1, 12, 12, 2), (1, 21, 33, 5),
+               (2, 13, 7, 16)]
+
+
+def _mamba_inputs(B, S, D, N, seed):
+    rng = np.random.default_rng(seed)
+    ins = [rng.normal(size=(B, S, D)).astype(np.float32),
+           rng.uniform(0.01, 0.2, size=(B, S, D)).astype(np.float32),
+           rng.normal(size=(B, S, N)).astype(np.float32),
+           rng.normal(size=(B, S, N)).astype(np.float32),
+           -np.exp(rng.normal(size=(D, N))).astype(np.float32),
+           rng.normal(size=(D,)).astype(np.float32)]
+    return ins, (rng.normal(size=(B, S, D)).astype(np.float32),
+                 rng.normal(size=(B, D, N)).astype(np.float32))
+
+
+def _mamba_pairs(ins, dtype):
+    """x, dt, B, C in `dtype`; A and D float32, as the model passes them."""
+    return [_pair(a, dtype if i < 4 else "float32")
+            for i, a in enumerate(ins)]
+
+
+@pytest.mark.parametrize("dtype", list(DTYPES))
+@pytest.mark.parametrize("case", MAMBA_CASES)
+def test_mamba_scan_bwd_ref_equals_jax_vjp_and_autograd(case, dtype):
+    ins, (dy, dhS) = _mamba_inputs(*case, seed=sum(case))
+    pairs = _mamba_pairs(ins, dtype)
+    tins = [t for t, _ in pairs]
+    tdy, tdhs = torch.from_numpy(dy), torch.from_numpy(dhS)
+    names = ("dx", "ddt", "dBm", "dCm", "dA", "dD")
+    # y's gradient alone: the JAX function returns y only
+    got = mamba_scan_bwd_ref(*tins, tdy)
+    assert [g.dtype for g in got] == [t.dtype for t in tins]
+    want = _jax_vjp(j_mamba_ref, [j for _, j in pairs], jnp.asarray(dy))
+    plain = _autograd(mamba_scan_ref, tins, [tdy, None])
+    for name, g, w, p in zip(names, got, want, plain):
+        _close(g, w, dtype, f"{name} vs jax.vjp")
+        _close(g, p, dtype, f"{name} vs autograd")
+    # and h_S's gradient beside it
+    got = mamba_scan_bwd_ref(*tins, tdy, tdhs)
+    plain = _autograd(mamba_scan_ref, tins, [tdy, tdhs])
+    for name, g, p in zip(names, got, plain):
+        _close(g, p, dtype, f"{name} with dhS vs autograd")
+
+
+# ---------------- the autograd Functions, kernels replaced ------------------
+
+
+def _spy(fn, calls):
+    def run(*args):
+        calls.append(args)
+        return fn(*args)
+    return run
+
+
+@pytest.mark.parametrize("kernel", ["moe_gmm", "rglru_scan", "mamba_scan",
+                                    "mamba_scan_h_s"])
+def test_function_wiring_with_plain_kernels(kernel):
+    """The Function with the plain forward and backward in its kernels'
+    place: the same outputs and input gradients as autograd through
+    `ref.py`, one call of each, and None for its two callables."""
+    if kernel == "moe_gmm":
+        ins, dout = _gmm_inputs(2, 9, 12, 20, seed=1, empty=2)
+        ins = [torch.from_numpy(a) for a in ins]
+        fn, ref, bwd, outs = MoeGmmFn, moe_gmm_ref, moe_gmm_bwd_ref, [dout]
+    elif kernel == "rglru_scan":
+        ins, dhs = _rglru_inputs(2, 70, 6, seed=2)
+        ins = [torch.from_numpy(a) for a in ins]
+        fn, ref, bwd, outs = RglruScanFn, rglru_scan_ref, rglru_scan_bwd_ref, \
+            [dhs]
+    else:
+        ins, (dy, dhS) = _mamba_inputs(2, 21, 9, 6, seed=3)
+        ins = [torch.from_numpy(a) for a in ins]
+        fn, ref, bwd = MambaScanFn, mamba_scan_ref, mamba_scan_bwd_ref
+        outs = [dy, dhS if kernel == "mamba_scan_h_s" else None]
+    outs = [None if o is None else torch.from_numpy(o) for o in outs]
+    fwd_calls, bwd_calls = [], []
+    leaves = [t.detach().requires_grad_() for t in ins]
+    got = fn.apply(*leaves, _spy(ref, fwd_calls), _spy(bwd, bwd_calls))
+    got = got if isinstance(got, tuple) else (got,)
+    want = ref(*ins)
+    want = want if isinstance(want, tuple) else (want,)
+    for g, w in zip(got, want):
+        assert torch.equal(g.detach(), w)
+    # the backward's own outputs: a gradient a tensor, None a callable
+    direct = got[0].grad_fn.apply(*outs)
+    assert len(direct) == len(ins) + 2
+    assert all(isinstance(g, torch.Tensor) for g in direct[:len(ins)])
+    assert direct[-2:] == (None, None)
+    used = [(o, g) for o, g in zip(got, outs) if g is not None]
+    grads = torch.autograd.grad([o for o, _ in used], leaves,
+                                [g for _, g in used])
+    plain = _autograd(ref, ins, outs)
+    for g, d, p in zip(grads, direct, plain):
+        assert torch.equal(g, d)
+        _close(g, p, "float32", kernel)
+    assert len(fwd_calls) == 1 and len(bwd_calls) == 2

@@ -1,8 +1,10 @@
 """The port's training path against the JAX package's, on the CPU.
 
 Reduced models in float32 (tests/torch_arch_parity.py): smollm-360m in
-its own head layout (hd 64, 3 query heads a KV head) and qwen3-moe (for
-the router aux term), the JAX package's parameters carried across with
+its own head layout (hd 64, 3 query heads a KV head), qwen3-moe and
+deepseek-moe (the router aux term, the moe_gmm kernel's plain version),
+falcon-mamba (mamba_scan's) and recurrentgemma (rglru_scan's and the
+local attention), the JAX package's parameters carried across with
 `params_from_numpy(..., masters=True)`, as are its gradients.  The loss
 and every gradient leaf of `loss_fn` within 1e-4 of `jax.value_and_grad`
 relative to the leaf's largest gradient (the f32 whole-model tolerance
@@ -10,12 +12,14 @@ of tests/torch_arch_parity.py; the two sum in other orders); the losses,
 z-loss and their input gradients alone within 1e-5.  Five steps of
 `train.trainer.make_train_step` against the JAX package's
 `make_train_step`, stored in
-``src/repro_torch/data/smollm_360m_reduced_train_golden.npz``:
+``src/repro_torch/data/<arch>_reduced_train_golden.npz`` for smollm-360m,
+qwen3-moe-30b-a3b, falcon-mamba-7b and recurrentgemma-2b (`GOLDEN_ARCHS`):
 losses, gradient norms and lrs within rtol 1e-5, the parameters after
 each step within atol/rtol 1e-5 (tests/test_trainer_serve.py:70-73).
-Regenerate it with ``JAX_PLATFORMS=cpu PYTHONPATH=src python
-tests/test_torch_train.py``; `test_stored_train_golden_is_current` fails
-when it is stale.  chip_smoke.py holds the card to the same file.
+Regenerate them with ``JAX_PLATFORMS=cpu PYTHONPATH=src python
+tests/test_torch_train.py [arch ...]``; `test_stored_train_golden_is_current`
+and `test_stored_arch_train_golden_is_current` fail when one is stale.
+chip_smoke.py holds the card to the same files.
 
 Also: the loss falls (tests/test_trainer_serve.py:33-47), every arch
 trains on the CPU (the plain versions under autograd), the checkpointer
@@ -36,6 +40,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+import torch.nn.functional as F
 
 import torch_arch_parity as P
 from repro.configs import get_config as j_get_config
@@ -51,7 +56,6 @@ from repro.train.trainer import init_train_state as j_init_train_state
 from repro.train.trainer import make_train_step as j_make_train_step
 from repro_torch.configs.base import get_config, list_archs, reduced_config
 from repro_torch.data.pipeline import SyntheticLM, device_batches
-from repro_torch.kernels import forward_only
 from repro_torch.launch import train as train_cli
 from repro_torch.models.convert import params_from_numpy, tree_from_flat
 from repro_torch.models.model import (
@@ -68,14 +72,30 @@ from repro_torch.train import health as H
 from repro_torch.train.checkpoint import Checkpointer
 from repro_torch.train.trainer import init_train_state, make_train_step
 
-GOLDEN = P.DATA / "smollm_360m_reduced_train_golden.npz"
 ARCH = "smollm-360m"
+# the archs whose training runs are stored; smollm's in its head layout
+GOLDEN_ARCHS = (ARCH, "qwen3-moe-30b-a3b", "falcon-mamba-7b",
+                "recurrentgemma-2b")
+
+
+def golden_path(arch: str) -> Path:
+    return P.DATA / f"{arch.replace('-', '_')}_reduced_train_golden.npz"
+
+
+GOLDEN = golden_path(ARCH)
 # AdamW moves each element by lr x m / sqrt(v), whatever its gradient's
 # size: an element whose gradient sits at the f32 noise floor of the two
 # packages' summation orders moves differently by a few percent of lr
 # (at lr 1e-3, 1.5e-5 in 3 of 120K elements after 3 steps; at 1e-4,
 # 1.5e-6), so the run keeps lr below the 1e-5 it is held to
 OPT = dict(lr=1e-4, warmup_steps=2, total_steps=10)
+# recurrentgemma's gates form sqrt(1 - exp(2 log a)), which cancels as a
+# nears 1: half an ulp of exp moves its gradients by more than 1e-5 of a
+# leaf's largest (`test_rglru_gates_amplify_half_an_ulp_of_exp`), and at
+# lr 1e-4 the card's run (expf: 2 ulp) left the 1e-5 after 3 steps, with
+# every kernel or with its plain version alike (ROADMAP Queue 3, B5); at
+# lr 1e-5 AdamW's normalised step keeps that below 1e-5
+OPTS = {"recurrentgemma-2b": dict(OPT, lr=1e-5)}
 DATA = dict(seq=64, batch=4, seed=0)
 STEPS = 5
 KEPT = (3, STEPS)   # steps after which the parameters are stored
@@ -244,12 +264,46 @@ def _smollm_models():
     return jcfg, tcfg, jp, tp
 
 
+@functools.lru_cache(maxsize=None)
+def _j_reduced_params(arch: str, seed: int = 0):
+    """The JAX package's reduced f32 parameters of an arch in its reduced
+    layout, constants perturbed (P.perturb)."""
+    jcfg, _ = P.cfgs(arch, "float32", layout=False)
+    return P.perturb(j_init_params(jcfg, jax.random.key(seed)), seed)
+
+
+def _reduced_models(arch: str):
+    """(jcfg, tcfg, JAX params, the port's masters) of `arch` reduced in
+    f32, in its reduced layout (hd 16, two query heads a KV head; the
+    layout the kernels see matters on the card, not here)."""
+    jcfg, tcfg = P.cfgs(arch, "float32", layout=False)
+    jp = _j_reduced_params(arch)
+    tp = params_from_numpy(tcfg, jax.tree.map(np.asarray, jp), device="cpu",
+                           masters=True)
+    return jcfg, tcfg, jp, tp
+
+
+def _models(arch: str):
+    if arch == ARCH:
+        return _smollm_models()
+    if arch == "qwen3-moe-30b-a3b":
+        return _qwen3_models()
+    return _reduced_models(arch)
+
+
+# (arch, vocab chunk): the loss's chunking is arch-independent, so only
+# the first two archs take both
+LOSS_CASES = [(a, c) for a in (ARCH, "qwen3-moe-30b-a3b")
+              for c in (0, 64)] + [
+    (a, 0) for a in ("deepseek-moe-16b", "falcon-mamba-7b",
+                     "recurrentgemma-2b")]
+
+
 class TestLossFnGrads:
-    @pytest.mark.parametrize("chunk", [0, 64])
-    @pytest.mark.parametrize("models", [_smollm_models, _qwen3_models],
-                             ids=["smollm-360m", "qwen3-moe-30b-a3b"])
-    def test_loss_and_every_grad_equal_jax(self, models, chunk):
-        jcfg, tcfg, jp, tp = models()
+    @pytest.mark.parametrize("arch,chunk", LOSS_CASES,
+                             ids=[f"{a}-{c}" for a, c in LOSS_CASES])
+    def test_loss_and_every_grad_equal_jax(self, arch, chunk):
+        jcfg, tcfg, jp, tp = _models(arch)
         jcfg = jcfg.replace(loss_chunk_vocab=chunk)
         tcfg = tcfg.replace(loss_chunk_vocab=chunk)
         toks = _tokens(tcfg.vocab_size, (2, 12), 4)
@@ -267,7 +321,9 @@ class TestLossFnGrads:
                                        rtol=1e-5, atol=1e-7, err_msg=k)
         if tcfg.moe is not None:   # the router aux term takes part
             assert float(metrics["aux"]) > 0
-            assert float(grads["stack.0.moe.router"].abs().max()) > 0
+            routers = [k for k in grads if k.endswith(".moe.router")]
+            assert routers and all(float(grads[k].abs().max()) > 0
+                                   for k in routers)
         _grads_close(grads, jg, tcfg, tcfg.name)
 
     def test_masters_give_the_serving_forward_bits(self):
@@ -310,36 +366,31 @@ class TestLossFnGrads:
         assert all(float(grads[k].abs().max()) > 0 for k in mixers
                    if not k.endswith(("bq", "bk", "bv", ".b_in", ".b")))
 
-    def test_forward_only_refuses_autograd(self):
-        calls = []
-        kernel = forward_only("toy", lambda x: calls.append(x) or x * 2)
-        x = torch.ones(3, requires_grad=True)
-        with pytest.raises(RuntimeError, match="no backward kernel.*6b"):
-            kernel(x)
-        with torch.no_grad():
-            assert torch.equal(kernel(x), torch.full((3,), 2.0))
-        assert torch.equal(kernel(torch.ones(3)), torch.full((3,), 2.0))
-        assert len(calls) == 2
-
 
 # ---------------- train steps against the JAX package ------------------------
 
 
 @functools.lru_cache(maxsize=None)
-def train_golden_reference() -> dict:
+def train_golden_reference(arch: str = ARCH) -> dict:
     """The JAX package's `make_train_step` run that the port (and the
-    card, chip_smoke.py) is held to: reduced smollm-360m in f32 in its
-    head layout, its parameters, SyntheticLM batches, `STEPS` steps;
-    each step's loss, grad norm and lr, the parameters after steps 3 and
-    `STEPS` (``after3/...``, ``after5/...``)."""
-    jcfg, _ = P.cfgs(ARCH, "float32")
-    params = P.j_params(ARCH)
-    step = jax.jit(j_make_train_step(jcfg, P.PCTX, JAdamWConfig(**OPT)))
+    card, chip_smoke.py) is held to: reduced `arch` in f32 (smollm-360m in
+    its head layout, the others in their reduced one), its parameters,
+    SyntheticLM batches, `STEPS` steps; each step's loss, grad norm and
+    lr, the parameters after steps 3 and `STEPS` (``after3/...``,
+    ``after5/...``)."""
+    if arch == ARCH:
+        jcfg, _ = P.cfgs(ARCH, "float32")
+        params, layout = P.j_params(ARCH), P.LAYOUTS[ARCH]
+    else:
+        jcfg, _ = P.cfgs(arch, "float32", layout=False)
+        params, layout = _j_reduced_params(arch), {}
+    opt = OPTS.get(arch, OPT)
+    step = jax.jit(j_make_train_step(jcfg, P.PCTX, JAdamWConfig(**opt)))
     state = j_init_train_state(jcfg, params)
     src = JSyntheticLM(jcfg.vocab_size, DATA["seq"], DATA["batch"],
                        seed=DATA["seed"])
-    out = {"config": np.array(json.dumps(P.LAYOUTS[ARCH], sort_keys=True)),
-           "opt": np.array(json.dumps(OPT, sort_keys=True)),
+    out = {"config": np.array(json.dumps(layout, sort_keys=True)),
+           "opt": np.array(json.dumps(opt, sort_keys=True)),
            "data": np.array(json.dumps(DATA, sort_keys=True))}
     out.update({f"param/{k}": v for k, v in P._flat(params).items()})
     rows = {"loss": [], "grad_norm": [], "lr": []}
@@ -354,14 +405,14 @@ def train_golden_reference() -> dict:
     return out
 
 
-def _stored():
-    return dict(np.load(GOLDEN))
+def _stored(arch: str = ARCH):
+    return dict(np.load(golden_path(arch)))
 
 
-def _port_run(stored, steps: int, **cfg_kw):
+def _port_run(stored, steps: int, arch: str = ARCH, **cfg_kw):
     """The port's run from the stored parameters on the CPU: (cfg, state,
     per-step metrics as floats)."""
-    cfg = reduced_config(get_config(ARCH)).replace(
+    cfg = reduced_config(get_config(arch)).replace(
         compute_dtype="float32", **json.loads(str(stored["config"])),
         **cfg_kw)
     params = params_from_numpy(cfg, tree_from_flat(
@@ -380,22 +431,35 @@ def _port_run(stored, steps: int, **cfg_kw):
     return cfg, state, rows
 
 
+def _golden_is_current(arch: str) -> None:
+    stored, golden = _stored(arch), train_golden_reference(arch)
+    assert sorted(stored) == sorted(golden)
+    for key, want in golden.items():
+        if want.dtype.kind == "f":
+            np.testing.assert_allclose(stored[key], want, rtol=1e-6,
+                                       atol=1e-7, err_msg=key)
+        else:
+            np.testing.assert_array_equal(stored[key], want, err_msg=key)
+    assert golden_path(arch).stat().st_size < 4 * 2**20
+
+
+# (arch, steps): smollm's cases keep their ids
+STEP_CASES = [pytest.param(a, n, id=str(n) if a == ARCH else f"{a}-{n}")
+              for a in GOLDEN_ARCHS for n in KEPT]
+
+
 class TestTrainSteps:
     def test_stored_train_golden_is_current(self):
-        stored, golden = _stored(), train_golden_reference()
-        assert sorted(stored) == sorted(golden)
-        for key, want in golden.items():
-            if want.dtype.kind == "f":
-                np.testing.assert_allclose(stored[key], want, rtol=1e-6,
-                                           atol=1e-7, err_msg=key)
-            else:
-                np.testing.assert_array_equal(stored[key], want, err_msg=key)
-        assert GOLDEN.stat().st_size < 4 * 2**20
+        _golden_is_current(ARCH)
 
-    @pytest.mark.parametrize("steps", KEPT)
-    def test_train_steps_equal_jax_make_train_step(self, steps):
-        stored = _stored()
-        cfg, state, rows = _port_run(stored, steps)
+    @pytest.mark.parametrize("arch", GOLDEN_ARCHS[1:])
+    def test_stored_arch_train_golden_is_current(self, arch):
+        _golden_is_current(arch)
+
+    @pytest.mark.parametrize("arch,steps", STEP_CASES)
+    def test_train_steps_equal_jax_make_train_step(self, arch, steps):
+        stored = _stored(arch)
+        cfg, state, rows = _port_run(stored, steps, arch)
         for k in ("loss", "grad_norm", "lr"):
             np.testing.assert_allclose([r[k] for r in rows],
                                        stored[k][:steps], rtol=1e-5,
@@ -419,6 +483,44 @@ class TestTrainSteps:
         for (n, x), (_, y) in zip(a["params"].named_parameters(),
                                   b["params"].named_parameters()):
             assert torch.equal(x, y), n
+
+    def test_rglru_gates_amplify_half_an_ulp_of_exp(self, monkeypatch):
+        """B5 (ROADMAP Queue 3): recurrentgemma's gate sqrt(1 - exp(2 log
+        a)) cancels as a nears 1, so exp's last bit reaches the gradients.
+        The stored run's first step on the CPU with every exp of the gates
+        moved by -1/2, 0 or +1/2 ulp (a hash of its argument's bits picks,
+        so that remat's recompute moves it alike): some gradient leaf
+        moves by more than 1e-5 of its largest value, the tolerance the
+        parameters are held to."""
+        import repro_torch.models.rglru as R
+
+        stored = _stored("recurrentgemma-2b")
+        cfg, state, _ = _port_run(stored, 0, "recurrentgemma-2b")
+        data = json.loads(str(stored["data"]))
+        batch = next(device_batches(SyntheticLM(
+            cfg.vocab_size, data["seq"], data["batch"], seed=data["seed"]),
+            0, "cpu"))
+        exact = _port_grads(state["params"], batch, cfg)[2]
+
+        def exp(x):   # torch.exp, moved by -1/2, 0 or +1/2 ulp
+            y = torch.exp(x)
+            bits = x.detach().contiguous().view(torch.int32).long()
+            u = ((bits * 2654435761) >> 13) % 3 - 1
+            return y + u * y * torch.finfo(torch.float32).eps / 2
+
+        def gates(p, x):   # R._gates with `exp`
+            r = torch.sigmoid((x @ p["w_a"].to(x.dtype)).float())
+            i = torch.sigmoid((x @ p["w_i"].to(x.dtype)).float())
+            log_a = -R._C * F.softplus(p["lambda"]) * r
+            beta = torch.sqrt(torch.clamp(1.0 - exp(2.0 * log_a), min=1e-12))
+            return exp(log_a), beta * (i * x.float())
+
+        monkeypatch.setattr(R, "_gates", gates)
+        moved = _port_grads(state["params"], batch, cfg)[2]
+        rel = max(float((moved[k] - g).abs().max() / g.abs().max())
+                  for k, g in exact.items() if g.abs().max() > 0)
+        print(f"largest move {rel:.3g} of a leaf's largest gradient")
+        assert 1e-5 < rel < 1e-3, rel
 
     def test_loss_decreases(self):
         cfg = reduced_config(get_config(ARCH)).replace(num_layers=2,
@@ -612,7 +714,9 @@ class TestLauncher:
 
 
 if __name__ == "__main__":
-    data = train_golden_reference()
-    np.savez(GOLDEN, **data)
-    print(f"wrote {GOLDEN.name}: {len(data)} arrays, "
-          f"{GOLDEN.stat().st_size} bytes", file=sys.stderr)
+    for arch in sys.argv[1:] or GOLDEN_ARCHS:
+        data = train_golden_reference(arch)
+        path = golden_path(arch)
+        np.savez(path, **data)
+        print(f"wrote {path.name}: {len(data)} arrays, "
+              f"{path.stat().st_size} bytes", file=sys.stderr)

@@ -7,11 +7,13 @@ Imports nothing of JAX or of the JAX package.  Builds the Hopper kernels
 from the sources in this checkout, nine libraries (the five forward
 kernels and the backward kernels of flash_attention, moe_gmm, mamba_scan
 and rglru_scan; each kernel's registers and spills from ptxas; the HGMMA
-instructions of the flash library and of the flash backward library
-counted in their SASS, each of which must be above 0, and no spill in
-their bf16 (wgmma) kernels or in either scan kernel, forward or backward;
-the flash backward's 8 wgmma, 12 CUDA-core and 2 D instantiations), then
-runs, each phase printing one JSON line and any failure raising:
+instructions of the flash library, the flash backward's and the moe_gmm
+backward's, counted in their SASS, each of which must be above 0, and no
+spill in their bf16 (wgmma) kernels or in either scan kernel, forward or
+backward; the flash backward's 8 wgmma, 12 CUDA-core and 2 D
+instantiations; the moe_gmm backward's four wgmma kernels and its
+probe), then runs, each phase printing one JSON line and any failure
+raising:
 
 0. Training, first, so that a failure shows early.
    flash_attention_bwd: the backward kernel's dq, dk, dv (through
@@ -41,7 +43,12 @@ runs, each phase printing one JSON line and any failure raising:
    f32 row and a ragged row each; timed (events and profiler; rglru's
    three passes apart) beside the bound, the plain version's backward,
    mamba's SFU floor, and for moe_gmm autograd through three `torch.bmm`
-   (`bmm_trio_bwd_ms`), a yardstick never on the path.
+   (`bmm_trio_bwd_ms`), a yardstick never on the path.  moe_gmm_bwd runs
+   its wgmma probe first (its tile products in the three operand
+   orientations, from 16-byte copies and from element loads, against
+   torch.matmul within 1e-5 of the products' magnitudes), and each of its
+   rows names its kernels from the profiler (bf16 on wgmma alone, f32 on
+   the CUDA cores alone) with each kernel's device ms.
    train_golden, train_golden_qwen3, train_golden_mamba,
    train_golden_rgemma: reduced smollm-360m (f32, in its head layout),
    qwen3-moe-30b-a3b, falcon-mamba-7b and recurrentgemma-2b (f32, their
@@ -262,12 +269,11 @@ def _cuda_ms(fn, reps: int, warmup: int = 2) -> float:
     return start.elapsed_time(stop) / reps
 
 
-def _device_ms(fn, names, reps: int = 10):
-    """Device time per call of the kernels whose names contain one of
-    `names`, from the profiler's CUDA trace: the card's own time, without
-    the host's launch overhead.  A trace with no such kernel, or whose
-    count of them is not a whole multiple of `reps`, has lost events, and
-    is taken again (up to 3 times); None when the last holds none."""
+def _traced(fn, names, reps: int) -> list:
+    """The profiler's CUDA events, over `reps` calls of `fn`, of the
+    kernels whose names contain one of `names`.  A trace with no such
+    kernel, or whose count of them is not a whole multiple of `reps`, has
+    lost events, and is taken again (up to 3 times)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -283,7 +289,16 @@ def _device_ms(fn, names, reps: int = 10):
         count = sum(e.count for e in hits)
         if count and count % reps == 0:
             break
-    us = sum(getattr(e, "device_time_total", 0.0) for e in hits)
+    return hits
+
+
+def _device_ms(fn, names, reps: int = 10):
+    """Device time per call of the kernels whose names contain one of
+    `names`, from the profiler's CUDA trace (`_traced`): the card's own
+    time, without the host's launch overhead; None when the trace holds
+    none."""
+    us = sum(getattr(e, "device_time_total", 0.0)
+             for e in _traced(fn, names, reps))
     return us / reps / 1e3 if us > 0 else None
 
 
@@ -382,11 +397,17 @@ def _hgmma(lib: Path) -> int:
     return sum("HGMMA" in ln for ln in sass.splitlines())
 
 
+# the moe_gmm backward's bf16 kernels (csrc/moe_gmm_bwd.cu) by ptxas name
+GMM_BWD_WGMMA_KERNELS = ("moe_bwd_act_wgmma", "moe_bwd_wgrad_wgmma<1>",
+                         "moe_bwd_wgrad_wgmma<2>", "moe_bwd_dh_wgmma",
+                         "wgmma_probe_products")
+
+
 def phase_build() -> dict:
     """One nvcc per kernel source, all started together; each kernel's
     registers and spills; the tensor-core (HGMMA) instructions of the
-    flash library and of the flash backward's, counted in their SASS, and
-    no spill in their bf16 (wgmma) kernels."""
+    flash library, the flash backward's and the moe_gmm backward's,
+    counted in their SASS, and no spill in their bf16 (wgmma) kernels."""
     from repro_torch.kernels import build_libraries, library_path
     from repro_torch.kernels.flash_attention import kernel as flash
     from repro_torch.kernels.mamba_scan import kernel as mamba
@@ -436,8 +457,16 @@ def phase_build() -> dict:
            f"flash backward CUDA-core instantiations {sorted(cores)}")
     _check(len([k for k in bwd if k.startswith("flash_bwd_dsum<")]) == 2,
            f"flash backward D instantiations {sorted(bwd)}")
+    # the moe_gmm backward: bf16 on wgmma (four kernels and the probe)
+    gmm_wgmma = {k: v for k, v in out[f"ptxas_{gmm.BWD_NAME}"].items()
+                 if "wgmma" in k}
+    _check(sorted(gmm_wgmma) == sorted(GMM_BWD_WGMMA_KERNELS),
+           f"moe_gmm backward wgmma kernels {sorted(gmm_wgmma)}")
+    _check(all(v["spill_bytes"] == 0 for v in gmm_wgmma.values()),
+           f"moe_gmm backward wgmma kernels spill: {gmm_wgmma}")
     for name, src in ((flash.NAME, flash.SOURCE),
-                      (flash.BWD_NAME, flash.BWD_SOURCE)):
+                      (flash.BWD_NAME, flash.BWD_SOURCE),
+                      (gmm.BWD_NAME, gmm.BWD_SOURCE)):
         out[f"{name}_hgmma"] = hgmma = _hgmma(library_path(name, [src]))
         print(f"{name} HGMMA instructions: {hgmma}", flush=True)
         _check(hgmma > 0, f"the {name} library holds no HGMMA")
@@ -1729,19 +1758,63 @@ def _bwd_row(what, dtype, fn, leaves, grads, kernel, names, plain=None,
     return row
 
 
-GMM_BWD_SWEEP = GMM_SWEEP + [(2, 67, 130, 70), (1, 5, 33, 17)]
+GMM_BWD_SWEEP = GMM_SWEEP + [(2, 67, 130, 70), (1, 5, 33, 17),
+                             # the bf16 kernels' block tiles: a multiple,
+                             # ragged, D and F not multiples of 8
+                             (4, 128, 256, 256), (3, 100, 200, 150),
+                             (2, 70, 75, 45)]
+
+
+def _kernels_of(fn, part: str, reps: int = 3) -> dict:
+    """Device ms a call of each kernel whose name holds `part`, from the
+    profiler's trace (`_traced`), by its name (template arguments kept)."""
+    import re
+
+    out = {}
+    for e in _traced(fn, (part,), reps):
+        name = re.search(r"(\w+(?:<[^>]*>)?)\(", e.key).group(1)
+        out[name] = out.get(name, 0.0) + getattr(
+            e, "device_time_total", 0.0) / reps / 1e3
+    return out
+
+
+def _moe_wgmma_probe(gen) -> dict:
+    """The bf16 moe_gmm backward's tile products alone, in the three
+    operand orientations its passes use (x y, x y^T, x^T y), its atoms
+    filled by 16-byte copies and by element loads, against torch.matmul
+    in f32; held within 1e-5 of the sum of the products' magnitudes."""
+    import torch
+
+    from repro_torch.kernels.moe_gmm.kernel import moe_wgmma_probe
+
+    x, y = (_randn((64, 64), gen, torch.bfloat16) for _ in range(2))
+    worst = 0.0
+    for vec in (True, False):
+        out = moe_wgmma_probe(x, y, vec=vec)
+        for what, got, a, b in (("x y", out[0], x, y),
+                                ("x y^T", out[1], x, y.T),
+                                ("x^T y", out[2], x.T, y)):
+            a, b = a.float(), b.float()
+            rel = float(((got - a @ b).abs() / (a.abs() @ b.abs())).max())
+            _check(rel <= 1e-5, f"moe wgmma probe {what} vec={vec}: {rel}")
+            worst = max(worst, rel)
+    return dict(orientations=["x y", "x y^T", "x^T y"],
+                loads=["16-byte copies", "element loads"], max_rel_err=worst)
 
 
 def phase_moe_gmm_bwd() -> dict:
-    """The expert FFN's backward kernel: the sweep (and two ragged
-    shapes) in f32 and bf16, then qwen3-moe's training shape (E 128, C
-    320: 4,096 tokens, top 8, capacity factor 1.25; D 2048, F 768, bf16),
+    """The expert FFN's backward kernel: first the wgmma probe, then the
+    sweep (and ragged shapes, some against the bf16 kernels' block tiles)
+    in f32 and bf16, then qwen3-moe's training shape (E 128, C 320: 4,096
+    tokens, top 8, capacity factor 1.25; D 2048, F 768, bf16),
     deepseek-moe-16b's (E 64, C 480, F 1408), a small f32 row and a
     ragged bf16 row; each held to autograd through `moe_gmm_ref`, a
     quarter of the capacity rows empty (their dh must be zero), bit for
-    bit against a second run; timed beside its bound (16 E C D F
-    operations at the inputs' type's rate) and, as a yardstick never on
-    the path, autograd through three `torch.bmm` (`_bmm_trio`)."""
+    bit against a second run, its kernels' names read from the profiler
+    (bf16 on wgmma alone, f32 on the CUDA cores alone); timed beside its
+    bound (16 E C D F operations at the inputs' type's rate), each
+    kernel's device ms and, as a yardstick never on the path, autograd
+    through three `torch.bmm` (`_bmm_trio`)."""
     import torch
 
     from repro_torch.kernels.moe_gmm import kernel as gmm
@@ -1760,8 +1833,14 @@ def phase_moe_gmm_bwd() -> dict:
         what = f"moe_gmm_bwd E={E} C={C} D={D} F={Fd} {_dname(dtype)}"
         dh = gmm.moe_gmm_bwd(h, *w, dout)[0]
         _check(not dh[:, C - C // 4:].any(), f"{what}: empty rows' dh")
+        kernels = _kernels_of(lambda: gmm.moe_gmm_bwd(h, *w, dout), "moe_bwd",
+                              reps=3 if timed else 1)
+        wgmma = dtype == torch.bfloat16
+        _check(len(kernels) > 0 and all(("wgmma" in k) == wgmma
+                                        for k in kernels),
+               f"{what}: kernels {sorted(kernels)}")
         out = dict(dtype=_dname(dtype), E=E, C=C, D=D, F=Fd,
-                   empty_rows=C // 4, **_bwd_row(
+                   empty_rows=C // 4, kernels=kernels, **_bwd_row(
                        what, dtype, moe_gmm, [h, *w], [dout],
                        lambda: gmm.moe_gmm_bwd(h, *w, dout), ("moe_bwd",),
                        plain=(moe_gmm_ref, None), timed=timed, reps=3))
@@ -1780,6 +1859,7 @@ def phase_moe_gmm_bwd() -> dict:
         torch.cuda.empty_cache()
         return out
 
+    probe = _moe_wgmma_probe(gen)
     sweep = [row(dtype, *case, timed=False)
              for dtype in (torch.float32, torch.bfloat16)
              for case in GMM_BWD_SWEEP]
@@ -1789,8 +1869,10 @@ def phase_moe_gmm_bwd() -> dict:
                                                 2048, 1408)),
             dict(arch="small f32", **row(torch.float32, 16, 40, 2048, 768)),
             dict(arch="ragged", **row(torch.bfloat16, 8, 67, 200, 130))]
-    return dict(phase="moe_gmm_bwd", sweep_cases=len(sweep),
+    return dict(phase="moe_gmm_bwd", wgmma_probe=probe,
+                sweep_cases=len(sweep),
                 sweep_max_rel_err=max(r["max_rel_err"] for r in sweep),
+                sweep_kernels=sorted({k for r in sweep for k in r["kernels"]}),
                 rows=rows)
 
 

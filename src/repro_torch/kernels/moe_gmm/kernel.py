@@ -12,10 +12,13 @@ it is given, allocates the scratch and the output with `torch.empty`,
 launches on the current stream without synchronising, counts one launch
 and raises on a non-zero ``cudaError_t``.
 
-`moe_gmm_bwd` binds the backward (``csrc/moe_gmm_bwd.cu``, a library of
-its own): dh, dWg, dWu and dWd from h, the weights and the output's
-gradient, five launches of tiled f32 products (the activation pass, then
-the three weight gradients and dh) counted once under ``moe_gmm_bwd``.
+`moe_gmm_bwd` binds the backward (``csrc/moe_gmm_bwd.cu`` with
+``csrc/moe_wgmma.cuh``, a library of its own): dh, dWg, dWu and dWd from
+h, the weights and the output's gradient, counted once a call under
+``moe_gmm_bwd``.  bf16 runs four launches on the tensor cores (wgmma,
+f32 sums; A, dG and dU rounded to bf16 in a bf16 scratch), f32 five of
+tiled f32 products on the CUDA cores (an f32 scratch).
+`moe_wgmma_probe` runs the bf16 kernels' tile products alone.
 """
 from __future__ import annotations
 
@@ -93,6 +96,8 @@ def bwd_library() -> ctypes.CDLL:
         ptr, i32 = ctypes.c_void_p, ctypes.c_int
         lib.moe_gmm_bwd_launch.argtypes = [ptr] * 10 + [i32] * 5 + [ptr]
         lib.moe_gmm_bwd_launch.restype = i32
+        lib.moe_wgmma_probe.argtypes = [ptr, ptr, ptr, i32, ptr]
+        lib.moe_wgmma_probe.restype = i32
         _bwd_lib = lib
     return _bwd_lib
 
@@ -157,8 +162,7 @@ def moe_gmm_bwd(h: torch.Tensor, wg: torch.Tensor, wu: torch.Tensor,
     e, c, d = h.shape
     f = wg.shape[2]
     with torch.cuda.device(h.device):
-        scratch = torch.empty(3 * e * c * f, dtype=torch.float32,
-                              device=h.device)
+        scratch = torch.empty(3 * e * c * f, dtype=h.dtype, device=h.device)
         dh = torch.empty_like(h)
         dwg, dwu, dwd = (torch.empty_like(w) for w in (wg, wu, wd))
         stream = torch.cuda.current_stream(h.device).cuda_stream
@@ -171,3 +175,27 @@ def moe_gmm_bwd(h: torch.Tensor, wg: torch.Tensor, wu: torch.Tensor,
         raise RuntimeError(f"moe_gmm_bwd launch failed: cudaError_t {err}")
     launch_counts[BWD_NAME] += 1
     return dh, dwg, dwu, dwd
+
+
+def moe_wgmma_probe(x: torch.Tensor, y: torch.Tensor,
+                    vec: bool = True) -> torch.Tensor:
+    """The bf16 backward's tile products alone, through its atom loads
+    (16-byte copies if `vec`, else element loads), descriptors and wgmma:
+    (3, 64, 64) f32 ``x @ y``, ``x @ y.T`` and ``x.T @ y`` from bf16 x, y
+    (64, 64) on the card, the three operand orientations its passes use."""
+    for name, t in (("x", x), ("y", y)):
+        if (tuple(t.shape) != (64, 64) or t.dtype != torch.bfloat16
+                or t.device.type != "cuda" or not t.is_contiguous()
+                or t.data_ptr() % 16):
+            raise ValueError(f"{name} must be a contiguous, aligned bf16 "
+                             "CUDA tensor of shape (64, 64)")
+    lib = bwd_library()
+    with torch.cuda.device(x.device):
+        out = torch.empty((3, 64, 64), dtype=torch.float32, device=x.device)
+        stream = torch.cuda.current_stream(x.device).cuda_stream
+        err = lib.moe_wgmma_probe(x.data_ptr(), y.data_ptr(), out.data_ptr(),
+                                  int(vec), stream)
+    if err:
+        raise RuntimeError(f"moe wgmma probe launch failed: cudaError_t {err}")
+    launch_counts["moe_wgmma_probe"] += 1
+    return out

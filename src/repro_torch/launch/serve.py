@@ -27,7 +27,7 @@ from repro_torch.serve.engine import Request, ServeEngine
 
 def main(argv=None):
     ap = argparse.ArgumentParser()
-    ap.add_argument("--arch", default="qwen3-moe-30b-a3b",
+    ap.add_argument("--arch", default="smollm-360m",
                     choices=list_archs())
     ap.add_argument("--reduced", action=argparse.BooleanOptionalAction,
                     default=True)

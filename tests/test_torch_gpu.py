@@ -10,8 +10,9 @@ faulted fluid steps (plain torch) state atol 1e-5 against their CPU
 run, the flow engines at tests/test_flows_jax.py's tolerances (the tiled
 engine's histograms, backlog and remaining bytes equal to the dense
 engine's on the card, and its results equal to its CPU run's).  The
-bf16 flash kernel's wgmma tile products are exact up to the f32
-summation order: within 1e-5 of the sum of the products' magnitudes.
+bf16 flash kernel's wgmma tile products, and the moe_gmm backward's, are
+exact up to the f32 summation order: within 1e-5 of the sum of the
+products' magnitudes.
 Head dims between the flash instantiations run zero-padded, above 256 on
 the f32 kernel alone (up to 1024); the cross-attention layers' modes
 (non-causal, Sq above or below Sk) run on both flash kernels; moe_gmm
@@ -22,7 +23,8 @@ value, bit for bit against itself, and its bf16 path up to hd 128 is
 seen to launch the wgmma kernels; the forward's lse to torch.logsumexp
 at 2e-5.  The backward kernels of moe_gmm, rglru_scan and mamba_scan
 (training, F3 repaired) are held to autograd through their plain
-versions alike, bit for bit against themselves; a reduced train step of
+versions alike, bit for bit against themselves (moe_gmm's bf16 path
+seen to launch its wgmma kernels alone); a reduced train step of
 smollm, qwen3-moe, falcon-mamba and recurrentgemma on the card matches
 the CPU's within 1e-5, with each kernel's launches counted.
 """
@@ -976,7 +978,10 @@ def test_model_kernels_carry_gradients_on_the_card(card):
 
 GMM_BWD_CASES = [  # E, C, D, F: ragged against the 64 x 64 tiles
     (2, 16, 16, 32), (4, 8, 32, 64), (3, 12, 8, 24), (2, 67, 130, 70),
-    (1, 5, 33, 17), (8, 40, 256, 96)]
+    (1, 5, 33, 17), (8, 40, 256, 96),
+    # the bf16 kernels' 64 x 128 and 128 x 64 block tiles: a multiple of
+    # them, ragged against them, D and F not multiples of 8 (element loads)
+    (4, 128, 256, 256), (3, 100, 200, 150), (2, 70, 75, 45)]
 
 
 def _gmm_bwd_grads(fn, h, ws, dout):
@@ -1007,6 +1012,73 @@ def test_moe_gmm_bwd_matches_plain_autograd(card, case, dtype):
     assert not got[0][:, C - C // 4:].any()
     again = _gmm_bwd_grads(moe_gmm, h, ws, dout)
     assert all(torch.equal(a, b) for a, b in zip(got, again))
+
+
+def _traced_kernels(fn, part: str, reps: int = 10) -> set:
+    """Names (template arguments kept) of the kernels holding `part` in
+    the profiler's CUDA trace of `reps` calls of `fn`, after a warm call.
+    The card's profiler drops a process's first traced launches at times
+    (a trace of one call has kept only its last kernel), so several
+    calls are traced, and a trace with none is taken again (up to 3
+    times), as chip_smoke.py's `_traced` does."""
+    import re
+
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    for _ in range(3):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        names = {re.search(r"(\w+(?:<[^>]*>)?)\(", e.key).group(1)
+                 for e in prof.key_averages() if part in e.key}
+        if names:
+            return names
+    return set()
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_moe_gmm_bwd_runs_wgmma_for_bf16(card, dtype):
+    """The profiler's kernel names: bf16 launches the four wgmma kernels
+    alone (the activation pass, the two weight-gradient launches, dh),
+    f32 the CUDA-core ones alone (the activation pass and the tiled
+    products of dWd, dWg, dWu and dh)."""
+    from repro_torch.kernels.moe_gmm.kernel import moe_gmm_bwd
+
+    E, C, D, F = 2, 70, 128, 96
+    h = _normal((E, C, D), 75, card, dtype)
+    ws = [_normal(s, 76 + i, card, dtype, s[1] ** -0.5)
+          for i, s in enumerate(((E, D, F), (E, D, F), (E, F, D)))]
+    dout = _normal((E, C, D), 79, card, dtype)
+    want = ({"moe_bwd_act_wgmma", "moe_bwd_wgrad_wgmma<1>",
+             "moe_bwd_wgrad_wgmma<2>", "moe_bwd_dh_wgmma"}
+            if dtype == torch.bfloat16 else
+            {"moe_bwd_act<float>",
+             "moe_bwd_gemm<float, false, float, false, float>",
+             "moe_bwd_gemm<float, true, float, true, float>"})
+    assert _traced_kernels(lambda: moe_gmm_bwd(h, *ws, dout),
+                           "moe_bwd") == want
+
+
+@pytest.mark.parametrize("vec", [True, False])
+def test_moe_wgmma_probe_matches_matmul(card, vec):
+    """The bf16 backward's tile products alone, in the three operand
+    orientations its passes use (x K-major with y MN-major, both K-major,
+    both MN-major), its atoms filled by 16-byte copies or by element
+    loads: exact up to the f32 summation order, within 1e-5 of the sum of
+    the products' magnitudes."""
+    from repro_torch.kernels.moe_gmm.kernel import moe_wgmma_probe
+
+    x = _normal((64, 64), 80, card, torch.bfloat16)
+    y = _normal((64, 64), 81, card, torch.bfloat16)
+    out = moe_wgmma_probe(x, y, vec=vec)
+    torch.cuda.synchronize()
+    for got, a, b in zip(out, (x, x, x.T), (y, y.T, y)):
+        want = a.double() @ b.double()
+        size = a.double().abs() @ b.double().abs()
+        assert float(((got.double() - want).abs() - 1e-5 * size).max()) <= 0
 
 
 def _rglru_bwd_grads(fn, a, bx, h0, dhs):

@@ -8,7 +8,11 @@ differentiate in training) and against torch autograd through the port's
 `ref.py`, on the same seeded numpy inputs: f32 within 2e-5 (atol = rtol,
 tests/test_kernels.py:15-18), the atol relative to each gradient's
 largest value (the sums run in other orders); bf16 inputs within 2e-2.
-The cases take ragged shapes, mamba's gradient of h_S (which the JAX
+The bf16 moe_gmm backward kernel's own rounding (A, dG and dU rounded to
+bf16 between its f32 sums, ROADMAP Queue 3 B6) is held, as a plain
+function, to `jax.vjp` of the JAX package's f32 reference within 2e-2
+of each gradient's largest value.  The cases take ragged shapes, mamba's
+gradient of h_S (which the JAX
 function does not return, so only autograd holds it), rglru's dh0 and
 empty MoE capacity rows (zero h rows give zero dh rows whatever their
 output gradient).
@@ -111,6 +115,50 @@ def test_moe_gmm_bwd_ref_equals_jax_vjp_and_autograd(case, dtype):
     # empty capacity rows: zero dh, though their dout is not zero
     assert not got[0][:, C - C // 4:].any()
     assert np.abs(dout[:, C - C // 4:]).max() > 0
+
+
+def _rounded_gmm_backward(h, wg, wu, wd, dout):
+    """The bf16 backward kernel's arithmetic (B6): G = h Wg, U = h Wu and
+    dA = dout Wd^T summed in f32 from the bf16 inputs; A, dG and dU
+    rounded to bf16; dWd = A^T dout, dWg = h^T dG, dWu = h^T dU and dh =
+    dG Wg^T + dU Wu^T summed in f32 from those rounded values; each
+    gradient rounded once to bf16."""
+    h32, wg32, wu32, wd32, d32 = (t.float() for t in (h, wg, wu, wd, dout))
+    g = torch.einsum("ecd,edf->ecf", h32, wg32)
+    u = torch.einsum("ecd,edf->ecf", h32, wu32)
+    da = torch.einsum("ecd,efd->ecf", d32, wd32)
+    s = torch.sigmoid(g)
+    silu = g * s
+    a, dg, du = (t.bfloat16().float() for t in (
+        silu * u, da * u * (s * (1 + g * (1 - s))), da * silu))
+    dh = (torch.einsum("ecf,edf->ecd", dg, wg32)
+          + torch.einsum("ecf,edf->ecd", du, wu32))
+    return tuple(t.bfloat16() for t in (
+        dh, torch.einsum("ecd,ecf->edf", h32, dg),
+        torch.einsum("ecd,ecf->edf", h32, du),
+        torch.einsum("ecf,ecd->efd", a, d32)))
+
+
+@pytest.mark.parametrize("case", GMM_CASES)
+def test_moe_gmm_bf16_backward_rounding_is_within_bf16_tolerance(case):
+    """dh, dWg, dWu, dWd of the bf16 kernel's arithmetic on bf16 inputs
+    against jax.vjp of the JAX package's `moe_gmm_ref` (f32 on the same
+    values) within 2e-2 of each gradient's largest value plus 2e-2 of its
+    own; empty capacity rows give zero dh."""
+    E, C, D, F = case
+    ins, dout = _gmm_inputs(*case, seed=sum(case) + 1, empty=C // 4)
+    tins = [torch.from_numpy(a).bfloat16() for a in ins]
+    tdout = torch.from_numpy(dout).bfloat16()
+    got = _rounded_gmm_backward(*tins, tdout)
+    want = _jax_vjp(j_moe_gmm_ref,
+                    [jnp.asarray(t.float().numpy()) for t in tins],
+                    jnp.asarray(tdout.float().numpy()))
+    for name, g, w, t in zip(("dh", "dwg", "dwu", "dwd"), got, want, tins):
+        assert g.dtype == torch.bfloat16 and g.shape == t.shape, name
+        w = np.asarray(w)
+        np.testing.assert_allclose(g.float().numpy(), w, rtol=2e-2,
+                                   atol=2e-2 * np.abs(w).max(), err_msg=name)
+    assert not got[0][:, C - C // 4:].any()
 
 
 # ---------------- rglru_scan ------------------------------------------------

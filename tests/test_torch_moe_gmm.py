@@ -9,7 +9,8 @@ version (D and F cut into interleaved slices, added in a fixed order);
 that order, written out here in plain torch, is held to the same
 references at the same tolerances, and `kernel.plan`, which picks the
 kernel's rows per block and load width, is checked at the model's
-shapes.
+shapes.  The backward's source includes its wgmma header, which keys its
+library.
 """
 import jax.numpy as jnp
 import numpy as np
@@ -19,7 +20,13 @@ import torch
 from repro.kernels.moe_gmm import moe_gmm as j_gmm
 from repro.kernels.moe_gmm import moe_gmm_ref as j_ref
 from repro_torch.kernels.moe_gmm import moe_gmm, moe_gmm_ref
-from repro_torch.kernels.moe_gmm.kernel import LANES_X, WARPS, plan
+from repro_torch.kernels import library_path
+from repro_torch.kernels.moe_gmm.kernel import (
+    BWD_SOURCE,
+    LANES_X,
+    WARPS,
+    plan,
+)
 
 DTYPES = {"float32": (jnp.float32, torch.float32),
           "bfloat16": (jnp.bfloat16, torch.bfloat16)}
@@ -135,3 +142,16 @@ def test_kernel_summation_order_matches_jax_kernel_and_ref(
 ])
 def test_plan(case, want):
     assert tuple(plan(*case)) == want
+
+
+def test_backward_source_includes_its_wgmma_header(tmp_path):
+    """The backward's source includes the header of wgmma pieces beside
+    it, whose bytes key the backward's library (nvcc is not given it)."""
+    header = BWD_SOURCE.with_name("moe_wgmma.cuh")
+    assert '#include "moe_wgmma.cuh"' in BWD_SOURCE.read_text()
+    src = tmp_path / BWD_SOURCE.name
+    src.write_bytes(BWD_SOURCE.read_bytes())
+    (tmp_path / header.name).write_bytes(header.read_bytes())
+    first = library_path("moe_gmm_bwd", [src])
+    (tmp_path / header.name).write_bytes(header.read_bytes() + b"\n")
+    assert library_path("moe_gmm_bwd", [src]) != first

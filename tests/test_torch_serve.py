@@ -182,10 +182,19 @@ class TestGoldenData:
 
 
 def test_cli_serves_on_cpu(capsys):
-    serve_cli.main(["--device", "cpu", "--requests", "3", "--slots", "2",
-                    "--max-new", "4"])
+    serve_cli.main(["--device", "cpu", "--arch", "qwen3-moe-30b-a3b",
+                    "--requests", "3", "--slots", "2", "--max-new", "4"])
     out = capsys.readouterr().out
     assert "[serve] qwen3-moe-30b-a3b on cpu: 3 requests, 12 tokens" in out
+
+
+def test_cli_defaults_to_the_reference_arch(capsys):
+    """With no --arch the launcher serves smollm-360m, as
+    repro.launch.serve does."""
+    serve_cli.main(["--device", "cpu", "--requests", "2", "--slots", "2",
+                    "--max-new", "3"])
+    out = capsys.readouterr().out
+    assert "[serve] smollm-360m on cpu: 2 requests, 6 tokens" in out
 
 
 @pytest.mark.parametrize("arch", RECURRENT)

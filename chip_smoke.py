@@ -41,8 +41,10 @@ raising:
    and deepseek-moe E 64, C 480, F 1408, bf16; recurrentgemma B 1, S 4096,
    D 2560, f32; falcon-mamba B 1, S 4096, D 8192, N 16, x bf16), a small
    f32 row and a ragged row each; timed (events and profiler; rglru's
-   three passes apart) beside the bound, the plain version's backward,
-   mamba's SFU floor, and for moe_gmm autograd through three `torch.bmm`
+   three passes and mamba's four apart) beside the bound, the plain
+   version's backward, mamba's SFU floor for its design's two
+   exponentials a state and step, its bytes and its passes' resident
+   blocks an SM, and for moe_gmm autograd through three `torch.bmm`
    (`bmm_trio_bwd_ms`), a yardstick never on the path.  moe_gmm_bwd runs
    its wgmma probe first (its tile products in the three operand
    orientations, from 16-byte copies and from element loads, against
@@ -178,11 +180,13 @@ raising:
    silu in the row's type (it rounds g and u to that type).
 10. mamba_scan: the same at tests/test_kernels.py:47-53 (f32 1e-4, bf16
    2e-2) and at falcon-mamba-7b's prefill (B 1, D 8192, N 16; S 512 with
-   x bf16 or f32 beside f32 dt, B, C, and S 134 with x bf16), y and the
-   final state h_S at 1e-4, the same bits from a second call; each model
-   row with the floor of its exponentials on the SFU (`sfu_floor_ms`: 16
-   a clock an SM at the SM clock nvidia-smi reads while the kernel runs),
-   the design's bytes and `bound_share` (bound / device ms).
+   x bf16 or f32 beside f32 dt, B, C, and S 134 with x bf16) and training
+   shape (S 4096, x bf16), y and the final state h_S at 1e-4, the same
+   bits from a second call and from a call that also keeps the chunk
+   states (held at 1e-4, timed apart: `states_ms`); each model row with
+   the floor of its exponentials on the SFU (`sfu_floor_ms`: 16 a clock
+   an SM at the SM clock nvidia-smi reads while the kernel runs), the
+   design's bytes and `bound_share` (bound / device ms).
 11. rglru_scan: the same at tests/test_kernels.py:73-75 and at
    recurrentgemma-2b's longest and shortest prefills (B 1, S 3300 and
    900, D 2560) and at a 32,768-token prompt, where the carries' cost
@@ -1939,10 +1943,14 @@ def phase_mamba_scan_bwd() -> dict:
     to the explicit backward `mamba_scan_bwd_ref` (autograd through the
     plain version's 4,096 steps would keep ~10 GB), a small f32 row (S
     512) and a ragged row (S 300, D 1000), held to autograd through
-    `mamba_scan_ref`; bit for bit against a second run; timed beside its
-    bound (~22 f32 operations a state and step) and the floor of its
-    exponentials on the SFU at the sampled SM clock (one a state and
-    step; the design computes three)."""
+    `mamba_scan_ref`; bit for bit against a second run.  The backward
+    reads the forward's chunk states (`mamba_scan_fwd(..., states=True)`,
+    made once a row).  Timed (the four passes together and each) beside
+    its bound (~22 f32 operations a state and step), the floor of the
+    design's exponentials on the SFU at the sampled SM clock (two a state
+    and step: the local pass's and the rebuild's; the function needs
+    one), the bytes the design moves and each pass's resident blocks an
+    SM (`cudaOccupancyMaxActiveBlocksPerMultiprocessor`)."""
     import math
 
     import torch
@@ -1950,6 +1958,7 @@ def phase_mamba_scan_bwd() -> dict:
     from repro_torch.kernels.mamba_scan import kernel as mk
     from repro_torch.kernels.mamba_scan.ops import mamba_scan
     from repro_torch.kernels.mamba_scan.ref import (
+        STATE_CHUNK,
         mamba_scan_bwd_ref,
         mamba_scan_ref,
     )
@@ -1970,7 +1979,8 @@ def phase_mamba_scan_bwd() -> dict:
         dhs = _randn((B, D, N), gen, torch.float32) if with_hs else None
         what = (f"mamba_scan_bwd B={B} S={S} D={D} N={N} x {_dname(x_dtype)}"
                 f" p {_dname(p_dtype)} dhS={with_hs}")
-        fn = lambda: mk.mamba_scan_bwd(*args, dy, dhs)  # noqa: E731
+        states = mk.mamba_scan_fwd(*args, states=True)[2]
+        fn = lambda: mk.mamba_scan_bwd(*args, dy, dhs, states)  # noqa: E731
         tol_dtype = torch.bfloat16 if torch.bfloat16 in (x_dtype, p_dtype) \
             else torch.float32
         out = dict(x_dtype=_dname(x_dtype), p_dtype=_dname(p_dtype), B=B,
@@ -1989,13 +1999,31 @@ def phase_mamba_scan_bwd() -> dict:
                       + 8 * D * N + 8 * D + (4 * B * D * N if with_hs else 0))
             ops = 22 * B * S * D * N
             bound_ms, bound_by = _bound(nbytes, ops, torch.float32)
+            for p_ in mk.BWD_PASSES:
+                out[f"{p_}_device_ms"] = _device_ms(fn, (p_,), reps=5)
             mhz = _sm_clock_mhz(fn, calls=200)
-            exps = B * S * D * N
+            # the design's: the local pass's and the rebuild's
+            exps = 2 * B * S * D * N
+            # the design's bytes besides the function's: the chunk states
+            # read; dt, dy read again by the local pass; its ends and
+            # decays a 64-step chunk written, read by the carry pass, which
+            # writes the carries over the ends, read by the main pass; dA's
+            # partials a span of two chunks, dB's and dC's a channel block,
+            # each written and read once
+            nc, ns = -(-S // 64), -(-S // STATE_CHUNK)
+            nsp, nblk = -(-nc // 2), -(-D // (64 if N <= 16 else 32))
+            design = (nbytes + 4 * B * ns * D * N + B * S * D * (ps + 4)
+                      + 4 * B * D * N * (6 * nc + 2 * nsp)
+                      + 16 * B * nblk * S * N)
             out.update(bound_ms=bound_ms, bound_by=bound_by, library_ms=None,
-                       exps=exps, sm_clock_mhz=mhz,
+                       exps_per_state_step=2, exps=exps, sm_clock_mhz=mhz,
                        sfu_floor_ms=exps / (SFU_PER_CLOCK * SMS * mhz * 1e6)
-                       * 1e3)
-        del args, dy, dhs
+                       * 1e3,
+                       design_bytes=design,
+                       design_ms=design / HBM_BYTES_PER_S * 1e3,
+                       resident_blocks_per_sm=mk.bwd_occupancy(
+                           x_dtype, p_dtype, N))
+        del args, dy, dhs, states
         torch.cuda.empty_cache()
         return out
 
@@ -2312,9 +2340,9 @@ ARCH_TRAIN_RUNS = [
 ]
 ARCH_TRAIN_STEPS, ARCH_TRAIN_BATCH, ARCH_TRAIN_SEQ = 10, 1, 4096
 # AdamW's peak lr: the launcher's 1e-3, but 3e-4 for falcon-mamba, whose
-# 30-layer cut's loss rose after the warmup at 1e-3, while at 8 layers its
-# runs through the kernels and through the plain versions followed each
-# other there (PERF.md §6)
+# 30-layer cut's loss rose after the warmup at 1e-3; the JAX package's
+# loss rises the same way there (tests/torch_u1_lr_check.py; ROADMAP
+# Queue 3, U1, by design)
 ARCH_TRAIN_LR = {"falcon-mamba-7b": 3e-4}
 
 
@@ -2573,9 +2601,13 @@ def phase_mamba_scan() -> dict:
     """The selective scan at the sweep of tests/test_kernels.py:47-53 and
     at falcon-mamba-7b's prefill (B 1, D 8192, N 16) at S 512 and 134 (its
     longest and shortest prompts): the model's types (x bf16; dt, B, C
-    f32) and, at S 512, all f32.  y and the final state h_S against the
-    plain version; times; the function's bound beside the floor of its
-    exponentials on the SFU; no library call computes a selective scan."""
+    f32) and, at S 512, all f32; and at its training shape, S 4096.  y
+    and the final state h_S against the plain version; times; the
+    function's bound beside the floor of its exponentials on the SFU; no
+    library call computes a selective scan.  Each model row also runs
+    with the chunk states the training path keeps (`states=True`): y and
+    h_S the same bits, the states within 1e-4 of the plain version's,
+    timed apart (`states_ms`, `states_device_ms`)."""
     import math
 
     import torch
@@ -2606,7 +2638,7 @@ def phase_mamba_scan() -> dict:
     rows = []
     B, D, N = 1, 8192, 16
     for S, x_dtype in ((512, torch.bfloat16), (512, torch.float32),
-                       (134, torch.bfloat16)):
+                       (134, torch.bfloat16), (4096, torch.bfloat16)):
         # the model's draws: A = -(1..N) (S4D-real), D = 1, dt = softplus
         # of the projection plus a bias set for steps in [1e-3, 1e-1]
         x = _randn((B, S, D), gen, x_dtype)
@@ -2625,9 +2657,19 @@ def phase_mamba_scan() -> dict:
         y2, h2 = mamba_scan(*args)
         _check(torch.equal(y, y2) and torch.equal(h, h2),
                f"{what} not deterministic")
+        ky, kh, states = mamba_scan_fwd(*args, states=True)
+        _check(torch.equal(y, ky) and torch.equal(h, kh),
+               f"{what}: y, h_S moved with the chunk states")
+        err = max(err, _held(states, mamba_scan_ref(*args, states=True)[2],
+                             x_dtype, what + " states", 1e-4))
+        del ky, kh, states
         fn = lambda: mamba_scan_fwd(*args)  # noqa: E731
+        fn_states = lambda: mamba_scan_fwd(*args, states=True)  # noqa: E731
         ms = _cuda_ms(fn, reps=20)
         device_ms = _device_ms(fn, ("mamba_scan_fwd",), reps=20)
+        states_ms = _cuda_ms(fn_states, reps=20)
+        states_device_ms = _device_ms(fn_states, ("mamba_scan_fwd",),
+                                      reps=20)
         plain_ms = _cuda_ms(lambda: mamba_scan_ref(*args), reps=3, warmup=1)
         mhz = _sm_clock_mhz(fn, calls=4000)
         # x, dt read once, y written once; B, C per step; A, D, h_S
@@ -2641,7 +2683,10 @@ def phase_mamba_scan() -> dict:
         exps = B * S * D * N
         rows.append(dict(x_dtype=_dname(x_dtype), p_dtype="float32", B=B,
                          S=S, D=D, N=N, max_abs_err=err, ms=ms,
-                         device_ms=device_ms, plain_ms=plain_ms,
+                         device_ms=device_ms, states_ms=states_ms,
+                         states_device_ms=states_device_ms,
+                         states_bytes=4 * B * -(-S // 16) * D * N,
+                         plain_ms=plain_ms,
                          library_ms=None, bound_ms=bound_ms,
                          bound_by=bound_by,
                          bound_share=(bound_ms / device_ms

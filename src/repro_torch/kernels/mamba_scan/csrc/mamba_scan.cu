@@ -11,6 +11,17 @@
 // from its own scan, ssm.py:117-118).  The function is otherwise the
 // same.
 //
+// Chunk states, on request.  Given a non-null `states` (B, ceil(S / 16),
+// D, N) f32, the launch runs the kernel's kSave instantiation, which also
+// writes the state before each chunk of kChunk = 16 steps (h_{-1} = 0
+// before the first): the state it holds in registers there anyway.  The
+// backward (mamba_scan_bwd.cu) rebuilds each chunk's states from them
+// instead of walking the forward again, so MambaScanFn asks for them only
+// when autograd records.  Serving passes null and runs the kernel without
+// the stores, unchanged.  The stores are 4 B a state every 16 steps (134
+// MB at falcon-mamba's training shape, B 1, S 4096, D 8192, N 16); y and
+// h_S are the same bits either way.
+//
 // Bound.  Per (b, t, d) the kernel reads x and dt once and writes y
 // once, and per (b, t) it reads B and C; A, D and h_S are small.  At
 // falcon-mamba-7b's prefill (B 1, S 512, D 8192, N 16, x bf16, the rest
@@ -98,13 +109,14 @@ __device__ __forceinline__ float ex2(float x) {
 
 // Two blocks an SM (falcon-mamba's 256 blocks on 132 SMs): without the
 // minimum ptxas cut registers for occupancy and spilled at N 16.
-template <typename TX, typename TP, int NP>
+template <typename TX, typename TP, int NP, bool kSave>
 __global__ void __launch_bounds__(Split<NP>::kThreads, 2)
 mamba_scan_fwd(const TX* __restrict__ x, const TP* __restrict__ dt,
                const TP* __restrict__ bm, const TP* __restrict__ cm,
                const float* __restrict__ a, const float* __restrict__ dskip,
-               float* __restrict__ y, float* __restrict__ h_last, int s_len,
-               int dim, int n_state) {
+               float* __restrict__ y, float* __restrict__ h_last,
+               float* __restrict__ states,   // kSave: the chunk states
+               int s_len, int dim, int n_state) {
   constexpr int K = Split<NP>::K, L = Split<NP>::L;
   constexpr int NT = Split<NP>::kThreads;
   constexpr int kXD = kChunk * kChannels / NT;      // x, dt a thread stages
@@ -112,6 +124,8 @@ mamba_scan_fwd(const TX* __restrict__ x, const TP* __restrict__ dt,
   __shared__ float xs[2][kChunk][kChannels], ds[2][kChunk][kChannels];
   __shared__ float ys[2][kChunk][kChannels];
   __shared__ float bs[2][kChunk][NP], cs[2][kChunk][NP];
+  // kSave: the state before the chunk, drained with its y
+  __shared__ float hs[kSave ? 2 : 1][kChannels][NP];
 
   const int tid = threadIdx.x;
   const int c = tid / L;   // channel within the block
@@ -201,17 +215,34 @@ mamba_scan_fwd(const TX* __restrict__ x, const TP* __restrict__ dt,
   };
 
   const int n_chunks = (s_len + kChunk - 1) / kChunk;
+  // kSave: h before chunk q into hs[buf], then from there into the chunk
+  // states as rows of the block's channels
+  auto keep = [&](int buf) {
+#pragma unroll
+    for (int k = 0; k < K; ++k) hs[buf][c][j * K + k] = h[k];
+  };
+  auto save = [&](int buf, int q) {
+    float* row = states + (static_cast<size_t>(b) * n_chunks + q) * dim
+                 * n_state;
+    for (int e = tid; e < kChannels * NP; e += NT) {
+      const int cc = e / NP, nn = e % NP;
+      if (d0 + cc < dim && nn < n_state)
+        row[static_cast<size_t>(d0 + cc) * n_state + nn] = hs[buf][cc][nn];
+    }
+  };
   fetch(0);
   stage(0);
   __syncthreads();
   for (int q = 0; q < n_chunks; ++q) {
     const int buf = q & 1;
     const bool more = q + 1 < n_chunks;
+    if constexpr (kSave) keep(buf);
     if (more) fetch((q + 1) * kChunk);
     run(buf);
     if (more) stage(buf ^ 1);
     __syncthreads();   // ys[buf] complete; the other half staged
     drain(buf, q * kChunk);
+    if constexpr (kSave) save(buf, q);
   }
 #pragma unroll
   for (int k = 0; k < K; ++k) {
@@ -224,22 +255,26 @@ mamba_scan_fwd(const TX* __restrict__ x, const TP* __restrict__ dt,
 template <typename TX, typename TP, int NP>
 int launch_np(const void* x, const void* dt, const void* bm, const void* cm,
               const float* a, const float* dskip, float* y, float* h_last,
-              int bsz, int s_len, int dim, int n_state, cudaStream_t st) {
+              float* states, int bsz, int s_len, int dim, int n_state,
+              cudaStream_t st) {
   const dim3 grid((dim + kChannels - 1) / kChannels, bsz);
-  mamba_scan_fwd<TX, TP, NP><<<grid, Split<NP>::kThreads, 0, st>>>(
+  const auto kernel = states != nullptr ? mamba_scan_fwd<TX, TP, NP, true>
+                                        : mamba_scan_fwd<TX, TP, NP, false>;
+  kernel<<<grid, Split<NP>::kThreads, 0, st>>>(
       static_cast<const TX*>(x), static_cast<const TP*>(dt),
       static_cast<const TP*>(bm), static_cast<const TP*>(cm), a, dskip, y,
-      h_last, s_len, dim, n_state);
+      h_last, states, s_len, dim, n_state);
   return static_cast<int>(cudaGetLastError());
 }
 
 template <typename TX, typename TP>
 int launch(const void* x, const void* dt, const void* bm, const void* cm,
            const float* a, const float* dskip, float* y, float* h_last,
-           int bsz, int s_len, int dim, int n_state, cudaStream_t st) {
+           float* states, int bsz, int s_len, int dim, int n_state,
+           cudaStream_t st) {
 #define MAMBA_LAUNCH(NP)                                                   \
-  return launch_np<TX, TP, NP>(x, dt, bm, cm, a, dskip, y, h_last, bsz,   \
-                               s_len, dim, n_state, st)
+  return launch_np<TX, TP, NP>(x, dt, bm, cm, a, dskip, y, h_last, states, \
+                               bsz, s_len, dim, n_state, st)
   if (n_state <= 1) MAMBA_LAUNCH(1);
   if (n_state <= 2) MAMBA_LAUNCH(2);
   if (n_state <= 4) MAMBA_LAUNCH(4);
@@ -252,14 +287,14 @@ int launch(const void* x, const void* dt, const void* bm, const void* cm,
 template <typename TX>
 int launch_p(const void* x, const void* dt, const void* bm, const void* cm,
              const float* a, const float* dskip, float* y, float* h_last,
-             int p_dtype, int bsz, int s_len, int dim, int n_state,
-             cudaStream_t st) {
+             float* states, int p_dtype, int bsz, int s_len, int dim,
+             int n_state, cudaStream_t st) {
   if (p_dtype == 0)
-    return launch<TX, float>(x, dt, bm, cm, a, dskip, y, h_last, bsz, s_len,
-                             dim, n_state, st);
+    return launch<TX, float>(x, dt, bm, cm, a, dskip, y, h_last, states, bsz,
+                             s_len, dim, n_state, st);
   if (p_dtype == 1)
-    return launch<TX, __nv_bfloat16>(x, dt, bm, cm, a, dskip, y, h_last, bsz,
-                                     s_len, dim, n_state, st);
+    return launch<TX, __nv_bfloat16>(x, dt, bm, cm, a, dskip, y, h_last,
+                                     states, bsz, s_len, dim, n_state, st);
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
@@ -268,14 +303,15 @@ int launch_p(const void* x, const void* dt, const void* bm, const void* cm,
 extern "C" {
 
 // y (B, S, D) f32 and h_last (B, D, N) f32 from x (B, S, D), dt (B, S, D),
-// bm and cm (B, S, N), a (D, N) f32 and dskip (D,) f32, all contiguous.
-// x_dtype is x's type, p_dtype that of dt, bm and cm: 0 f32, 1 bf16.
-// 1 <= N <= 32.  Launches on `stream`; returns the cudaError_t of the
-// launch (0 = success).
+// bm and cm (B, S, N), a (D, N) f32 and dskip (D,) f32, all contiguous;
+// and, where `states` is not null, the state before each 16-step chunk
+// into it, (B, ceil(S / 16), D, N) f32.  x_dtype is x's type, p_dtype
+// that of dt, bm and cm: 0 f32, 1 bf16.  1 <= N <= 32.  Launches on
+// `stream`; returns the cudaError_t of the launch (0 = success).
 int mamba_scan_launch(const void* x, const void* dt, const void* bm,
                       const void* cm, const void* a, const void* dskip,
-                      void* y, void* h_last, int x_dtype, int p_dtype,
-                      int bsz, int s_len, int dim, int n_state,
+                      void* y, void* h_last, void* states, int x_dtype,
+                      int p_dtype, int bsz, int s_len, int dim, int n_state,
                       void* stream) {
   if (bsz < 1 || bsz > 65535 || s_len < 1 || dim < 1 || n_state < 1 ||
       n_state > kMaxState)
@@ -285,12 +321,13 @@ int mamba_scan_launch(const void* x, const void* dt, const void* bm,
   const float* df = static_cast<const float*>(dskip);
   float* yf = static_cast<float*>(y);
   float* hf = static_cast<float*>(h_last);
+  float* sf = static_cast<float*>(states);
   if (x_dtype == 0)
-    return launch_p<float>(x, dt, bm, cm, af, df, yf, hf, p_dtype, bsz,
+    return launch_p<float>(x, dt, bm, cm, af, df, yf, hf, sf, p_dtype, bsz,
                            s_len, dim, n_state, st);
   if (x_dtype == 1)
-    return launch_p<__nv_bfloat16>(x, dt, bm, cm, af, df, yf, hf, p_dtype,
-                                   bsz, s_len, dim, n_state, st);
+    return launch_p<__nv_bfloat16>(x, dt, bm, cm, af, df, yf, hf, sf,
+                                   p_dtype, bsz, s_len, dim, n_state, st);
   return static_cast<int>(cudaErrorInvalidValue);
 }
 

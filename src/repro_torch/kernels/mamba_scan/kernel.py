@@ -13,11 +13,14 @@ bfloat16 (the model passes the compute dtype), ``dt``, ``Bm`` and
 ``Cm`` in one type, float32 or bfloat16 (the model passes float32,
 ssm.py:54-55), ``A`` and ``D`` in float32.
 
-`mamba_scan_bwd` binds the backward (``csrc/mamba_scan_bwd.cu``, a
-library of its own): the six inputs' gradients from the forward's inputs,
-y's gradient and h_S's, two kernels (``mamba_scan_bwd`` and
-``mamba_scan_bwd_sum``, which adds the blocks' partial sums) counted once
-under ``mamba_scan_bwd``.
+`mamba_scan_fwd(..., states=True)` also returns the forward's chunk
+states, the state before every `STATE_CHUNK` steps, which the backward
+reads; serving does not ask for them.  `mamba_scan_bwd` binds the
+backward (``csrc/mamba_scan_bwd.cu``, a library of its own): the six
+inputs' gradients from the forward's inputs, its chunk states, y's
+gradient and h_S's, four kernels (`BWD_PASSES`: a local pass and a carry
+pass over 64-step chunks, the main pass and the sum of the blocks'
+partials) counted once under ``mamba_scan_bwd``.
 """
 from __future__ import annotations
 
@@ -28,6 +31,7 @@ from typing import Optional, Tuple
 import torch
 
 from repro_torch.kernels import build_library, launch_counts
+from repro_torch.kernels.mamba_scan.ref import STATE_CHUNK
 
 NAME = "mamba_scan"
 SOURCE = Path(__file__).resolve().parent / "csrc" / "mamba_scan.cu"
@@ -35,6 +39,9 @@ BWD_NAME = "mamba_scan_bwd"
 BWD_SOURCE = SOURCE.with_name("mamba_scan_bwd.cu")
 DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 MAX_STATE = 32      # 16 lanes of 2 states a channel (csrc/mamba_scan.cu)
+# the backward's kernels, by the names the profiler shows
+BWD_PASSES = ("mamba_scan_bwd_local", "mamba_scan_bwd_carry",
+              "mamba_scan_bwd_main", "mamba_scan_bwd_sum")
 
 _lib = None
 _bwd_lib = None
@@ -47,7 +54,7 @@ def library() -> ctypes.CDLL:
         lib = build_library(NAME, [SOURCE])
         ptr, i32 = ctypes.c_void_p, ctypes.c_int
         lib.mamba_scan_launch.argtypes = [
-            ptr, ptr, ptr, ptr, ptr, ptr, ptr, ptr,
+            ptr, ptr, ptr, ptr, ptr, ptr, ptr, ptr, ptr,
             i32, i32, i32, i32, i32, i32, ptr,
         ]
         lib.mamba_scan_launch.restype = i32
@@ -59,14 +66,25 @@ def bwd_library() -> ctypes.CDLL:
     """Build (once per source content) and load the backward's library."""
     global _bwd_lib
     if _bwd_lib is None:
-        lib = build_library(BWD_NAME, [BWD_SOURCE])
-        ptr, i32 = ctypes.c_void_p, ctypes.c_int
-        lib.mamba_scan_bwd_launch.argtypes = [ptr] * 15 + [i32] * 6 + [ptr]
-        lib.mamba_scan_bwd_launch.restype = i32
-        lib.mamba_scan_bwd_scratch_floats.argtypes = [i32] * 4
-        lib.mamba_scan_bwd_scratch_floats.restype = ctypes.c_longlong
-        _bwd_lib = lib
+        _bwd_lib = bind_bwd(build_library(BWD_NAME, [BWD_SOURCE]))
     return _bwd_lib
+
+
+def bind_bwd(lib: ctypes.CDLL) -> ctypes.CDLL:
+    """Declare the backward library's C entry points."""
+    ptr, i32 = ctypes.c_void_p, ctypes.c_int
+    lib.mamba_scan_bwd_launch.argtypes = [ptr] * 16 + [i32] * 6 + [ptr]
+    lib.mamba_scan_bwd_launch.restype = i32
+    lib.mamba_scan_bwd_scratch_floats.argtypes = [i32] * 4
+    lib.mamba_scan_bwd_scratch_floats.restype = ctypes.c_longlong
+    lib.mamba_scan_bwd_occupancy.argtypes = [i32, i32, i32, ptr]
+    lib.mamba_scan_bwd_occupancy.restype = i32
+    lib.mamba_scan_bwd_state_steps.restype = i32
+    if lib.mamba_scan_bwd_state_steps() != STATE_CHUNK:
+        raise RuntimeError("mamba_scan_bwd.cu reads states every "
+                           f"{lib.mamba_scan_bwd_state_steps()} steps, the "
+                           f"forward saves them every {STATE_CHUNK}")
+    return lib
 
 
 def _check(x, dt, Bm, Cm, A, D) -> None:
@@ -96,11 +114,18 @@ def _check(x, dt, Bm, Cm, A, D) -> None:
             raise ValueError(f"{name} must be contiguous")
 
 
+def state_shape(x: torch.Tensor, A: torch.Tensor) -> Tuple[int, ...]:
+    """(B, ceil(S / STATE_CHUNK), D, N): the forward's chunk states."""
+    bsz, s, d = x.shape
+    return (bsz, -(-s // STATE_CHUNK), d, A.shape[1])
+
+
 def mamba_scan_fwd(x: torch.Tensor, dt: torch.Tensor, Bm: torch.Tensor,
-                   Cm: torch.Tensor, A: torch.Tensor,
-                   D: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+                   Cm: torch.Tensor, A: torch.Tensor, D: torch.Tensor,
+                   states: bool = False) -> Tuple[torch.Tensor, ...]:
     """The selective scan on the card; returns (y (B, S, D), h_S
-    (B, D, N)), both float32."""
+    (B, D, N)), both float32, and with `states` the chunk states
+    (`state_shape`, float32) too."""
     _check(x, dt, Bm, Cm, A, D)
     lib = library()
     bsz, s, d = x.shape
@@ -108,28 +133,49 @@ def mamba_scan_fwd(x: torch.Tensor, dt: torch.Tensor, Bm: torch.Tensor,
     with torch.cuda.device(x.device):
         y = torch.empty((bsz, s, d), dtype=torch.float32, device=x.device)
         h = torch.empty((bsz, d, n), dtype=torch.float32, device=x.device)
+        kept = torch.empty(state_shape(x, A), dtype=torch.float32,
+                           device=x.device) if states else None
         stream = torch.cuda.current_stream(x.device).cuda_stream
         err = lib.mamba_scan_launch(
             x.data_ptr(), dt.data_ptr(), Bm.data_ptr(), Cm.data_ptr(),
             A.data_ptr(), D.data_ptr(), y.data_ptr(), h.data_ptr(),
+            None if kept is None else kept.data_ptr(),
             DTYPES[x.dtype], DTYPES[dt.dtype], bsz, s, d, n, stream)
     if err:
         raise RuntimeError(f"mamba_scan launch failed: cudaError_t {err}")
     launch_counts[NAME] += 1
-    return y, h
+    return (y, h, kept) if states else (y, h)
+
+
+def bwd_occupancy(x_dtype: torch.dtype, p_dtype: torch.dtype, n: int,
+                  lib: Optional[ctypes.CDLL] = None) -> dict:
+    """Resident blocks an SM of each of the backward's passes for these
+    types and N (cudaOccupancyMaxActiveBlocksPerMultiprocessor), of `lib`
+    (by default `bwd_library()`)."""
+    blocks = (ctypes.c_int * len(BWD_PASSES))()
+    err = (lib or bwd_library()).mamba_scan_bwd_occupancy(
+        DTYPES[x_dtype], DTYPES[p_dtype], n, blocks)
+    if err:
+        raise RuntimeError(f"mamba_scan_bwd occupancy: cudaError_t {err}")
+    return dict(zip(BWD_PASSES, blocks))
 
 
 def mamba_scan_bwd(x: torch.Tensor, dt: torch.Tensor, Bm: torch.Tensor,
                    Cm: torch.Tensor, A: torch.Tensor, D: torch.Tensor,
-                   dy: torch.Tensor, dhS: Optional[torch.Tensor] = None
-                   ) -> Tuple[torch.Tensor, ...]:
+                   dy: torch.Tensor, dhS: Optional[torch.Tensor],
+                   states: torch.Tensor) -> Tuple[torch.Tensor, ...]:
     """The backward on the card: (dx in x's dtype; ddt, dBm, dCm in dt's;
     dA (D, N), dD (D,) float32) from the forward's inputs, y's gradient dy
-    (B, S, D) float32 and h_S's, dhS (B, D, N) float32 (None: zero)."""
+    (B, S, D) float32, h_S's, dhS (B, D, N) float32 (None: zero), and the
+    forward's chunk states (`mamba_scan_fwd(..., states=True)`)."""
     _check(x, dt, Bm, Cm, A, D)
     bsz, s, d = x.shape
     n = A.shape[1]
-    for name, t, shape in (("dy", dy, (bsz, s, d)), ("dhS", dhS, (bsz, d, n))):
+    if states is None:
+        raise ValueError("the backward reads the forward's chunk states: "
+                         "mamba_scan_fwd(..., states=True)")
+    for name, t, shape in (("dy", dy, (bsz, s, d)), ("dhS", dhS, (bsz, d, n)),
+                           ("states", states, state_shape(x, A))):
         if t is None:
             continue
         if t.shape != shape or t.dtype != torch.float32:
@@ -137,7 +183,14 @@ def mamba_scan_bwd(x: torch.Tensor, dt: torch.Tensor, Bm: torch.Tensor,
                              f"{shape} float32")
         if t.device != x.device or not t.is_contiguous():
             raise ValueError(f"{name} must be contiguous on {x.device}")
-    lib = bwd_library()
+    return launch_bwd(bwd_library(), x, dt, Bm, Cm, A, D, dy, dhS, states)
+
+
+def launch_bwd(lib: ctypes.CDLL, x, dt, Bm, Cm, A, D, dy, dhS, states):
+    """`mamba_scan_bwd` on a backward library `lib` (bound as
+    `bwd_library` binds it) and inputs it has checked."""
+    bsz, s, d = x.shape
+    n = A.shape[1]
     with torch.cuda.device(x.device):
         dx = torch.empty_like(x)
         ddt, dBm, dCm = (torch.empty_like(t) for t in (dt, Bm, Cm))
@@ -148,7 +201,7 @@ def mamba_scan_bwd(x: torch.Tensor, dt: torch.Tensor, Bm: torch.Tensor,
         stream = torch.cuda.current_stream(x.device).cuda_stream
         err = lib.mamba_scan_bwd_launch(
             x.data_ptr(), dt.data_ptr(), Bm.data_ptr(), Cm.data_ptr(),
-            A.data_ptr(), D.data_ptr(), dy.data_ptr(),
+            A.data_ptr(), D.data_ptr(), states.data_ptr(), dy.data_ptr(),
             None if dhS is None else dhS.data_ptr(), scratch.data_ptr(),
             dx.data_ptr(), ddt.data_ptr(), dBm.data_ptr(), dCm.data_ptr(),
             dA.data_ptr(), dD.data_ptr(), DTYPES[x.dtype], DTYPES[dt.dtype],

@@ -16,24 +16,27 @@ from repro_torch.kernels.mamba_scan.ref import mamba_scan_ref
 class MambaScanFn(torch.autograd.Function):
     """`fwd` as one differentiable function of (x, dt, Bm, Cm, A, D) with
     `bwd` as its backward: on the card the kernels, `mamba_scan_fwd` and
-    `mamba_scan_bwd`.  The forward saves its six inputs; the backward
-    rebuilds the states from them and takes the gradients of both outputs,
-    y and h_S (h_S's None when it is unused)."""
+    `mamba_scan_bwd`.  The forward is asked for its chunk states (the state
+    before every `ref.STATE_CHUNK` steps) and saves them beside its six
+    inputs; the backward rebuilds each chunk's states from them and takes
+    the gradients of both outputs, y and h_S (h_S's None when it is
+    unused)."""
 
     @staticmethod
     def forward(ctx, x, dt, Bm, Cm, A, D, fwd, bwd):
-        y, h = fwd(x, dt, Bm, Cm, A, D)
-        ctx.save_for_backward(x, dt, Bm, Cm, A, D)
+        y, h, states = fwd(x, dt, Bm, Cm, A, D, True)
+        ctx.save_for_backward(x, dt, Bm, Cm, A, D, states)
         ctx.bwd = bwd
         ctx.set_materialize_grads(False)   # an unused h_S's gradient: None
         return y, h
 
     @staticmethod
     def backward(ctx, dy, dhS):
-        dy = torch.zeros_like(ctx.saved_tensors[0], dtype=torch.float32) \
+        *inputs, states = ctx.saved_tensors
+        dy = torch.zeros_like(inputs[0], dtype=torch.float32) \
             if dy is None else dy.contiguous()
         dhS = None if dhS is None else dhS.contiguous()
-        grads = ctx.bwd(*ctx.saved_tensors, dy, dhS)
+        grads = ctx.bwd(*inputs, dy, dhS, states)
         return (*grads, None, None)
 
 
@@ -57,7 +60,8 @@ def mamba_scan(
 
     CUDA tensors launch the Hopper kernel (`kernel.mamba_scan_fwd`,
     which counts the launch); when autograd records, through
-    `MambaScanFn`, whose backward is the backward kernel.  CPU tensors run
+    `MambaScanFn`, whose forward also keeps the chunk states and whose
+    backward is the backward kernel; a serving call keeps none.  CPU tensors run
     `ref.mamba_scan_ref`, which autograd differentiates.  The JAX op picks
     block sizes that divide S and D; the kernels mask ragged edges
     themselves, so none are picked here."""

@@ -24,7 +24,9 @@ seen to launch the wgmma kernels; the forward's lse to torch.logsumexp
 at 2e-5.  The backward kernels of moe_gmm, rglru_scan and mamba_scan
 (training, F3 repaired) are held to autograd through their plain
 versions alike, bit for bit against themselves (moe_gmm's bf16 path
-seen to launch its wgmma kernels alone); a reduced train step of
+seen to launch its wgmma kernels alone, mamba_scan's backward its four
+passes; the mamba forward's chunk states, which its backward reads, to
+the plain version's, and kept only under autograd); a reduced train step of
 smollm, qwen3-moe, falcon-mamba and recurrentgemma on the card matches
 the CPU's within 1e-5, with each kernel's launches counted.
 """
@@ -1122,13 +1124,18 @@ def _mamba_bwd_grads(fn, args, dy, dhs):
 @pytest.mark.parametrize("B,S,D,N,with_hs", [
     (1, 16, 8, 4, False), (2, 32, 16, 4, True), (1, 24, 12, 2, False),
     (2, 16, 8, 8, True), (1, 40, 300, 16, True), (2, 33, 70, 3, False),
-    (1, 20, 16, 32, True), (1, 1, 9, 1, True), (1, 512, 256, 16, False)])
+    (1, 20, 16, 32, True), (1, 1, 9, 1, True), (1, 512, 256, 16, False),
+    # S at the saved states' 16 steps and the passes' 64-step chunks, one
+    # of each short of them and past them; 66 chunks
+    (1, 15, 70, 16, True), (2, 17, 24, 16, False), (1, 63, 9, 5, True),
+    (2, 64, 24, 16, True), (1, 65, 100, 16, False), (1, 197, 40, 32, True),
+    (1, 4165, 64, 16, True)])
 def test_mamba_scan_bwd_matches_plain_autograd(card, B, S, D, N, with_hs,
                                                dtype):
     """dx, ddt, dB, dC, dA, dD through `mamba_scan`'s autograd function
     against autograd through the plain version, with and without h_S's
-    gradient, N from 1 to 32 and ragged S and D; bit for bit on a
-    rerun."""
+    gradient, N from 1 to 32, ragged S and D, S on and beside the chunk
+    boundaries and over 64 chunks; bit for bit on a rerun."""
     args = _mamba_inputs(B, S, D, N, 90, card, dtype)
     dy = _normal((B, S, D), 91, card, torch.float32)
     dhs = _normal((B, D, N), 92, card, torch.float32) if with_hs else None
@@ -1142,6 +1149,70 @@ def test_mamba_scan_bwd_matches_plain_autograd(card, B, S, D, N, with_hs,
         _grad_close(g, w, dtype, name)
     again = _mamba_bwd_grads(mamba_scan, args, dy, dhs)
     assert all(torch.equal(x, y) for x, y in zip(got, again))
+
+
+@pytest.mark.parametrize("B,S,D,N,x_dtype", [
+    (1, 16, 8, 4, torch.float32), (2, 33, 70, 3, torch.float32),
+    (1, 65, 300, 16, torch.bfloat16), (1, 20, 16, 32, torch.float32),
+    (1, 1, 9, 1, torch.float32)])
+def test_mamba_scan_states_match_plain_version(card, B, S, D, N, x_dtype):
+    """The forward's chunk states (the state before every 16 steps)
+    against the plain version's, and y and h_S the same bits as a call
+    that keeps none."""
+    from repro_torch.kernels.mamba_scan.kernel import state_shape
+
+    args = _mamba_inputs(B, S, D, N, 93, card, torch.float32,
+                         x_dtype=x_dtype)
+    y, h = mamba_scan_fwd(*args)
+    ky, kh, states = mamba_scan_fwd(*args, states=True)
+    _, _, want = mamba_scan_ref(*args, states=True)
+    torch.cuda.synchronize()
+    assert torch.equal(y, ky) and torch.equal(h, kh)
+    assert states.shape == want.shape == state_shape(args[0], args[4])
+    torch.testing.assert_close(states, want, atol=1e-4, rtol=1e-4)
+    assert not states[:, 0].any()   # the state before step 0
+
+
+def test_mamba_scan_serving_keeps_no_states(card):
+    """With no grad recorded the op launches the forward kernel once and
+    allocates y and h_S alone; under autograd it keeps the chunk states."""
+    args = _mamba_inputs(1, 512, 256, 16, 94, card, torch.float32)
+    leaves = [t.detach().requires_grad_() for t in args]
+    states_bytes = 4 * 1 * (512 // 16) * 256 * 16
+    out_bytes = 4 * (512 * 256 + 256 * 16)
+    for grad in (False, True):
+        torch.cuda.synchronize()
+        before = torch.cuda.memory_allocated(card)
+        torch.cuda.reset_peak_memory_stats(card)
+        launch_counts.clear()
+        with torch.set_grad_enabled(grad):
+            y, h = mamba_scan(*leaves)
+        torch.cuda.synchronize()
+        grown = torch.cuda.max_memory_allocated(card) - before
+        assert dict(launch_counts) == {"mamba_scan": 1}
+        assert (y.grad_fn is not None) == grad
+        if grad:
+            assert grown >= out_bytes + states_bytes
+        else:
+            assert grown < out_bytes + states_bytes // 2
+        del y, h
+
+
+def test_mamba_scan_bwd_runs_its_passes(card):
+    """The profiler's kernel names: the local, carry, main and sum passes,
+    and no forward walk."""
+    from repro_torch.kernels.mamba_scan.kernel import (
+        BWD_PASSES,
+        mamba_scan_bwd,
+    )
+
+    args = _mamba_inputs(1, 300, 200, 16, 95, card, torch.float32,
+                         x_dtype=torch.bfloat16)
+    states = mamba_scan_fwd(*args, states=True)[2]
+    dy = _normal((1, 300, 200), 96, card, torch.float32)
+    names = _traced_kernels(lambda: mamba_scan_bwd(*args, dy, None, states),
+                            "mamba_scan")
+    assert {n.split("<")[0] for n in names} == set(BWD_PASSES)
 
 
 def test_backward_kernel_wrappers_check_their_inputs(card):
@@ -1163,10 +1234,15 @@ def test_backward_kernel_wrappers_check_their_inputs(card):
     with pytest.raises(ValueError):
         rglru_scan_bwd(a, a, h0, a.cpu())
     args = _mamba_inputs(1, 8, 16, 4, 105, card, torch.float32)
+    states = mamba_scan_fwd(*args, states=True)[2]
     with pytest.raises(ValueError):
-        mamba_scan_bwd(*args, a[:, :4].contiguous())
+        mamba_scan_bwd(*args, a[:, :4].contiguous(), None, states)
     with pytest.raises(ValueError):
-        mamba_scan_bwd(*args, a, torch.zeros(1, 16, 5, device=card))
+        mamba_scan_bwd(*args, a, torch.zeros(1, 16, 5, device=card), states)
+    with pytest.raises(ValueError):   # the forward's chunk states needed
+        mamba_scan_bwd(*args, a, None, None)
+    with pytest.raises(ValueError):
+        mamba_scan_bwd(*args, a, None, states[:, :, :8].contiguous())
 
 
 def test_reduced_train_step_on_the_card_equals_cpu(card):

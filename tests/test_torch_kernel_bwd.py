@@ -20,8 +20,12 @@ output gradient).
 Each `torch.autograd.Function` is also run here with the plain forward
 and the plain backward put in the place of its kernels: its gradients
 equal autograd through `ref.py`, and its backward gives None for the
-arguments that are not tensors.  That holds the wiring the card alone
-would otherwise see.
+arguments that are not tensors; mamba's saves the forward's chunk
+states.  That holds the wiring the card alone would otherwise see.
+The plain mamba forward's chunk states are the walk's own states at
+each chunk start, and the plain backward gives the same bits from them
+as without them; the backward kernel's three passes, written as a plain
+function, agree with the plain backward.
 """
 import jax
 import jax.numpy as jnp
@@ -34,6 +38,7 @@ from repro.kernels.moe_gmm.ref import moe_gmm_ref as j_moe_gmm_ref
 from repro.kernels.rglru_scan.ref import rglru_scan_ref as j_rglru_ref
 from repro_torch.kernels.mamba_scan.ops import MambaScanFn
 from repro_torch.kernels.mamba_scan.ref import (
+    STATE_CHUNK,
     mamba_scan_bwd_ref,
     mamba_scan_ref,
 )
@@ -240,6 +245,145 @@ def test_mamba_scan_bwd_ref_equals_jax_vjp_and_autograd(case, dtype):
         _close(g, p, dtype, f"{name} with dhS vs autograd")
 
 
+# S on and beside the saved states' chunk: 1, T - 1, T, T + 1, 3 T + 5
+T = STATE_CHUNK
+STATE_CASES = MAMBA_CASES + [(1, 1, 6, 4), (2, T - 1, 5, 3), (1, T, 9, 16),
+                             (2, T + 1, 7, 8), (1, 3 * T + 5, 10, 5)]
+
+
+@pytest.mark.parametrize("case", STATE_CASES)
+def test_mamba_scan_ref_states_are_the_walks_chunk_starts(case):
+    """The plain forward's chunk states: zero before step 0, and before
+    step q T the h_S of the same walk over the first q T steps, bit for
+    bit; y and h_S the same bits with and without them."""
+    B, S, D, N = case
+    ins, _ = _mamba_inputs(*case, seed=sum(case) + 7)
+    tins = [torch.from_numpy(a) for a in ins]
+    y, h = mamba_scan_ref(*tins)
+    ky, kh, states = mamba_scan_ref(*tins, states=True)
+    assert torch.equal(y, ky) and torch.equal(h, kh)
+    assert states.shape == (B, -(-S // T), D, N)
+    assert states.dtype == torch.float32 and not states[:, 0].any()
+    for q in range(1, states.shape[1]):
+        head = [t[:, :q * T] if t.dim() == 3 else t for t in tins]
+        assert torch.equal(states[:, q], mamba_scan_ref(*head)[1]), q
+
+
+@pytest.mark.parametrize("dtype", list(DTYPES))
+@pytest.mark.parametrize("case", STATE_CASES)
+def test_mamba_scan_bwd_ref_from_saved_states(case, dtype):
+    """The plain backward given the forward's chunk states: the same bits
+    as without them, and within tolerance of jax.vjp of the JAX
+    package's `mamba_scan_ref` (y's gradient; h_S's beside it held to
+    autograd through the port's)."""
+    ins, (dy, dhS) = _mamba_inputs(*case, seed=sum(case) + 8)
+    pairs = _mamba_pairs(ins, dtype)
+    tins = [t for t, _ in pairs]
+    tdy, tdhs = torch.from_numpy(dy), torch.from_numpy(dhS)
+    states = mamba_scan_ref(*tins, states=True)[2]
+    names = ("dx", "ddt", "dBm", "dCm", "dA", "dD")
+    got = mamba_scan_bwd_ref(*tins, tdy, None, states)
+    for name, g, w in zip(names, got, mamba_scan_bwd_ref(*tins, tdy)):
+        assert torch.equal(g, w), name
+    want = _jax_vjp(j_mamba_ref, [j for _, j in pairs], jnp.asarray(dy))
+    for name, g, w in zip(names, got, want):
+        _close(g, w, dtype, f"{name} from states vs jax.vjp")
+    got = mamba_scan_bwd_ref(*tins, tdy, tdhs, states)
+    for name, g, w in zip(names, got, mamba_scan_bwd_ref(*tins, tdy, tdhs)):
+        assert torch.equal(g, w), f"{name} with dhS"
+    plain = _autograd(mamba_scan_ref, tins, [tdy, tdhs])
+    for name, g, p in zip(names, got, plain):
+        _close(g, p, dtype, f"{name} from states with dhS vs autograd")
+    with pytest.raises(ValueError):
+        mamba_scan_bwd_ref(*tins, tdy, None, states[:, :, :1])
+
+
+# the backward kernel's chunk of its local and carry passes, and the chunks
+# a main-pass block walks (csrc/mamba_scan_bwd.cu: kChunk, kSpan)
+KERNEL_CHUNK, KERNEL_SPAN = 64, 2
+
+
+def _three_pass_bwd(x, dt, Bm, Cm, A, D, dy, dhS, states):
+    """csrc/mamba_scan_bwd.cu's passes in plain torch, all but the lanes'
+    summation order and the approximate exponential: each 64-step chunk's
+    g walked back from zero with the product of its e_t (local pass); the
+    carries into every chunk from dh_S (carry pass); each span of chunks
+    from the carry into its last, its 16-step pieces rebuilt from the
+    forward's chunk states and walked back, ddt's x B term as x times
+    dx's sum over n (main pass); dA and dD summed a span at a time."""
+    Bsz, S, Dd = x.shape
+    T, C = STATE_CHUNK, KERNEL_CHUNK
+    x, dt, Bm, Cm, dy = (t.float() for t in (x, dt, Bm, Cm, dy))
+    nc = -(-S // C)
+    e = torch.exp(dt[..., None] * A)                       # (B, S, D, N)
+    cdy = Cm[:, :, None, :] * dy[..., None]
+    out, decay = [None] * nc, [None] * nc
+    for q in range(1, nc):
+        g = torch.zeros_like(e[:, 0])
+        p = torch.ones_like(g)
+        for t in range(min(S, q * C + C) - 1, q * C - 1, -1):
+            g = e[:, t] * (g + cdy[:, t])
+            p = p * e[:, t]
+        out[q], decay[q] = g, p
+    carry = [None] * nc
+    g = torch.zeros_like(e[:, 0]) if dhS is None else dhS.float()
+    for q in range(nc - 1, 0, -1):
+        carry[q] = g
+        g = out[q] + decay[q] * g
+    carry[0] = g
+    dx, ddt = torch.zeros_like(x), torch.zeros_like(x)
+    dB, dC = torch.zeros_like(Bm), torch.zeros_like(Cm)
+    dA, dD = torch.zeros_like(A), torch.zeros(Dd)
+    for y in range(-(-nc // KERNEL_SPAN)):
+        q_last = min((y + 1) * KERNEL_SPAN, nc) - 1
+        g, sum_a = carry[q_last], torch.zeros_like(A)
+        for qs in range((q_last + 1) * (C // T) - 1,
+                        y * KERNEL_SPAN * (C // T) - 1, -1):
+            if qs * T >= S:
+                continue
+            h, us = states[:, qs], {}
+            steps = range(qs * T, min(S, qs * T + T))
+            for t in steps:
+                us[t] = e[:, t] * h
+                h = us[t] + (dt[:, t] * x[:, t])[..., None] * Bm[:, t, None]
+                dC[:, t] = torch.einsum("bdn,bd->bn", h, dy[:, t])
+            for t in reversed(steps):
+                g = g + cdy[:, t]
+                px = (g * Bm[:, t, None]).sum(-1)
+                gu = g * us[t]
+                dx[:, t] = px * dt[:, t] + dy[:, t] * D
+                ddt[:, t] = x[:, t] * px + (gu * A).sum(-1)
+                sum_a = sum_a + (gu * dt[:, t, :, None]).sum(0)
+                dB[:, t] = torch.einsum("bdn,bd->bn", g, dt[:, t] * x[:, t])
+                g = e[:, t] * g
+        dA = dA + sum_a
+        span = slice(y * KERNEL_SPAN * C, (q_last + 1) * C)
+        dD = dD + (dy[:, span] * x[:, span]).sum((0, 1))
+    return dx, ddt, dB, dC, dA, dD
+
+
+@pytest.mark.parametrize("with_hs", [False, True])
+@pytest.mark.parametrize("case", STATE_CASES + [(1, 64, 6, 4), (2, 65, 5, 3),
+                                                (1, 129, 7, 8),
+                                                (1, 197, 4, 16)])
+def test_backward_kernel_passes_equal_the_plain_backward(case, with_hs):
+    """The backward kernel's decomposition (`_three_pass_bwd`, f32) from
+    the plain forward's chunk states: within 2e-5 of `mamba_scan_bwd_ref`
+    (which the tests above hold to jax.vjp of the JAX package's
+    `mamba_scan_ref`), over one chunk, several, a span and a half, and
+    ragged ends."""
+    ins, (dy, dhS) = _mamba_inputs(*case, seed=sum(case) + 9)
+    tins = [torch.from_numpy(a) for a in ins]
+    tdy = torch.from_numpy(dy)
+    tdhs = torch.from_numpy(dhS) if with_hs else None
+    states = mamba_scan_ref(*tins, states=True)[2]
+    got = _three_pass_bwd(*tins, tdy, tdhs, states)
+    want = mamba_scan_bwd_ref(*tins, tdy, tdhs)
+    names = ("dx", "ddt", "dBm", "dCm", "dA", "dD")
+    for name, g, w in zip(names, got, want):
+        _close(g, w, "float32", f"{name} vs mamba_scan_bwd_ref")
+
+
 # ---------------- the autograd Functions, kernels replaced ------------------
 
 
@@ -284,6 +428,10 @@ def test_function_wiring_with_plain_kernels(kernel):
     assert len(direct) == len(ins) + 2
     assert all(isinstance(g, torch.Tensor) for g in direct[:len(ins)])
     assert direct[-2:] == (None, None)
+    if fn is MambaScanFn:   # the forward's chunk states, kept
+        saved = got[0].grad_fn.saved_tensors
+        assert len(saved) == len(ins) + 1
+        assert torch.equal(saved[-1], ref(*ins, states=True)[2])
     used = [(o, g) for o, g in zip(got, outs) if g is not None]
     grads = torch.autograd.grad([o for o, _ in used], leaves,
                                 [g for _, g in used])

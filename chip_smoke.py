@@ -1958,7 +1958,6 @@ def phase_mamba_scan_bwd() -> dict:
     from repro_torch.kernels.mamba_scan import kernel as mk
     from repro_torch.kernels.mamba_scan.ops import mamba_scan
     from repro_torch.kernels.mamba_scan.ref import (
-        STATE_CHUNK,
         mamba_scan_bwd_ref,
         mamba_scan_ref,
     )
@@ -2006,12 +2005,13 @@ def phase_mamba_scan_bwd() -> dict:
             exps = 2 * B * S * D * N
             # the design's bytes besides the function's: the chunk states
             # read; dt, dy read again by the local pass; its ends and
-            # decays a 64-step chunk written, read by the carry pass, which
-            # writes the carries over the ends, read by the main pass; dA's
-            # partials a span of two chunks, dB's and dC's a channel block,
-            # each written and read once
-            nc, ns = -(-S // 64), -(-S // STATE_CHUNK)
-            nsp, nblk = -(-nc // 2), -(-D // (64 if N <= 16 else 32))
+            # decays a chunk written, read by the carry pass, which writes
+            # the carries over the ends, read by the main pass; dA's
+            # partials a span of chunks, dB's and dC's a channel block,
+            # each written and read once (the library's own tiling)
+            step, chunk, span, channels = mk.bwd_tiling(N)
+            nc, ns = -(-S // chunk), -(-S // step)
+            nsp, nblk = -(-nc // span), -(-D // channels)
             design = (nbytes + 4 * B * ns * D * N + B * S * D * (ps + 4)
                       + 4 * B * D * N * (6 * nc + 2 * nsp)
                       + 16 * B * nblk * S * N)

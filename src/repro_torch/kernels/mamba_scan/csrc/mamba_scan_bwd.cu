@@ -70,8 +70,7 @@
 // blocks of 256 threads an SM (16 warps, 128 registers a thread, no
 // spill), where its walk and halving chains are latency-bound; fewer
 // states a thread, e_t in shared memory or more registers at fewer warps
-// measured slower (PERF.md §6 names the variants).  The build knobs below
-// make those variants (scripts/mamba_bwd_variants.py).
+// measured slower (PERF.md §6 names the variants).
 // No atomics and a fixed order: the same bits every run.  Steps past S
 // and lanes past N run on zeros (dt = dy = 0: e = 1, and B = C = 0), so
 // they leave g as it is and add nothing; only the writes are masked.
@@ -84,33 +83,12 @@
 
 #include <algorithm>
 
-// Build-time knobs, for trying variants (scripts/mamba_bwd_variants.py);
-// the library is built with the defaults.
-#ifndef MAMBA_BWD_CHANNELS
-#define MAMBA_BWD_CHANNELS 64   // channels a block, at most
-#endif
-#ifndef MAMBA_BWD_WARPS
-#define MAMBA_BWD_WARPS 16      // warps an SM the main pass's registers fit
-#endif
-#ifndef MAMBA_BWD_E_SMEM
-#define MAMBA_BWD_E_SMEM 0      // steps whose e_t is in shared memory
-#endif
-#ifndef MAMBA_BWD_K
-#define MAMBA_BWD_K 4           // states a thread, at most
-#endif
-#ifndef MAMBA_BWD_PREFETCH
-#define MAMBA_BWD_PREFETCH 1    // the next piece's rows into L2
-#endif
-#ifndef MAMBA_BWD_SPAN
-#define MAMBA_BWD_SPAN 2        // chunks a main-pass block walks
-#endif
-
 namespace {
 
 constexpr int kStep = 16;                // steps between saved states
 constexpr int kChunk = 64;               // steps a chunk of the passes
 constexpr int kPieces = kChunk / kStep;  // saved states a chunk
-constexpr int kSpan = MAMBA_BWD_SPAN;    // chunks a main-pass block walks
+constexpr int kSpan = 2;                 // chunks a main-pass block walks
 constexpr float kLn2 = 0.6931471805599453f;
 constexpr int kMaxState = 32;
 constexpr int kCarryThreads = 256;
@@ -118,26 +96,23 @@ constexpr int kCarryAhead = 16;          // chunks whose loads fly together
 constexpr int kSumThreads = 256;
 constexpr float kLog2e = 1.4426950408889634f;
 constexpr unsigned kFull = 0xffffffffu;
-// e_t of a piece's last kESmem steps in shared memory, the rest in
-// registers
-constexpr int kESmem = MAMBA_BWD_E_SMEM;
-static_assert(kESmem >= 0 && kESmem <= kStep, "MAMBA_BWD_E_SMEM");
+constexpr int kMaxChannels = 64;         // channels a block, at most
+constexpr int kMaxK = 4;                 // states a thread, at most
 
 // NP = N rounded up to a power of two, as L lanes of K states; a block of
 // kChannels channels (64; 32 at NP 32) and kThreads threads (<= 256).
 template <int NP>
 struct Split {
-  static constexpr int K = NP < MAMBA_BWD_K ? NP : MAMBA_BWD_K;
+  static constexpr int K = NP < kMaxK ? NP : kMaxK;
   static constexpr int L = NP / K;
   static constexpr int kChannels =
-      MAMBA_BWD_CHANNELS < 256 / L ? MAMBA_BWD_CHANNELS : 256 / L;
+      kMaxChannels < 256 / L ? kMaxChannels : 256 / L;
   static constexpr int kThreads = kChannels * L;
   static constexpr int kWarps = kThreads / 32;
   // the main pass's blocks an SM, which set its registers a thread: at N
-  // 16 (falcon-mamba's) MAMBA_BWD_WARPS warps an SM, 128 registers at 16;
-  // 8 warps (255 registers) at N 3-8 and 17-32, 16 at N 1-2 (K <= 2)
-  static constexpr int kWarpsSM = NP == 16 ? MAMBA_BWD_WARPS
-                                           : K < 4 ? 16 : 8;
+  // 16 (falcon-mamba's) 16 warps an SM, 128 registers a thread; 8 warps
+  // (255 registers) at N 3-8 and 17-32, 16 at N 1-2 (K <= 2)
+  static constexpr int kWarpsSM = NP == 16 || K < 4 ? 16 : 8;
   static constexpr int kMinBlocks = kWarpsSM * 32 / kThreads > 1
       ? kWarpsSM * 32 / kThreads : 1;
 };
@@ -147,12 +122,11 @@ template <int NP>
 struct MainSmem {
   using S = Split<NP>;
   static constexpr int kU = kStep * S::kThreads * S::K;    // u_t
-  static constexpr int kE = kESmem * S::kThreads * S::K;   // e_t, the last
   static constexpr int kIn = kStep * S::kChannels * 4;     // dt, x, dy, dt x
   static constexpr int kBC = 2 * kStep * NP;               // B, C
   static constexpr int kOut = 2 * kStep * S::kChannels;    // dx, ddt
   static constexpr int kRed = 2 * kStep * S::kWarps * NP;  // warps' dB, dC
-  static constexpr int kFloats = kU + kE + kIn + kBC + kOut + kRed;
+  static constexpr int kFloats = kU + kIn + kBC + kOut + kRed;
   static constexpr int kBytes = kFloats * 4;
 };
 
@@ -367,8 +341,6 @@ mamba_scan_bwd_main(const TX* __restrict__ x, const TP* __restrict__ dt,
   float* dts = dxs + kStep * CB;                           // [kStep][CB]
   float* red_b = dts + kStep * CB;                         // [kStep][W][NP]
   float* red_c = red_b + kStep * W * NP;
-  float* es = red_c + kStep * W * NP;                    // [kESmem][NT][K]
-  constexpr int kEReg = kStep - kESmem;   // steps whose e_t is in registers
 
   const int tid = threadIdx.x;
   const int c = tid / L, j = tid % L;
@@ -405,7 +377,7 @@ mamba_scan_bwd_main(const TX* __restrict__ x, const TP* __restrict__ dt,
     // The piece's inputs, staged; and, where a piece follows in the span,
     // its rows (a line a 16 channels), B and C and saved states into L2
     // while this one runs, so that its staging waits on L2 only.
-    const bool ahead = MAMBA_BWD_PREFETCH && qs > qs_lo;
+    const bool ahead = qs > qs_lo;
     for (int e = tid; e < kStep * CB; e += NT) {
       const int tt = e / CB, cc = e % CB;
       float4 v = make_float4(0.f, 0.f, 0.f, 0.f);
@@ -446,22 +418,20 @@ mamba_scan_bwd_main(const TX* __restrict__ x, const TP* __restrict__ dt,
     __syncthreads();
     // The rebuild: e_t kept in registers, u_t = e_t h_{t-1} in shared
     // memory; dC_t's products summed over the channels.
-    float e[kEReg > 0 ? kEReg : 1][K];
+    float e[kStep][K];
 #pragma unroll
     for (int t = 0; t < kStep; ++t) {
       const float4 v = in4[t * CB + c];
-      float bv[K], u[K], vc[K], et[K];
+      float bv[K], u[K], vc[K];
       load_k<K>(&bs[t * NP + j * K], bv);
 #pragma unroll
       for (int k = 0; k < K; ++k) {
-        et[k] = ex2(v.x * a2[k]);
-        u[k] = et[k] * h[k];
+        e[t][k] = ex2(v.x * a2[k]);
+        u[k] = e[t][k] * h[k];
         h[k] = u[k] + v.w * bv[k];
         vc[k] = v.z * h[k];
-        if (t < kEReg) e[t < kEReg ? t : 0][k] = et[k];
       }
       store_k<K>(&us[(t * NT + tid) * K], u);
-      if (t >= kEReg) store_k<K>(&es[((t - kEReg) * NT + tid) * K], et);
       warp_channel_sum<K, L>(vc, lane, &red_c[(t * W + warp) * NP]);
     }
 
@@ -469,16 +439,10 @@ mamba_scan_bwd_main(const TX* __restrict__ x, const TP* __restrict__ dt,
 #pragma unroll
     for (int t = kStep - 1; t >= 0; --t) {
       const float4 v = in4[t * CB + c];   // dt, x, dy, dt x
-      float bv[K], cv[K], u[K], vb[K], et[K];
+      float bv[K], cv[K], u[K], vb[K];
       load_k<K>(&bs[t * NP + j * K], bv);
       load_k<K>(&cs[t * NP + j * K], cv);
       load_k<K>(&us[(t * NT + tid) * K], u);
-      if (t >= kEReg) {
-        load_k<K>(&es[((t - kEReg) * NT + tid) * K], et);
-      } else {
-#pragma unroll
-        for (int k = 0; k < K; ++k) et[k] = e[t < kEReg ? t : 0][k];
-      }
       float px = 0.f, pa = 0.f;
 #pragma unroll
       for (int k = 0; k < K; ++k) {
@@ -488,7 +452,7 @@ mamba_scan_bwd_main(const TX* __restrict__ x, const TP* __restrict__ dt,
         pa = __fmaf_rn(gu, a2[k], pa);   // A log2 e: scaled by ln 2 below
         sum_a[k] = __fmaf_rn(gu, v.x, sum_a[k]);
         vb[k] = g[k] * v.w;
-        g[k] = et[k] * g[k];
+        g[k] = e[t][k] * g[k];
       }
       sum_d = __fmaf_rn(v.z, v.y, sum_d);
 #pragma unroll
@@ -738,8 +702,15 @@ long long mamba_scan_bwd_scratch_floats(int bsz, int s_len, int dim,
       .floats(bsz, dim);
 }
 
-// The steps between the forward's saved states that the backward reads.
-int mamba_scan_bwd_state_steps() { return kStep; }
+// The tiling, into tiling[4]: the steps between the forward's saved states
+// that the backward reads, the steps of a chunk, the chunks a main-pass
+// block walks and the channels a block at this N (1 <= N <= 32).
+void mamba_scan_bwd_tiling(int n_state, int* tiling) {
+  tiling[0] = kStep;
+  tiling[1] = kChunk;
+  tiling[2] = kSpan;
+  tiling[3] = channels(n_state);
+}
 
 // Resident blocks an SM of the passes mamba_scan_bwd_launch runs for
 // these types and N, into blocks[4]: local, carry, main, sum

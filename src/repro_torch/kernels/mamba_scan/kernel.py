@@ -19,8 +19,10 @@ reads; serving does not ask for them.  `mamba_scan_bwd` binds the
 backward (``csrc/mamba_scan_bwd.cu``, a library of its own): the six
 inputs' gradients from the forward's inputs, its chunk states, y's
 gradient and h_S's, four kernels (`BWD_PASSES`: a local pass and a carry
-pass over 64-step chunks, the main pass and the sum of the blocks'
-partials) counted once under ``mamba_scan_bwd``.
+pass over `BWD_CHUNK`-step chunks, the main pass over spans of `BWD_SPAN`
+chunks and the sum of the blocks' partials) counted once under
+``mamba_scan_bwd``.  `bwd_tiling` reads the tiling from the library,
+which must agree with these constants.
 """
 from __future__ import annotations
 
@@ -42,6 +44,13 @@ MAX_STATE = 32      # 16 lanes of 2 states a channel (csrc/mamba_scan.cu)
 # the backward's kernels, by the names the profiler shows
 BWD_PASSES = ("mamba_scan_bwd_local", "mamba_scan_bwd_carry",
               "mamba_scan_bwd_main", "mamba_scan_bwd_sum")
+BWD_CHUNK = 64      # steps a chunk of the backward's passes
+BWD_SPAN = 2        # chunks a main-pass block walks
+
+
+def bwd_channels(n: int) -> int:
+    """Channels a block of the backward's passes at state size `n`."""
+    return 64 if n <= 16 else 32
 
 _lib = None
 _bwd_lib = None
@@ -66,25 +75,38 @@ def bwd_library() -> ctypes.CDLL:
     """Build (once per source content) and load the backward's library."""
     global _bwd_lib
     if _bwd_lib is None:
-        _bwd_lib = bind_bwd(build_library(BWD_NAME, [BWD_SOURCE]))
+        lib = build_library(BWD_NAME, [BWD_SOURCE])
+        ptr, i32 = ctypes.c_void_p, ctypes.c_int
+        lib.mamba_scan_bwd_launch.argtypes = [ptr] * 16 + [i32] * 6 + [ptr]
+        lib.mamba_scan_bwd_launch.restype = i32
+        lib.mamba_scan_bwd_scratch_floats.argtypes = [i32] * 4
+        lib.mamba_scan_bwd_scratch_floats.restype = ctypes.c_longlong
+        lib.mamba_scan_bwd_occupancy.argtypes = [i32, i32, i32, ptr]
+        lib.mamba_scan_bwd_occupancy.restype = i32
+        lib.mamba_scan_bwd_tiling.argtypes = [i32, ptr]
+        lib.mamba_scan_bwd_tiling.restype = None
+        for n in (16, MAX_STATE):
+            got = _tiling(lib, n)
+            want = (STATE_CHUNK, BWD_CHUNK, BWD_SPAN, bwd_channels(n))
+            if got != want:
+                raise RuntimeError(
+                    f"mamba_scan_bwd.cu's tiling at N {n} is {got} (state "
+                    f"steps, chunk, span, channels), kernel.py's {want}")
+        _bwd_lib = lib
     return _bwd_lib
 
 
-def bind_bwd(lib: ctypes.CDLL) -> ctypes.CDLL:
-    """Declare the backward library's C entry points."""
-    ptr, i32 = ctypes.c_void_p, ctypes.c_int
-    lib.mamba_scan_bwd_launch.argtypes = [ptr] * 16 + [i32] * 6 + [ptr]
-    lib.mamba_scan_bwd_launch.restype = i32
-    lib.mamba_scan_bwd_scratch_floats.argtypes = [i32] * 4
-    lib.mamba_scan_bwd_scratch_floats.restype = ctypes.c_longlong
-    lib.mamba_scan_bwd_occupancy.argtypes = [i32, i32, i32, ptr]
-    lib.mamba_scan_bwd_occupancy.restype = i32
-    lib.mamba_scan_bwd_state_steps.restype = i32
-    if lib.mamba_scan_bwd_state_steps() != STATE_CHUNK:
-        raise RuntimeError("mamba_scan_bwd.cu reads states every "
-                           f"{lib.mamba_scan_bwd_state_steps()} steps, the "
-                           f"forward saves them every {STATE_CHUNK}")
-    return lib
+def _tiling(lib: ctypes.CDLL, n: int) -> Tuple[int, int, int, int]:
+    out = (ctypes.c_int * 4)()
+    lib.mamba_scan_bwd_tiling(n, out)
+    return tuple(out)
+
+
+def bwd_tiling(n: int) -> Tuple[int, int, int, int]:
+    """The backward library's tiling at state size `n`: the steps between
+    the saved states it reads, the steps of a chunk, the chunks a
+    main-pass block walks and the channels a block."""
+    return _tiling(bwd_library(), n)
 
 
 def _check(x, dt, Bm, Cm, A, D) -> None:
@@ -147,13 +169,12 @@ def mamba_scan_fwd(x: torch.Tensor, dt: torch.Tensor, Bm: torch.Tensor,
     return (y, h, kept) if states else (y, h)
 
 
-def bwd_occupancy(x_dtype: torch.dtype, p_dtype: torch.dtype, n: int,
-                  lib: Optional[ctypes.CDLL] = None) -> dict:
+def bwd_occupancy(x_dtype: torch.dtype, p_dtype: torch.dtype,
+                  n: int) -> dict:
     """Resident blocks an SM of each of the backward's passes for these
-    types and N (cudaOccupancyMaxActiveBlocksPerMultiprocessor), of `lib`
-    (by default `bwd_library()`)."""
+    types and N (cudaOccupancyMaxActiveBlocksPerMultiprocessor)."""
     blocks = (ctypes.c_int * len(BWD_PASSES))()
-    err = (lib or bwd_library()).mamba_scan_bwd_occupancy(
+    err = bwd_library().mamba_scan_bwd_occupancy(
         DTYPES[x_dtype], DTYPES[p_dtype], n, blocks)
     if err:
         raise RuntimeError(f"mamba_scan_bwd occupancy: cudaError_t {err}")
@@ -183,14 +204,7 @@ def mamba_scan_bwd(x: torch.Tensor, dt: torch.Tensor, Bm: torch.Tensor,
                              f"{shape} float32")
         if t.device != x.device or not t.is_contiguous():
             raise ValueError(f"{name} must be contiguous on {x.device}")
-    return launch_bwd(bwd_library(), x, dt, Bm, Cm, A, D, dy, dhS, states)
-
-
-def launch_bwd(lib: ctypes.CDLL, x, dt, Bm, Cm, A, D, dy, dhS, states):
-    """`mamba_scan_bwd` on a backward library `lib` (bound as
-    `bwd_library` binds it) and inputs it has checked."""
-    bsz, s, d = x.shape
-    n = A.shape[1]
+    lib = bwd_library()
     with torch.cuda.device(x.device):
         dx = torch.empty_like(x)
         ddt, dBm, dCm = (torch.empty_like(t) for t in (dt, Bm, Cm))

@@ -27,6 +27,8 @@ each chunk start, and the plain backward gives the same bits from them
 as without them; the backward kernel's three passes, written as a plain
 function, agree with the plain backward.
 """
+import re
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -36,6 +38,7 @@ import torch
 from repro.kernels.mamba_scan.ref import mamba_scan_ref as j_mamba_ref
 from repro.kernels.moe_gmm.ref import moe_gmm_ref as j_moe_gmm_ref
 from repro.kernels.rglru_scan.ref import rglru_scan_ref as j_rglru_ref
+from repro_torch.kernels.mamba_scan import kernel as mamba_kernel
 from repro_torch.kernels.mamba_scan.ops import MambaScanFn
 from repro_torch.kernels.mamba_scan.ref import (
     STATE_CHUNK,
@@ -299,8 +302,29 @@ def test_mamba_scan_bwd_ref_from_saved_states(case, dtype):
 
 
 # the backward kernel's chunk of its local and carry passes, and the chunks
-# a main-pass block walks (csrc/mamba_scan_bwd.cu: kChunk, kSpan)
-KERNEL_CHUNK, KERNEL_SPAN = 64, 2
+# a main-pass block walks (csrc/mamba_scan_bwd.cu's kChunk and kSpan, which
+# the library reports and kernel.bwd_library checks against these)
+KERNEL_CHUNK, KERNEL_SPAN = mamba_kernel.BWD_CHUNK, mamba_kernel.BWD_SPAN
+
+
+def test_backward_tiling_matches_the_kernel_source():
+    """kernel.py's tiling constants are the CUDA source's constexprs."""
+    src = mamba_kernel.BWD_SOURCE.read_text()
+
+    def constant(name):
+        m = re.search(rf"^constexpr int {name} = (\d+);", src, re.M)
+        assert m, f"{name} not in {mamba_kernel.BWD_SOURCE.name}"
+        return int(m.group(1))
+
+    assert constant("kStep") == STATE_CHUNK
+    assert constant("kChunk") == KERNEL_CHUNK
+    assert KERNEL_CHUNK % STATE_CHUNK == 0
+    assert constant("kSpan") == KERNEL_SPAN
+    for n in (1, 2, 3, 5, 8, 16, 17, 32):
+        np2 = 1 << (n - 1).bit_length()       # Split<NP>: L lanes of K
+        lanes = np2 // min(np2, constant("kMaxK"))
+        assert mamba_kernel.bwd_channels(n) == min(constant("kMaxChannels"),
+                                                   256 // lanes), n
 
 
 def _three_pass_bwd(x, dt, Bm, Cm, A, D, dy, dhS, states):

@@ -127,8 +127,7 @@ def _imports(path):
 @pytest.mark.parametrize("path", sorted(
     [p.relative_to(ROOT).as_posix()
      for p in (ROOT / "src" / "repro_torch").rglob("*.py")]
-    + ["chip_smoke.py", "scripts/chip_ab.py",
-       "scripts/mamba_bwd_variants.py"]))
+    + ["chip_smoke.py", "scripts/chip_ab.py"]))
 def test_port_imports_no_jax_or_reference(path):
     bad = [m for m in _imports(ROOT / path) if m.split(".")[0] in BANNED]
     assert not bad, f"{path} imports {bad}"

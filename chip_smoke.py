@@ -10,8 +10,9 @@ and rglru_scan; each kernel's registers and spills from ptxas; the HGMMA
 instructions of the flash library, the flash backward's and the moe_gmm
 backward's, counted in their SASS, each of which must be above 0, and no
 spill in their bf16 (wgmma) kernels or in either scan kernel, forward or
-backward; the flash backward's 8 wgmma, 12 CUDA-core and 2 D
-instantiations; the moe_gmm backward's four wgmma kernels and its
+backward; the flash backward's 10 wgmma, 10 CUDA-core and 2 D
+instantiations and its sum of the hd-256 dK/dV parts; the moe_gmm
+backward's four wgmma kernels and its
 probe), then runs, each phase printing one JSON line and any failure
 raising:
 
@@ -24,12 +25,16 @@ raising:
    scores: the flash sweep and a causal row with Sq > Sk in both types,
    then smollm-360m's training shape (B 8, Hq 15, Hkv 5, hd 64, S 4096,
    causal, bf16), its layout in f32 at S 512, hd 128 group 8 (yi), hd 160
-   padded to 256 (stablelm), a window of 256 (f32) and a non-causal row
-   with Sq 455, Sk 1,600; each timed (events and profiler) beside its
-   bound (five products of 2 Sq Sk hd a head over the live entries, at
-   989 TFLOP/s bf16 or 67 f32), the plain version's backward (autograd,
-   one batch element at a time) and SDPA's (forward + backward less
-   forward, K/V repeated to the query heads).
+   padded to 256 (stablelm), a window of 256 (f32), a non-causal row
+   with Sq 455, Sk 1,600 and recurrentgemma-2b's training shape (B 1,
+   Hq 10, Hkv 1, hd 256, S 4096, window 2048, bf16); each timed (events,
+   and the profiler's device ms in all and by pass: D, dK/dV, the sum of
+   the hd-256 parts, dQ) beside its bound (five products of 2 Sq Sk hd a
+   head over the live entries, at 989 TFLOP/s bf16 or 67 f32), the plain
+   version's backward (autograd, one batch element at a time), SDPA's
+   (forward + backward less forward, K/V repeated to the query heads)
+   and, for bf16 at hd 256, the f32 CUDA-core kernels' on the same
+   values.
    moe_gmm_bwd, rglru_scan_bwd, mamba_scan_bwd: the three backward
    kernels the same way (through each op's autograd function against
    autograd through its plain version, or at falcon-mamba's full shape
@@ -445,8 +450,9 @@ def phase_build() -> dict:
            if k.startswith("flash_fwd_f32")]
     _check(len(f32) == len(flash.HEAD_DIMS),
            f"flash f32 instantiations {sorted(f32)}")
-    # the backward: bf16 up to hd 128 on wgmma (dK/dV and dQ each), f32 at
-    # every hd and bf16 at hd 256 on the CUDA cores, D in both types
+    # the backward: bf16 on wgmma (dK/dV and dQ each, hd 16-256), f32 at
+    # every hd on the CUDA cores, D in both types, and the sum of the
+    # hd-256 dK/dV pass's parts
     bwd = out[f"ptxas_{flash.BWD_NAME}"]
     bwd_wgmma = {k: v for k, v in bwd.items()
                  if k.startswith(("flash_bwd_dkdv_wgmma<",
@@ -457,10 +463,12 @@ def phase_build() -> dict:
            f"flash backward wgmma kernels spill: {bwd_wgmma}")
     cores = [k for k in bwd if k.startswith(("flash_bwd_dkdv<",
                                              "flash_bwd_dq<"))]
-    _check(len(cores) == 2 * (len(flash.BWD_HEAD_DIMS) + 1),
+    _check(len(cores) == 2 * len(flash.BWD_HEAD_DIMS),
            f"flash backward CUDA-core instantiations {sorted(cores)}")
     _check(len([k for k in bwd if k.startswith("flash_bwd_dsum<")]) == 2,
            f"flash backward D instantiations {sorted(bwd)}")
+    _check("flash_bwd_kv_reduce" in bwd,
+           f"flash backward sum of parts missing: {sorted(bwd)}")
     # the moe_gmm backward: bf16 on wgmma (four kernels and the probe)
     gmm_wgmma = {k: v for k, v in out[f"ptxas_{gmm.BWD_NAME}"].items()
                  if "wgmma" in k}
@@ -1506,7 +1514,12 @@ def phase_flash_attention() -> dict:
 
 # B, Hq, Hkv, Sq, Sk, hd, causal, window: the flash sweep and a causal row
 # with Sq > Sk (rows at negative positions: the mean of V, no dQ)
-FLASH_BWD_SWEEP = FLASH_SWEEP + [(1, 2, 1, 96, 32, 32, True, 0)]
+FLASH_BWD_SWEEP = FLASH_SWEEP + [
+    (1, 2, 1, 96, 32, 32, True, 0),
+    # hd 256 (bf16: two warpgroups, the group cut into parts): group 10
+    # over one KV head with a window on ragged tiles; three heads in two
+    # parts (136 key-tile blocks), a remainder
+    (1, 10, 1, 200, 200, 256, True, 70), (2, 6, 2, 300, 2150, 256, True, 0)]
 
 
 def _grad_held(got, want, dtype, what: str) -> tuple:
@@ -1573,6 +1586,7 @@ def _flash_bwd_row(gen, dtype, B, Hq, Hkv, Sq, Sk, hd, causal, window,
     import torch.nn.functional as F
 
     from repro_torch.kernels.flash_attention.kernel import (
+        bwd_head_dim,
         flash_attention_bwd,
         flash_attention_fwd,
     )
@@ -1623,7 +1637,26 @@ def _flash_bwd_row(gen, dtype, B, Hq, Hkv, Sq, Sk, hd, causal, window,
                                          group, causal, window)
     reps = 3 if Sq * Sk * B * Hq > 2**28 else 10
     ms = _cuda_ms(kernel, reps=reps, warmup=1)
-    device_ms = _device_ms(kernel, ("flash_bwd",), reps=reps)
+    passes = {e.key: getattr(e, "device_time_total", 0.0) / reps / 1e3
+              for e in _traced(kernel, ("flash_bwd",), reps)}
+    device_ms = sum(passes.values()) or None
+    row["device_ms_by_pass"] = {
+        part: sum(t for name, t in passes.items() if key in name)
+        for part, key in (("D", "flash_bwd_dsum"), ("dKdV", "flash_bwd_dkdv"),
+                          ("sum", "flash_bwd_kv_reduce"),
+                          ("dQ", "flash_bwd_dq"))}
+    if dtype == torch.bfloat16 and bwd_head_dim(hd) == 256:
+        # the CUDA-core kernels at the same hd: the f32 instantiation on
+        # the same values (bf16 at hd 256 ran on it, converted on load,
+        # before the tensor-core kernels)
+        q32, k32, v32, do32 = (t.float() for t in (qf, kf, vf, dof))
+        o32, lse32 = flash_attention_fwd(q32, k32, v32, group, causal, window,
+                                         return_lse=True)
+        row["cuda_core_ms"] = _cuda_ms(
+            lambda: flash_attention_bwd(q32, k32, v32, o32, do32, lse32,
+                                        group, causal, window),
+            reps=min(reps, 3), warmup=1)
+        del q32, k32, v32, do32, o32, lse32
 
     def plain_fwd():
         with torch.enable_grad():
@@ -1671,7 +1704,9 @@ def phase_flash_attention_bwd() -> dict:
     """The backward kernel: the sweep in f32 and bf16, then smollm-360m's
     training shape (B 8, Hq 15, Hkv 5, hd 64, S 4096, causal, bf16), its
     layout in f32 at S 512, yi's hd 128 group 8, stablelm's hd 160 (padded
-    to 256), a window and a non-causal row with Sq != Sk."""
+    to 256), a window, a non-causal row with Sq != Sk, and
+    recurrentgemma-2b's training shape (B 1, Hq 10, Hkv 1, hd 256, S
+    4096, window 2048, bf16)."""
     import torch
 
     gen = torch.Generator(device="cuda").manual_seed(3)
@@ -1684,7 +1719,8 @@ def phase_flash_attention_bwd() -> dict:
         (torch.bfloat16, (1, 32, 4, 512, 512, 128, True, 0)),
         (torch.bfloat16, (1, 32, 8, 512, 512, 160, True, 0)),
         (torch.float32, (1, 8, 2, 1024, 1024, 64, True, 256)),
-        (torch.bfloat16, (1, 16, 8, 455, 1600, 128, False, 0)))]
+        (torch.bfloat16, (1, 16, 8, 455, 1600, 128, False, 0)),
+        (torch.bfloat16, (1, 10, 1, 4096, 4096, 256, True, 2048)))]
     return dict(phase="flash_attention_bwd", sweep_cases=len(sweep),
                 sweep_max_rel_err=max(r["max_rel_err"] for r in sweep),
                 sweep_lse_max_abs_err=max(r["lse_max_abs_err"]

@@ -40,11 +40,11 @@
 // (0.91 ms for the seven).  The bytes (q, k, v, o, dO, lse read once;
 // dq, dk, dv written once) take 0.10 ms at 3.35 TB/s.
 //
-// bf16, hd 16-128: the tensor cores, flash_bwd_dkdv_wgmma<HD> and
-// flash_bwd_dq_wgmma<HD>, one warpgroup (128 threads) a block, built from
-// the forward's pieces (flash_wgmma.cuh): 64 x HD tiles in swizzled
-// shared memory filled by cp.async, read K-major or MN-major by the wgmma
-// descriptors, so no operand is copied transposed.
+// bf16, hd 16-256: the tensor cores, flash_bwd_dkdv_wgmma<HD> and
+// flash_bwd_dq_wgmma<HD>, built from the forward's pieces
+// (flash_wgmma.cuh): 64 x HD tiles in swizzled shared memory filled by
+// cp.async, read K-major or MN-major by the wgmma descriptors, so no
+// operand is copied transposed.
 //   dK/dV: the K and V tiles stay in shared memory for the whole walk; Q,
 //     dO and the rows' lse and D come through a two-stage ring (the next
 //     step's copies go out while S^T is computed, as the forward's K/V).
@@ -52,12 +52,35 @@
 //     fragment in registers, packed to bf16 as the A operand of
 //     dV += P^T dO (dO read MN-major), issued with dP^T = V dO^T;
 //     dS^T = P^T (dP^T - D), packed the same way, for dK += dS^T Q (Q read
-//     MN-major).  Registers at hd 128: dK and dV 64 f32 a thread each, dP^T
-//     32, the packed P^T or dS^T 16; S^T's 32 are free once P^T is packed,
-//     before dP^T is issued.
-//   dQ: Q and dO loaded once, K and V through a two-stage ring; S = Q K^T
-//     and dP = dO V^T in one wgmma batch, dS packed for dQ += dS K (K read
-//     MN-major).
+//     MN-major).  Up to hd 128 one warpgroup (128 threads) a block; at hd
+//     128 dK and dV take 64 f32 a thread each, dP^T 32, the packed P^T or
+//     dS^T 16; S^T's 32 are free once P^T is packed, before dP^T is
+//     issued.  At hd 256 dK plus dV would take 256 registers a thread of
+//     one warpgroup, so a block is two (DkdvWarpgroups): each owns 128 of
+//     the 256 columns of dK and dV (64 + 64 f32 a thread, as at hd 128),
+//     reads its half of the dO and Q tiles (whole column blocks: a
+//     Tile<128> 16 KB in), and computes S^T and dP^T over all 256 columns
+//     itself: 6.3 M multiply-adds a step where 4.2 M are needed.  Two
+//     other splits were measured at recurrentgemma's training shape
+//     (PERF.md, PR 28): each warpgroup half of S^T's and dP^T's depth,
+//     the halves added through shared memory (2 x 16 KB, three barriers a
+//     step): 7 % slower, 255 registers and 8 bytes of spill; warpgroup 0
+//     S^T and P^T, warpgroup 1 dP^T, traded through shared memory (24 KB,
+//     one barrier): 6 % faster with the same bits, for a trade protocol
+//     the simpler design does without.  The pass waits for each step's
+//     products in turn, so the tensor work it drops buys little.
+//     One block an SM at hd 256 (194 KB of shared memory), so where key
+//     tiles x KV heads are few each KV head's group of query heads is cut
+//     into `splits` parts (kernel.py, bwd_kv_splits: the least that gives
+//     264 blocks, two an SM of 132), each a block of its own writing f32
+//     dK and dV sums; flash_bwd_kv_reduce adds them in part order and
+//     rounds once (recurrentgemma B 1, Hkv 1, S 4096: 5 parts, 320 blocks,
+//     42 MB of parts).  The key tile varies slowest over the grid there,
+//     so the key tiles that see the most query tiles start first.
+//   dQ: one warpgroup; Q and dO loaded once, K and V through a two-stage
+//     ring; S = Q K^T and dP = dO V^T in one wgmma batch, dS packed for
+//     dQ += dS K (K read MN-major).  At hd 256 dQ takes 128 f32 a thread,
+//     S and dP 32 each (the forward's design at hd 256).
 // Masking is on the fragment in registers, per entry as entry_grad does
 // it, only in tiles that cross the diagonal, the window's edge, Sq or Sk;
 // a causal row at a negative position has p = 1 / Sk and ds = 0.  dK (times
@@ -70,23 +93,26 @@
 // largest value (tests/test_torch_flash_attention.py holds the arithmetic
 // to jax.vjp of chunked_attention on the CPU).
 // Shared memory: dK/dV 6 tiles of 64 x HD bf16 + 1 KB of lse and D + 1 KB
-// alignment (98 KB at hd 128, 50 KB at hd 64); dQ 6 tiles + 1 KB.
-// ptxas (CUDA 12.8, -O3 -fmad=false) for hd 16, 32, 64, 128:
-// flash_bwd_dkdv_wgmma 96, 124, 160, 227 registers, flash_bwd_dq_wgmma
-// 124, 138, 154, 186, no spill (chip_smoke.py's build phase prints them
-// and fails on a spill).  Measured at smollm's training shape (H100 SXM,
-// PERF.md): 3.0 ms (dK/dV 1.58, dQ 1.33, D 0.09), each pass near 30 % of
-// its products' tensor-core time; SDPA's backward takes 1.7 ms.  Each
-// step waits for each of its products in turn; TMA loads from a producer
-// warp and the next step's S^T issued before this step's dK is waited
-// for are the next speed work (ROADMAP).
+// alignment (98 KB at hd 128, 50 KB at hd 64, 194 KB at hd 256); dQ 6
+// tiles + 1 KB (193 KB at hd 256).
+// ptxas (CUDA 12.8, -O3 -fmad=false) for hd 16, 32, 64, 128, 256:
+// flash_bwd_dkdv_wgmma 96, 124, 160, 227, 234 registers, flash_bwd_dq_wgmma
+// 124, 138, 154, 186, 246, no spill (chip_smoke.py's build phase prints
+// them and fails on a spill).  Measured (H100 SXM, PERF.md): at smollm's
+// training shape 3.0 ms (dK/dV 1.58, dQ 1.33, D 0.09), each pass near
+// 30 % of its products' tensor-core time, SDPA's backward 1.7 ms; at
+// recurrentgemma's (B 1, Hq 10, Hkv 1, hd 256, S 4096, window 2048) 0.92
+// ms (dK/dV 0.43, dQ 0.45, D 0.02, the sum of parts 0.014) against a
+// 0.163 ms bound, SDPA's backward 2.26 ms and the CUDA-core kernels' 18.9.
+// Each step waits for each of its products in turn; TMA loads from a
+// producer warp and the next step's S^T issued before this step's dK is
+// waited for are the next speed work (ROADMAP).
 //
-// f32 (every hd), and bf16 at hd 256: the CUDA cores, flash_bwd_dkdv<T, HD>
-// and flash_bwd_dq<T, HD>, f32 throughout (bf16 inputs converted on load,
-// grads returned in the input's type); TF32 could not meet the f32
-// tolerance (2e-5), and at hd 256 dK plus dV alone would take 256
-// registers a thread of one warpgroup.  Tiles (BwdTiling): 64 query rows x
-// 64 keys up to hd 128, 32 x 32 at hd 256, 256 threads as a 16 x 16 grid.
+// f32 (every hd): the CUDA cores, flash_bwd_dkdv<T, HD> and
+// flash_bwd_dq<T, HD>, f32 throughout (grads returned in the input's
+// type); TF32 could not meet the f32 tolerance (2e-5).  Tiles
+// (BwdTiling): 64 query rows x 64 keys up to hd 128, 32 x 32 at hd 256,
+// 256 threads as a 16 x 16 grid.
 // Q, K, V, dO tiles are f32 in shared memory with rows padded by 4 floats
 // (16-byte loads along hd, conflict free across 8 consecutive rows); each
 // thread computes a 4 x 4 (2 x 2 at hd 256) block of S and dP, strided by
@@ -94,7 +120,7 @@
 // consecutive head dims a load.  Shared memory: 111 KB at hd 64 (two
 // blocks an SM), 177 KB at hd 128, 146 KB at hd 256 for flash_bwd_dkdv.
 // ptxas (CUDA 12.8, -O3 -fmad=false): 77-184 registers; 4 bytes of
-// spill in flash_bwd_dkdv<*, 64>, 20 in flash_bwd_dq<*, 128>.
+// spill in flash_bwd_dkdv<float, 64>, 20 in flash_bwd_dq<float, 128>.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
@@ -530,6 +556,15 @@ __device__ __forceinline__ float round_bf16(float x) {
   return __bfloat162float(__float2bfloat16_rn(x));
 }
 
+// Whether ds of one entry can be non-zero (as masked_p's *live)
+__device__ __forceinline__ bool entry_live(int row, int key, int off, int sq,
+                                           int sk, int causal, int window) {
+  if (row >= sq || key >= sk) return false;
+  const int pos = row + off;
+  if (causal && pos < 0) return false;
+  return !((causal && key > pos) || (window > 0 && pos - key >= window));
+}
+
 // p of one entry of a tile that crosses the mask, Sq or Sk, as entry_grad
 // gives it, from its score s and its row's lse in log2 units; *live is
 // false where ds is 0 (a masked entry, one past Sq or Sk, and a causal
@@ -547,51 +582,93 @@ __device__ __forceinline__ float masked_p(float s, float lse2, int row,
   return exp2f(fmaf(s, scale2, -lse2));
 }
 
-// Rows row0 + r0 and row0 + r0 + 8 of a 64 x HD f32 fragment, times mul,
-// as bf16 rows of HD at out (rows at or past `rows` are not stored), the
-// columns as the fragment holds them (cq = 2 (lane mod 4)).
-template <int HD>
-__device__ __forceinline__ void store_rows(bf16* out, const float* acc,
+__device__ __forceinline__ void put2(bf16* p, float a, float b) {
+  *reinterpret_cast<__nv_bfloat162*>(p) = __floats2bfloat162_rn(a, b);
+}
+__device__ __forceinline__ void put2(float* p, float a, float b) {
+  *reinterpret_cast<float2*>(p) = make_float2(a, b);
+}
+
+// Rows row0 + r0 and row0 + r0 + 8 of a 64 x NC f32 fragment, times mul,
+// into rows of HD at out (the fragment's NC columns from out; rows at or
+// past `rows` are not stored), the columns as the fragment holds them
+// (cq = 2 (lane mod 4)): rounded to bf16, or as f32.
+template <int HD, int NC = HD, typename T = bf16>
+__device__ __forceinline__ void store_rows(T* out, const float* acc,
                                            int row0, int r0, int cq,
                                            int rows, float mul) {
-  constexpr int N = HD < 64 ? HD : 64;
+  constexpr int N = NC < 64 ? NC : 64;
 #pragma unroll
   for (int h = 0; h < 2; ++h) {
     const int row = row0 + r0 + 8 * h;
     if (row >= rows) continue;
-    bf16* ob = out + static_cast<size_t>(row) * HD;
+    T* ob = out + static_cast<size_t>(row) * HD;
 #pragma unroll
-    for (int j = 0; j < HD / N; ++j)
+    for (int j = 0; j < NC / N; ++j)
 #pragma unroll
       for (int i = 0; i < N / 8; ++i) {
         const float* x = acc + j * (N / 2) + 4 * i + 2 * h;
-        *reinterpret_cast<__nv_bfloat162*>(ob + j * N + 8 * i + cq) =
-            __floats2bfloat162_rn(x[0] * mul, x[1] * mul);
+        put2(ob + j * N + 8 * i + cq, x[0] * mul, x[1] * mul);
       }
   }
 }
 
+// Warpgroups of a dK/dV block: one up to hd 128; two at hd 256, each
+// owning half of dK's and dV's columns (64 + 64 f32 a thread, as one
+// warpgroup holds at hd 128) and computing S^T and dP^T in full.
+template <int HD>
+struct DkdvWarpgroups {
+  static constexpr int kN = HD > 128 ? 2 : 1;
+  static constexpr int kCols = HD / kN;       // dK, dV columns a warpgroup
+  static constexpr int kThreads = kN * kWG;
+};
+
+#ifndef FLASH_BWD_KV_VARIANT
+#define FLASH_BWD_KV_VARIANT 0
+#endif
+// bytes the two warpgroups trade a step
+constexpr size_t kTrade = FLASH_BWD_KV_VARIANT == 1 ? 2 * 16384
+                        : FLASH_BWD_KV_VARIANT == 2 ? 8192 + 16384 : 0;
+
 template <int HD>
 constexpr size_t smem_bytes_dkdv_wgmma() {
   // K, V, 2 x (Q, dO); 2 x (lse, D) of 64 f32; alignment
-  return 6 * Tile<HD>::kBytes + 2 * 2 * kRows * sizeof(float) + 1024;
+  return 6 * Tile<HD>::kBytes + 2 * 2 * kRows * sizeof(float) + 1024 +
+         (DkdvWarpgroups<HD>::kN > 1 ? kTrade : 0);
 }
 
-// dK, dV of one 64-key tile of one KV head: the group's query heads in
-// order and, in each, the query tiles that can see the tile, through a
-// two-stage ring of (Q, dO, lse, D).  Fragment rows are keys k0 + r0,
-// + 8; columns queries q0 + 8i + cq + 0, 1.
+// dK, dV of one 64-key tile of one KV head: the query heads of one of
+// the group's `splits` parts in order and, in each, the query tiles that
+// can see the tile, through a two-stage ring of (Q, dO, lse, D).  With
+// one part dK and dV are stored as bf16; with more each part's f32 sums
+// go to `partial` (splits, 2, BHkv, Sk, HD) for flash_bwd_kv_reduce.
+// Fragment rows are keys k0 + r0, + 8; columns queries q0 + 8i + cq + 0, 1.
+
+
+// dK, dV of one 64-key tile of one KV head: the query heads of one of
+// the group's `splits` parts in order and, in each, the query tiles that
+// can see the tile, through a two-stage ring of (Q, dO, lse, D).  With
+// one part dK and dV are stored as bf16; with more each part's f32 sums
+// go to `partial` (splits, 2, BHkv, Sk, HD) for flash_bwd_kv_reduce.
+// Fragment rows are keys k0 + r0, + 8; columns queries q0 + 8i + cq + 0, 1.
 template <int HD>
-__global__ void __launch_bounds__(kWG, 1)
+__global__ void __launch_bounds__(DkdvWarpgroups<HD>::kThreads, 1)
 flash_bwd_dkdv_wgmma(const bf16* __restrict__ q, const bf16* __restrict__ k,
                      const bf16* __restrict__ v,
                      const bf16* __restrict__ dout,
                      const float* __restrict__ lse,
                      const float* __restrict__ dsum, bf16* __restrict__ dk,
-                     bf16* __restrict__ dv, int sq, int sk, int group,
-                     int causal, int window, float scale) {
+                     bf16* __restrict__ dv, float* __restrict__ partial,
+                     int sq, int sk, int group, int splits, int causal,
+                     int window, float scale) {
+  using W = DkdvWarpgroups<HD>;
+  constexpr int kNT = W::kThreads, kCols = W::kCols;
+  constexpr bool kTwo = W::kN > 1;
   extern __shared__ uint8_t smem_raw[];
   constexpr int kTile = Tile<HD>::kBytes;
+  // a warpgroup's kCols columns of a tile: whole column blocks, laid out
+  // as a 64 x kCols tile (Tile<128> at hd 256)
+  constexpr int kPart = kRows * kCols * 2;
   const uint32_t ks = aligned_smem(smem_raw);
   const uint32_t vs = ks + kTile;
   const uint32_t ring = vs + kTile;   // stage s: Q at + 2s, dO at + 2s + 1
@@ -599,11 +676,22 @@ flash_bwd_dkdv_wgmma(const bf16* __restrict__ q, const bf16* __restrict__ k,
   const float* stats_f = reinterpret_cast<const float*>(
       smem_raw + (stats - smem_addr(smem_raw)));
 
-  const int bkv = blockIdx.y;
-  const int k0 = blockIdx.x * kRows;
+  // the block's key tile, KV head and part of the group: up to hd 128
+  // (one part) the key tile varies fastest; at hd 256 slowest, so that the
+  // key tiles with the most query tiles start first
+  const int kt = kTwo ? blockIdx.y : blockIdx.x;
+  const int hs = kTwo ? blockIdx.x : blockIdx.y;
+  const int parts = kTwo ? splits : 1;
+  const int bkv = hs / parts, split = hs % parts;
+  // the first group % parts parts take one head more
+  const int per = group / parts, extra = group % parts;
+  const int g0 = split * per + min(split, extra);
+  const int heads = per + (split < extra ? 1 : 0);
+  const int k0 = kt * kRows;
   const int t = threadIdx.x;
+  const int wg = t / kWG;                       // columns kCols wg ..
   const int lane = t & 31;
-  const int r0 = 16 * (t >> 5) + (lane >> 2);   // keys k0 + r0, + 8
+  const int r0 = 16 * ((t % kWG) >> 5) + (lane >> 2);   // keys k0 + r0, + 8
   const int cq = 2 * (lane & 3);                // queries 8i + cq + 0, 1
   const int off = sk - sq;
 
@@ -614,33 +702,38 @@ flash_bwd_dkdv_wgmma(const bf16* __restrict__ q, const bf16* __restrict__ k,
   i_begin = (i_begin / kRows) * kRows;
   const int tiles =
       i_end > i_begin ? (i_end - i_begin + kRows - 1) / kRows : 0;
-  const int steps = group * tiles;   // (query head, query tile) pairs
+  const int steps = heads * tiles;   // (query head, query tile) pairs
 
   // step n's Q and dO tiles into stage s, with its rows' lse (threads
   // 0-63) and D (64-127); rows past Sq are zeros
   auto load_step = [&](int n, int s) {
-    const size_t head = static_cast<size_t>(bkv) * group + n / tiles;
+    const size_t head =
+        static_cast<size_t>(bkv) * group + g0 + n / tiles;
     const int q0 = i_begin + (n % tiles) * kRows;
-    load_tile<HD>(ring + 2 * s * kTile, q + head * sq * HD, q0, sq, t);
-    load_tile<HD>(ring + (2 * s + 1) * kTile, dout + head * sq * HD, q0, sq,
-                  t);
-    const int row = q0 + (t & (kRows - 1));
-    const float* src = (t < kRows ? lse : dsum) + head * sq + row;
-    cp_async4(stats + 4 * (2 * kRows * s + t), row < sq ? src : lse,
-              row < sq ? 4 : 0);
+    load_tile<HD, kNT>(ring + 2 * s * kTile, q + head * sq * HD, q0, sq, t);
+    load_tile<HD, kNT>(ring + (2 * s + 1) * kTile, dout + head * sq * HD,
+                       q0, sq, t);
+    if (!kTwo || t < kWG) {
+      const int row = q0 + (t & (kRows - 1));
+      const float* src = (t < kRows ? lse : dsum) + head * sq + row;
+      cp_async4(stats + 4 * (2 * kRows * s + t), row < sq ? src : lse,
+                row < sq ? 4 : 0);
+    }
   };
   if (steps > 0) {   // else no query sees the tile: dK = dV = 0
-    load_tile<HD>(ks, k + static_cast<size_t>(bkv) * sk * HD, k0, sk, t);
-    load_tile<HD>(vs, v + static_cast<size_t>(bkv) * sk * HD, k0, sk, t);
+    load_tile<HD, kNT>(ks, k + static_cast<size_t>(bkv) * sk * HD, k0, sk,
+                       t);
+    load_tile<HD, kNT>(vs, v + static_cast<size_t>(bkv) * sk * HD, k0, sk,
+                       t);
     load_step(0, 0);
     cp_async_commit();
   }
 
   const float scale2 = scale * kLog2e;
-  float dk_acc[HD / 2], dv_acc[HD / 2], s[32], dp[32];
+  float dk_acc[kCols / 2], dv_acc[kCols / 2], s[32], dp[32];
   uint32_t a[16];
 #pragma unroll
-  for (int i = 0; i < HD / 2; ++i) dk_acc[i] = dv_acc[i] = 0.f;
+  for (int i = 0; i < kCols / 2; ++i) dk_acc[i] = dv_acc[i] = 0.f;
 
   int stage = 0;
   for (int n = 0; n < steps; ++n, stage ^= 1) {
@@ -653,6 +746,181 @@ flash_bwd_dkdv_wgmma(const bf16* __restrict__ q, const bf16* __restrict__ k,
     const uint32_t qs = ring + 2 * stage * kTile, dos = qs + kTile;
     const float* lse_s = stats_f + 2 * kRows * stage;
     const float* d_s = lse_s + kRows;
+#if FLASH_BWD_KV_VARIANT == 1
+    if constexpr (kTwo) {
+      // mask only where the tile crosses the diagonal, the window's edge, Sq
+      // or Sk (uniform over the block)
+      const bool masked =
+          q0 + kRows > sq || k0 + kRows > sk ||
+          (causal && k0 + kRows - 1 > q0 + off) ||
+          (window > 0 && q0 + kRows - 1 + off - k0 >= window);
+      // each warpgroup half of S^T's and dP^T's depth, the halves added
+      // through shared memory
+      float* xs = reinterpret_cast<float*>(
+          smem_raw + (stats + 1024 - smem_addr(smem_raw)));
+      const int tw = t % kWG;
+      start_ss<kCols>(s, ks + wg * kPart, qs + wg * kPart);
+      start_ss<kCols>(dp, vs + wg * kPart, dos + wg * kPart);
+      if (n + 1 < steps) {
+        load_step(n + 1, stage ^ 1);
+        cp_async_commit();
+      }
+      wgmma_wait();
+      fence_regs<32>(s);
+      fence_regs<32>(dp);
+      float4* mine = reinterpret_cast<float4*>(xs + wg * 4096);
+      const float4* theirs =
+          reinterpret_cast<const float4*>(xs + (1 - wg) * 4096);
+#pragma unroll
+      for (int j = 0; j < 8; ++j)
+        mine[j * kWG + tw] = make_float4(s[4 * j], s[4 * j + 1], s[4 * j + 2],
+                                         s[4 * j + 3]);
+      __syncthreads();
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        const float4 x = theirs[j * kWG + tw];
+        s[4 * j] += x.x, s[4 * j + 1] += x.y, s[4 * j + 2] += x.z,
+            s[4 * j + 3] += x.w;
+      }
+      __syncthreads();
+#pragma unroll
+      for (int j = 0; j < 8; ++j)
+        mine[j * kWG + tw] = make_float4(dp[4 * j], dp[4 * j + 1],
+                                         dp[4 * j + 2], dp[4 * j + 3]);
+      __syncthreads();
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        const float4 x = theirs[j * kWG + tw];
+        dp[4 * j] += x.x, dp[4 * j + 1] += x.y, dp[4 * j + 2] += x.z,
+            dp[4 * j + 3] += x.w;
+      }
+      uint32_t live = ~0u;
+#pragma unroll
+      for (int i = 0; i < 32; ++i) {
+        const int col = 8 * (i >> 2) + cq + (i & 1);
+        const float lse2 = lse_s[col] * kLog2e;
+        if (masked) {
+          bool on;
+          s[i] = masked_p(s[i], lse2, q0 + col,
+                          k0 + r0 + 8 * ((i >> 1) & 1), off, sq, sk, causal,
+                          window, scale2, &on);
+          if (!on) live &= ~(1u << i);
+        } else {
+          s[i] = exp2f(fmaf(s[i], scale2, -lse2));
+        }
+      }
+      pack_p(a, s);
+#pragma unroll
+      for (int i = 0; i < 32; ++i) {
+        const int col = 8 * (i >> 2) + cq + (i & 1);
+        dp[i] = (live >> i) & 1u
+                    ? unpack_bf16(a[i >> 1], i & 1) * (dp[i] - d_s[col])
+                    : 0.f;
+      }
+      uint32_t b[16];
+      pack_p(b, dp);                                  // dS^T, bf16
+      start_rs<kCols>(dv_acc, a, dos + wg * kPart);   // dV += P^T dO
+      start_rs<kCols>(dk_acc, b, qs + wg * kPart);    // dK += dS^T Q
+      wgmma_wait();
+      fence_regs<kCols / 2>(dv_acc);
+      fence_regs<kCols / 2>(dk_acc);
+      continue;
+    }
+#elif FLASH_BWD_KV_VARIANT == 2
+    if constexpr (kTwo) {
+      // mask only where the tile crosses the diagonal, the window's edge, Sq
+      // or Sk (uniform over the block)
+      const bool masked =
+          q0 + kRows > sq || k0 + kRows > sk ||
+          (causal && k0 + kRows - 1 > q0 + off) ||
+          (window > 0 && q0 + kRows - 1 + off - k0 >= window);
+      // warpgroup 0 computes S^T and P^T, warpgroup 1 dP^T; they trade P^T
+      // (bf16) and dP^T (f32) through shared memory
+      uint8_t* xb = smem_raw + (stats + 1024 - smem_addr(smem_raw));
+      uint4* xp = reinterpret_cast<uint4*>(xb);            // P^T, 8 KB
+      float4* xd = reinterpret_cast<float4*>(xb + 8192);   // dP^T, 16 KB
+      const int tw = t % kWG;
+      if (wg == 0)
+        start_ss<HD>(s, ks, qs);    // S^T = K Q^T
+      else
+        start_ss<HD>(s, vs, dos);   // dP^T = V dO^T
+      if (n + 1 < steps) {
+        load_step(n + 1, stage ^ 1);
+        cp_async_commit();
+      }
+      wgmma_wait();
+      fence_regs<32>(s);
+      uint32_t live = ~0u;
+      if (wg == 0) {
+#pragma unroll
+        for (int i = 0; i < 32; ++i) {
+          const int col = 8 * (i >> 2) + cq + (i & 1);
+          const float lse2 = lse_s[col] * kLog2e;
+          if (masked) {
+            bool on;
+            s[i] = masked_p(s[i], lse2, q0 + col,
+                            k0 + r0 + 8 * ((i >> 1) & 1), off, sq, sk,
+                            causal, window, scale2, &on);
+            if (!on) live &= ~(1u << i);
+          } else {
+            s[i] = exp2f(fmaf(s[i], scale2, -lse2));
+          }
+        }
+        pack_p(a, s);
+#pragma unroll
+        for (int j = 0; j < 4; ++j)
+          xp[j * kWG + tw] = make_uint4(a[4 * j], a[4 * j + 1], a[4 * j + 2],
+                                        a[4 * j + 3]);
+      } else {
+        if (masked) {
+#pragma unroll
+          for (int i = 0; i < 32; ++i) {
+            const int col = 8 * (i >> 2) + cq + (i & 1);
+            if (!entry_live(q0 + col, k0 + r0 + 8 * ((i >> 1) & 1), off, sq,
+                            sk, causal, window))
+              live &= ~(1u << i);
+          }
+        }
+#pragma unroll
+        for (int j = 0; j < 8; ++j)
+          xd[j * kWG + tw] = make_float4(s[4 * j], s[4 * j + 1],
+                                         s[4 * j + 2], s[4 * j + 3]);
+      }
+      __syncthreads();
+      if (wg == 0) {
+#pragma unroll
+        for (int j = 0; j < 8; ++j) {
+          const float4 x = xd[j * kWG + tw];
+          dp[4 * j] = x.x, dp[4 * j + 1] = x.y, dp[4 * j + 2] = x.z,
+                 dp[4 * j + 3] = x.w;
+        }
+      } else {
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+          const uint4 x = xp[j * kWG + tw];
+          a[4 * j] = x.x, a[4 * j + 1] = x.y, a[4 * j + 2] = x.z,
+                a[4 * j + 3] = x.w;
+        }
+#pragma unroll
+        for (int i = 0; i < 32; ++i) dp[i] = s[i];
+      }
+#pragma unroll
+      for (int i = 0; i < 32; ++i) {
+        const int col = 8 * (i >> 2) + cq + (i & 1);
+        dp[i] = (live >> i) & 1u
+                    ? unpack_bf16(a[i >> 1], i & 1) * (dp[i] - d_s[col])
+                    : 0.f;
+      }
+      uint32_t b[16];
+      pack_p(b, dp);                                  // dS^T, bf16
+      start_rs<kCols>(dv_acc, a, dos + wg * kPart);   // dV += P^T dO
+      start_rs<kCols>(dk_acc, b, qs + wg * kPart);    // dK += dS^T Q
+      wgmma_wait();
+      fence_regs<kCols / 2>(dv_acc);
+      fence_regs<kCols / 2>(dk_acc);
+      continue;
+    }
+#endif
     start_ss<HD>(s, ks, qs);   // S^T = K Q^T
     if (n + 1 < steps) {
       load_step(n + 1, stage ^ 1);
@@ -682,10 +950,10 @@ flash_bwd_dkdv_wgmma(const bf16* __restrict__ q, const bf16* __restrict__ k,
     }
     pack_p(a, s);                     // P^T, rounded to bf16
     start_ss<HD>(dp, vs, dos);        // dP^T = V dO^T
-    start_rs<HD>(dv_acc, a, dos);     // dV += P^T dO
+    start_rs<kCols>(dv_acc, a, dos + wg * kPart);   // dV += P^T dO
     wgmma_wait();
     fence_regs<32>(dp);
-    fence_regs<HD / 2>(dv_acc);
+    fence_regs<kCols / 2>(dv_acc);
     // dS^T = P^T (dP^T - D), from the rounded P^T
 #pragma unroll
     for (int i = 0; i < 32; ++i) {
@@ -695,14 +963,45 @@ flash_bwd_dkdv_wgmma(const bf16* __restrict__ q, const bf16* __restrict__ k,
                   : 0.f;
     }
     pack_p(a, dp);                    // dS^T, rounded to bf16
-    start_rs<HD>(dk_acc, a, qs);      // dK += dS^T Q
+    start_rs<kCols>(dk_acc, a, qs + wg * kPart);    // dK += dS^T Q
     wgmma_wait();
-    fence_regs<HD / 2>(dk_acc);
+    fence_regs<kCols / 2>(dk_acc);
   }
 
-  const size_t at = static_cast<size_t>(bkv) * sk * HD;
-  store_rows<HD>(dk + at, dk_acc, k0, r0, cq, sk, scale);
-  store_rows<HD>(dv + at, dv_acc, k0, r0, cq, sk, 1.f);
+  const size_t at = static_cast<size_t>(bkv) * sk * HD + wg * kCols;
+  if (kTwo && partial) {
+    const size_t plane =
+        static_cast<size_t>(gridDim.x / parts) * sk * HD;   // BHkv Sk HD
+    float* pk = partial + 2 * split * plane + at;
+    store_rows<HD, kCols>(pk, dk_acc, k0, r0, cq, sk, 1.f);
+    store_rows<HD, kCols>(pk + plane, dv_acc, k0, r0, cq, sk, 1.f);
+  } else {
+    store_rows<HD, kCols>(dk + at, dk_acc, k0, r0, cq, sk, scale);
+    store_rows<HD, kCols>(dv + at, dv_acc, k0, r0, cq, sk, 1.f);
+  }
+}
+
+// dK and dV from the parts' f32 sums, partial (splits, 2, n): added in
+// part order, dK times scale, each rounded once to bf16; four elements a
+// thread (n is a multiple of 4), blockIdx.y 0 for dK, 1 for dV.
+__global__ void __launch_bounds__(kThreads)
+flash_bwd_kv_reduce(const float* __restrict__ partial, bf16* __restrict__ dk,
+                    bf16* __restrict__ dv, size_t n, int splits,
+                    float scale) {
+  const size_t i =
+      4 * (static_cast<size_t>(blockIdx.x) * kThreads + threadIdx.x);
+  if (i >= n) return;
+  const int which = blockIdx.y;
+  float4 acc = *reinterpret_cast<const float4*>(partial + which * n + i);
+  for (int p = 1; p < splits; ++p) {
+    const float4 x = *reinterpret_cast<const float4*>(
+        partial + (2 * static_cast<size_t>(p) + which) * n + i);
+    acc.x += x.x, acc.y += x.y, acc.z += x.z, acc.w += x.w;
+  }
+  const float mul = which ? 1.f : scale;
+  bf16* out = (which ? dv : dk) + i;
+  put2(out, acc.x * mul, acc.y * mul);
+  put2(out + 2, acc.z * mul, acc.w * mul);
 }
 
 template <int HD>
@@ -822,9 +1121,11 @@ flash_bwd_dq_wgmma(const bf16* __restrict__ q, const bf16* __restrict__ k,
 template <int HD>
 int launch_bwd_wgmma(const void* q, const void* k, const void* v,
                      const void* o, const void* dout, const float* lse,
-                     float* dsum, void* dq, void* dk, void* dv, int bhq,
-                     int sq, int sk, int group, int causal, int window,
-                     float scale, cudaStream_t st) {
+                     float* dsum, float* partial, void* dq, void* dk,
+                     void* dv, int bhq, int sq, int sk, int group,
+                     int splits, int causal, int window, float scale,
+                     cudaStream_t st) {
+  using W = DkdvWarpgroups<HD>;
   constexpr size_t kv_bytes = smem_bytes_dkdv_wgmma<HD>();
   constexpr size_t q_bytes = smem_bytes_dq_wgmma<HD>();
   cudaError_t err = cudaFuncSetAttribute(
@@ -839,14 +1140,26 @@ int launch_bwd_wgmma(const void* q, const void* k, const void* v,
   const bf16* kt = static_cast<const bf16*>(k);
   const bf16* vt = static_cast<const bf16*>(v);
   const bf16* dot = static_cast<const bf16*>(dout);
+  bf16* dkt = static_cast<bf16*>(dk);
+  bf16* dvt = static_cast<bf16*>(dv);
   err = launch_dsum<bf16>(o, dot, dsum, bhq * sq, HD, st);
   if (err != cudaSuccess) return static_cast<int>(err);
-  const dim3 kv_grid((sk + kRows - 1) / kRows, bhq / group);
-  flash_bwd_dkdv_wgmma<HD><<<kv_grid, kWG, kv_bytes, st>>>(
-      qt, kt, vt, dot, lse, dsum, static_cast<bf16*>(dk),
-      static_cast<bf16*>(dv), sq, sk, group, causal, window, scale);
+  const int tiles = (sk + kRows - 1) / kRows, parts = bhq / group * splits;
+  const dim3 kv_grid = W::kN > 1 ? dim3(parts, tiles) : dim3(tiles, parts);
+  flash_bwd_dkdv_wgmma<HD><<<kv_grid, W::kThreads, kv_bytes, st>>>(
+      qt, kt, vt, dot, lse, dsum, dkt, dvt, splits > 1 ? partial : nullptr,
+      sq, sk, group, splits, causal, window, scale);
   err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
+  if (splits > 1) {
+    const size_t n = static_cast<size_t>(bhq / group) * sk * HD;
+    const dim3 grid(static_cast<unsigned>((n / 4 + kThreads - 1) / kThreads),
+                    2);
+    flash_bwd_kv_reduce<<<grid, kThreads, 0, st>>>(partial, dkt, dvt, n,
+                                                   splits, scale);
+    err = cudaGetLastError();
+    if (err != cudaSuccess) return static_cast<int>(err);
+  }
   const dim3 q_grid((sq + kRows - 1) / kRows, bhq);
   flash_bwd_dq_wgmma<HD><<<q_grid, kWG, q_bytes, st>>>(
       qt, kt, vt, dot, lse, dsum, static_cast<bf16*>(dq), sq, sk, group,
@@ -854,16 +1167,17 @@ int launch_bwd_wgmma(const void* q, const void* k, const void* v,
   return static_cast<int>(cudaGetLastError());
 }
 
-// bf16 up to hd 128 on the tensor cores; f32, and bf16 at hd 256, on the
-// CUDA cores
+// bf16 on the tensor cores; f32 on the CUDA cores
 template <typename T, int HD>
 int launch_any(const void* q, const void* k, const void* v, const void* o,
-               const void* dout, const float* lse, float* dsum, void* dq,
-               void* dk, void* dv, int bhq, int sq, int sk, int group,
-               int causal, int window, float scale, cudaStream_t st) {
-  if constexpr (std::is_same<T, bf16>::value && HD <= 128)
-    return launch_bwd_wgmma<HD>(q, k, v, o, dout, lse, dsum, dq, dk, dv, bhq,
-                                sq, sk, group, causal, window, scale, st);
+               const void* dout, const float* lse, float* dsum,
+               float* partial, void* dq, void* dk, void* dv, int bhq, int sq,
+               int sk, int group, int splits, int causal, int window,
+               float scale, cudaStream_t st) {
+  if constexpr (std::is_same<T, bf16>::value)
+    return launch_bwd_wgmma<HD>(q, k, v, o, dout, lse, dsum, partial, dq, dk,
+                                dv, bhq, sq, sk, group, splits, causal,
+                                window, scale, st);
   else
     return launch_bwd<T, HD>(q, k, v, o, dout, lse, dsum, dq, dk, dv, bhq,
                              sq, sk, group, causal, window, scale, st);
@@ -872,13 +1186,14 @@ int launch_any(const void* q, const void* k, const void* v, const void* o,
 template <typename T>
 int by_head_dim(int hd, const void* q, const void* k, const void* v,
                 const void* o, const void* dout, const float* lse, float* dsum,
-                void* dq, void* dk, void* dv, int bhq, int sq, int sk,
-                int group, int causal, int window, float scale,
-                cudaStream_t st) {
+                float* partial, void* dq, void* dk, void* dv, int bhq, int sq,
+                int sk, int group, int splits, int causal, int window,
+                float scale, cudaStream_t st) {
 #define FLASH_BWD_CASE(HD)                                                   \
   case HD:                                                                   \
-    return launch_any<T, HD>(q, k, v, o, dout, lse, dsum, dq, dk, dv, bhq,   \
-                             sq, sk, group, causal, window, scale, st);
+    return launch_any<T, HD>(q, k, v, o, dout, lse, dsum, partial, dq, dk,   \
+                             dv, bhq, sq, sk, group, splits, causal, window, \
+                             scale, st);
   switch (hd) {
     FLASH_BWD_CASE(16)
     FLASH_BWD_CASE(32)
@@ -899,26 +1214,35 @@ extern "C" {
 // o = attention(q, k, v) (flash_attention_launch's function) given dout,
 // o and the forward's lse (BHq, Sq, f32).  q, k, v, o, dout, dq, dk, dv
 // contiguous and of one type: dtype 0 f32, 1 bf16.  dsum is f32 scratch
-// of BHq * Sq.  hd is 16, 32, 64, 128 or 256.  Three kernels on `stream`;
-// returns the first non-zero cudaError_t of their launches (0 = success).
+// of BHq * Sq.  hd is 16, 32, 64, 128 or 256.  `splits` parts of each
+// group of query heads walk a key tile in separate blocks: 1, or, for
+// bf16 at hd 256 only, up to `group`, with `partial` f32 scratch of
+// splits * 2 * (BHq / group) * Sk * hd.  Three kernels on `stream`, four
+// with parts; returns the first non-zero cudaError_t of their launches
+// (0 = success).
 int flash_attention_bwd_launch(const void* q, const void* k, const void* v,
                                const void* o, const void* dout,
-                               const void* lse, void* dsum, void* dq,
-                               void* dk, void* dv, int dtype, int bhq, int sq,
-                               int sk, int hd, int group, int causal,
-                               int window, float scale, void* stream) {
+                               const void* lse, void* dsum, void* partial,
+                               void* dq, void* dk, void* dv, int dtype,
+                               int bhq, int sq, int sk, int hd, int group,
+                               int splits, int causal, int window,
+                               float scale, void* stream) {
   if (bhq < 1 || bhq > 65535 || sq < 1 || sk < 1 || group < 1 ||
-      bhq % group)
+      bhq % group || splits < 1 || splits > group ||
+      (splits > 1 && (dtype != 1 || hd != 256 || partial == nullptr)))
     return static_cast<int>(cudaErrorInvalidValue);
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   const float* l = static_cast<const float*>(lse);
   float* ds = static_cast<float*>(dsum);
+  float* part = static_cast<float*>(partial);
   if (dtype == 0)
-    return by_head_dim<float>(hd, q, k, v, o, dout, l, ds, dq, dk, dv, bhq,
-                              sq, sk, group, causal, window, scale, st);
+    return by_head_dim<float>(hd, q, k, v, o, dout, l, ds, part, dq, dk, dv,
+                              bhq, sq, sk, group, splits, causal, window,
+                              scale, st);
   if (dtype == 1)
-    return by_head_dim<bf16>(hd, q, k, v, o, dout, l, ds, dq, dk, dv, bhq,
-                             sq, sk, group, causal, window, scale, st);
+    return by_head_dim<bf16>(hd, q, k, v, o, dout, l, ds, part, dq, dk, dv,
+                             bhq, sq, sk, group, splits, causal, window,
+                             scale, st);
   return static_cast<int>(cudaErrorInvalidValue);
 }
 

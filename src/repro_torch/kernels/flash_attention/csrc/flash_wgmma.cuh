@@ -71,13 +71,13 @@ __device__ __forceinline__ void cp_async_wait() {
 }
 
 // Rows row0.. of a (rows, HD) matrix into a tile, 16 bytes a copy, the
-// warpgroup's threads side by side along a row; rows >= rows_valid are
-// zero-filled, never read.
-template <int HD>
+// block's NT threads (t one of them) side by side along a row; rows >=
+// rows_valid are zero-filled, never read.
+template <int HD, int NT = kWG>
 __device__ __forceinline__ void load_tile(uint32_t dst, const bf16* src,
                                           int row0, int rows_valid, int t) {
   constexpr int kChunks = HD / 8;          // 16-byte chunks a row
-  constexpr int kStep = kWG / kChunks;     // rows a pass
+  constexpr int kStep = NT / kChunks;      // rows a pass
   const int c = (t % kChunks) * 8;
 #pragma unroll
   for (int r = t / kChunks; r < kRows; r += kStep) {

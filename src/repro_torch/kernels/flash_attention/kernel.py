@@ -19,13 +19,16 @@ The forward writes each row's logsumexp when asked (``return_lse``), for
 `flash_attention_bwd`, which computes dq, dk and dv from q, k, v, o, the
 output's gradient and that lse in three kernels (one call, counted once
 under ``flash_attention_bwd``), at head dims up to 256 (zero-padded as
-the forward pads them); above 256 it raises (ROADMAP item 6b).  bf16 up
-to hd 128 (`BWD_WGMMA_HEAD_DIMS`) runs on the tensor cores (wgmma); f32,
-and bf16 at hd 256, on the CUDA cores.
+the forward pads them); above 256 it raises (ROADMAP item 6b).  bf16
+(`BWD_WGMMA_HEAD_DIMS`, hd 16-256) runs on the tensor cores (wgmma); f32
+on the CUDA cores.  At hd 256 a dK/dV block is two warpgroups, and each
+KV head's group of query heads may be cut into parts walked by separate
+blocks (`bwd_kv_splits`), whose f32 sums a fourth kernel adds.
 """
 from __future__ import annotations
 
 import ctypes
+import math
 from pathlib import Path
 
 import torch
@@ -40,8 +43,12 @@ BWD_SOURCE = SOURCE.with_name("flash_attention_bwd.cu")
 HEAD_DIMS = (16, 32, 64, 128, 256, 512, 1024)  # the f32 kernel's
 WGMMA_HEAD_DIMS = HEAD_DIMS[:5]                # the bf16 (wgmma) kernel's
 BWD_HEAD_DIMS = HEAD_DIMS[:5]                  # the backward's
-BWD_WGMMA_HEAD_DIMS = HEAD_DIMS[:4]            # its bf16 (wgmma) kernels'
+BWD_WGMMA_HEAD_DIMS = HEAD_DIMS[:5]            # its bf16 (wgmma) kernels'
 DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+# dK/dV blocks the head split aims at: two for each SM of an H100 SXM
+# (132), fixed rather than read from the card, so that the order of the
+# sums, and so the bits, are the same on every card
+BWD_FILL_BLOCKS = 2 * 132
 
 _lib = None
 _bwd_lib = None
@@ -70,7 +77,7 @@ def bwd_library() -> ctypes.CDLL:
     if _bwd_lib is None:
         lib = build_library(BWD_NAME, [BWD_SOURCE])
         ptr, i32 = ctypes.c_void_p, ctypes.c_int
-        lib.flash_attention_bwd_launch.argtypes = [ptr] * 10 + [i32] * 8 + [
+        lib.flash_attention_bwd_launch.argtypes = [ptr] * 11 + [i32] * 9 + [
             ctypes.c_float, ptr]
         lib.flash_attention_bwd_launch.restype = i32
         _bwd_lib = lib
@@ -121,6 +128,20 @@ def bwd_head_dim(hd: int) -> int:
                          f"instantiation is {BWD_HEAD_DIMS[-1]} (ROADMAP "
                          "Queue 1 item 6b)")
     return padded_head_dim(hd)
+
+
+def bwd_kv_splits(dtype: torch.dtype, width: int, bhkv: int, sk: int,
+                  group: int) -> int:
+    """Parts each KV head's group of query heads is cut into for the
+    backward's dK/dV pass: 1, except for bf16 at hd 256 (two warpgroups
+    a block, one block an SM), where it is the least number of parts that
+    gives `BWD_FILL_BLOCKS` blocks of 64 keys, at most one a head.  The
+    first ``group % parts`` parts take one head more; their f32 sums are
+    added in part order and rounded once."""
+    if dtype != torch.bfloat16 or width != 256:
+        return 1
+    blocks = bhkv * -(-sk // 64)
+    return min(group, math.ceil(BWD_FILL_BLOCKS / blocks))
 
 
 def flash_attention_fwd(
@@ -196,12 +217,16 @@ def flash_attention_bwd(
                               for t in (q, k, v, o, do))
         dq, dk, dv = (torch.empty_like(t) for t in (q, k, v))
         dsum = torch.empty((bhq, sq), dtype=torch.float32, device=q.device)
+        splits = bwd_kv_splits(q.dtype, width, k.shape[0], k.shape[1], group)
+        partial = (torch.empty((splits, 2, *k.shape), dtype=torch.float32,
+                               device=q.device) if splits > 1 else None)
         stream = torch.cuda.current_stream(q.device).cuda_stream
         err = lib.flash_attention_bwd_launch(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
-            do.data_ptr(), lse.data_ptr(), dsum.data_ptr(), dq.data_ptr(),
+            do.data_ptr(), lse.data_ptr(), dsum.data_ptr(),
+            None if partial is None else partial.data_ptr(), dq.data_ptr(),
             dk.data_ptr(), dv.data_ptr(), DTYPES[q.dtype], bhq, sq,
-            k.shape[1], width, group, int(bool(causal)), int(window),
+            k.shape[1], width, group, splits, int(bool(causal)), int(window),
             hd**-0.5, stream)
     if err:
         raise RuntimeError(

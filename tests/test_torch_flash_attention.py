@@ -19,8 +19,10 @@ interpret mode, in bf16 through the card's arithmetic too.  The card's
 bf16 backward kernels round P and dS to bf16 before the products they
 feed (ROADMAP Queue 3, B4); their arithmetic, written out here in plain
 torch, stays within 2e-2 of each gradient's largest value of `jax.vjp`
-of the model's `chunked_attention`.  The build keys each library by the
-headers beside its sources too, which nvcc is not given.
+of the model's `chunked_attention`, also where the hd-256 dK/dV pass cuts
+a group of query heads into parts whose f32 sums are added in order
+(`bwd_kv_splits`, its rule checked here).  The build keys each library
+by the headers beside its sources too, which nvcc is not given.
 """
 import jax
 import jax.numpy as jnp
@@ -38,6 +40,7 @@ from repro_torch.kernels.flash_attention.kernel import (
     BWD_SOURCE,
     HEAD_DIMS,
     SOURCE,
+    bwd_kv_splits,
     padded_head_dim,
 )
 from repro_torch.kernels.flash_attention.ref import NEG_INF, attention_mask
@@ -248,12 +251,14 @@ def test_zero_padded_head_dim_matches_jax(hd, window, dtype):
                                    **_tol(dtype))
 
 
-def _rounded_backward(q, k, v, o, do, causal, window):
+def _rounded_backward(q, k, v, o, do, causal, window, parts=1):
     """The bf16 backward kernels' arithmetic (B4): S, dP, D = rowsum(dO O),
     lse and every sum in f32; P rounded to bf16 before dV += P^T dO; dS =
     P (dP - D) from the rounded P, itself rounded to bf16 before dK +=
     dS^T Q and dQ += dS K; a causal row with no live key has p = 1 / Sk
-    and ds = 0; dq, dk, dv rounded once to bf16."""
+    and ds = 0; dq, dk, dv rounded once to bf16.  With `parts` > 1 dK
+    and dV are summed as the hd-256 dK/dV pass sums them
+    (`_parts_summed`)."""
     B, Hq, Sq, hd = q.shape
     Hkv, Sk = k.shape[1], k.shape[2]
     G = Hq // Hkv
@@ -272,9 +277,29 @@ def _rounded_backward(q, k, v, o, do, causal, window):
     dp = torch.einsum("bhgqd,bhkd->bhgqk", dof, vf)
     ds = torch.where(mask, p * (dp - d), 0.0).bfloat16().float()
     dq = torch.einsum("bhgqk,bhkd->bhgqd", ds, kf) * scale
-    dk = torch.einsum("bhgqk,bhgqd->bhkd", ds, qf) * scale
-    dv = torch.einsum("bhgqk,bhgqd->bhkd", p, dof)
+    if parts > 1:
+        dk = _parts_summed(ds, qf, parts) * scale
+        dv = _parts_summed(p, dof, parts)
+    else:
+        dk = torch.einsum("bhgqk,bhgqd->bhkd", ds, qf) * scale
+        dv = torch.einsum("bhgqk,bhgqd->bhkd", p, dof)
     return dq.reshape(B, Hq, Sq, hd).bfloat16(), dk.bfloat16(), dv.bfloat16()
+
+
+def _parts_summed(w, x, parts):
+    """sum over the group's heads g and queries of w[.., g, q, k] x[.., g,
+    q, :] as the hd-256 dK/dV pass orders it: the group cut into `parts`
+    runs of heads, the first G % parts one head longer, each run's f32
+    sum apart, then the runs' sums added in order."""
+    G = w.shape[2]
+    per, extra = divmod(G, parts)
+    out, g0 = None, 0
+    for i in range(parts):
+        g1 = g0 + per + (i < extra)
+        part = torch.einsum("bhgqk,bhgqd->bhkd", w[:, :, g0:g1], x[:, :, g0:g1])
+        out = part if out is None else out + part
+        g0 = g1
+    return out
 
 
 @pytest.mark.parametrize("case", [  # B, Hq, Hkv, Sq, Sk, hd, causal, window
@@ -282,11 +307,35 @@ def _rounded_backward(q, k, v, o, do, causal, window):
     (1, 8, 1, 200, 200, 128, True, 0),   # group 8 at hd 128 (yi)
     (1, 4, 2, 160, 160, 64, True, 48),   # a window
     (1, 4, 2, 96, 40, 32, True, 0),      # rows at negative positions
+    (1, 10, 1, 96, 96, 256, True, 40),   # recurrentgemma's heads, window
+    (1, 8, 2, 96, 96, 160, True, 0),     # stablelm's hd 160 (padded: 256)
 ])
 def test_bf16_backward_rounding_is_within_bf16_tolerance(case):
     """dq, dk, dv of the kernels' bf16 arithmetic on bf16 inputs against
     jax.vjp of `chunked_attention` (f32 on the same values) within 2e-2 of
     each gradient's largest value plus 2e-2 of its own."""
+    _hold_rounded_backward_to_jax(case, 1)
+
+
+@pytest.mark.parametrize("case,parts", [
+    ((1, 10, 1, 96, 96, 256, True, 40), None),   # the rule: 10 parts
+    ((1, 10, 1, 96, 96, 256, True, 40), 4),      # 3, 3, 2, 2 heads
+    ((2, 6, 2, 80, 120, 256, True, 0), None),    # the rule: 3 parts
+    ((1, 6, 1, 70, 70, 160, False, 0), 4),       # 2, 2, 1, 1 heads
+])
+def test_bf16_backward_parts_sum_is_within_bf16_tolerance(case, parts):
+    """The hd-256 dK/dV pass's order of sums over a group cut into parts
+    (`bwd_kv_splits`' count at the case's shape, or a count that leaves a
+    remainder) against jax.vjp of `chunked_attention` as above."""
+    B, Hq, Hkv, Sq, Sk, hd, *_ = case
+    if parts is None:
+        parts = bwd_kv_splits(torch.bfloat16, padded_head_dim(hd), B * Hkv,
+                              Sk, Hq // Hkv)
+    assert parts > 1
+    _hold_rounded_backward_to_jax(case, parts)
+
+
+def _hold_rounded_backward_to_jax(case, parts):
     B, Hq, Hkv, Sq, Sk, hd, causal, window = case
     rng = np.random.default_rng(sum(case[:6]))
     arrs = [rng.normal(size=shape).astype(np.float32) for shape in (
@@ -299,12 +348,27 @@ def test_bf16_backward_rounding_is_within_bf16_tolerance(case):
         chunk_k=32), *(jnp.asarray(_np(t)) for t in (q, k, v)))
     want = vjp(jnp.asarray(_np(do)))
     o = _rounded_p_attention(q, k, v, causal, window)
-    got = _rounded_backward(q, k, v, o, do, causal, window)
+    got = _rounded_backward(q, k, v, o, do, causal, window, parts)
     for name, g, w in zip(("dq", "dk", "dv"), got, want):
         assert g.dtype == torch.bfloat16 and g.shape == w.shape, name
         w = np.asarray(w)
         np.testing.assert_allclose(_np(g), w, rtol=2e-2,
                                    atol=2e-2 * np.abs(w).max(), err_msg=name)
+
+
+@pytest.mark.parametrize("args,parts", [
+    # dtype, padded hd, BHkv, Sk, group
+    ((torch.bfloat16, 256, 1, 4096, 10), 5),    # recurrentgemma, training
+    ((torch.bfloat16, 256, 8, 512, 4), 4),      # stablelm, S 512: a head a part
+    ((torch.bfloat16, 256, 4, 2150, 3), 2),     # 136 blocks: 2, 1 heads
+    ((torch.bfloat16, 256, 40, 4096, 3), 1),    # enough blocks already
+    ((torch.float32, 256, 1, 4096, 10), 1),     # f32: the CUDA cores
+    ((torch.bfloat16, 128, 1, 4096, 8), 1),     # one warpgroup a block
+])
+def test_bwd_kv_splits_follows_the_rule(args, parts):
+    """The least count of parts giving 264 dK/dV blocks of 64 keys, at
+    most the group, for bf16 at hd 256 only."""
+    assert bwd_kv_splits(*args) == parts
 
 
 def test_flash_sources_share_the_wgmma_header():

@@ -19,8 +19,9 @@ the f32 kernel alone (up to 1024); the cross-attention layers' modes
 runs its scalar loads for rows or weights off 16 bytes.  The flash
 backward kernel (training) is held to autograd through the plain
 version at the same tolerances relative to each gradient's largest
-value, bit for bit against itself, and its bf16 path up to hd 128 is
-seen to launch the wgmma kernels; the forward's lse to torch.logsumexp
+value, bit for bit against itself (at hd 256 with the group cut into
+parts too), and its bf16 path (hd 16-256) is seen to launch the wgmma
+kernels; the forward's lse to torch.logsumexp
 at 2e-5.  The backward kernels of moe_gmm, rglru_scan and mamba_scan
 (training, F3 repaired) are held to autograd through their plain
 versions alike, bit for bit against themselves (moe_gmm's bf16 path
@@ -44,6 +45,7 @@ from repro_torch.kernels.flash_attention import flash_attention, flash_attention
 from repro_torch.kernels.flash_attention.kernel import (
     BWD_WGMMA_HEAD_DIMS,
     WGMMA_HEAD_DIMS,
+    bwd_kv_splits,
     flash_attention_bwd,
     flash_attention_fwd,
     wgmma_probe,
@@ -802,6 +804,14 @@ BWD_CASES = [  # B, Hq, Hkv, Sq, Sk, hd, causal, window
     (1, 8, 1, 192, 192, 128, True, 70), (1, 8, 1, 200, 330, 128, False, 0),
     (2, 3, 1, 130, 70, 32, True, 0), (1, 2, 1, 70, 70, 16, False, 0),
     (1, 4, 2, 40, 300, 64, True, 30),
+    # hd 256 (bf16: two warpgroups a dK/dV block, the group cut into
+    # parts): group 10 over one KV head with a window on ragged tiles;
+    # Sq != Sk non-causal; causal rows at negative positions; key tiles
+    # behind every query's window; a single query row; three heads in two
+    # parts (2, 1: 136 key-tile blocks)
+    (1, 10, 1, 200, 200, 256, True, 70), (1, 4, 2, 77, 200, 256, False, 0),
+    (2, 3, 1, 130, 70, 256, True, 0), (1, 4, 2, 40, 300, 256, True, 30),
+    (2, 4, 2, 1, 130, 256, True, 0), (2, 6, 2, 300, 2150, 256, True, 0),
 ]
 
 
@@ -831,9 +841,9 @@ def test_flash_attention_bwd_matches_plain_autograd(card, case, dtype):
     (torch.bfloat16, 128), (torch.bfloat16, 256), (torch.float32, 64)])
 def test_flash_attention_bwd_runs_wgmma_for_bf16_up_to_hd_128(card, dtype,
                                                               hd):
-    """The profiler's kernel names: bf16 at hd 16-128 launches the wgmma
-    dK/dV and dQ kernels, f32 and bf16 hd 256 the CUDA-core ones, each
-    after the D pass."""
+    """The profiler's kernel names: bf16 at hd 16-256 launches the wgmma
+    dK/dV and dQ kernels, f32 the CUDA-core ones, each after the D
+    pass."""
     from torch.profiler import ProfilerActivity, profile
 
     case = (1, 4, 2, 96, 96, hd, True, 0)
@@ -886,6 +896,26 @@ def test_flash_attention_lse_matches_logsumexp(card, case, dtype):
     mask = attention_mask(Sq, Sk, causal, window, device=card)
     want = torch.logsumexp(torch.where(mask, s, NEG_INF), -1).reshape(-1, Sq)
     torch.testing.assert_close(lse, want, atol=2e-5, rtol=2e-5)
+
+
+def test_flash_attention_bwd_hd256_parts_are_deterministic(card):
+    """bf16 at hd 256 with the group cut into parts (10 heads, 10 parts
+    here): the parts' sum kernel runs, and a second call gives the same
+    bits."""
+    case = (1, 10, 1, 300, 300, 256, True, 70)
+    q, k, v, do = _bwd_inputs(case, torch.bfloat16, card)
+    assert bwd_kv_splits(torch.bfloat16, 256, 1, 300, 10) == 10
+    fn = lambda *a: flash_attention(*a[:3], causal=a[3],  # noqa: E731
+                                    window=a[4])
+    a = _attention_grads(fn, q, k, v, do, True, 70)
+    b = _attention_grads(fn, q, k, v, do, True, 70)
+    assert all(torch.equal(x, y) for x, y in zip(a, b))
+    qf, kf, vf, dof = (t.reshape(-1, t.shape[2], 256) for t in (q, k, v, do))
+    o, lse = flash_attention_fwd(qf, kf, vf, 10, True, 70, return_lse=True)
+    names = _traced_kernels(
+        lambda: flash_attention_bwd(qf, kf, vf, o, dof, lse, 10, True, 70),
+        "flash_bwd")
+    assert "flash_bwd_kv_reduce" in names, names
 
 
 def test_flash_attention_bwd_checks_its_inputs(card):

@@ -62,13 +62,15 @@
 //     Tile<128> 16 KB in), and computes S^T and dP^T over all 256 columns
 //     itself: 6.3 M multiply-adds a step where 4.2 M are needed.  Two
 //     other splits were measured at recurrentgemma's training shape
-//     (PERF.md, PR 28): each warpgroup half of S^T's and dP^T's depth,
-//     the halves added through shared memory (2 x 16 KB, three barriers a
-//     step): 7 % slower, 255 registers and 8 bytes of spill; warpgroup 0
-//     S^T and P^T, warpgroup 1 dP^T, traded through shared memory (24 KB,
-//     one barrier): 6 % faster with the same bits, for a trade protocol
-//     the simpler design does without.  The pass waits for each step's
-//     products in turn, so the tensor work it drops buys little.
+//     (PERF.md, PR 28; git keeps them at e52f4eb): each warpgroup half of
+//     S^T's and dP^T's depth, the halves added through shared memory
+//     (2 x 16 KB, three barriers a step), made the pass 5-6 % slower at
+//     255 registers and 8 bytes of spill; warpgroup 0 computing S^T and
+//     P^T, warpgroup 1 dP^T, traded through shared memory (24 KB, one
+//     barrier), made it 7-8 % faster with the same bits (4 % of the
+//     kernel), for a trade protocol this design does without.  The pass
+//     waits for each step's products in turn, so a third less tensor work
+//     buys little.
 //     One block an SM at hd 256 (194 KB of shared memory), so where key
 //     tiles x KV heads are few each KV head's group of query heads is cut
 //     into `splits` parts (kernel.py, bwd_kv_splits: the least that gives
@@ -109,8 +111,9 @@
 // waited for are the next speed work (ROADMAP).
 //
 // f32 (every hd): the CUDA cores, flash_bwd_dkdv<T, HD> and
-// flash_bwd_dq<T, HD>, f32 throughout (grads returned in the input's
-// type); TF32 could not meet the f32 tolerance (2e-5).  Tiles
+// flash_bwd_dq<T, HD> (T = float only since bf16 runs on the tensor
+// cores at every hd), f32 throughout; TF32 could not meet the f32
+// tolerance (2e-5).  Tiles
 // (BwdTiling): 64 query rows x 64 keys up to hd 128, 32 x 32 at hd 256,
 // 256 threads as a 16 x 16 grid.
 // Q, K, V, dO tiles are f32 in shared memory with rows padded by 4 floats
@@ -141,10 +144,6 @@ template <typename T>
 __device__ __forceinline__ T from_f32(float x);
 template <>
 __device__ __forceinline__ float from_f32<float>(float x) { return x; }
-template <>
-__device__ __forceinline__ bf16 from_f32<bf16>(float x) {
-  return __float2bfloat16(x);
-}
 
 template <int HD>
 struct BwdTiling {
@@ -556,15 +555,6 @@ __device__ __forceinline__ float round_bf16(float x) {
   return __bfloat162float(__float2bfloat16_rn(x));
 }
 
-// Whether ds of one entry can be non-zero (as masked_p's *live)
-__device__ __forceinline__ bool entry_live(int row, int key, int off, int sq,
-                                           int sk, int causal, int window) {
-  if (row >= sq || key >= sk) return false;
-  const int pos = row + off;
-  if (causal && pos < 0) return false;
-  return !((causal && key > pos) || (window > 0 && pos - key >= window));
-}
-
 // p of one entry of a tile that crosses the mask, Sq or Sk, as entry_grad
 // gives it, from its score s and its row's lse in log2 units; *live is
 // false where ds is 0 (a masked entry, one past Sq or Sk, and a causal
@@ -623,27 +613,11 @@ struct DkdvWarpgroups {
   static constexpr int kThreads = kN * kWG;
 };
 
-#ifndef FLASH_BWD_KV_VARIANT
-#define FLASH_BWD_KV_VARIANT 0
-#endif
-// bytes the two warpgroups trade a step
-constexpr size_t kTrade = FLASH_BWD_KV_VARIANT == 1 ? 2 * 16384
-                        : FLASH_BWD_KV_VARIANT == 2 ? 8192 + 16384 : 0;
-
 template <int HD>
 constexpr size_t smem_bytes_dkdv_wgmma() {
   // K, V, 2 x (Q, dO); 2 x (lse, D) of 64 f32; alignment
-  return 6 * Tile<HD>::kBytes + 2 * 2 * kRows * sizeof(float) + 1024 +
-         (DkdvWarpgroups<HD>::kN > 1 ? kTrade : 0);
+  return 6 * Tile<HD>::kBytes + 2 * 2 * kRows * sizeof(float) + 1024;
 }
-
-// dK, dV of one 64-key tile of one KV head: the query heads of one of
-// the group's `splits` parts in order and, in each, the query tiles that
-// can see the tile, through a two-stage ring of (Q, dO, lse, D).  With
-// one part dK and dV are stored as bf16; with more each part's f32 sums
-// go to `partial` (splits, 2, BHkv, Sk, HD) for flash_bwd_kv_reduce.
-// Fragment rows are keys k0 + r0, + 8; columns queries q0 + 8i + cq + 0, 1.
-
 
 // dK, dV of one 64-key tile of one KV head: the query heads of one of
 // the group's `splits` parts in order and, in each, the query tiles that
@@ -746,181 +720,6 @@ flash_bwd_dkdv_wgmma(const bf16* __restrict__ q, const bf16* __restrict__ k,
     const uint32_t qs = ring + 2 * stage * kTile, dos = qs + kTile;
     const float* lse_s = stats_f + 2 * kRows * stage;
     const float* d_s = lse_s + kRows;
-#if FLASH_BWD_KV_VARIANT == 1
-    if constexpr (kTwo) {
-      // mask only where the tile crosses the diagonal, the window's edge, Sq
-      // or Sk (uniform over the block)
-      const bool masked =
-          q0 + kRows > sq || k0 + kRows > sk ||
-          (causal && k0 + kRows - 1 > q0 + off) ||
-          (window > 0 && q0 + kRows - 1 + off - k0 >= window);
-      // each warpgroup half of S^T's and dP^T's depth, the halves added
-      // through shared memory
-      float* xs = reinterpret_cast<float*>(
-          smem_raw + (stats + 1024 - smem_addr(smem_raw)));
-      const int tw = t % kWG;
-      start_ss<kCols>(s, ks + wg * kPart, qs + wg * kPart);
-      start_ss<kCols>(dp, vs + wg * kPart, dos + wg * kPart);
-      if (n + 1 < steps) {
-        load_step(n + 1, stage ^ 1);
-        cp_async_commit();
-      }
-      wgmma_wait();
-      fence_regs<32>(s);
-      fence_regs<32>(dp);
-      float4* mine = reinterpret_cast<float4*>(xs + wg * 4096);
-      const float4* theirs =
-          reinterpret_cast<const float4*>(xs + (1 - wg) * 4096);
-#pragma unroll
-      for (int j = 0; j < 8; ++j)
-        mine[j * kWG + tw] = make_float4(s[4 * j], s[4 * j + 1], s[4 * j + 2],
-                                         s[4 * j + 3]);
-      __syncthreads();
-#pragma unroll
-      for (int j = 0; j < 8; ++j) {
-        const float4 x = theirs[j * kWG + tw];
-        s[4 * j] += x.x, s[4 * j + 1] += x.y, s[4 * j + 2] += x.z,
-            s[4 * j + 3] += x.w;
-      }
-      __syncthreads();
-#pragma unroll
-      for (int j = 0; j < 8; ++j)
-        mine[j * kWG + tw] = make_float4(dp[4 * j], dp[4 * j + 1],
-                                         dp[4 * j + 2], dp[4 * j + 3]);
-      __syncthreads();
-#pragma unroll
-      for (int j = 0; j < 8; ++j) {
-        const float4 x = theirs[j * kWG + tw];
-        dp[4 * j] += x.x, dp[4 * j + 1] += x.y, dp[4 * j + 2] += x.z,
-            dp[4 * j + 3] += x.w;
-      }
-      uint32_t live = ~0u;
-#pragma unroll
-      for (int i = 0; i < 32; ++i) {
-        const int col = 8 * (i >> 2) + cq + (i & 1);
-        const float lse2 = lse_s[col] * kLog2e;
-        if (masked) {
-          bool on;
-          s[i] = masked_p(s[i], lse2, q0 + col,
-                          k0 + r0 + 8 * ((i >> 1) & 1), off, sq, sk, causal,
-                          window, scale2, &on);
-          if (!on) live &= ~(1u << i);
-        } else {
-          s[i] = exp2f(fmaf(s[i], scale2, -lse2));
-        }
-      }
-      pack_p(a, s);
-#pragma unroll
-      for (int i = 0; i < 32; ++i) {
-        const int col = 8 * (i >> 2) + cq + (i & 1);
-        dp[i] = (live >> i) & 1u
-                    ? unpack_bf16(a[i >> 1], i & 1) * (dp[i] - d_s[col])
-                    : 0.f;
-      }
-      uint32_t b[16];
-      pack_p(b, dp);                                  // dS^T, bf16
-      start_rs<kCols>(dv_acc, a, dos + wg * kPart);   // dV += P^T dO
-      start_rs<kCols>(dk_acc, b, qs + wg * kPart);    // dK += dS^T Q
-      wgmma_wait();
-      fence_regs<kCols / 2>(dv_acc);
-      fence_regs<kCols / 2>(dk_acc);
-      continue;
-    }
-#elif FLASH_BWD_KV_VARIANT == 2
-    if constexpr (kTwo) {
-      // mask only where the tile crosses the diagonal, the window's edge, Sq
-      // or Sk (uniform over the block)
-      const bool masked =
-          q0 + kRows > sq || k0 + kRows > sk ||
-          (causal && k0 + kRows - 1 > q0 + off) ||
-          (window > 0 && q0 + kRows - 1 + off - k0 >= window);
-      // warpgroup 0 computes S^T and P^T, warpgroup 1 dP^T; they trade P^T
-      // (bf16) and dP^T (f32) through shared memory
-      uint8_t* xb = smem_raw + (stats + 1024 - smem_addr(smem_raw));
-      uint4* xp = reinterpret_cast<uint4*>(xb);            // P^T, 8 KB
-      float4* xd = reinterpret_cast<float4*>(xb + 8192);   // dP^T, 16 KB
-      const int tw = t % kWG;
-      if (wg == 0)
-        start_ss<HD>(s, ks, qs);    // S^T = K Q^T
-      else
-        start_ss<HD>(s, vs, dos);   // dP^T = V dO^T
-      if (n + 1 < steps) {
-        load_step(n + 1, stage ^ 1);
-        cp_async_commit();
-      }
-      wgmma_wait();
-      fence_regs<32>(s);
-      uint32_t live = ~0u;
-      if (wg == 0) {
-#pragma unroll
-        for (int i = 0; i < 32; ++i) {
-          const int col = 8 * (i >> 2) + cq + (i & 1);
-          const float lse2 = lse_s[col] * kLog2e;
-          if (masked) {
-            bool on;
-            s[i] = masked_p(s[i], lse2, q0 + col,
-                            k0 + r0 + 8 * ((i >> 1) & 1), off, sq, sk,
-                            causal, window, scale2, &on);
-            if (!on) live &= ~(1u << i);
-          } else {
-            s[i] = exp2f(fmaf(s[i], scale2, -lse2));
-          }
-        }
-        pack_p(a, s);
-#pragma unroll
-        for (int j = 0; j < 4; ++j)
-          xp[j * kWG + tw] = make_uint4(a[4 * j], a[4 * j + 1], a[4 * j + 2],
-                                        a[4 * j + 3]);
-      } else {
-        if (masked) {
-#pragma unroll
-          for (int i = 0; i < 32; ++i) {
-            const int col = 8 * (i >> 2) + cq + (i & 1);
-            if (!entry_live(q0 + col, k0 + r0 + 8 * ((i >> 1) & 1), off, sq,
-                            sk, causal, window))
-              live &= ~(1u << i);
-          }
-        }
-#pragma unroll
-        for (int j = 0; j < 8; ++j)
-          xd[j * kWG + tw] = make_float4(s[4 * j], s[4 * j + 1],
-                                         s[4 * j + 2], s[4 * j + 3]);
-      }
-      __syncthreads();
-      if (wg == 0) {
-#pragma unroll
-        for (int j = 0; j < 8; ++j) {
-          const float4 x = xd[j * kWG + tw];
-          dp[4 * j] = x.x, dp[4 * j + 1] = x.y, dp[4 * j + 2] = x.z,
-                 dp[4 * j + 3] = x.w;
-        }
-      } else {
-#pragma unroll
-        for (int j = 0; j < 4; ++j) {
-          const uint4 x = xp[j * kWG + tw];
-          a[4 * j] = x.x, a[4 * j + 1] = x.y, a[4 * j + 2] = x.z,
-                a[4 * j + 3] = x.w;
-        }
-#pragma unroll
-        for (int i = 0; i < 32; ++i) dp[i] = s[i];
-      }
-#pragma unroll
-      for (int i = 0; i < 32; ++i) {
-        const int col = 8 * (i >> 2) + cq + (i & 1);
-        dp[i] = (live >> i) & 1u
-                    ? unpack_bf16(a[i >> 1], i & 1) * (dp[i] - d_s[col])
-                    : 0.f;
-      }
-      uint32_t b[16];
-      pack_p(b, dp);                                  // dS^T, bf16
-      start_rs<kCols>(dv_acc, a, dos + wg * kPart);   // dV += P^T dO
-      start_rs<kCols>(dk_acc, b, qs + wg * kPart);    // dK += dS^T Q
-      wgmma_wait();
-      fence_regs<kCols / 2>(dv_acc);
-      fence_regs<kCols / 2>(dk_acc);
-      continue;
-    }
-#endif
     start_ss<HD>(s, ks, qs);   // S^T = K Q^T
     if (n + 1 < steps) {
       load_step(n + 1, stage ^ 1);

@@ -17,9 +17,10 @@ back once.  Above 1024 the wrapper raises.
 
 The forward writes each row's logsumexp when asked (``return_lse``), for
 `flash_attention_bwd`, which computes dq, dk and dv from q, k, v, o, the
-output's gradient and that lse in three kernels (one call, counted once
-under ``flash_attention_bwd``), at head dims up to 256 (zero-padded as
-the forward pads them); above 256 it raises (ROADMAP item 6b).  bf16
+output's gradient and that lse in three kernels, four where the group
+is cut into parts (one call, counted once under ``flash_attention_bwd``),
+at head dims up to 256 (zero-padded as the forward pads them); above
+256 it raises (ROADMAP item 6b).  bf16
 (`BWD_WGMMA_HEAD_DIMS`, hd 16-256) runs on the tensor cores (wgmma); f32
 on the CUDA cores.  At hd 256 a dK/dV block is two warpgroups, and each
 KV head's group of query heads may be cut into parts walked by separate

@@ -98,8 +98,8 @@
 // alignment (98 KB at hd 128, 50 KB at hd 64, 194 KB at hd 256); dQ 6
 // tiles + 1 KB (193 KB at hd 256).
 // ptxas (CUDA 12.8, -O3 -fmad=false) for hd 16, 32, 64, 128, 256:
-// flash_bwd_dkdv_wgmma 96, 124, 160, 227, 234 registers, flash_bwd_dq_wgmma
-// 124, 138, 154, 186, 246, no spill (chip_smoke.py's build phase prints
+// flash_bwd_dkdv_wgmma 102, 122, 160, 229, 234 registers,
+// flash_bwd_dq_wgmma 124, 138, 154, 186, 246, no spill (chip_smoke.py's build phase prints
 // them and fails on a spill).  Measured (H100 SXM, PERF.md): at smollm's
 // training shape 3.0 ms (dK/dV 1.58, dQ 1.33, D 0.09), each pass near
 // 30 % of its products' tensor-core time, SDPA's backward 1.7 ms; at

@@ -99,10 +99,11 @@
 // tiles + 1 KB (193 KB at hd 256).
 // ptxas (CUDA 12.8, -O3 -fmad=false) for hd 16, 32, 64, 128, 256:
 // flash_bwd_dkdv_wgmma 102, 122, 160, 229, 234 registers,
-// flash_bwd_dq_wgmma 124, 138, 154, 186, 246, no spill (chip_smoke.py's build phase prints
-// them and fails on a spill).  Measured (H100 SXM, PERF.md): at smollm's
-// training shape 3.0 ms (dK/dV 1.58, dQ 1.33, D 0.09), each pass near
-// 30 % of its products' tensor-core time, SDPA's backward 1.7 ms; at
+// flash_bwd_dq_wgmma 124, 138, 154, 186, 246, no spill (chip_smoke.py's
+// build phase prints them and fails on a spill).  Measured (H100 SXM,
+// PERF.md): at smollm's training shape 3.0 ms (dK/dV 1.58, dQ 1.33, D
+// 0.09), each pass near 30 % of its products' tensor-core time, SDPA's
+// backward 1.7 ms; at
 // recurrentgemma's (B 1, Hq 10, Hkv 1, hd 256, S 4096, window 2048) 0.92
 // ms (dK/dV 0.43, dQ 0.45, D 0.02, the sum of parts 0.014) against a
 // 0.163 ms bound, SDPA's backward 2.26 ms and the CUDA-core kernels' 18.9.

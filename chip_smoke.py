@@ -45,8 +45,11 @@ raising:
    zero), then the training shapes (qwen3-moe E 128, C 320, D 2048, F 768
    and deepseek-moe E 64, C 480, F 1408, bf16; recurrentgemma B 1, S 4096,
    D 2560, f32; falcon-mamba B 1, S 4096, D 8192, N 16, x bf16), a small
-   f32 row and a ragged row each; timed (events and profiler; rglru's
-   three passes and mamba's four apart) beside the bound, the plain
+   f32 row and a ragged row each, rglru's also bit for bit against its
+   kernel's order of operations in plain torch
+   (`rglru_scan_bwd_chunked_ref`); timed (events and profiler; rglru's
+   one kernel and the memset of its status words, mamba's four passes
+   apart) beside the bound, the plain
    version's backward, mamba's SFU floor for its design's two
    exponentials a state and step, its bytes and its passes' resident
    blocks an SM, and for moe_gmm autograd through three `torch.bmm`
@@ -1921,13 +1924,18 @@ def phase_rglru_scan_bwd() -> dict:
     h0's gradient), then recurrentgemma-2b's training shape (B 1, S 4096,
     D 2560, f32 gates as the model's), a small f32 row and a ragged bf16
     row, each held to autograd through `rglru_scan_ref`, bit for bit
-    against a second run; timed (the three passes together and each)
-    beside its byte bound and the design's 28 B an element."""
+    against a second run and against the kernel's order of operations in
+    plain torch (`rglru_scan_bwd_chunked_ref`, `torch.equal`); timed (the
+    kernel, `rglru_bwd`, and the memset of its status words apart) beside
+    its byte bound and the bytes its design moves."""
     import torch
 
     from repro_torch.kernels.rglru_scan import kernel as rg
     from repro_torch.kernels.rglru_scan.ops import rglru_scan
-    from repro_torch.kernels.rglru_scan.ref import rglru_scan_ref
+    from repro_torch.kernels.rglru_scan.ref import (
+        rglru_scan_bwd_chunked_ref,
+        rglru_scan_ref,
+    )
 
     gen = torch.Generator(device="cuda").manual_seed(6)
 
@@ -1939,21 +1947,28 @@ def phase_rglru_scan_bwd() -> dict:
         hs = rg.rglru_scan_fwd(a, bx, h0)
         what = f"rglru_scan_bwd B={B} S={S} D={D} {_dname(dtype)}"
         fn = lambda: rg.rglru_scan_bwd(a, hs, h0, dhs)  # noqa: E731
-        out = dict(dtype=_dname(dtype), B=B, S=S, D=D, **_bwd_row(
-            what, dtype, rglru_scan, [a, bx, h0], [dhs], fn, ("rglru_bwd",),
-            plain=(rglru_scan_ref, None), timed=timed, reps=20))
+        got = fn()
+        want = rglru_scan_bwd_chunked_ref(a, hs, h0, dhs, rg.BWD_CHUNK)
+        _check(all(torch.equal(g, w) for g, w in zip(got, want)),
+               f"{what}: not the bits of rglru_scan_bwd_chunked_ref")
+        del got, want
+        out = dict(dtype=_dname(dtype), B=B, S=S, D=D,
+                   equals_chunked_ref=True, **_bwd_row(
+                       what, dtype, rglru_scan, [a, bx, h0], [dhs], fn,
+                       ("rglru_bwd",), plain=(rglru_scan_ref, None),
+                       timed=timed, reps=20))
         if timed:
-            passes = ("rglru_bwd_chunk_ends", "rglru_bwd_chunk_carry",
-                      "rglru_bwd_chunk_scan")
-            for p_ in passes:
-                out[f"{p_}_device_ms"] = _device_ms(fn, (p_,), reps=20)
+            out["memset_device_ms"] = _device_ms(fn, ("Memset",), reps=20)
             es = a.element_size()
             # a, hs, dhs read once, da and dbx written once; h0, dh0
             nbytes = B * S * D * (3 * es + 8) + 8 * B * D
             bound_ms, bound_by = _bound(nbytes, 4 * B * S * D,
                                         torch.float32)
-            design = B * S * D * (5 * es + 12) + 8 * B * D
+            # and a chunk's P, e and Q written, Q read by the chunk before
+            nc = -(-S // rg.BWD_CHUNK)
+            design = nbytes + 16 * B * nc * D
             out.update(bound_ms=bound_ms, bound_by=bound_by,
+                       bound_share=bound_ms / out["device_ms"],
                        library_ms=None, design_bytes=design,
                        design_ms=design / HBM_BYTES_PER_S * 1e3)
         del a, bx, h0, dhs, hs
@@ -1962,12 +1977,14 @@ def phase_rglru_scan_bwd() -> dict:
 
     sweep = [row(dtype, *case, timed=False)
              for dtype in (torch.float32, torch.bfloat16)
-             for case in RGLRU_SWEEP + [(1, 65, 130)]]
+             for case in RGLRU_SWEEP + [(1, 65, 130), (2, 129, 130),
+                                        (1, 200, 8)]]
     rows = [dict(arch="recurrentgemma-2b", **row(torch.float32, 1, 4096,
                                                  2560)),
             dict(arch="small f32", **row(torch.float32, 1, 512, 2560)),
             dict(arch="ragged", **row(torch.bfloat16, 2, 1000, 2500))]
-    return dict(phase="rglru_scan_bwd", sweep_cases=len(sweep),
+    return dict(phase="rglru_scan_bwd", tiling=rg.bwd_tiling(),
+                sweep_cases=len(sweep),
                 sweep_max_rel_err=max(r["max_rel_err"] for r in sweep),
                 rows=rows)
 

@@ -15,13 +15,17 @@ bfloat16; ``h0`` is float32.  Nothing is cast.
 
 `rglru_scan_bwd` binds the backward (``csrc/rglru_scan_bwd.cu``, a
 library of its own): da, dbx and dh0 from a, the forward's states, h0
-and the states' gradient, in three passes that walk the forward's chunks
-from the end, counted once under ``rglru_scan_bwd``.
+and the states' gradient, in one kernel over tiles of `BWD_CHUNK` steps
+and `BWD_CHANNELS` channels that walk the forward's chunks from the end
+and hand their carries on by a look-back, counted once under
+``rglru_scan_bwd``.  `bwd_tiling` reads the tiling from the library,
+which must agree with these constants.
 """
 from __future__ import annotations
 
 import ctypes
 from pathlib import Path
+from typing import Tuple
 
 import torch
 
@@ -32,6 +36,8 @@ SOURCE = Path(__file__).resolve().parent / "csrc" / "rglru_scan.cu"
 BWD_NAME = "rglru_scan_bwd"
 BWD_SOURCE = SOURCE.with_name("rglru_scan_bwd.cu")
 DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+BWD_CHUNK = 64        # steps a tile of the backward
+BWD_CHANNELS = 128    # channels a tile of the backward
 
 _lib = None
 _bwd_lib = None
@@ -62,8 +68,25 @@ def bwd_library() -> ctypes.CDLL:
         lib.rglru_scan_bwd_launch.restype = i32
         lib.rglru_scan_bwd_scratch_floats.argtypes = [i32, i32, i32]
         lib.rglru_scan_bwd_scratch_floats.restype = ctypes.c_longlong
+        lib.rglru_scan_bwd_tiling.argtypes = [ptr]
+        lib.rglru_scan_bwd_tiling.restype = None
+        got, want = _tiling(lib), (BWD_CHUNK, BWD_CHANNELS)
+        if got != want:
+            raise RuntimeError(f"rglru_scan_bwd.cu's tiling is {got} (steps, "
+                               f"channels), kernel.py's {want}")
         _bwd_lib = lib
     return _bwd_lib
+
+
+def _tiling(lib: ctypes.CDLL) -> Tuple[int, int]:
+    out = (ctypes.c_int * 2)()
+    lib.rglru_scan_bwd_tiling(out)
+    return tuple(out)
+
+
+def bwd_tiling() -> Tuple[int, int]:
+    """The backward library's tiling: the steps and channels of a tile."""
+    return _tiling(bwd_library())
 
 
 def _check(a: torch.Tensor, bx: torch.Tensor, h0: torch.Tensor) -> None:
@@ -110,7 +133,9 @@ def rglru_scan_bwd(a: torch.Tensor, hs: torch.Tensor, h0: torch.Tensor,
                    dhs: torch.Tensor):
     """The backward on the card: (da, dbx) in a's dtype and dh0 (B, D)
     float32 from a (B, S, D), the forward's states hs (B, S, D) float32,
-    h0 and the states' gradient dhs (B, S, D) float32."""
+    h0 and the states' gradient dhs (B, S, D) float32.  The kernel's
+    float32 scratch (status words, chunk aggregates and carries) comes
+    from `torch.empty`; the library zeroes its status words itself."""
     _check(a, a, h0)
     for name, t in (("hs", hs), ("dhs", dhs)):
         if t.shape != a.shape or t.dtype != torch.float32:
@@ -124,12 +149,12 @@ def rglru_scan_bwd(a: torch.Tensor, hs: torch.Tensor, h0: torch.Tensor,
         da = torch.empty_like(a)
         dbx = torch.empty_like(a)
         dh0 = torch.empty((bsz, d), dtype=torch.float32, device=a.device)
-        ends = torch.empty(lib.rglru_scan_bwd_scratch_floats(bsz, s, d),
-                           dtype=torch.float32, device=a.device)
+        scratch = torch.empty(lib.rglru_scan_bwd_scratch_floats(bsz, s, d),
+                              dtype=torch.float32, device=a.device)
         stream = torch.cuda.current_stream(a.device).cuda_stream
         err = lib.rglru_scan_bwd_launch(
             a.data_ptr(), hs.data_ptr(), h0.data_ptr(), dhs.data_ptr(),
-            ends.data_ptr(), da.data_ptr(), dbx.data_ptr(), dh0.data_ptr(),
+            scratch.data_ptr(), da.data_ptr(), dbx.data_ptr(), dh0.data_ptr(),
             DTYPES[a.dtype], bsz, s, d, stream)
     if err:
         raise RuntimeError(f"rglru_scan_bwd launch failed: cudaError_t {err}")

@@ -24,7 +24,9 @@ parts too), and its bf16 path (hd 16-256) is seen to launch the wgmma
 kernels; the forward's lse to torch.logsumexp
 at 2e-5.  The backward kernels of moe_gmm, rglru_scan and mamba_scan
 (training, F3 repaired) are held to autograd through their plain
-versions alike, bit for bit against themselves (moe_gmm's bf16 path
+versions alike, bit for bit against themselves (rglru_scan's also
+against its kernel's order of operations in plain torch, and over 20
+reruns; moe_gmm's bf16 path
 seen to launch its wgmma kernels alone, mamba_scan's backward its four
 passes; the mamba forward's chunk states, which its backward reads, to
 the plain version's, and kept only under autograd); a reduced train step of
@@ -1121,7 +1123,10 @@ def _rglru_bwd_grads(fn, a, bx, h0, dhs):
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("B,S,D", [
     (1, 32, 16), (2, 64, 8), (1, 48, 24), (1, 65, 130), (2, 300, 200),
-    (1, 1, 5), (1, 4096, 256)])
+    (1, 1, 5), (1, 4096, 256),
+    # recurrentgemma-2b's training shape; ragged S and D at B 3 (D not a
+    # multiple of 8: element loads); two chunks and a step
+    (1, 4096, 2560), (3, 1000, 2500), (2, 129, 130)])
 def test_rglru_scan_bwd_matches_plain_autograd(card, B, S, D, dtype):
     """da, dbx, dh0 through `rglru_scan`'s autograd function against
     autograd through the plain version: one chunk, several, ragged S and
@@ -1141,6 +1146,61 @@ def test_rglru_scan_bwd_matches_plain_autograd(card, B, S, D, dtype):
         _grad_close(g, w, dtype, name)
     again = _rglru_bwd_grads(rglru_scan, a, bx, h0, dhs)
     assert all(torch.equal(x, y) for x, y in zip(got, again))
+
+
+def _rglru_bwd_inputs(B, S, D, seed, device, dtype):
+    a = _normal((B, S, D), seed, device, torch.float32).sigmoid() * 0.3 + 0.69
+    a = a.to(dtype)
+    bx = _normal((B, S, D), seed + 1, device, dtype)
+    h0 = _normal((B, D), seed + 2, device, torch.float32)
+    dhs = _normal((B, S, D), seed + 3, device, torch.float32)
+    return a, rglru_scan_fwd(a, bx, h0), h0, dhs
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B,S,D", [
+    (1, 1, 5), (1, 63, 8), (2, 64, 130), (1, 65, 256), (3, 1000, 2500),
+    (2, 129, 136), (1, 4096, 2560), (2, 4500, 72)])
+def test_rglru_scan_bwd_equals_chunked_emulation(card, B, S, D, dtype):
+    """The backward kernel gives the bits of its own order of operations
+    in plain torch (`rglru_scan_bwd_chunked_ref` at the kernel's chunk):
+    chunk walks, carries folded from the last chunk, walks from the
+    carries."""
+    from repro_torch.kernels.rglru_scan.kernel import (
+        BWD_CHUNK,
+        rglru_scan_bwd,
+    )
+    from repro_torch.kernels.rglru_scan.ref import rglru_scan_bwd_chunked_ref
+
+    a, hs, h0, dhs = _rglru_bwd_inputs(B, S, D, 84, card, dtype)
+    launch_counts.clear()
+    got = rglru_scan_bwd(a, hs, h0, dhs)
+    assert dict(launch_counts) == {"rglru_scan_bwd": 1}
+    want = rglru_scan_bwd_chunked_ref(a, hs, h0, dhs, BWD_CHUNK)
+    torch.cuda.synchronize()
+    for name, g, w in zip(("da", "dbx", "dh0"), got, want):
+        assert g.dtype == w.dtype and g.shape == w.shape, name
+        assert torch.equal(g, w), name
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_rglru_scan_bwd_reruns_give_the_same_bits(card, dtype):
+    """20 runs at B 2 over 70 chunks (the look-back's waits and folds
+    differ from run to run) give one result, the chunked emulation's."""
+    from repro_torch.kernels.rglru_scan.kernel import (
+        BWD_CHUNK,
+        rglru_scan_bwd,
+    )
+    from repro_torch.kernels.rglru_scan.ref import rglru_scan_bwd_chunked_ref
+
+    S = 70 * BWD_CHUNK - 17
+    a, hs, h0, dhs = _rglru_bwd_inputs(2, S, 1280, 88, card, dtype)
+    first = rglru_scan_bwd(a, hs, h0, dhs)
+    for _ in range(19):
+        again = rglru_scan_bwd(a, hs, h0, dhs)
+        assert all(torch.equal(x, y) for x, y in zip(first, again))
+    want = rglru_scan_bwd_chunked_ref(a, hs, h0, dhs, BWD_CHUNK)
+    assert all(torch.equal(x, y) for x, y in zip(first, want))
 
 
 def _mamba_bwd_grads(fn, args, dy, dhs):

@@ -22,6 +22,9 @@ and the plain backward put in the place of its kernels: its gradients
 equal autograd through `ref.py`, and its backward gives None for the
 arguments that are not tensors; mamba's saves the forward's chunk
 states.  That holds the wiring the card alone would otherwise see.
+The rglru backward kernel's order of operations in plain torch
+(`rglru_scan_bwd_chunked_ref`) is held to the same `jax.vjp` and plain
+backward, and kernel.py's tiling constants to the CUDA source's.
 The plain mamba forward's chunk states are the walk's own states at
 each chunk start, and the plain backward gives the same bits from them
 as without them; the backward kernel's three passes, written as a plain
@@ -47,8 +50,10 @@ from repro_torch.kernels.mamba_scan.ref import (
 )
 from repro_torch.kernels.moe_gmm.ops import MoeGmmFn
 from repro_torch.kernels.moe_gmm.ref import moe_gmm_bwd_ref, moe_gmm_ref
+from repro_torch.kernels.rglru_scan import kernel as rglru_kernel
 from repro_torch.kernels.rglru_scan.ops import RglruScanFn
 from repro_torch.kernels.rglru_scan.ref import (
+    rglru_scan_bwd_chunked_ref,
     rglru_scan_bwd_ref,
     rglru_scan_ref,
 )
@@ -198,6 +203,57 @@ def test_rglru_scan_bwd_ref_equals_jax_vjp_and_autograd(case, dtype):
         _close(g, w, dtype, f"{name} vs jax.vjp")
         _close(g, p, dtype, f"{name} vs autograd")
     assert float(got[2].abs().max()) > 0   # dh0 takes part
+
+
+# B, S, D, chunk: at the backward kernel's chunk (csrc/rglru_scan_bwd.cu's
+# kChunk) and at 8 steps, S at one step, a chunk less one, a chunk, a
+# chunk and one, several chunks, and several with a ragged tail (the JAX
+# reference traces a step at a time, so the longest S stay short)
+RGLRU_CHUNK = rglru_kernel.BWD_CHUNK
+RGLRU_CHUNKED_CASES = [
+    (1, 1, 6, RGLRU_CHUNK), (2, RGLRU_CHUNK - 1, 5, RGLRU_CHUNK),
+    (3, RGLRU_CHUNK, 4, RGLRU_CHUNK), (1, RGLRU_CHUNK + 1, 7, RGLRU_CHUNK),
+    (2, 2 * RGLRU_CHUNK + 5, 3, RGLRU_CHUNK),
+    (1, 1, 3, 8), (2, 7, 5, 8), (3, 8, 4, 8), (1, 9, 6, 8), (2, 32, 5, 8),
+    (3, 45, 3, 8)]
+
+
+@pytest.mark.parametrize("dtype", list(DTYPES))
+@pytest.mark.parametrize("case", RGLRU_CHUNKED_CASES)
+def test_rglru_scan_bwd_chunked_ref_equals_jax_vjp_and_plain(case, dtype):
+    """The backward kernel's order of operations in plain torch (chunk
+    walks from zero, the carries folded from the last chunk, the chunks
+    walked again from their carries), which the card holds the kernel to
+    bit for bit: within the tolerances of `jax.vjp` of the JAX package's
+    `rglru_scan_ref` and of the plain backward `rglru_scan_bwd_ref`."""
+    *shape, chunk = case
+    (a, bx, h0), dhs = _rglru_inputs(*shape, seed=sum(case) + 5)
+    (ta, ja), (tb, jb) = _pair(a, dtype), _pair(bx, dtype)
+    th0, tdhs = torch.from_numpy(h0), torch.from_numpy(dhs)
+    hs = rglru_scan_ref(ta, tb, th0)
+    got = rglru_scan_bwd_chunked_ref(ta, hs, th0, tdhs, chunk)
+    assert [g.dtype for g in got] == [ta.dtype, ta.dtype, torch.float32]
+    assert [g.shape for g in got] == [ta.shape, ta.shape, th0.shape]
+    want = _jax_vjp(j_rglru_ref, [ja, jb, jnp.asarray(h0)],
+                    jnp.asarray(dhs))
+    plain = rglru_scan_bwd_ref(ta, hs, th0, tdhs)
+    for name, g, w, p in zip(("da", "dbx", "dh0"), got, want, plain):
+        _close(g, w, dtype, f"{name} vs jax.vjp")
+        _close(g, p, dtype, f"{name} vs rglru_scan_bwd_ref")
+
+
+def test_rglru_backward_tiling_matches_the_kernel_source():
+    """kernel.py's backward tiling constants are the CUDA source's
+    constexprs."""
+    src = rglru_kernel.BWD_SOURCE.read_text()
+
+    def constant(name):
+        m = re.search(rf"^constexpr int {name} = (\d+);", src, re.M)
+        assert m, f"{name} not in {rglru_kernel.BWD_SOURCE.name}"
+        return int(m.group(1))
+
+    assert constant("kChunk") == RGLRU_CHUNK
+    assert constant("kThreads") == rglru_kernel.BWD_CHANNELS
 
 
 # ---------------- mamba_scan ------------------------------------------------

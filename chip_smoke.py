@@ -1927,7 +1927,8 @@ def phase_rglru_scan_bwd() -> dict:
     against a second run and against the kernel's order of operations in
     plain torch (`rglru_scan_bwd_chunked_ref`, `torch.equal`); timed (the
     kernel, `rglru_bwd`, and the memset of its status words apart) beside
-    its byte bound and the bytes its design moves."""
+    its byte bound, the bytes its design moves and, as a yardstick, the
+    rate `torch.add` of two f32 tensors of the row's shape streams at."""
     import torch
 
     from repro_torch.kernels.rglru_scan import kernel as rg
@@ -1967,10 +1968,18 @@ def phase_rglru_scan_bwd() -> dict:
             # and a chunk's P, e and Q written, Q read by the chunk before
             nc = -(-S // rg.BWD_CHUNK)
             design = nbytes + 16 * B * nc * D
+            # the rate PyTorch's own elementwise kernel streams at on this
+            # card, a yardstick: hs + dhs into a third f32 tensor
+            z = torch.empty_like(hs)
+            add_ms = _cuda_ms(lambda: torch.add(hs, dhs, out=z), reps=20)
+            dev = out["device_ms"]
             out.update(bound_ms=bound_ms, bound_by=bound_by,
-                       bound_share=bound_ms / out["device_ms"],
+                       bound_share=bound_ms / dev if dev else None,
                        library_ms=None, design_bytes=design,
-                       design_ms=design / HBM_BYTES_PER_S * 1e3)
+                       design_ms=design / HBM_BYTES_PER_S * 1e3,
+                       tb_s=nbytes / dev / 1e9 if dev else None,
+                       torch_add_tb_s=12 * B * S * D / add_ms / 1e9)
+            del z
         del a, bx, h0, dhs, hs
         torch.cuda.empty_cache()
         return out

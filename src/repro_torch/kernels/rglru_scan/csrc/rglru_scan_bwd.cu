@@ -33,7 +33,8 @@
 //      order the hardware starts blocks in.  The ticket orders work and
 //      touches no value: the result is the same bits every run.
 //   2. The tile's a, dhs and hs are staged in shared memory by 16-byte
-//      cp.async copies (element loads where D is not a multiple of 8).
+//      cp.async copies (element loads where D is not a multiple of 8);
+//      hs is waited for only in walk 2.
 //   3. Walk 1, from the tile's last step with a zero carry: the chunk's
 //      q out of it, e_c, and the product P_c of its a's.  Published
 //      (f32 scratch, then a fence, then the tile's status word with
@@ -54,33 +55,23 @@
 // bit for bit).  Chunk 0 publishes nothing and the last chunk no
 // aggregate.  The status words and the ticket are zeroed by one
 // cudaMemsetAsync on the caller's stream before the kernel.
+//
+// Tiling.  32 steps of 128 channels: a, dhs and hs staged take 48 KB at
+// f32, so four blocks share an SM, and the design moves the function's
+// bytes and 16 B a chunk and channel (P, e and Q written, Q read again).
+// At recurrentgemma-2b's training shape on an H100 (PERF.md §6) it took
+// 0.103 ms, 61 % of the bound; 64 steps of 64 channels took 0.105, and
+// 64 steps of 128 channels with hs read into registers in walk 2 (a and
+// dhs alone staged, 64 KB, three blocks an SM) 0.184; the three passes
+// it replaces, 0.151.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 namespace {
 
-// The tilings measured (-DRGLRU_BWD_TILING): 0 is 64 steps of 128
-// channels with hs read into registers 16 steps ahead in walk 2; 1 is
-// 64 steps of 64 channels, hs staged too; 2 is 32 steps of 128 channels,
-// hs staged too.
-#ifndef RGLRU_BWD_TILING
-#define RGLRU_BWD_TILING 0
-#endif
-#if RGLRU_BWD_TILING == 0
-constexpr int kChunk = 64;      // steps a tile
+constexpr int kChunk = 32;      // steps a tile
 constexpr int kThreads = 128;   // channels a tile, one a thread
-constexpr bool kStageHs = false;
-#elif RGLRU_BWD_TILING == 1
-constexpr int kChunk = 64;
-constexpr int kThreads = 64;
-constexpr bool kStageHs = true;
-#else
-constexpr int kChunk = 32;
-constexpr int kThreads = 128;
-constexpr bool kStageHs = true;
-#endif
-constexpr int kAhead = 16;      // hs steps whose loads are in flight together
 
 // A tile's status word: nothing yet, its aggregate (P_c, e_c), its
 // inclusive carry Q_c.
@@ -212,15 +203,13 @@ rglru_bwd(const T* __restrict__ a, const float* __restrict__ hs,
   stage(s_a, a + row0 * dim, steps, dim, d0, vec);
   stage(s_g, dhs + row0 * dim, steps, dim, d0, vec);
   cp_async_commit();
-  if (kStageHs) {   // rows c * kChunk - 1 .. : h0 stands before row 0
-    const int skip = c == 0;
-    stage(s_h + skip * kThreads, hs + (row0 + skip - 1) * dim, steps - skip,
-          dim, d0, vec);
-    cp_async_commit();
-    cp_async_wait<1>();
-  } else {
-    cp_async_wait<0>();
-  }
+  // hs rows c * kChunk - 1 ..., waited for in walk 2; h0 stands before
+  // row 0
+  const int skip = c == 0;
+  stage(s_h + skip * kThreads, hs + (row0 + skip - 1) * dim, steps - skip,
+        dim, d0, vec);
+  cp_async_commit();
+  cp_async_wait<1>();
   __syncthreads();
 
   // walk 1: the chunk's q out of it from a zero carry, and its a's product
@@ -283,37 +272,19 @@ rglru_bwd(const T* __restrict__ a, const float* __restrict__ hs,
   }
 
   // walk 2: the chunk from its carry, da and dbx; dh0 from chunk 0
-  if (kStageHs) {
-    cp_async_wait<0>();
-    __syncthreads();
-  }
+  cp_async_wait<0>();
+  __syncthreads();
   if (!live) return;
   const float hinit = h0[static_cast<size_t>(b) * dim + d];
   const size_t at = row0 * dim + d;
-  for (int i0 = steps - 1; i0 >= 0; i0 -= kAhead) {
-    float hv[kAhead];
-#pragma unroll
-    for (int k = 0; k < kAhead; ++k) {
-      const int i = i0 - k;
-      if (i >= 0) {
-        const bool first = c == 0 && i == 0;
-        if (kStageHs)
-          hv[k] = first ? hinit : s_h[i * kThreads + threadIdx.x];
-        else
-          hv[k] = first ? hinit : hs[at + static_cast<size_t>(i) * dim - dim];
-      }
-    }
-#pragma unroll
-    for (int k = 0; k < kAhead; ++k) {
-      const int i = i0 - k;
-      if (i >= 0) {
-        const size_t ti = at + static_cast<size_t>(i) * dim;
-        const float g = s_g[i * kThreads + threadIdx.x] + q;
-        store(da + ti, g * hv[k]);
-        store(dbx + ti, g);
-        q = to_f32(s_a[i * kThreads + threadIdx.x]) * g;
-      }
-    }
+#pragma unroll 8
+  for (int i = steps - 1; i >= 0; --i) {
+    const int k = i * kThreads + threadIdx.x;
+    const float hprev = c == 0 && i == 0 ? hinit : s_h[k];
+    const float g = s_g[k] + q;
+    store(da + at + static_cast<size_t>(i) * dim, g * hprev);
+    store(dbx + at + static_cast<size_t>(i) * dim, g);
+    q = to_f32(s_a[k]) * g;
   }
   if (c == 0) dh0[static_cast<size_t>(b) * dim + d] = q;
 }
@@ -333,8 +304,7 @@ int launch(const void* a, const float* hs, const float* h0, const float* dhs,
   const Scratch sc = layout(bsz, s_len, dim);
   cudaError_t err = cudaMemsetAsync(scratch, 0, sc.flags * sizeof(int), st);
   if (err != cudaSuccess) return static_cast<int>(err);
-  const int smem = kChunk * kThreads
-                   * (sizeof(T) + sizeof(float) * (kStageHs ? 2 : 1));
+  const int smem = kChunk * kThreads * (sizeof(T) + 2 * sizeof(float));
   err = cudaFuncSetAttribute(rglru_bwd<T>,
                              cudaFuncAttributeMaxDynamicSharedMemorySize,
                              smem);

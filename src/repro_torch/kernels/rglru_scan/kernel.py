@@ -36,7 +36,7 @@ SOURCE = Path(__file__).resolve().parent / "csrc" / "rglru_scan.cu"
 BWD_NAME = "rglru_scan_bwd"
 BWD_SOURCE = SOURCE.with_name("rglru_scan_bwd.cu")
 DTYPES = {torch.float32: 0, torch.bfloat16: 1}
-BWD_CHUNK = 64        # steps a tile of the backward
+BWD_CHUNK = 32        # steps a tile of the backward
 BWD_CHANNELS = 128    # channels a tile of the backward
 
 _lib = None

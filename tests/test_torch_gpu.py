@@ -1125,12 +1125,12 @@ def _rglru_bwd_grads(fn, a, bx, h0, dhs):
     (1, 32, 16), (2, 64, 8), (1, 48, 24), (1, 65, 130), (2, 300, 200),
     (1, 1, 5), (1, 4096, 256),
     # recurrentgemma-2b's training shape; ragged S and D at B 3 (D not a
-    # multiple of 8: element loads); two chunks and a step
+    # multiple of 8: element loads); a chunk's multiple and a step
     (1, 4096, 2560), (3, 1000, 2500), (2, 129, 130)])
 def test_rglru_scan_bwd_matches_plain_autograd(card, B, S, D, dtype):
     """da, dbx, dh0 through `rglru_scan`'s autograd function against
     autograd through the plain version: one chunk, several, ragged S and
-    D, and 64 chunks; bit for bit on a rerun."""
+    D, and over a hundred chunks; bit for bit on a rerun."""
     a = _normal((B, S, D), 80, card, torch.float32).sigmoid() * 0.3 + 0.69
     a = a.to(dtype)
     bx = _normal((B, S, D), 81, card, dtype)

@@ -77,6 +77,35 @@ raising:
    and 32 backward launches a step; the checkpoint restored and 2 steps
    profiled: step ms (host) and device ms, the idle share, tokens/s, the
    backward kernel's share of a step, peak memory, init seconds.
+   collectives: the rotor collectives (`core.collectives`, every function
+   of the JAX package's) on CUDA tensors in worlds of 3 ranks on `data`,
+   4 on `data` and 4 as `pod` 2 x `data` 2, started with
+   `core.comm.spawn_world` (spawn, a file:// store in a temporary
+   directory) after the build, all on the one card: gloo, staged through
+   host memory, since NCCL refuses two ranks on one card.  Each held to a
+   float64 reference that every rank computes from every rank's seeded
+   input (atol/rtol 1e-5; the compressed one within a relative 0.05);
+   each rank's wire bytes per input byte beside `schedule_stats`'s, and
+   the host ms of a call over loopback, not NVLink.
+   opera_dp_golden: the explicit data-parallel trainer
+   (`train.opera_dp`) on 4 ranks as `pod` 2 x `data` 2: reduced
+   smollm-360m (2 layers, vocab 64, hd 64 with 3 query heads a KV head,
+   f32) from the JAX package's weights, 3 steps held to the JAX package's
+   `make_opera_dp_train_step` on 4 fake CPU devices
+   (src/repro_torch/data/smollm_360m_reduced_opera_dp_golden.npz: losses,
+   grad norms and lr rtol 1e-5, the parameters after each step atol/rtol
+   1e-5), the replicas the same bits, each rank's flash launches counted,
+   and the losses within 1e-3 of the card's single-process
+   `make_train_step` on the whole batch.
+   opera_dp_full: smollm-360m at full width as train_full (f32 masters
+   from seed 0, bf16 compute, S 4096, global B 8) through
+   `launch.train.main` on 4 ranks as `data` 4 on the one card, 6 steps
+   plain, then 6 with ``--compress-grads``: every loss finite and
+   falling, the four replicas the same bits after every step (two
+   position-weighted sums of every leaf's words after each step, the
+   SHA-256 of all parameters after the last), the flash kernels' launches
+   on every rank; step ms and the wire's ms within it, wire and peak
+   bytes per rank, and each step's loss beside train_full's.
    train_full_qwen3, train_full_falcon_mamba, train_full_rgemma: the
    MoE, SSM and hybrid archs at full width, the same way at B 1, S 4096
    (printed as `reduced`), 10 steps without a checkpoint: qwen3-moe at 4
@@ -235,9 +264,9 @@ raising:
    time goes.  Each phase frees the last one's weights first.
 
 Then each phase's seconds and the script's total, the kernel table line
-(flash_attention's launches add the training runs'; the four backward
-kernels at their training shapes, their launches summed over the
-training runs), the card's name and power limit, and the device line.  Exits
+(flash_attention's launches add the training runs', opera_dp_golden's
+and opera_dp_full's over their ranks; the four backward kernels at
+their training shapes, their launches summed over the training runs), the card's name and power limit, and the device line.  Exits
 non-zero, printing no result, without a CUDA card or outside a checkout
 of the repository.
 """
@@ -2381,6 +2410,457 @@ def phase_train_full(root: Path) -> dict:
         **{f"{k}_launches": v for k, v in launches.items()})
 
 
+# ---------------- the rotor collectives and opera-dp (several ranks) ---------
+
+COLL_SEED = 7
+COLL_BULK = (1024, 1025)   # 4.2 MB of f32: padded at 3 ranks
+COLL_SMALL = (2, 3)        # a control-plane tensor (the expander's class)
+# (world, layouts): a world's layouts share its ranks; ranks row-major
+COLL_WORLDS = [(3, [((3,), ("data",))]),
+               (4, [((4,), ("data",)), ((2, 2), ("pod", "data"))])]
+COLL_TOL = dict(atol=1e-5, rtol=1e-5)  # tests/distributed/check_collectives.py
+
+
+def _coll_cases(shape, axes) -> list:
+    """(case, function, axis or (data, pod), keywords, per-rank shape)."""
+    sizes = dict(zip(axes, shape))
+    out = []
+    for ax in axes:
+        n = sizes[ax]
+        out += [(f"rotor_reduce_scatter@{ax}", "rotor_reduce_scatter", ax,
+                 {}, COLL_BULK),
+                (f"rotor_all_gather@{ax}", "rotor_all_gather", ax, {},
+                 COLL_BULK),
+                (f"rotor_all_reduce@{ax}", "rotor_all_reduce", ax, {},
+                 COLL_BULK),
+                (f"rotor_all_reduce_direct@{ax}", "rotor_all_reduce", ax,
+                 {"mode": "direct"}, COLL_BULK),
+                (f"rotor_all_to_all@{ax}", "rotor_all_to_all", ax, {},
+                 (n, COLL_BULK[0] // n, COLL_BULK[1])),
+                (f"rotor_all_to_all_vlb@{ax}", "rotor_all_to_all", ax,
+                 {"vlb": True}, (n, COLL_BULK[0] // n, COLL_BULK[1])),
+                (f"expander_all_gather@{ax}", "expander_all_gather", ax, {},
+                 COLL_SMALL),
+                (f"expander_psum_latency@{ax}", "expander_psum_latency", ax,
+                 {}, COLL_SMALL)]
+    pod = "pod" if "pod" in axes else None
+    return out + [
+        ("hierarchical_rotor_all_reduce", "hierarchical_rotor_all_reduce",
+         ("data", pod), {}, COLL_BULK),
+        ("rotor_psum_tree", "rotor_psum_tree", ("data", pod), {}, COLL_BULK),
+        ("compressed_rotor_all_reduce", "compressed_rotor_all_reduce",
+         "data", {}, COLL_BULK)]
+
+
+def _coll_line(shape, axes, rank: int, axis: str) -> list:
+    import numpy as np
+
+    grid = np.arange(int(np.prod(shape))).reshape(shape)
+    idx = list(np.unravel_index(rank, shape))
+    idx[axes.index(axis)] = slice(None)
+    return grid[tuple(idx)].tolist()
+
+
+def _coll_exact(x, fn, shape, axes, rank: int, axis):
+    """The float64 reference of `fn` at `rank`, from every rank's input."""
+    import numpy as np
+
+    x = x.astype(np.float64)
+    if fn in ("hierarchical_rotor_all_reduce", "rotor_psum_tree"):
+        return x.sum(0)   # data, or pod x data: the whole world
+    ranks = _coll_line(shape, axes, rank, axis)
+    i, n, mine = ranks.index(rank), len(ranks), x[ranks]
+    if fn == "rotor_reduce_scatter":
+        flat = mine.reshape(n, -1).sum(0)
+        return np.concatenate([flat, np.zeros(-flat.size % n)]).reshape(
+            n, -1)[i]
+    if fn in ("rotor_all_gather", "expander_all_gather"):
+        return mine
+    if fn == "rotor_all_to_all":
+        return mine[:, i]
+    return mine.sum(0)
+
+
+def _collective_rank(world, layouts) -> list:
+    """Every collective of each layout on this rank's CUDA tensors, held
+    to its float64 reference: one row a case (error, bytes sent, host
+    ms of a second call)."""
+    import numpy as np
+    import torch
+
+    from repro_torch.core import collectives as C
+    from repro_torch.core.comm import Mesh
+
+    rows = []
+    for j, (shape, axes) in enumerate(layouts):
+        mesh = Mesh(shape, axes)
+        for k, (case, fn, axis, kw, xshape) in enumerate(
+                _coll_cases(shape, axes)):
+            rng = np.random.default_rng([COLL_SEED, j, k])
+            x = rng.normal(size=(world.size,) + xshape).astype(np.float32)
+            mine = torch.from_numpy(x[world.rank]).to(world.device)
+            args = axis if isinstance(axis, tuple) else (axis,)
+            if fn == "rotor_psum_tree":
+                def call():
+                    return C.rotor_psum_tree({"g": mine}, mesh, *args)["g"]
+            elif fn == "compressed_rotor_all_reduce":
+                def call():
+                    return C.compressed_rotor_all_reduce(mine, mesh,
+                                                         *args)[0]
+            else:
+                def call(fn=fn):
+                    return getattr(C, fn)(mine, mesh, *args, **kw)
+            got = call()
+            torch.cuda.synchronize()
+            sent = mesh.sent_bytes
+            t0 = time.perf_counter()
+            call()
+            torch.cuda.synchronize()
+            host_ms = (time.perf_counter() - t0) * 1e3
+            sent = mesh.sent_bytes - sent
+            want = _coll_exact(x, fn, shape, axes, world.rank, axis)
+            g = got.double().cpu().numpy()
+            err = float(np.abs(g - want).max())
+            if fn == "compressed_rotor_all_reduce":
+                ok = err / float(np.abs(want).max()) < 0.05
+            else:
+                ok = bool(np.allclose(g, want, **COLL_TOL))
+            if not ok:
+                raise AssertionError(f"{case} on {shape}: {err}")
+            rows.append(dict(mesh=dict(zip(axes, shape)), case=case,
+                             max_abs_err=err, sent_bytes=sent,
+                             in_bytes=mine.numel() * 4, host_ms=host_ms))
+    return rows
+
+
+def phase_collectives() -> dict:
+    """The rotor collectives (`core.collectives`) on CUDA tensors in
+    worlds of 3 ranks on `data`, 4 on `data` and 4 as `pod` 2 x `data` 2,
+    all on the one card (gloo, staged through host memory: NCCL refuses
+    two ranks on one card): each held to a float64 reference computed on
+    every rank from every rank's seeded input (atol/rtol 1e-5; the
+    compressed one within a relative 0.05), with each rank's wire bytes
+    per input byte beside `schedule_stats`'s and the host ms of a call
+    (the slowest rank's), over loopback, not NVLink."""
+    from repro_torch.core.collectives import schedule_stats
+    from repro_torch.core.comm import spawn_world
+
+    # schedule_stats's bytes per input byte (the expander's per gathered
+    # byte); it has none for the halves of rs_ag and the hierarchical sum
+    per_byte = {"rotor_all_reduce": "rotor_ar_bytes",
+                "compressed_rotor_all_reduce": "rotor_ar_bytes",
+                "rotor_all_reduce_direct": "rotor_ar_direct_bytes",
+                "rotor_all_to_all": "rotor_a2a_bytes",
+                "rotor_all_to_all_vlb": "rotor_a2a_vlb_bytes",
+                "expander_all_gather": "expander_allgather_bytes",
+                "expander_psum_latency": "expander_allgather_bytes"}
+    out = []
+    for size, layouts in COLL_WORLDS:
+        ranks = spawn_world(_collective_rank, size, layouts, device="cuda",
+                            timeout_s=300)
+        for case_rows in zip(*ranks):
+            row = dict(case_rows[0])
+            row["world"] = size
+            row["max_abs_err"] = max(r["max_abs_err"] for r in case_rows)
+            row["host_ms"] = max(r["host_ms"] for r in case_rows)
+            row["sent_bytes_per_rank"] = [r["sent_bytes"] for r in case_rows]
+            del row["sent_bytes"]
+            name, _, axis = row["case"].partition("@")
+            n = row["mesh"].get(axis or "data")
+            key = per_byte.get(name)
+            gathered = row["in_bytes"] * (n if name.startswith("expander")
+                                          else 1)
+            row["wire_per_input_byte"] = max(row["sent_bytes_per_rank"]) \
+                / gathered
+            row["schedule_stats"] = (schedule_stats(n)[key] if key
+                                     else None)
+            out.append(row)
+    return dict(phase="collectives", backend="gloo",
+                why="ranks share one card; NCCL refuses two ranks on one "
+                    "card: gloo over loopback, staged through host memory",
+                cases=len(out), rows=out,
+                max_abs_err=max(r["max_abs_err"] for r in out
+                                if not r["case"].startswith("compressed")))
+
+
+OPERA_DP_GOLDEN = "smollm_360m_reduced_opera_dp_golden.npz"
+
+
+def _dp_fingerprint(params) -> list:
+    """Two wrapping int64 sums of every leaf's 32-bit words, plain and
+    weighted by position: equal on two ranks only if their bits are,
+    short of a collision."""
+    import torch
+
+    out = []
+    for _, p in params.named_parameters():
+        w = p.detach().reshape(-1).view(torch.int32).to(torch.int64)
+        idx = torch.arange(1, w.numel() + 1, device=w.device)
+        out.append(torch.stack([w.sum(), (w * idx).sum()]))
+    return torch.stack(out).cpu().tolist()
+
+
+def _dp_sha256(params) -> str:
+    import hashlib
+
+    h = hashlib.sha256()
+    for name, p in params.named_parameters():
+        h.update(name.encode())
+        h.update(p.detach().cpu().numpy().tobytes())
+    return h.hexdigest()
+
+
+def _dp_golden_rank(world, path: str) -> dict:
+    """The stored opera-dp run's steps on this rank: metrics, the largest
+    distance from the stored parameters after each step, a digest, the
+    kernels' launches."""
+    import numpy as np
+    import torch
+
+    from repro_torch.configs.base import get_config, reduced_config
+    from repro_torch.core.comm import Mesh
+    from repro_torch.data.pipeline import SyntheticLM, device_batches
+    from repro_torch.kernels import launch_counts
+    from repro_torch.launch.mesh import pctx_for_mesh
+    from repro_torch.models.convert import params_from_numpy, tree_from_flat
+    from repro_torch.optim.adamw import AdamWConfig
+    from repro_torch.train.opera_dp import (init_opera_dp_state,
+                                            make_opera_dp_train_step)
+
+    stored = dict(np.load(path))
+    cfg = reduced_config(get_config("smollm-360m")).replace(
+        **json.loads(str(stored["config"])))
+    mesh_spec = json.loads(str(stored["mesh"]))
+    mesh = Mesh(mesh_spec["shape"], mesh_spec["axes"])
+    data = json.loads(str(stored["data"]))
+
+    def tree(prefix):
+        return params_from_numpy(cfg, tree_from_flat(
+            {k[len(prefix):]: v for k, v in stored.items()
+             if k.startswith(prefix)}), device=world.device, masters=True)
+
+    state = init_opera_dp_state(tree("param/"))
+    step = make_opera_dp_train_step(
+        cfg, pctx_for_mesh(mesh), AdamWConfig(**json.loads(str(
+            stored["opt"]))))
+    src = SyntheticLM(cfg.vocab_size, data["seq"], data["batch"],
+                      seed=data["seed"])
+    rows = []
+    launch_counts.clear()
+    for i, batch in zip(range(len(stored["loss"])),
+                        device_batches(src, 0, world.device)):
+        state, m = step(state, batch)
+        got = dict(state["params"].named_parameters())
+        worst, bad = 0.0, []
+        for name, w in tree(f"after{i + 1}/").named_parameters():
+            err = (got[name].detach() - w.detach()).abs()
+            worst = max(worst, float(err.max()))
+            if not bool((err <= TRAIN_TOL["atol"] + TRAIN_TOL["rtol"]
+                         * w.detach().abs()).all()):
+                bad.append(name)
+        rows.append(dict(metrics={k: float(v) for k, v in m.items()},
+                         params_max_abs_err=worst, outside_tol=bad,
+                         digest=_dp_sha256(state["params"])))
+    return dict(rows=rows, launches=dict(launch_counts),
+                peak_bytes=torch.cuda.max_memory_allocated())
+
+
+def phase_opera_dp_golden(root: Path) -> dict:
+    """The explicit data-parallel trainer (`train.opera_dp`) on 4 ranks
+    as `pod` 2 x `data` 2 on the one card: reduced smollm-360m (2 layers,
+    vocab 64, hd 64 with 3 query heads a KV head, f32) from the JAX
+    package's weights, 3 steps held to the JAX package's
+    `make_opera_dp_train_step` on 4 fake CPU devices
+    (src/repro_torch/data/smollm_360m_reduced_opera_dp_golden.npz):
+    losses, grad norms and lr within rtol 1e-5, the parameters after each
+    step at atol/rtol 1e-5, the four replicas the same bits; each rank's
+    flash kernel 2 launches a layer a step and its backward 1; and to
+    the card's own single-process `make_train_step` on the whole batch,
+    the loss within 1e-3 (tests/distributed/check_sharded_train.py:84)."""
+    import numpy as np
+
+    from repro_torch.configs.base import get_config, reduced_config
+    from repro_torch.core.comm import spawn_world
+    from repro_torch.data.pipeline import SyntheticLM, device_batches
+    from repro_torch.optim.adamw import AdamWConfig
+    from repro_torch.train.trainer import make_train_step
+
+    path = root / "src" / "repro_torch" / "data" / OPERA_DP_GOLDEN
+    stored = dict(np.load(path))
+    steps = len(stored["loss"])
+    t0 = time.perf_counter()
+    ranks = spawn_world(_dp_golden_rank, 4, str(path), device="cuda",
+                        timeout_s=300)
+    ranks_s = time.perf_counter() - t0
+    rows = [r["rows"] for r in ranks]
+    for i in range(steps):
+        _check(len({r[i]["digest"] for r in rows}) == 1,
+               f"opera_dp_golden: replicas differ after step {i + 1}")
+        for rank, r in enumerate(rows):
+            _check(not r[i]["outside_tol"],
+                   f"opera_dp_golden rank {rank} step {i + 1}: "
+                   f"{r[i]['outside_tol'][:8]}")
+    for k in ("loss", "grad_norm", "lr"):
+        got = np.array([r["metrics"][k] for r in rows[0]])
+        rel = float(np.max(np.abs(got - stored[k]) / np.abs(stored[k])))
+        _check(rel <= 1e-5, f"opera_dp_golden {k}: {got} != {stored[k]}")
+    cfg = reduced_config(get_config("smollm-360m")).replace(
+        **json.loads(str(stored["config"])))
+    L = cfg.num_layers
+    for r in ranks:
+        _check(r["launches"] == {"flash_attention": 2 * L * steps,
+                                 "flash_attention_bwd": L * steps},
+               f"opera_dp_golden launches {r['launches']}")
+    # the card's single-process step on the whole batch
+    data = json.loads(str(stored["data"]))
+    state = _train_state_from(stored, "param/", cfg, "cuda")
+    one = make_train_step(cfg, AdamWConfig(**json.loads(str(
+        stored["opt"]))))
+    src = SyntheticLM(cfg.vocab_size, data["seq"], data["batch"],
+                      seed=data["seed"])
+    whole = []
+    for _, batch in zip(range(steps), device_batches(src, 0, "cuda")):
+        state, m = one(state, batch)
+        whole.append(float(m["loss"]))
+    dp = [r["metrics"]["loss"] for r in rows[0]]
+    _check(all(abs(a - b) < 1e-3 for a, b in zip(dp, whole)),
+           f"opera_dp_golden losses {dp} against one process {whole}")
+    mesh = json.loads(str(stored["mesh"]))
+    return dict(
+        phase="opera_dp_golden", arch=cfg.name, layers=L,
+        mesh=dict(zip(mesh["axes"], mesh["shape"])), backend="gloo",
+        steps=steps, batch=data["batch"], seq=data["seq"], losses=dp,
+        jax_losses=stored["loss"].tolist(), one_process_losses=whole,
+        grad_norms=[r["metrics"]["grad_norm"] for r in rows[0]],
+        params_max_abs_err=max(s["params_max_abs_err"] for r in rows
+                               for s in r),
+        replicas_bit_equal=True, ranks_s=ranks_s,
+        peak_bytes_per_rank=[r["peak_bytes"] for r in ranks],
+        flash_attention_launches=sum(r["launches"]["flash_attention"]
+                                     for r in ranks),
+        flash_attention_bwd_launches=sum(
+            r["launches"]["flash_attention_bwd"] for r in ranks))
+
+
+DP_FULL_STEPS, DP_FULL_B, DP_FULL_S = 6, 8, 4096
+
+
+def _dp_full_rank(world, seq: int) -> list:
+    """smollm-360m at full width through `launch.train.main` on this rank,
+    plain and then with ``--compress-grads``: the run, a fingerprint of
+    the parameters after every step, their SHA-256 after the last, peak
+    bytes and the kernels' launches."""
+    import gc
+
+    import torch
+
+    from repro_torch.kernels import launch_counts
+    from repro_torch.launch.train import main as train_main
+
+    out = []
+    for compress in (False, True):
+        prints = []
+
+        def on_step(step, state, metrics, prints=prints):
+            prints.append(_dp_fingerprint(state["params"]))
+            if step == DP_FULL_STEPS - 1:
+                prints.append(_dp_sha256(state["params"]))
+
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        launch_counts.clear()
+        run = train_main(
+            ["--arch", "smollm-360m", "--no-reduced", "--steps",
+             str(DP_FULL_STEPS), "--batch", str(DP_FULL_B), "--seq",
+             str(seq), "--log-every", "1", "--device", "cuda"]
+            + (["--compress-grads"] if compress else []), on_step=on_step)
+        out.append(dict(run=run, prints=prints, compress=compress,
+                        peak_bytes=torch.cuda.max_memory_allocated(),
+                        launches=dict(launch_counts)))
+    return out
+
+
+def phase_opera_dp_full(train_full: dict) -> dict:
+    """smollm-360m at full width (32 layers, d_model 960, vocab 49,152),
+    f32 masters from seed 0, bf16 compute, S 4096, global batch 8 as
+    train_full, through `launch.train.main` on 4 ranks as `data` 4 on the
+    one card (gloo, staged through host memory), 6 steps plain, then 6
+    with ``--compress-grads``: every loss finite and falling (the last 3
+    below the first 3 on average), the four replicas the same bits after
+    every step, 2 flash launches a layer a step and 1 backward on every
+    rank.  Prints step ms and the wire's ms within it, wire bytes and peak
+    bytes per rank, and each step's loss beside train_full's (same seed
+    and batches; printed, not gated)."""
+    import os
+
+    import numpy as np
+
+    from repro_torch.configs.base import get_config
+    from repro_torch.core.comm import spawn_world
+
+    _free_card()
+    os.environ.setdefault("PYTORCH_CUDA_ALLOC_CONF",
+                          "expandable_segments:True")
+    t0 = time.perf_counter()
+    ranks = spawn_world(_dp_full_rank, 4, DP_FULL_S, device="cuda",
+                        timeout_s=900)
+    wall = time.perf_counter() - t0
+    L = get_config("smollm-360m").num_layers
+    runs = {}
+    for j, tag in enumerate(("plain", "int8")):
+        per_rank = [r[j] for r in ranks]
+        run0 = per_rank[0]["run"]
+        losses = run0["losses"]
+        _check(all(r["run"]["losses"] == losses for r in per_rank),
+               f"opera_dp_full {tag}: ranks report other losses")
+        _check(len(losses) == DP_FULL_STEPS and all(np.isfinite(losses)),
+               f"opera_dp_full {tag} losses {losses}")
+        _check(np.mean(losses[-3:]) < np.mean(losses[:3]),
+               f"opera_dp_full {tag}: loss did not fall: {losses}")
+        for k in range(DP_FULL_STEPS + 1):
+            _check(len({str(r["prints"][k]) for r in per_rank}) == 1,
+                   f"opera_dp_full {tag}: replicas differ at print {k}")
+        for r in per_rank:
+            _check(r["launches"] == {
+                "flash_attention": 2 * L * DP_FULL_STEPS,
+                "flash_attention_bwd": L * DP_FULL_STEPS},
+                f"opera_dp_full {tag} launches {r['launches']}")
+        step_ms = [float(np.median(r["run"]["step_s"][1:])) * 1e3
+                   for r in per_rank]
+        wire_ms = [float(np.median(r["run"]["wire_s"][1:])) * 1e3
+                   for r in per_rank]
+        runs[tag] = dict(
+            losses=losses, train_full_losses=train_full["losses"][
+                :DP_FULL_STEPS],
+            grad_norms=run0["grad_norms"], lrs=run0["lrs"],
+            step_ms_per_rank=step_ms, wire_ms_per_rank=wire_ms,
+            wire_share=float(np.median(wire_ms) / np.median(step_ms)),
+            sent_bytes_per_step_per_rank=[r["run"]["sent_bytes"][-1]
+                                          for r in per_rank],
+            peak_bytes_per_rank=[r["peak_bytes"] for r in per_rank],
+            init_s=[r["run"]["init_s"] for r in per_rank],
+            tokens_per_s=DP_FULL_B * DP_FULL_S
+            / (float(np.median(step_ms)) / 1e3),
+            flash_attention_launches=sum(r["launches"]["flash_attention"]
+                                         for r in per_rank),
+            flash_attention_bwd_launches=sum(
+                r["launches"]["flash_attention_bwd"] for r in per_rank))
+        print(f"opera_dp_full {tag} losses {losses} train_full "
+              f"{runs[tag]['train_full_losses']}", flush=True)
+    return dict(
+        phase="opera_dp_full", arch="smollm-360m", layers=L, ranks=4,
+        mesh={"data": 4, "model": 1}, batch=DP_FULL_B, seq=DP_FULL_S,
+        steps=DP_FULL_STEPS, backend=ranks[0][0]["run"]["backend"],
+        why="4 ranks share 1 card and NCCL refuses two ranks on one card: "
+            "gloo over loopback TCP, staged through host memory (not "
+            "NVLink)", wall_s=wall, replicas_bit_equal=True, runs=runs,
+        flash_attention_launches=sum(r["flash_attention_launches"]
+                                     for r in runs.values()),
+        flash_attention_bwd_launches=sum(r["flash_attention_bwd_launches"]
+                                         for r in runs.values()))
+
+
 # The MoE, SSM and hybrid archs' full-width training runs: (phase, arch,
 # layers kept (0: all), why, the kernels a layer of each kind launches,
 # whether the run goes through `launch.train.main`, and the backward
@@ -3170,6 +3650,10 @@ def main() -> int:
     train_runs = [run(phase_train_golden, root, *spec)
                   for spec in TRAIN_RUNS]
     train_runs.append(run(phase_train_full, root))
+    # several ranks on the one card: the rotor collectives, opera-dp
+    run(phase_collectives)
+    train_runs.append(run(phase_opera_dp_golden, root))
+    train_runs.append(run(phase_opera_dp_full, train_runs[-2]))
     train_runs += [run(phase_train_arch_full, *spec)
                    for spec in ARCH_TRAIN_RUNS]
     _free_card()

@@ -488,3 +488,43 @@ def _slices_robust(topo: OperaTopology, fault_tolerance: int) -> bool:
             if not _connected(adj):
                 return False
     return True
+
+
+# --------------------------------------------------------------------------
+# Collective-schedule view (the rotor collectives, core/collectives.py).
+#
+# For an N-way mesh axis the rotor schedule is the N-matching factorization
+# itself: during "slice" m every shard i exchanges exactly with
+# (m - i) mod N.  A rotor collective walks slices 1..N-1 (slice pairing a
+# shard with itself moves no bytes), sending each peer's chunk on the one
+# slice with a direct circuit -> every byte travels exactly one hop: the
+# bulk class of the paper, zero bandwidth tax.
+# --------------------------------------------------------------------------
+
+
+def rotor_schedule(n: int) -> List[List[Tuple[int, int]]]:
+    """ppermute perm lists for slices m = 1..n-1 of the sum factorization
+    (then slice 0 where it pairs any shard with another).
+
+    Each perm list contains ordered (src, dst) pairs for every shard with a
+    partner != itself.  Because matchings are involutions the perm is its
+    own inverse — a bidirectional exchange.
+    """
+    perms: List[List[Tuple[int, int]]] = []
+    for m in list(range(1, n)) + [0]:
+        p = [(i, (m - i) % n) for i in range(n) if (m - i) % n != i]
+        if p:
+            perms.append(p)
+    return perms
+
+
+def expander_union(n: int, degree: int, seed: int = 0) -> np.ndarray:
+    """Union of `degree` random matchings over n nodes (the 'live now'
+    graph a latency-class message can use immediately)."""
+    ms = random_matchings(n, seed)[:degree]
+    adj = np.zeros((n, n), dtype=bool)
+    i = np.arange(n)
+    for p in ms:
+        mask = p != i
+        adj[i[mask], p[mask]] = True
+    return adj

@@ -14,11 +14,13 @@ and each is cast to its storage dtype (`layers.storage_dtype`) — the
 dtype the JAX forward casts it to at use, so the forwards agree bit for
 bit in the casts.  With ``masters=True`` every leaf stays float32
 (``param_dtype``) and requires grad: the training state, or a JAX
-gradient tree carried across for comparison.
+gradient tree carried across for comparison.  `jax_leaf_groups` names
+the port's leaves that form one JAX leaf, for code that must treat them
+as the JAX package does (the rotor gradient sync's chunks and scales).
 """
 from __future__ import annotations
 
-from typing import Mapping
+from typing import Dict, List, Mapping, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -97,3 +99,25 @@ def params_from_numpy(cfg: ModelConfig, tree: Mapping,
         out[name] = [_leaves(cfg, layer, dev)
                      for layer in _layers(tree[name], plan)]
     return ParamTree(out).requires_grad_(masters)
+
+
+def jax_leaf_groups(cfg: ModelConfig, names: Sequence[str]) -> List[List[str]]:
+    """The port's parameter `names` ("stack.3.attn.wq", ...) grouped as
+    the JAX package's leaves, in the order of `names`' first members: a
+    scanned leaf ``stack/blocks/<j>/...`` stacks the leaves of the layers
+    ``prefix + i * len(pattern) + j`` over the scan steps i, in order; an
+    unrolled layer's leaf, or any other, is a group of one."""
+    plans = {"stack": stack_plan(cfg)}
+    if cfg.family == "encdec":
+        plans["encoder"] = encoder_plan(cfg)
+    groups: Dict[Tuple, List[str]] = {}
+    for name in names:
+        parts = name.split(".")
+        key: Tuple = (name,)
+        if parts[0] in plans and len(parts) > 2:
+            plan, layer = plans[parts[0]], int(parts[1])
+            k = layer - len(plan.prefix)
+            if 0 <= k < plan.n_scan * len(plan.pattern):
+                key = (parts[0], k % len(plan.pattern), *parts[2:])
+        groups.setdefault(key, []).append(name)
+    return list(groups.values())

@@ -12,9 +12,10 @@ the JAX package runs three einsums for the routed experts
 kernel computes silu only, so `apply_moe` refuses any other activation
 rather than silently using silu.  The shared branch is three plain
 products outside any kernel in the JAX package, and stays plain
-`torch.matmul` here.  The expert-parallel `shard_map` branches (rotor
-all-to-all dispatch) wait for the rotor collectives (ROADMAP.md Queue
-1).
+`torch.matmul` here.  The expert-parallel `shard_map` branches (the
+dispatch over `core.collectives.rotor_all_to_all`) need the
+`ParallelContext` through the model and expert-sharded weights (ROADMAP
+Queue 1 item 7b).
 """
 from __future__ import annotations
 

@@ -5,10 +5,11 @@ Port of the single-process branch of `repro.train.trainer`
 in place of `jax.value_and_grad`), then `optim.adamw.adamw_update`, with
 the metrics merged.  Its rotor inter-pod branch (a `shard_map` over the
 pod axis whose gradient reduction is `rotor_all_reduce`, trainer.py:69-
-112) waits for the rotor collectives (ROADMAP Queue 1 item 7), as does
-the explicit data-parallel trainer `train/opera_dp`; on one process the
-JAX package's two trainers give the same update
-(tests/test_trainer_serve.py:49-73), which is this one.
+112) needs the `ParallelContext` through the model and sharded weights
+(ROADMAP Queue 1 item 7b); the explicit data-parallel trainer over the
+rotor collectives is `train.opera_dp`.  On one process the JAX package's
+two trainers give the same update (tests/test_trainer_serve.py:49-73),
+which is this one.
 """
 from __future__ import annotations
 

@@ -1427,3 +1427,77 @@ def test_reduced_arch_train_step_on_the_card_equals_cpu(card, arch):
     for name, p in cs["params"].named_parameters():
         torch.testing.assert_close(got[name].detach().cpu(), p.detach(),
                                    atol=1e-5, rtol=1e-5)
+
+
+# ---------------- the rotor collectives and opera-dp on the card ------------
+
+
+@pytest.fixture(scope="module")
+def card_world(card):
+    """Every collective case of a world of 2 ranks on the one card (gloo,
+    staged through host memory: NCCL refuses two ranks on one card)."""
+    import torch_dist_cases as K
+    from repro_torch.core.comm import spawn_world
+
+    return spawn_world(K.collective_rank, 2, ["w2"], device="cuda",
+                       timeout_s=300)
+
+
+def _tree_leaves(t) -> list:
+    return [t["a"], t["b"]["c"]] if isinstance(t, dict) else [t]
+
+
+@pytest.mark.parametrize("name", [
+    "rs@data", "ag@data", "ar@data", "ar_direct@data", "a2a@data",
+    "a2a_vlb@data", "exp_ag@data", "exp_psum@data", "hier", "tree", "comp"])
+def test_collective_on_cuda_tensors(card_world, name):
+    """Each collective on CUDA tensors against its float64 reference at
+    atol/rtol 1e-5 (the compressed one within a relative 0.05, its error
+    and payload giving back its input); wire bytes as `schedule_stats`."""
+    import torch_dist_cases as K
+
+    assert all(r["backend"] == "gloo" for r in card_world)
+    for rank, r in enumerate(card_world):
+        got, _ = r["w2"][name]
+        if name == "comp":
+            x = K.inputs("w2", "comp", K.SHAPE)
+            want = x[0].astype(np.float64).sum(0)
+            err = np.abs(got["total1"] - want).max() / np.abs(want).max()
+            assert err < 0.05
+            np.testing.assert_allclose(
+                got["q2"].astype(np.float32) * got["scale2"] + got["err2"],
+                x[1][rank] + got["err1"], atol=1e-6)
+            continue
+        want = K.exact("w2", name, rank)
+        for g, w in zip(*(_tree_leaves(t) for t in (got, want))):
+            np.testing.assert_allclose(g, w, atol=1e-5, rtol=1e-5)
+        assert r["w2"]["wire"] == {"rs_ag": 1.0, "direct": 1.0}
+
+
+def test_opera_dp_step_on_the_card_equals_cpu(card):
+    """Two opera-dp steps of reduced smollm (f32, hd 64) on a world of 2
+    ranks on the card and on the CPU from the same seed-0 masters: losses
+    and grad norms rtol 1e-5, rank 0's parameters atol/rtol 1e-5, the
+    replicas the same bits; each rank launches the flash kernel 2 times a
+    layer a step and its backward once."""
+    import torch_dist_cases as K
+    from repro_torch.core.comm import spawn_world
+
+    runs = [("w2", False, 2)]
+    card_run, cpu_run = (spawn_world(K.dp_rank, 2, None, runs, device=d,
+                                     timeout_s=300)
+                         for d in ("cuda", "cpu"))
+    L = K.DP_CONFIG["num_layers"]
+    for r in card_run:
+        assert r[0]["launches"] == {"flash_attention": 2 * L * 2,
+                                    "flash_attention_bwd": L * 2}
+    for i in range(2):
+        assert card_run[0][0]["rows"][i]["digest"] == \
+            card_run[1][0]["rows"][i]["digest"]
+        a, b = card_run[0][0]["rows"][i], cpu_run[0][0]["rows"][i]
+        for k in ("loss", "grad_norm", "lr"):
+            assert a["metrics"][k] == pytest.approx(b["metrics"][k],
+                                                    rel=1e-5), k
+        for name, p in b["params"].items():
+            np.testing.assert_allclose(a["params"][name], p, atol=1e-5,
+                                       rtol=1e-5, err_msg=name)

@@ -25,7 +25,8 @@ Also: the loss falls (tests/test_trainer_serve.py:33-47), every arch
 trains on the CPU (the plain versions under autograd), the checkpointer
 (round trip, keep-last-k, async save, a restart that repeats the run bit
 for bit), the fleet monitor's decisions equal the JAX package's, and the
-train launcher.
+train launcher on one process (tests/test_torch_opera_dp.py runs it
+under torchrun).
 """
 import dataclasses
 import functools
@@ -698,8 +699,16 @@ class TestLauncher:
                                        ["--mesh", "multipod"],
                                        ["--tp", "2"], ["--compress-grads"]])
     def test_multi_process_flags_raise(self, flags):
-        with pytest.raises(NotImplementedError, match="item 7"):
-            train_cli.main(["--device", "cpu", "--steps", "1", *flags])
+        """The pod meshes on a world of one rank and tensor parallelism
+        raise, naming item 7b; ``--compress-grads`` trains (opera-dp's
+        int8 gradient sync over a mesh of one rank)."""
+        argv = ["--device", "cpu", "--steps", "2", *flags]
+        if flags == ["--compress-grads"]:
+            run = train_cli.main(argv)
+            assert len(run["losses"]) == 2 and all(np.isfinite(run["losses"]))
+            return
+        with pytest.raises(NotImplementedError, match="item 7b"):
+            train_cli.main(argv)
 
     def test_module_runs(self):
         root = Path(__file__).resolve().parents[1]

@@ -2481,10 +2481,10 @@ def _coll_exact(x, fn, shape, axes, rank: int, axis):
     return mine.sum(0)
 
 
-def _collective_rank(world, layouts) -> list:
+def _collective_rank(world, layouts) -> dict:
     """Every collective of each layout on this rank's CUDA tensors, held
     to its float64 reference: one row a case (error, bytes sent, host
-    ms of a second call)."""
+    ms of a second call), and the world's backend and why."""
     import numpy as np
     import torch
 
@@ -2530,18 +2530,18 @@ def _collective_rank(world, layouts) -> list:
             rows.append(dict(mesh=dict(zip(axes, shape)), case=case,
                              max_abs_err=err, sent_bytes=sent,
                              in_bytes=mine.numel() * 4, host_ms=host_ms))
-    return rows
+    return dict(rows=rows, backend=world.backend, why=world.why)
 
 
 def phase_collectives() -> dict:
     """The rotor collectives (`core.collectives`) on CUDA tensors in
-    worlds of 3 ranks on `data`, 4 on `data` and 4 as `pod` 2 x `data` 2,
-    all on the one card (gloo, staged through host memory: NCCL refuses
-    two ranks on one card): each held to a float64 reference computed on
-    every rank from every rank's seeded input (atol/rtol 1e-5; the
-    compressed one within a relative 0.05), with each rank's wire bytes
-    per input byte beside `schedule_stats`'s and the host ms of a call
-    (the slowest rank's), over loopback, not NVLink."""
+    worlds of 3 ranks on `data`, 4 on `data` and 4 as `pod` 2 x `data` 2
+    (on one card gloo, staged through host memory: NCCL refuses two ranks
+    on one card): each held to a float64 reference computed on every rank
+    from every rank's seeded input (atol/rtol 1e-5; the compressed one
+    within a relative 0.05), with each rank's wire bytes per input byte
+    beside `schedule_stats`'s, the host ms of a call (the slowest
+    rank's) and each world's backend and why."""
     from repro_torch.core.collectives import schedule_stats
     from repro_torch.core.comm import spawn_world
 
@@ -2554,11 +2554,12 @@ def phase_collectives() -> dict:
                 "rotor_all_to_all_vlb": "rotor_a2a_vlb_bytes",
                 "expander_all_gather": "expander_allgather_bytes",
                 "expander_psum_latency": "expander_allgather_bytes"}
-    out = []
+    out, worlds = [], {}
     for size, layouts in COLL_WORLDS:
         ranks = spawn_world(_collective_rank, size, layouts, device="cuda",
                             timeout_s=300)
-        for case_rows in zip(*ranks):
+        worlds[size] = {k: ranks[0][k] for k in ("backend", "why")}
+        for case_rows in zip(*(r["rows"] for r in ranks)):
             row = dict(case_rows[0])
             row["world"] = size
             row["max_abs_err"] = max(r["max_abs_err"] for r in case_rows)
@@ -2575,10 +2576,7 @@ def phase_collectives() -> dict:
             row["schedule_stats"] = (schedule_stats(n)[key] if key
                                      else None)
             out.append(row)
-    return dict(phase="collectives", backend="gloo",
-                why="ranks share one card; NCCL refuses two ranks on one "
-                    "card: gloo over loopback, staged through host memory",
-                cases=len(out), rows=out,
+    return dict(phase="collectives", worlds=worlds, cases=len(out), rows=out,
                 max_abs_err=max(r["max_abs_err"] for r in out
                                 if not r["case"].startswith("compressed")))
 
@@ -2662,7 +2660,8 @@ def _dp_golden_rank(world, path: str) -> dict:
                          params_max_abs_err=worst, outside_tol=bad,
                          digest=_dp_sha256(state["params"])))
     return dict(rows=rows, launches=dict(launch_counts),
-                peak_bytes=torch.cuda.max_memory_allocated())
+                peak_bytes=torch.cuda.max_memory_allocated(),
+                backend=world.backend, why=world.why)
 
 
 def phase_opera_dp_golden(root: Path) -> dict:
@@ -2728,7 +2727,8 @@ def phase_opera_dp_golden(root: Path) -> dict:
     mesh = json.loads(str(stored["mesh"]))
     return dict(
         phase="opera_dp_golden", arch=cfg.name, layers=L,
-        mesh=dict(zip(mesh["axes"], mesh["shape"])), backend="gloo",
+        mesh=dict(zip(mesh["axes"], mesh["shape"])),
+        backend=ranks[0]["backend"], why=ranks[0]["why"],
         steps=steps, batch=data["batch"], seq=data["seq"], losses=dp,
         jax_losses=stored["loss"].tolist(), one_process_losses=whole,
         grad_norms=[r["metrics"]["grad_norm"] for r in rows[0]],
@@ -2777,7 +2777,7 @@ def _dp_full_rank(world, seq: int) -> list:
             + (["--compress-grads"] if compress else []), on_step=on_step)
         out.append(dict(run=run, prints=prints, compress=compress,
                         peak_bytes=torch.cuda.max_memory_allocated(),
-                        launches=dict(launch_counts)))
+                        launches=dict(launch_counts), why=world.why))
     return out
 
 
@@ -2852,9 +2852,7 @@ def phase_opera_dp_full(train_full: dict) -> dict:
         phase="opera_dp_full", arch="smollm-360m", layers=L, ranks=4,
         mesh={"data": 4, "model": 1}, batch=DP_FULL_B, seq=DP_FULL_S,
         steps=DP_FULL_STEPS, backend=ranks[0][0]["run"]["backend"],
-        why="4 ranks share 1 card and NCCL refuses two ranks on one card: "
-            "gloo over loopback TCP, staged through host memory (not "
-            "NVLink)", wall_s=wall, replicas_bit_equal=True, runs=runs,
+        why=ranks[0][0]["why"], wall_s=wall, replicas_bit_equal=True, runs=runs,
         flash_attention_launches=sum(r["flash_attention_launches"]
                                      for r in runs.values()),
         flash_attention_bwd_launches=sum(r["flash_attention_bwd_launches"]

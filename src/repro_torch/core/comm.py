@@ -13,7 +13,8 @@ zeros, as from `lax.ppermute`.  A group whose backend cannot take CUDA
 tensors (gloo) gets the payload staged through host memory, and what
 arrives is copied back to the tensor's device; NCCL takes device
 tensors as they are.  Each mesh counts the bytes its rank sends and the
-host seconds its exchanges take (`Mesh.sent_bytes`, `Mesh.wire_s`).
+host seconds its exchanges take (`Mesh.sent_bytes`, `Mesh.wire_s`;
+through host memory the wire's, with NCCL the enqueue's alone).
 
 `init_world` starts the world: from torchrun's environment, or from a
 ``file://`` store (`spawn_world`, which runs a function on N fresh
@@ -129,6 +130,12 @@ class Mesh:
                 group = dist.new_group(line.tolist())
                 if self.rank in line:
                     self.groups[axis] = group
+        # NCCL wants every rank of a group in its first call, and a
+        # matching's fixed point sits out of the exchange: one all-reduce
+        # a group first, axis by axis (the lines of an axis are disjoint)
+        for group in self.groups.values():
+            if dist.get_backend(group) == "nccl":
+                dist.all_reduce(torch.zeros(1, device="cuda"), group=group)
         self.sent_bytes = 0
         self.wire_s = 0.0
 

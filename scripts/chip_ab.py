@@ -12,9 +12,14 @@ lists), "C" the checkout this script lies in.  For each letter of
 in a fresh process from that checkout's own chip_smoke.py, which builds
 that checkout's kernels into its own build/.  A PHASE is a chip_smoke.py
 phase by the name it prints: ``mamba_scan_bwd`` calls
-``phase_mamba_scan_bwd()``, and a name of ``ARCH_TRAIN_RUNS``
+``phase_mamba_scan_bwd()``, ``train_full`` ``phase_train_full(root)``
+with the checkout's root, ``opera_dp_full`` with a train_full run that
+has no losses, and a name of ``ARCH_TRAIN_RUNS``
 (``train_full_falcon_mamba``) runs ``phase_train_arch_full`` with its
-spec.  Each phase's JSON line goes to stdout and to FILE (default
+spec.  PHASEs joined by "+" (``opera_dp_full+train_full_rgemma``) run
+in order in one process, as chip_smoke.py runs its phases, to show what
+an earlier phase leaves to a later one.  Each phase's JSON line goes to
+stdout and to FILE (default
 chiprun_out/chip_ab.jsonl) with the turn and the checkout added; the card's
 name and power limit are printed first and last.  Exits non-zero when a
 phase fails.
@@ -32,15 +37,22 @@ ROOT = Path(__file__).resolve().parents[1]
 
 # run inside a checkout: call the phase, print its line last
 CHILD = """
-import json, sys
+import inspect, json, sys
+from pathlib import Path
 import torch
 import chip_smoke as c
 torch.backends.cuda.matmul.allow_tf32 = False
-name = sys.argv[1]
 runs = {spec[0]: spec for spec in getattr(c, "ARCH_TRAIN_RUNS", [])}
-out = c.phase_train_arch_full(*runs[name]) if name in runs else \\
-    getattr(c, "phase_" + name)()
-print("CHIP_AB " + json.dumps(out), flush=True)
+# a phase's arguments: the checkout's root, or train_full's run (whose
+# losses opera_dp_full prints beside its own: none here)
+given = {"root": Path.cwd(), "train_full": {"losses": []}}
+for name in sys.argv[1].split("+"):
+    if name in runs:
+        out = c.phase_train_arch_full(*runs[name])
+    else:
+        fn = getattr(c, "phase_" + name)
+        out = fn(*(given[p] for p in inspect.signature(fn).parameters))
+    print("CHIP_AB " + json.dumps(out), flush=True)
 """
 
 
@@ -83,10 +95,12 @@ def main(argv=None) -> int:
                           f"({proc.returncode}):\n{proc.stderr[-4000:]}",
                           flush=True)
                     continue
-                row = dict(turn=turn, tree="parent" if letter == "P"
-                           else "change", **json.loads(lines[-1][8:]))
-                log.write(json.dumps(row) + "\n")
-                print(json.dumps(row), flush=True)
+                for k, line in enumerate(lines):
+                    row = dict(turn=turn, tree="parent" if letter == "P"
+                               else "change", chain=phase, link=k,
+                               **json.loads(line[8:]))
+                    log.write(json.dumps(row) + "\n")
+                    print(json.dumps(row), flush=True)
     print(card(), flush=True)
     return 1 if failed else 0
 

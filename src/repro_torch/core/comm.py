@@ -10,11 +10,12 @@ each line of each axis a process group of its own.
 `ppermute` moves a tensor along one axis by ``(src, dst)`` pairs of axis
 indices, in one `dist.batch_isend_irecv`; a rank no pair sends to gets
 zeros, as from `lax.ppermute`.  A group whose backend cannot take CUDA
-tensors (gloo) gets the payload staged through host memory, and what
-arrives is copied back to the tensor's device; NCCL takes device
-tensors as they are.  Each mesh counts the bytes its rank sends and the
-host seconds its exchanges take (`Mesh.sent_bytes`, `Mesh.wire_s`;
-through host memory the wire's, with NCCL the enqueue's alone).
+tensors (gloo) gets the payload staged through page-locked host buffers
+that the mesh keeps, and what arrives is copied back to the tensor's
+device; NCCL takes device tensors as they are.  Each mesh counts the
+bytes its rank sends and the host seconds its exchanges take
+(`Mesh.sent_bytes`, `Mesh.wire_s`; through host memory the wire's and
+the staging copies', with NCCL the enqueue's alone).
 
 `init_world` starts the world: from torchrun's environment, or from a
 ``file://`` store (`spawn_world`, which runs a function on N fresh
@@ -138,6 +139,20 @@ class Mesh:
                 dist.all_reduce(torch.zeros(1, device="cuda"), group=group)
         self.sent_bytes = 0
         self.wire_s = 0.0
+        self._host = None
+
+    def host_buffers(self, x: torch.Tensor
+                     ) -> Tuple[torch.Tensor, torch.Tensor]:
+        """(send, recv): page-locked host tensors of `x`'s shape and dtype
+        that `ppermute` stages a CUDA tensor through, the same memory for
+        every call (grown to the largest payload), so that no call
+        allocates and faults in fresh pages and the copies run at the
+        DMA engines' rate."""
+        n = x.numel() * x.element_size()
+        if self._host is None or self._host[0].numel() < n:
+            self._host = [torch.empty(n, dtype=torch.uint8, pin_memory=True)
+                          for _ in range(2)]
+        return tuple(b[:n].view(x.dtype).view(x.shape) for b in self._host)
 
 
 def axis_index(mesh: Mesh, axis: str) -> int:
@@ -170,8 +185,12 @@ def ppermute(x: torch.Tensor, mesh: Mesh, axis: str,
     if staged:   # the payload's producers, outside the wire's time
         torch.cuda.current_stream(x.device).synchronize()
     t0 = time.perf_counter()
-    send = (x.cpu() if staged else x).contiguous()
-    recv = torch.empty_like(send)
+    if staged:
+        send, recv = mesh.host_buffers(x)
+        send.copy_(x)
+    else:
+        send = x.contiguous()
+        recv = torch.empty_like(send)
     ops = []
     if to:
         ops.append(dist.P2POp(dist.isend, send,
@@ -205,14 +224,15 @@ def _rank_main(fn: Callable, rank: int, size: int, store: str,
             dist.destroy_process_group()
 
 
-def spawn_world(fn: Callable, size: int, *args, device: DeviceLike = "cpu",
+def spawn_world(fn: Callable, size: int, *args, device: DeviceLike = None,
                 timeout_s: float = TIMEOUT_S) -> List:
     """Run ``fn(world, *args)`` on `size` fresh processes (spawn) of this
     host, joined over a ``file://`` store in a temporary directory, and
-    return each rank's result in rank order.  `fn` and its arguments and
-    results are pickled.  A rank that raises, dies or outlives
-    `timeout_s` fails the run: every rank is stopped and RuntimeError
-    raised with what the rank said."""
+    return each rank's result in rank order.  Each rank joins through
+    `init_world(device)`: on the card unless `device` names another.
+    `fn` and its arguments and results are pickled.  A rank that raises,
+    dies or outlives `timeout_s` fails the run: every rank is stopped and
+    RuntimeError raised with what the rank said."""
     ctx = mp.get_context("spawn")
     results = ctx.Queue()
     got: Dict[int, object] = {}

@@ -39,12 +39,8 @@ def make_host_mesh(model: int = 1) -> Mesh:
     return Mesh((n // model, model), ("data", "model"))
 
 
-def pctx_for_mesh(mesh: Mesh, **kw) -> ParallelContext:
-    axes = mesh.axis_names
-    dp = ("pod", "data") if "pod" in axes else ("data",)
-    if kw.get("layout") == "dp_only":
-        dp = dp + ("model",)
-    if "pod" in axes:
-        return ParallelContext(
-            mesh=mesh, dp_axes=dp, tp_axis="model", pod_axis="pod", **kw)
-    return ParallelContext(mesh=mesh, dp_axes=dp, tp_axis="model", **kw)
+def pctx_for_mesh(mesh: Mesh) -> ParallelContext:
+    if "pod" in mesh.axis_names:
+        return ParallelContext(mesh=mesh, dp_axes=("pod", "data"),
+                               tp_axis="model", pod_axis="pod")
+    return ParallelContext(mesh=mesh, dp_axes=("data",), tp_axis="model")

@@ -21,10 +21,11 @@ its ranks out as (data, model), and ``--trainer opera-dp`` (the default,
 as the JAX launcher's) runs `train.opera_dp` over it, each rank on its
 shard of the global batch, with ``--compress-grads`` its int8 gradient
 sync.  On one process without a world the mesh is one rank, and
-opera-dp gives `train.trainer.make_train_step`'s update bit for bit, as
-``--trainer gspmd`` runs it.  ``--tp`` above 1, ``--trainer gspmd`` on a
-world above one rank and ``--mesh pod`` / ``multipod`` on a world of
-another size than 256 / 512 ranks raise (ROADMAP Queue 1 item 7b).
+opera-dp without ``--compress-grads`` runs
+`train.trainer.make_train_step`, as ``--trainer gspmd`` does.  ``--tp``
+above 1, ``--trainer gspmd`` on a world above one rank and ``--mesh
+pod`` / ``multipod`` on a world of another size than 256 / 512 ranks
+raise (ROADMAP Queue 1 item 7b).
 
 Rank 0 prints the loss floor, each logged step's loss, gradient norm
 and lr, and ``loss a -> b`` at the end, as the JAX launcher does, and

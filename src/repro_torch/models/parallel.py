@@ -1,16 +1,18 @@
-"""Parallel context: the mesh, its axis names and the Opera choices.
+"""Parallel context: the mesh and its axis names.
 
-Port of `repro.models.parallel`.  Carries the `core.comm.Mesh` and its
-axis names and the Opera scheduling choices (bulk-class dispatch for the
-MoE all-to-all, gradient sync flavor, parameter layout).  When `mesh` is
-None the models run on one process (`single_device_ctx`).
+Port of `repro.models.parallel`.  Carries the `core.comm.Mesh` and the
+names of its data, tensor and pod axes; when `mesh` is None the models
+run on one process (`single_device_ctx`).  `train.opera_dp` reads the
+axes.
 
-Two fields of the JAX context have no counterpart: ``use_pallas`` (the
-port picks a kernel or its plain version by the device of the tensors it
-is given, kernels/__init__.py) and ``act_sharding`` (sequence sharding
-over the model axis is a GSPMD layout, which the port does not have).
-Which model paths read `moe_dispatch` and `layout` is ROADMAP Queue 1
-item 7b; `train.opera_dp` reads the axes.
+The JAX context's Opera choices (``moe_dispatch``, ``grad_sync``,
+``layout``) come with the model paths that read them: the
+ParallelContext through `loss_fn` / `forward` / `apply_moe`, the
+expert-parallel dispatch and sharded weights (ROADMAP Queue 1 item 7b).
+Two of its fields have no counterpart: ``use_pallas`` (the port picks a
+kernel or its plain version by the device of the tensors it is given,
+kernels/__init__.py) and ``act_sharding`` (sequence sharding over the
+model axis is a GSPMD layout, which the port does not have).
 """
 from __future__ import annotations
 
@@ -27,18 +29,10 @@ class ParallelContext:
     dp_axes: Tuple[str, ...] = ("data",)
     tp_axis: str = "model"
     pod_axis: Optional[str] = None          # set on multi-pod meshes
-    moe_dispatch: str = "rotor"             # rotor | rotor_vlb | xla | local
-    grad_sync: str = "rotor"                # rotor | xla
-    # fsdp_tp (default) — params sharded over data (ZeRO) x model (TP)
-    # dp_only           — model axis repurposed as extra data parallelism
-    # tp_only           — params resident TP-sharded only (serving)
-    layout: str = "fsdp_tp"
 
     @property
     def tp_size(self) -> int:
-        if self.mesh is None or self.layout == "dp_only":
-            return 1
-        return int(self.mesh.shape[self.tp_axis])
+        return 1 if self.mesh is None else int(self.mesh.shape[self.tp_axis])
 
     @property
     def dp_size(self) -> int:

@@ -23,8 +23,9 @@ path's per-leaf scale are the JAX package's.  Then the same AdamW update
 on every rank.  The reduced chunks are
 gathered, not summed again, so every rank holds the same gradient bits
 and the replicas stay bit-identical (with a pod axis of two, whose
-direct exchange adds the same two terms on both sides).  On a world of
-one rank the step is `train.trainer.make_train_step`'s, bit for bit.
+direct exchange adds the same two terms on both sides).  On one shard
+without compression there is nothing to reduce, and the step is
+`train.trainer.make_train_step` itself.
 
 Best suited to models whose params fit replicated (smollm-class).
 """
@@ -42,6 +43,7 @@ from repro_torch.models.model import loss_fn
 from repro_torch.models.parallel import ParallelContext
 from repro_torch.optim.adamw import (AdamWConfig, adamw_update,
                                      init_opt_state, named_leaves)
+from repro_torch.train.trainer import make_train_step
 
 
 def dp_index(pctx: ParallelContext) -> int:
@@ -73,6 +75,8 @@ def make_opera_dp_train_step(cfg: ModelConfig, pctx: ParallelContext,
     """(state, global batch) -> (state, metrics), run by every rank of
     `pctx.mesh`; the state is written in place.  Metrics {"loss", "aux",
     "total", "grad_norm", "lr"} are 0-d tensors, the same on every rank."""
+    if pctx.dp_size == 1 and not compress:
+        return make_train_step(cfg, opt)
     mesh = pctx.mesh
     data_axis = pctx.dp_axes[-1]
     pod_axis = pctx.pod_axis

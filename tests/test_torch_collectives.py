@@ -120,7 +120,8 @@ def port_out():
     """{layout: [each rank's {case: (output, bytes sent)}]}."""
     out = {}
     for size, layouts in ((2, ["w2"]), (3, ["w3"]), (4, ["w4", "p2d2"])):
-        ranks = spawn_world(K.collective_rank, size, layouts, timeout_s=120)
+        ranks = spawn_world(K.collective_rank, size, layouts, device="cpu",
+                            timeout_s=120)
         assert all(r["backend"] == "gloo" for r in ranks)
         for lay in layouts:
             out[lay] = [r[lay] for r in ranks]

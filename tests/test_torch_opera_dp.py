@@ -157,7 +157,7 @@ def jax_out(tmp_path_factory):
 def port_out(jax_out):
     flat = {k[len("param/"):]: v for k, v in jax_out.items()
             if k.startswith("param/")}
-    return spawn_world(K.dp_rank, 4, flat, timeout_s=240)
+    return spawn_world(K.dp_rank, 4, flat, device="cpu", timeout_s=240)
 
 
 def _named(flat: dict, prefix: str) -> dict:

@@ -106,6 +106,23 @@ raising:
    SHA-256 of all parameters after the last), the flash kernels' launches
    on every rank; step ms and the wire's ms within it, wire and peak
    bytes per rank, and each step's loss beside train_full's.
+   ep_golden: experts over the model axis (`models.moe`'s all-to-all
+   branch, `train.trainer.make_train_step` on a mesh) on 4 ranks as
+   `data` 2 x `model` 2: reduced qwen3-moe-30b-a3b (f32, 4 experts a
+   rank) from the JAX package's weights, 3 steps with each dispatch
+   (rotor, rotor_vlb, xla) held to the JAX package's GSPMD
+   `make_train_step` on 4 fake CPU devices
+   (src/repro_torch/data/qwen3_moe_30b_a3b_reduced_ep_golden.npz: losses,
+   grad norms and lr rtol 1e-5, each rank's block of the parameters
+   atol/rtol 1e-5), the dispatches and the replicas the same bits, the
+   kernels' launches counted on every rank.
+   ep_full: qwen3-moe-30b-a3b at full width on 4 ranks as `model` 4 (32
+   experts a rank, rotor dispatch), 1 of 48 layers at S 2048, B 1
+   (printed as `reduced`: 2 layers, or 1 at S 4096, run out of the
+   card's 80 GB with 4 ranks on it), 6 steps of `make_train_step`:
+   every loss finite, the first batch's loss lower after the run, the
+   replicated leaves the same bits on every rank, the launches counted;
+   step ms and the wire's ms within it, wire bytes and peak GB a rank.
    train_full_qwen3, train_full_falcon_mamba, train_full_rgemma: the
    MoE, SSM and hybrid archs at full width, the same way at B 1, S 4096
    (printed as `reduced`), 10 steps without a checkpoint: qwen3-moe at 4
@@ -264,8 +281,8 @@ raising:
    time goes.  Each phase frees the last one's weights first.
 
 Then each phase's seconds and the script's total, the kernel table line
-(flash_attention's launches add the training runs', opera_dp_golden's
-and opera_dp_full's over their ranks; the four backward kernels at
+(flash_attention's and moe_gmm's launches add the training runs',
+the multi-rank phases' over their ranks; the four backward kernels at
 their training shapes, their launches summed over the training runs), the card's name and power limit, and the device line.  Exits
 non-zero, printing no result, without a CUDA card or outside a checkout
 of the repository.
@@ -1939,6 +1956,10 @@ def phase_moe_gmm_bwd() -> dict:
                                                  2048, 768)),
             dict(arch="deepseek-moe-16b", **row(torch.bfloat16, 64, 480,
                                                 2048, 1408)),
+            # ep_full's: a rank's experts of 4 model ranks, 4 ranks' rows
+            dict(arch="qwen3-moe-30b-a3b tp4", **row(torch.bfloat16,
+                                                     *_ep_full_rows(),
+                                                     2048, 768)),
             dict(arch="small f32", **row(torch.float32, 16, 40, 2048, 768)),
             dict(arch="ragged", **row(torch.bfloat16, 8, 67, 200, 130))]
     return dict(phase="moe_gmm_bwd", wgmma_probe=probe,
@@ -2206,6 +2227,7 @@ def phase_train_golden(root: Path, phase: str, arch: str,
     from repro_torch.kernels import launch_counts
     from repro_torch.optim.adamw import AdamWConfig
     from repro_torch.train.checkpoint import Checkpointer
+    from repro_torch.models.parallel import single_device_ctx
     from repro_torch.train.trainer import make_train_step
 
     stored = dict(np.load(root / "src" / "repro_torch" / "data"
@@ -2215,8 +2237,8 @@ def phase_train_golden(root: Path, phase: str, arch: str,
         compute_dtype="float32", **layout)
     data = json.loads(str(stored["data"]))
     steps = len(stored["loss"])
-    step_fn = make_train_step(cfg, AdamWConfig(**json.loads(
-        str(stored["opt"]))))
+    step_fn = make_train_step(cfg, single_device_ctx(), AdamWConfig(
+        **json.loads(str(stored["opt"]))))
     src = SyntheticLM(cfg.vocab_size, data["seq"], data["batch"],
                       seed=data["seed"])
     ckpt_dir = root / "build" / f"{phase}_ckpt"
@@ -2325,6 +2347,7 @@ def phase_train_full(root: Path) -> dict:
     from repro_torch.models.model import count_params, init_params
     from repro_torch.optim.adamw import AdamWConfig
     from repro_torch.train.checkpoint import Checkpointer
+    from repro_torch.models.parallel import single_device_ctx
     from repro_torch.train.trainer import init_train_state, make_train_step
 
     _free_card()
@@ -2364,8 +2387,8 @@ def phase_train_full(root: Path) -> dict:
     state, at = Checkpointer(str(ckpt_dir)).restore(state)
     _check(at == steps and int(state["opt"]["step"]) == steps,
            f"train_full restored step {at}")
-    step_fn = make_train_step(cfg, AdamWConfig(lr=1e-3, total_steps=steps,
-                                               warmup_steps=5))
+    step_fn = make_train_step(cfg, single_device_ctx(), AdamWConfig(
+        lr=1e-3, total_steps=steps, warmup_steps=5))
     batches = device_batches(SyntheticLM(cfg.vocab_size, S, B, seed=0),
                              steps, "cuda")
     state, m = step_fn(state, next(batches))   # warm
@@ -2584,14 +2607,16 @@ def phase_collectives() -> dict:
 OPERA_DP_GOLDEN = "smollm_360m_reduced_opera_dp_golden.npz"
 
 
-def _dp_fingerprint(params) -> list:
-    """Two wrapping int64 sums of every leaf's 32-bit words, plain and
-    weighted by position: equal on two ranks only if their bits are,
-    short of a collision."""
+def _dp_fingerprint(params, keep=None) -> list:
+    """Two wrapping int64 sums of every leaf's 32-bit words (of the leaves
+    `keep(name, leaf)` keeps), plain and weighted by position: equal on
+    two ranks only if their bits are, short of a collision."""
     import torch
 
     out = []
-    for _, p in params.named_parameters():
+    for name, p in params.named_parameters():
+        if keep is not None and not keep(name, p):
+            continue
         w = p.detach().reshape(-1).view(torch.int32).to(torch.int64)
         idx = torch.arange(1, w.numel() + 1, device=w.device)
         out.append(torch.stack([w.sum(), (w * idx).sum()]))
@@ -2682,6 +2707,7 @@ def phase_opera_dp_golden(root: Path) -> dict:
     from repro_torch.core.comm import spawn_world
     from repro_torch.data.pipeline import SyntheticLM, device_batches
     from repro_torch.optim.adamw import AdamWConfig
+    from repro_torch.models.parallel import single_device_ctx
     from repro_torch.train.trainer import make_train_step
 
     path = root / "src" / "repro_torch" / "data" / OPERA_DP_GOLDEN
@@ -2713,8 +2739,8 @@ def phase_opera_dp_golden(root: Path) -> dict:
     # the card's single-process step on the whole batch
     data = json.loads(str(stored["data"]))
     state = _train_state_from(stored, "param/", cfg, "cuda")
-    one = make_train_step(cfg, AdamWConfig(**json.loads(str(
-        stored["opt"]))))
+    one = make_train_step(cfg, single_device_ctx(), AdamWConfig(
+        **json.loads(str(stored["opt"]))))
     src = SyntheticLM(cfg.vocab_size, data["seq"], data["batch"],
                       seed=data["seed"])
     whole = []
@@ -2859,6 +2885,331 @@ def phase_opera_dp_full(train_full: dict) -> dict:
                                          for r in runs.values()))
 
 
+EP_GOLDEN = "qwen3_moe_30b_a3b_reduced_ep_golden.npz"
+EP_DISPATCHES = ("rotor", "rotor_vlb", "xla")
+
+
+def _ep_digests(params, cfg, pctx) -> tuple:
+    """SHA-256 of this rank's replicated leaves, and of its expert blocks."""
+    import hashlib
+
+    from repro_torch.models.sharding import param_spec
+
+    h = {True: hashlib.sha256(), False: hashlib.sha256()}
+    for name, p in params.named_parameters():
+        part = h[bool(any(param_spec(name, p.shape, cfg, pctx)))]
+        part.update(name.encode())
+        part.update(p.detach().cpu().numpy().tobytes())
+    return h[False].hexdigest(), h[True].hexdigest()
+
+
+def _ep_golden_rank(world, path: str) -> dict:
+    """The stored expert-parallel run on this rank, with each dispatch:
+    per step the metrics, the largest distance of this rank's block of
+    every leaf from the stored one (cut as the rank holds it), the
+    digests; the kernels' launches a dispatch."""
+    import numpy as np
+    import torch
+
+    from repro_torch.configs.base import get_config, reduced_config
+    from repro_torch.core.comm import Mesh
+    from repro_torch.data.pipeline import SyntheticLM, device_batches
+    from repro_torch.kernels import launch_counts
+    from repro_torch.launch.mesh import pctx_for_mesh
+    from repro_torch.models.convert import params_from_numpy, tree_from_flat
+    from repro_torch.optim.adamw import AdamWConfig
+    from repro_torch.train.trainer import init_train_state, make_train_step
+
+    stored = dict(np.load(path))
+    cfg = reduced_config(get_config("qwen3-moe-30b-a3b")).replace(
+        compute_dtype="float32")
+    spec = json.loads(str(stored["mesh"]))
+    mesh = Mesh(spec["shape"], spec["axes"])
+    data = json.loads(str(stored["data"]))
+    out = {}
+    for dispatch in EP_DISPATCHES:
+        pctx = pctx_for_mesh(mesh, moe_dispatch=dispatch)
+
+        def tree(prefix, pctx=pctx):
+            return params_from_numpy(cfg, tree_from_flat(
+                {k[len(prefix):]: v for k, v in stored.items()
+                 if k.startswith(prefix)}), device=world.device,
+                masters=True, pctx=pctx)
+
+        state = init_train_state(cfg, tree("param/"))
+        step = make_train_step(cfg, pctx, AdamWConfig(**json.loads(str(
+            stored["opt"]))))
+        src = SyntheticLM(cfg.vocab_size, data["seq"], data["batch"],
+                          seed=data["seed"])
+        rows = []
+        launch_counts.clear()
+        for i, batch in zip(range(len(stored["loss"])),
+                            device_batches(src, 0, world.device)):
+            state, m = step(state, batch)
+            got = dict(state["params"].named_parameters())
+            worst, bad = 0.0, []
+            for name, w in tree(f"after{i + 1}/").named_parameters():
+                err = (got[name].detach() - w.detach()).abs()
+                worst = max(worst, float(err.max()))
+                if not bool((err <= TRAIN_TOL["atol"] + TRAIN_TOL["rtol"]
+                             * w.detach().abs()).all()):
+                    bad.append(name)
+            rows.append(dict(metrics={k: float(v) for k, v in m.items()},
+                             params_max_abs_err=worst, outside_tol=bad,
+                             digests=_ep_digests(state["params"], cfg,
+                                                 pctx)))
+        out[dispatch] = dict(rows=rows, launches=dict(launch_counts))
+    return dict(runs=out, coords=mesh.coords, backend=world.backend,
+                why=world.why, peak_bytes=torch.cuda.max_memory_allocated())
+
+
+def phase_ep_golden(root: Path) -> dict:
+    """Expert-parallel MoE training (`train.trainer.make_train_step` on a
+    mesh, `models.moe`'s all-to-all branch) on 4 ranks as `data` 2 x
+    `model` 2 on the one card: reduced qwen3-moe-30b-a3b (f32, 8 experts,
+    4 a rank) from the JAX package's weights, 3 steps with each dispatch
+    (rotor, rotor_vlb, xla) held to the JAX package's GSPMD
+    `make_train_step` on 4 fake CPU devices
+    (src/repro_torch/data/qwen3_moe_30b_a3b_reduced_ep_golden.npz: losses,
+    grad norms and lr within rtol 1e-5, each rank's block of the
+    parameters after each step at atol/rtol 1e-5); the three dispatches
+    the same bits; every rank the same bits of the replicated leaves and
+    the ranks of a model coordinate the same experts; each rank's
+    moe_gmm (4 experts, 24 rows) and flash launches 2 a layer a step and
+    their backward kernels 1."""
+    import numpy as np
+
+    from repro_torch.configs.base import get_config, reduced_config
+    from repro_torch.core.comm import spawn_world
+
+    path = root / "src" / "repro_torch" / "data" / EP_GOLDEN
+    stored = dict(np.load(path))
+    steps = len(stored["loss"])
+    t0 = time.perf_counter()
+    ranks = spawn_world(_ep_golden_rank, 4, str(path), device="cuda",
+                        timeout_s=300)
+    ranks_s = time.perf_counter() - t0
+    cfg = reduced_config(get_config("qwen3-moe-30b-a3b"))
+    want = _train_launches(cfg, {"flash_attention": "moe",
+                                 "moe_gmm": "moe"}, steps)
+    for d in EP_DISPATCHES:
+        for i in range(steps):
+            rows = [r["runs"][d]["rows"][i] for r in ranks]
+            _check(len({r["digests"][0] for r in rows}) == 1,
+                   f"ep_golden {d}: replicated leaves differ, step {i + 1}")
+            for m in (0, 1):
+                same = [r["runs"][d]["rows"][i]["digests"][1] for r in ranks
+                        if r["coords"]["model"] == m]
+                _check(len(set(same)) == 1,
+                       f"ep_golden {d}: experts differ, step {i + 1}")
+            for rank, r in enumerate(rows):
+                _check(not r["outside_tol"],
+                       f"ep_golden {d} rank {rank} step {i + 1}: "
+                       f"{r['outside_tol'][:8]}")
+                _check(r["digests"] == ranks[rank]["runs"][
+                    EP_DISPATCHES[0]]["rows"][i]["digests"],
+                       f"ep_golden {d} rank {rank}: not rotor's bits")
+            _check(all(r["metrics"] == rows[0]["metrics"] for r in rows),
+                   f"ep_golden {d}: ranks report other metrics")
+        for k in ("loss", "grad_norm", "lr"):
+            got = np.array([r["metrics"][k] for r in ranks[0]["runs"][d][
+                "rows"]])
+            rel = float(np.max(np.abs(got - stored[k]) / np.abs(stored[k])))
+            _check(rel <= 1e-5, f"ep_golden {d} {k}: {got} != {stored[k]}")
+        for r in ranks:
+            _check(r["runs"][d]["launches"] == want,
+                   f"ep_golden {d} launches {r['runs'][d]['launches']}")
+    mesh = json.loads(str(stored["mesh"]))
+    rows0 = ranks[0]["runs"]["rotor"]["rows"]
+    return dict(
+        phase="ep_golden", arch=cfg.name, layers=cfg.num_layers,
+        mesh=dict(zip(mesh["axes"], mesh["shape"])),
+        experts_per_rank=cfg.moe.num_experts // 2,
+        dispatches=list(EP_DISPATCHES), backend=ranks[0]["backend"],
+        why=ranks[0]["why"], steps=steps,
+        losses=[r["metrics"]["loss"] for r in rows0],
+        jax_losses=stored["loss"].tolist(),
+        grad_norms=[r["metrics"]["grad_norm"] for r in rows0],
+        params_max_abs_err=max(s["params_max_abs_err"] for r in ranks
+                               for d in EP_DISPATCHES
+                               for s in r["runs"][d]["rows"]),
+        dispatches_bit_equal=True, replicas_bit_equal=True, ranks_s=ranks_s,
+        peak_bytes_per_rank=[r["peak_bytes"] for r in ranks],
+        **{f"{k}_launches": sum(r["runs"][d]["launches"][k] for r in ranks
+                                for d in EP_DISPATCHES) for k in want})
+
+
+# qwen3-moe-30b-a3b at full width on (data 1, model 4): 32 experts a
+# rank; the untied embedding and head (2 x 311 M parameters) replicated
+EP_FULL_LAYERS, EP_FULL_STEPS, EP_FULL_B, EP_FULL_S = 1, 6, 1, 2048
+EP_FULL_WHY = ("4 ranks share the card's 80 GB; each needs ~10 GB for the "
+               "replicated embedding and head (f32 masters, gradients, two "
+               "moments), ~2.7 GB a layer (experts at tp 4 and attention) "
+               "and ~2.5 GB a copy of the f32 logits at S 4096, of which the "
+               "loss's backward holds several: 2 layers at S 4096 and 1 "
+               "layer at S 4096 ran out of it (18.3 GiB a rank)")
+
+
+def _ep_full_rows() -> tuple:
+    """(experts, rows) of a rank's moe_gmm in ep_full: E / 4 experts,
+    the 4 ranks' capacity buffers of B S / 4 tokens each."""
+    from repro_torch.configs.base import get_config
+    from repro_torch.models.moe import _capacity
+
+    m = get_config("qwen3-moe-30b-a3b").moe
+    c = _capacity(EP_FULL_B * EP_FULL_S // 4, m.top_k, m.num_experts,
+                  m.capacity_factor)
+    return m.num_experts // 4, 4 * c
+
+
+def _ep_full_rank(world, layers: int) -> dict:
+    """qwen3-moe at full width cut to `layers`, its experts over 4 model
+    ranks, rotor dispatch: `make_train_step` from seed 0 on this rank.
+    Per step the loss, host seconds, bytes sent and host seconds on the
+    wire; a fingerprint of the replicated leaves after every step; the
+    first batch's loss after the last step; peak bytes and the kernels'
+    launches."""
+    import gc
+
+    import torch
+
+    from repro_torch.configs.base import get_config
+    from repro_torch.core.comm import Mesh
+    from repro_torch.data.pipeline import SyntheticLM, device_batches
+    from repro_torch.kernels import launch_counts
+    from repro_torch.launch.mesh import pctx_for_mesh
+    from repro_torch.models.model import init_params, loss_fn
+    from repro_torch.models.sharding import param_spec
+    from repro_torch.optim.adamw import AdamWConfig
+    from repro_torch.train.trainer import (init_train_state, make_train_step,
+                                           shard_batch)
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = get_config("qwen3-moe-30b-a3b").replace(num_layers=layers)
+    mesh = Mesh((1, 4), ("data", "model"))
+    pctx = pctx_for_mesh(mesh)
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params = init_params(cfg, 0, device=world.device, masters=True,
+                         pctx=pctx)
+    state = init_train_state(cfg, params)
+    gc.collect()
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    step = make_train_step(cfg, pctx, AdamWConfig(
+        lr=1e-3, total_steps=EP_FULL_STEPS, warmup_steps=5))
+    batches = list(zip(range(EP_FULL_STEPS), device_batches(SyntheticLM(
+        cfg.vocab_size, EP_FULL_S, EP_FULL_B, seed=0), 0, world.device)))
+    launch_counts.clear()
+    run = dict(losses=[], step_s=[], sent_bytes=[], wire_s=[], prints=[])
+    for _, batch in batches:
+        t0 = time.perf_counter()
+        sent, wire = mesh.sent_bytes, mesh.wire_s
+        state, m = step(state, batch)
+        run["losses"].append(float(m["loss"]))   # waits for the step
+        run["step_s"].append(time.perf_counter() - t0)
+        run["sent_bytes"].append(mesh.sent_bytes - sent)
+        run["wire_s"].append(mesh.wire_s - wire)
+        run["prints"].append(_dp_fingerprint(
+            state["params"],
+            lambda n, p: not any(param_spec(n, p.shape, cfg, pctx))))
+        if world.rank == 0:
+            print(f"[ep_full] step {len(run['losses'])} loss "
+                  f"{run['losses'][-1]:.4f} {run['step_s'][-1]:.2f} s, "
+                  f"{run['wire_s'][-1]:.2f} s on the wire", flush=True)
+    launches = dict(launch_counts)
+    with torch.no_grad():   # the first batch again, after the last step
+        first = loss_fn(state["params"], shard_batch(batches[0][1], pctx),
+                        cfg, pctx)[1]["loss"]
+    n_params = sum(p.numel() * (4 if any(param_spec(n, p.shape, cfg, pctx))
+                                else 1)
+                   for n, p in state["params"].named_parameters())
+    return dict(run, first_batch_after=float(first), launches=launches,
+                init_s=init_s, params=n_params,
+                peak_bytes=torch.cuda.max_memory_allocated(),
+                why=world.why, backend=world.backend)
+
+
+def phase_ep_full() -> dict:
+    """qwen3-moe-30b-a3b at full width (d 2048, 128 experts, top 8, F 768,
+    vocab 151,936) cut to `EP_FULL_LAYERS` layers and S `EP_FULL_S`
+    (printed as `reduced` with the reason), f32 masters from seed 0, bf16
+    compute, full remat, B 1, on 4 ranks as `data` 1 x `model` 4 on the
+    one card (32 experts a rank, rotor dispatch; gloo staged through host
+    memory), `EP_FULL_STEPS` steps of `make_train_step`: every loss
+    finite, the first batch's loss lower after the run than at its
+    step, the four ranks the
+    same bits of the replicated leaves after every step and the same
+    losses, the parameter count `count_params`'s, each rank's moe_gmm
+    (`_ep_full_rows`) and flash launches 2 a layer a step and their
+    backward kernels 1.  Prints step ms, the wire's ms and bytes a rank,
+    and peak GB a rank."""
+    import os
+
+    import numpy as np
+
+    from repro_torch.configs.base import get_config
+    from repro_torch.core.comm import spawn_world
+    from repro_torch.models.model import count_params
+
+    _free_card()
+    os.environ.setdefault("PYTORCH_CUDA_ALLOC_CONF",
+                          "expandable_segments:True")
+    full = get_config("qwen3-moe-30b-a3b")
+    cfg = full.replace(num_layers=EP_FULL_LAYERS)
+    reduced = {"num_layers": [full.num_layers, EP_FULL_LAYERS],
+               "seq": [4096, EP_FULL_S], "global_batch": [256, EP_FULL_B]}
+    print(f"reduced: {json.dumps(reduced)} ({EP_FULL_WHY})", flush=True)
+    t0 = time.perf_counter()
+    ranks = spawn_world(_ep_full_rank, 4, EP_FULL_LAYERS, device="cuda",
+                        timeout_s=600)
+    wall = time.perf_counter() - t0
+    losses = ranks[0]["losses"]
+    _check(all(r["losses"] == losses for r in ranks),
+           "ep_full: ranks report other losses")
+    _check(len(losses) == EP_FULL_STEPS and all(np.isfinite(losses)),
+           f"ep_full losses {losses}")
+    # B S = 2,048 tokens a step move a 151,936-word loss slowly: the
+    # first batch is held to its own loss after the run
+    after = ranks[0]["first_batch_after"]
+    _check(all(r["first_batch_after"] == after for r in ranks)
+           and after < losses[0],
+           f"ep_full: the first batch's loss {losses[0]} -> {after}")
+    for k in range(EP_FULL_STEPS):
+        _check(len({str(r["prints"][k]) for r in ranks}) == 1,
+               f"ep_full: replicas differ after step {k + 1}")
+    _check(ranks[0]["params"] == count_params(cfg),
+           f"ep_full params {ranks[0]['params']}")
+    want = _train_launches(cfg, {"flash_attention": "moe",
+                                 "moe_gmm": "moe"}, EP_FULL_STEPS)
+    for r in ranks:
+        _check(r["launches"] == want, f"ep_full launches {r['launches']}")
+    step_ms = [float(np.median(r["step_s"][1:])) * 1e3 for r in ranks]
+    wire_ms = [float(np.median(r["wire_s"][1:])) * 1e3 for r in ranks]
+    out = dict(
+        phase="ep_full", arch=cfg.name, layers=cfg.num_layers,
+        d_model=cfg.d_model, experts=cfg.moe.num_experts,
+        experts_per_rank=cfg.moe.num_experts // 4, top_k=cfg.moe.top_k,
+        vocab=cfg.vocab_size, params=ranks[0]["params"], reduced=reduced,
+        reduced_why=EP_FULL_WHY, mesh={"data": 1, "model": 4},
+        dispatch="rotor", batch=EP_FULL_B, seq=EP_FULL_S,
+        steps=EP_FULL_STEPS, backend=ranks[0]["backend"],
+        why=ranks[0]["why"], wall_s=wall, losses=losses,
+        first_batch_after=after, replicas_bit_equal=True,
+        step_ms_per_rank=step_ms,
+        wire_ms_per_rank=wire_ms,
+        wire_share=float(np.median(wire_ms) / np.median(step_ms)),
+        sent_bytes_per_step_per_rank=[r["sent_bytes"][-1] for r in ranks],
+        peak_gb_per_rank=[r["peak_bytes"] / 1e9 for r in ranks],
+        init_s=[r["init_s"] for r in ranks],
+        tokens_per_s=EP_FULL_B * EP_FULL_S / (np.median(step_ms) / 1e3),
+        **{f"{k}_launches": sum(r["launches"][k] for r in ranks)
+           for k in want})
+    print(f"ep_full losses {losses} step ms {step_ms} wire ms {wire_ms} "
+          f"peak GB {out['peak_gb_per_rank']}", flush=True)
+    return out
+
+
 # The MoE, SSM and hybrid archs' full-width training runs: (phase, arch,
 # layers kept (0: all), why, the kernels a layer of each kind launches,
 # whether the run goes through `launch.train.main`, and the backward
@@ -2912,6 +3263,7 @@ def phase_train_arch_full(phase: str, arch: str, layers: int, why: str,
     from repro_torch.launch.train import main as train_main
     from repro_torch.models.model import count_params, init_params
     from repro_torch.optim.adamw import AdamWConfig
+    from repro_torch.models.parallel import single_device_ctx
     from repro_torch.train.trainer import init_train_state, make_train_step
 
     _free_card()
@@ -2946,7 +3298,7 @@ def phase_train_arch_full(phase: str, arch: str, layers: int, why: str,
         run = dict(losses=[], grad_norms=[], lrs=[], step_s=[],
                    init_s=time.perf_counter() - t1,
                    params=sum(p.numel() for p in params.parameters()))
-        step_fn = make_train_step(cfg, opt)
+        step_fn = make_train_step(cfg, single_device_ctx(), opt)
         batches = device_batches(SyntheticLM(cfg.vocab_size, S, B, seed=0),
                                  0, "cuda")
         for step in range(steps):
@@ -2977,7 +3329,7 @@ def phase_train_arch_full(phase: str, arch: str, layers: int, why: str,
         _free_card()
         state = init_train_state(cfg, init_params(cfg, 1, device="cuda",
                                                   masters=True))
-        step_fn = make_train_step(cfg, opt)
+        step_fn = make_train_step(cfg, single_device_ctx(), opt)
         batches = device_batches(SyntheticLM(cfg.vocab_size, S, B, seed=0),
                                  steps, "cuda")
         state, m = step_fn(state, next(batches))   # warm
@@ -3047,10 +3399,13 @@ def phase_moe_gmm() -> dict:
     rows = []
     # qwen3-moe (E 128, F 768) in both types at a 4-slot decode tick and
     # prefills of ~150 and 512 tokens; deepseek-moe-16b (E 64, F 1408) in
-    # bf16 at a decode tick and a 455-token prefill (C 56)
+    # bf16 at a decode tick and a 455-token prefill (C 56); qwen3-moe's
+    # experts over 4 model ranks in training (ep_full's shape)
+    e_loc, ep_rows = _ep_full_rows()
     shapes = [("qwen3-moe-30b-a3b", dtype, 128, 768, (4, 12, 40))
               for dtype in (torch.float32, torch.bfloat16)] + [
-        ("deepseek-moe-16b", torch.bfloat16, 64, 1408, (4, 56))]
+        ("deepseek-moe-16b", torch.bfloat16, 64, 1408, (4, 56)),
+        ("qwen3-moe-30b-a3b tp4", torch.bfloat16, e_loc, 768, (ep_rows,))]
     D = 2048
     for arch, dtype, E, Fd, caps in shapes:
         # fan-in scaled weights, as the model draws them (dense_init)
@@ -3652,6 +4007,9 @@ def main() -> int:
     run(phase_collectives)
     train_runs.append(run(phase_opera_dp_golden, root))
     train_runs.append(run(phase_opera_dp_full, train_runs[-2]))
+    # experts sharded over the model axis, 4 ranks on the one card
+    train_runs.append(run(phase_ep_golden, root))
+    train_runs.append(run(phase_ep_full))
     train_runs += [run(phase_train_arch_full, *spec)
                    for spec in ARCH_TRAIN_RUNS]
     _free_card()

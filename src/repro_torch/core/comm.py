@@ -9,13 +9,21 @@ each line of each axis a process group of its own.
 
 `ppermute` moves a tensor along one axis by ``(src, dst)`` pairs of axis
 indices, in one `dist.batch_isend_irecv`; a rank no pair sends to gets
-zeros, as from `lax.ppermute`.  A group whose backend cannot take CUDA
-tensors (gloo) gets the payload staged through page-locked host buffers
-that the mesh keeps, and what arrives is copied back to the tensor's
-device; NCCL takes device tensors as they are.  Each mesh counts the
-bytes its rank sends and the host seconds its exchanges take
-(`Mesh.sent_bytes`, `Mesh.wire_s`; through host memory the wire's and
-the staging copies', with NCCL the enqueue's alone).
+zeros, as from `lax.ppermute`.  Under autograd it is differentiable as
+`lax.ppermute` is: its backward sends the cotangent along the inverse
+pairs, so a rank that sent nothing gets a zero gradient and what a rank
+received from no one passes none.  `all_to_all` is `lax.all_to_all`
+(split and concatenate on the leading axis, tiled) in one
+`dist.all_to_all_single`, its own transpose; `all_reduce` sums a tensor
+in place over the ranks that differ on some axes only (the data-parallel
+gradient sum).  A group whose backend cannot take CUDA tensors (gloo)
+gets the payload staged through page-locked host buffers that the mesh
+keeps, and what arrives is copied back to the tensor's device; NCCL
+takes device tensors as they are.  Each mesh counts the bytes its rank
+sends and the host seconds its exchanges take (`Mesh.sent_bytes`,
+`Mesh.wire_s`; through host memory the wire's and the staging copies',
+with NCCL the enqueue's alone; an all-reduce counts the 2 (n - 1) / n of
+its payload that a ring sends).
 
 `init_world` starts the world: from torchrun's environment, or from a
 ``file://`` store (`spawn_world`, which runs a function on N fresh
@@ -169,12 +177,9 @@ def _staged(group, t: torch.Tensor) -> bool:
     return t.device.type == "cuda" and dist.get_backend(group) != "nccl"
 
 
-def ppermute(x: torch.Tensor, mesh: Mesh, axis: str,
-             pairs: Sequence[Tuple[int, int]]) -> torch.Tensor:
-    """`lax.ppermute`: each ``(src, dst)`` pair of axis indices sends
-    src's `x` to dst; what this rank receives, or zeros where no pair
-    sends to it.  Each axis index is a source at most once and a
-    destination at most once.  One `dist.batch_isend_irecv` a call."""
+def _exchange(x: torch.Tensor, mesh: Mesh, axis: str,
+              pairs: Sequence[Tuple[int, int]]) -> torch.Tensor:
+    """`ppermute`'s exchange, outside autograd."""
     me = axis_index(mesh, axis)
     to = [d for s, d in pairs if s == me]
     frm = [s for s, d in pairs if d == me]
@@ -208,6 +213,109 @@ def ppermute(x: torch.Tensor, mesh: Mesh, axis: str,
     if to:
         mesh.sent_bytes += send.numel() * send.element_size()
     return out
+
+
+class _PPermute(torch.autograd.Function):
+    """`lax.ppermute` and its transpose: the cotangent goes back along
+    the inverse pairs."""
+
+    @staticmethod
+    def forward(ctx, x, mesh, axis, pairs):
+        ctx.mesh, ctx.axis, ctx.pairs = mesh, axis, pairs
+        return _exchange(x, mesh, axis, pairs)
+
+    @staticmethod
+    def backward(ctx, g):
+        back = tuple((d, s) for s, d in ctx.pairs)
+        return _exchange(g, ctx.mesh, ctx.axis, back), None, None, None
+
+
+def ppermute(x: torch.Tensor, mesh: Mesh, axis: str,
+             pairs: Sequence[Tuple[int, int]]) -> torch.Tensor:
+    """`lax.ppermute`: each ``(src, dst)`` pair of axis indices sends
+    src's `x` to dst; what this rank receives, or zeros where no pair
+    sends to it.  Each axis index is a source at most once and a
+    destination at most once.  One `dist.batch_isend_irecv` a call, and
+    one in the backward pass.  Every rank of the axis's line calls it,
+    and its backward, in one order, as every collective."""
+    pairs = tuple((int(s), int(d)) for s, d in pairs)
+    return _PPermute.apply(x, mesh, axis, pairs)
+
+
+def _all_to_all(x: torch.Tensor, mesh: Mesh, axis: str) -> torch.Tensor:
+    group = mesh.groups[axis]
+    staged = _staged(group, x)
+    if staged:
+        torch.cuda.current_stream(x.device).synchronize()
+    t0 = time.perf_counter()
+    # the payload as bytes: each leading row is a whole chunk, whatever
+    # the dtype (gloo's collectives take no bfloat16)
+    flat = x.contiguous().view(torch.uint8).reshape(-1)
+    if staged:
+        send, recv = mesh.host_buffers(flat)
+        send.copy_(flat)
+    else:
+        send, recv = flat, torch.empty_like(flat)
+    dist.all_to_all_single(recv, send, group=group)
+    out = recv.to(x.device) if staged else recv
+    n = axis_size(mesh, axis)
+    mesh.wire_s += time.perf_counter() - t0
+    mesh.sent_bytes += send.numel() * (n - 1) // n
+    return out.view(x.dtype).view(x.shape)
+
+
+class _AllToAll(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, mesh, axis):
+        ctx.mesh, ctx.axis = mesh, axis
+        return _all_to_all(x, mesh, axis)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _all_to_all(g, ctx.mesh, ctx.axis), None, None
+
+
+def all_to_all(x: torch.Tensor, mesh: Mesh, axis: str) -> torch.Tensor:
+    """`lax.all_to_all(x, axis, 0, 0, tiled=True)` with leading dim n,
+    the axis's size: row j of the result is row i (this rank's axis
+    index) of rank j's `x`.  One `dist.all_to_all_single` over the axis's
+    group, and one in the backward pass (the all-to-all is its own
+    transpose)."""
+    n = axis_size(mesh, axis)
+    if x.shape[0] != n:
+        raise ValueError(f"leading dim {x.shape[0]} != axis size {n}")
+    if n == 1:
+        return x
+    return _AllToAll.apply(x, mesh, axis)
+
+
+def all_reduce(x: torch.Tensor, mesh: Mesh, axes: Sequence[str]
+               ) -> torch.Tensor:
+    """Sum `x` in place over the ranks whose coordinates differ on `axes`
+    only, as GSPMD sums a leaf's gradient over the axes it is replicated
+    on: over the world's group when `axes` cover every axis of more than
+    one rank, else axis by axis.  Returns `x`.  Not differentiable."""
+    live = [a for a in axes if mesh.shape[a] > 1]
+    if not live:
+        return x
+    whole = len(live) == sum(1 for s in mesh.shape.values() if s > 1)
+    groups = [dist.group.WORLD] if whole else [mesh.groups[a] for a in live]
+    for group in groups:
+        n = dist.get_world_size(group)
+        staged = _staged(group, x)
+        if staged:
+            torch.cuda.current_stream(x.device).synchronize()
+        t0 = time.perf_counter()
+        if staged:
+            buf, _ = mesh.host_buffers(x)
+            buf.copy_(x)
+            dist.all_reduce(buf, group=group)
+            x.copy_(buf)
+        else:
+            dist.all_reduce(x, group=group)
+        mesh.wire_s += time.perf_counter() - t0
+        mesh.sent_bytes += 2 * (n - 1) * x.numel() * x.element_size() // n
+    return x
 
 
 def _rank_main(fn: Callable, rank: int, size: int, store: str,

@@ -39,8 +39,12 @@ def make_host_mesh(model: int = 1) -> Mesh:
     return Mesh((n // model, model), ("data", "model"))
 
 
-def pctx_for_mesh(mesh: Mesh) -> ParallelContext:
+def pctx_for_mesh(mesh: Mesh, **kw) -> ParallelContext:
+    """The context of `mesh`: data axes ``pod`` and ``data`` (``data``
+    alone without a pod axis), tensor axis ``model``; `kw` sets the other
+    fields (``moe_dispatch``), as the JAX version takes them."""
     if "pod" in mesh.axis_names:
         return ParallelContext(mesh=mesh, dp_axes=("pod", "data"),
-                               tp_axis="model", pod_axis="pod")
-    return ParallelContext(mesh=mesh, dp_axes=("data",), tp_axis="model")
+                               tp_axis="model", pod_axis="pod", **kw)
+    return ParallelContext(mesh=mesh, dp_axes=("data",), tp_axis="model",
+                           **kw)

@@ -1,42 +1,52 @@
 """Training launcher.
 
-    PYTHONPATH=src python -m repro_torch.launch.train --device cpu --steps 3
-    PYTHONPATH=src python -m repro_torch.launch.train --no-reduced \
-        --steps 12 --batch 8 --seq 4096 --ckpt-dir build/ckpt
+    PYTHONPATH=src python -m repro_torch.launch.train --device cpu \
+        --reduced --steps 3
+    PYTHONPATH=src python -m repro_torch.launch.train --steps 12 \
+        --batch 8 --seq 4096 --ckpt-dir build/ckpt
     PYTHONPATH=src python -m torch.distributed.run --standalone \
         --nproc-per-node 4 -m repro_torch.launch.train --device cpu \
-        --steps 3 [--compress-grads]
+        --reduced --steps 3 [--compress-grads]
+    PYTHONPATH=src python -m torch.distributed.run --standalone \
+        --nproc-per-node 4 -m repro_torch.launch.train --device cpu \
+        --reduced --arch qwen3-moe-30b-a3b --trainer gspmd --tp 2 --steps 3
 
 Port of `repro.launch.train` with its flags, plus ``--device`` (the card
-by default) and ``--reduced`` / ``--no-reduced`` as `launch.serve` has
-them (reduced by default, so the CPU runs stay small; ``--no-reduced``
-is full width).  Parameters are trainable float32 masters drawn from
-``--seed`` (the JAX package's distributions, not its bits), trained on
-`SyntheticLM`'s stream with AdamW (warmup of max(steps // 20, 5) steps,
-cosine decay over ``--steps``).
+by default) and ``--no-reduced``.  As the JAX launcher, it trains the
+full config unless given ``--reduced`` (`configs.base.reduced_config`).
+Parameters are trainable float32 masters drawn from ``--seed`` (the JAX
+package's distributions, not its bits), trained on `SyntheticLM`'s
+stream with AdamW (warmup of max(steps // 20, 5) steps, cosine decay
+over ``--steps``).
 
 Under torchrun (or in a world already joined) every rank runs this
-function: `core.comm.init_world` joins the world, ``--mesh host`` lays
-its ranks out as (data, model), and ``--trainer opera-dp`` (the default,
-as the JAX launcher's) runs `train.opera_dp` over it, each rank on its
-shard of the global batch, with ``--compress-grads`` its int8 gradient
-sync.  On one process without a world the mesh is one rank, and
-opera-dp without ``--compress-grads`` runs
-`train.trainer.make_train_step`, as ``--trainer gspmd`` does.  ``--tp``
-above 1, ``--trainer gspmd`` on a world above one rank and ``--mesh
+function: `core.comm.init_world` joins the world and ``--mesh host``
+lays its ranks out as (world / tp, tp) over (data, model).
+``--trainer opera-dp`` (the default, as the JAX launcher's) runs
+`train.opera_dp` over it, each rank on its data shard's rows, the model
+ranks as replicas, with ``--compress-grads`` its int8 gradient sync.
+``--trainer gspmd`` runs `train.trainer.make_train_step` on the mesh:
+with ``--tp`` above 1 each MoE layer's experts are split over the model
+ranks (`models.sharding`) and reached through `rotor_all_to_all`, and
+every gradient is summed over the axes its leaf is replicated on.  On
+one process without a world the mesh is one rank, and both trainers run
+the single-process step (opera-dp without ``--compress-grads``).
+``--tp`` that does not divide the world raises a ValueError; ``--mesh
 pod`` / ``multipod`` on a world of another size than 256 / 512 ranks
-raise (ROADMAP Queue 1 item 7b).
+raises (ROADMAP Queue 1 item 7c).
 
 Rank 0 prints the loss floor, each logged step's loss, gradient norm
 and lr, and ``loss a -> b`` at the end, as the JAX launcher does, and
-saves the checkpoints (the replicas are the same; with
-``--compress-grads`` its own gradient error, as the JAX launcher saves
-device 0's).  `main` returns the run: per-step losses, gradient norms,
-lrs and host seconds (each step ends in a read of its loss), each
-step's bytes sent and host seconds on the wire by this rank, the
-seconds parameter init took, and the world's backend.  `on_step(step,
-state, metrics)`, if given, is called after each step, outside its
-time.
+saves the checkpoints: the whole state, the sharded experts and their
+moments gathered from every rank (`train.checkpoint.whole_state`); a
+``--resume`` at the same ``--tp`` gives each rank its block back.  The
+replicas are the same; with ``--compress-grads`` rank 0 saves its own
+gradient error, as the JAX launcher saves device 0's.  `main` returns
+the run: per-step losses, gradient norms, lrs and host seconds (each
+step ends in a read of its loss), each step's bytes sent and host
+seconds on the wire by this rank, the seconds parameter init took, and
+the world's backend.  `on_step(step, state, metrics)`, if given, is
+called after each step, outside its time.
 """
 from __future__ import annotations
 
@@ -55,15 +65,15 @@ from repro_torch.data.pipeline import SyntheticLM, device_batches
 from repro_torch.launch.mesh import (make_host_mesh, make_production_mesh,
                                      pctx_for_mesh)
 from repro_torch.models.model import init_params
+from repro_torch.models.sharding import param_spec
 from repro_torch.optim.adamw import AdamWConfig
-from repro_torch.train.checkpoint import Checkpointer
+from repro_torch.train.checkpoint import Checkpointer, shard_cut, whole_state
 from repro_torch.train.opera_dp import (init_opera_dp_state,
                                         make_opera_dp_train_step)
 from repro_torch.train.trainer import init_train_state, make_train_step
 
-ITEM_7B = ("needs the ParallelContext through the model, sharded weights "
-           "and the GSPMD trainer's rotor pod branch (ROADMAP Queue 1 item "
-           "7b)")
+ITEM_7C = ("the dense weights' FSDP / TP sharding and the GSPMD trainer's "
+           "rotor pod branch are ROADMAP Queue 1 item 7c")
 
 
 def _sync(device: torch.device) -> None:
@@ -75,7 +85,7 @@ def main(argv=None, on_step: Optional[Callable] = None) -> dict:
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch", default="smollm-360m", choices=list_archs())
     ap.add_argument("--reduced", action=argparse.BooleanOptionalAction,
-                    default=True)
+                    default=False)
     ap.add_argument("--steps", type=int, default=100)
     ap.add_argument("--batch", type=int, default=8)
     ap.add_argument("--seq", type=int, default=64)
@@ -93,25 +103,24 @@ def main(argv=None, on_step: Optional[Callable] = None) -> dict:
     ap.add_argument("--device", default=None,
                     help="torch device (default: the CUDA card)")
     args = ap.parse_args(argv)
-    if args.tp != 1:
-        raise NotImplementedError(f"--tp {args.tp} {ITEM_7B}")
-
     if dist.is_initialized() or int(os.environ.get("WORLD_SIZE", "1")) > 1:
         world = init_world(args.device)
         device, rank, backend = world.device, world.rank, world.backend
-        if args.trainer == "gspmd" and world.size > 1:
-            raise NotImplementedError(
-                f"--trainer gspmd on {world.size} ranks {ITEM_7B}")
+        size = world.size
     else:
         device, rank, backend = resolve_device(args.device), 0, None
+        size = 1
     if args.mesh == "host":
+        if args.tp < 1 or size % args.tp:
+            raise ValueError(f"--tp {args.tp} does not divide the world's "
+                             f"{size} rank(s) into model rows")
         mesh = make_host_mesh(model=args.tp)
     else:
         try:
             mesh = make_production_mesh(multi_pod=args.mesh == "multipod")
         except ValueError as e:
             raise NotImplementedError(
-                f"--mesh {args.mesh}: {e} (ROADMAP Queue 1 item 7b)") from e
+                f"--mesh {args.mesh}: {e}; {ITEM_7C}") from e
     pctx = pctx_for_mesh(mesh)
     say = print if rank == 0 else (lambda *a, **k: None)
     # f32 matmuls in full f32, as the JAX package's dots
@@ -121,31 +130,43 @@ def main(argv=None, on_step: Optional[Callable] = None) -> dict:
         cfg = reduced_config(cfg)
     opt = AdamWConfig(lr=args.lr, total_steps=args.steps,
                       warmup_steps=max(args.steps // 20, 5))
+    # the GSPMD trainer keeps this rank's block of each sharded leaf
+    sharded = args.trainer == "gspmd" and pctx.tp_size > 1
 
     _sync(device)
     t0 = time.perf_counter()
-    params = init_params(cfg, args.seed, device=device, masters=True)
     if args.trainer == "opera-dp":
+        params = init_params(cfg, args.seed, device=device, masters=True)
         state = init_opera_dp_state(params, compress=args.compress_grads)
         step_fn = make_opera_dp_train_step(cfg, pctx, opt,
                                            compress=args.compress_grads)
     else:
+        params = init_params(cfg, args.seed, device=device, masters=True,
+                             pctx=pctx)
         state = init_train_state(cfg, params)
-        step_fn = make_train_step(cfg, opt)
+        step_fn = make_train_step(cfg, pctx, opt)
     _sync(device)
     init_s = time.perf_counter() - t0
 
     ckpt = Checkpointer(args.ckpt_dir) if args.ckpt_dir else None
     start_step = 0
     if ckpt and args.resume and ckpt.latest_step() is not None:
-        state, start_step = ckpt.restore(state)
+        state, start_step = ckpt.restore(
+            state, cut=shard_cut(cfg, pctx) if sharded else None)
         say(f"[train] resumed from step {start_step}")
-    saves = ckpt if rank == 0 else None
+
+    def save(step: int, blocking: bool = False) -> None:
+        whole = whole_state(state, cfg, pctx) if sharded else state
+        if rank == 0:   # every rank gathers; one writes
+            ckpt.save(step, whole, blocking=blocking)
 
     src = SyntheticLM(cfg.vocab_size, args.seq, args.batch, seed=args.seed)
     batches = device_batches(src, start_step, device)
     floor = src.conditional_entropy()
-    n_params = sum(p.numel() for p in params.parameters())
+    # the whole model's: a block of experts is 1 / tp of its leaf
+    n_params = sum(p.numel() * (pctx.tp_size if any(param_spec(
+        name, p.shape, cfg, pctx)) and sharded else 1)
+        for name, p in params.named_parameters())
     say(f"[train] {cfg.name} ({n_params:,} params), device {device}, "
         f"mesh {mesh.shape}, trainer={args.trainer}, floor={floor:.3f} "
         "nats", flush=True)
@@ -174,10 +195,10 @@ def main(argv=None, on_step: Optional[Callable] = None) -> dict:
                 f"({(time.perf_counter() - t_start):.1f}s)",
                 flush=True,
             )
-        if saves and (step + 1) % args.ckpt_every == 0:
-            saves.save(step + 1, state)
-    if saves:
-        saves.save(args.steps, state, blocking=True)
+        if ckpt and (step + 1) % args.ckpt_every == 0:
+            save(step + 1)
+    if ckpt:
+        save(args.steps, blocking=True)
     losses = run["losses"]
     if losses:
         say(f"[train] done: loss {losses[0]:.3f} -> {losses[-1]:.3f} "

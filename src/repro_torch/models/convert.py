@@ -17,10 +17,14 @@ bit in the casts.  With ``masters=True`` every leaf stays float32
 gradient tree carried across for comparison.  `jax_leaf_groups` names
 the port's leaves that form one JAX leaf, for code that must treat them
 as the JAX package does (the rotor gradient sync's chunks and scales).
+Given a mesh `ParallelContext` with model ranks, `params_from_numpy`
+gives each rank its block of every sharded leaf (`models.sharding.
+local_slice`: its experts), cut from the whole numpy array before it
+reaches the device.
 """
 from __future__ import annotations
 
-from typing import Dict, List, Mapping, Sequence, Tuple
+from typing import Callable, Dict, List, Mapping, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -29,15 +33,21 @@ from repro_torch import DeviceLike, resolve_device
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models.layers import (ParamTree, storage_config,
                                       storage_dtype)
+from repro_torch.models.parallel import ParallelContext
+from repro_torch.models.sharding import local_slice
 from repro_torch.models.transformer import StackPlan, encoder_plan, stack_plan
 
 
-def _leaves(cfg: ModelConfig, tree: Mapping, dev: torch.device) -> dict:
+def _leaves(cfg: ModelConfig, tree: Mapping, dev: torch.device,
+            cut: Optional[Callable] = None, prefix: str = "") -> dict:
     out = {}
     for name, value in tree.items():
+        path = f"{prefix}{name}"
         if isinstance(value, Mapping):
-            out[name] = _leaves(cfg, value, dev)
+            out[name] = _leaves(cfg, value, dev, cut, f"{path}.")
         else:
+            if cut is not None:
+                value = np.asarray(value)[cut(path, np.shape(value))]
             # a float32 copy: bf16 leaves arrive as ml_dtypes arrays, and
             # arrays from JAX are read-only
             arr = np.array(value, dtype=np.float32, order="C")
@@ -87,17 +97,22 @@ def _layers(stack: Mapping, plan: StackPlan) -> list:
 
 def params_from_numpy(cfg: ModelConfig, tree: Mapping,
                       device: DeviceLike = None,
-                      masters: bool = False) -> ParamTree:
+                      masters: bool = False,
+                      pctx: Optional[ParallelContext] = None) -> ParamTree:
     dev = resolve_device(device)
     cfg = storage_config(cfg, masters)
+    cut = None
+    if pctx is not None and pctx.mesh is not None:
+        def cut(name, shape):
+            return local_slice(name, shape, cfg, pctx)
     stacks = {"stack": stack_plan(cfg)}
     if "encoder" in tree:
         stacks["encoder"] = encoder_plan(cfg)
     out = _leaves(cfg, {name: v for name, v in tree.items()
-                        if name not in stacks}, dev)
+                        if name not in stacks}, dev, cut)
     for name, plan in stacks.items():
-        out[name] = [_leaves(cfg, layer, dev)
-                     for layer in _layers(tree[name], plan)]
+        out[name] = [_leaves(cfg, layer, dev, cut, f"{name}.{i}.")
+                     for i, layer in enumerate(_layers(tree[name], plan))]
     return ParamTree(out).requires_grad_(masters)
 
 

@@ -34,6 +34,8 @@ from repro_torch.models.layers import (
     storage_dtype,
     torch_dtype,
 )
+from repro_torch.models.parallel import ParallelContext, single_device_ctx
+from repro_torch.models.sharding import shard_params
 
 
 # the batch entry a family's cross-attention reads: (B, Sx, D) encoder
@@ -42,11 +44,14 @@ CROSS_INPUT = {"encdec": "encoder_embeds", "vlm": "image_embeds"}
 
 
 def init_params(cfg: ModelConfig, seed: int, device: DeviceLike = None,
-                masters: bool = False) -> ParamTree:
+                masters: bool = False,
+                pctx: Optional[ParallelContext] = None) -> ParamTree:
     """Random parameters with the JAX package's distributions, drawn on
     `device` from a `torch.Generator` seeded with `seed`, each weight in
     its storage dtype (`layers.storage_dtype`); with `masters`, trainable
-    float32 masters (`layers.storage_config`) of the same draws."""
+    float32 masters (`layers.storage_config`) of the same draws.  Given a
+    mesh `pctx`, every rank draws the whole tree and keeps its block of
+    each sharded leaf (`models.sharding.shard_params`)."""
     dev = resolve_device(device)
     cfg = storage_config(cfg, masters)
     gen = torch.Generator(device=dev).manual_seed(seed)
@@ -62,7 +67,10 @@ def init_params(cfg: ModelConfig, seed: int, device: DeviceLike = None,
     if cfg.family == "encdec":
         p["encoder"] = T.init_stack(gen, cfg, T.encoder_plan(cfg))
         p["enc_norm"] = init_norm(cfg.norm, cfg.d_model, dev)
-    return ParamTree(p).requires_grad_(masters)
+    tree = ParamTree(p).requires_grad_(masters)
+    if pctx is not None and pctx.mesh is not None:
+        tree = shard_params(tree, cfg, pctx)
+    return tree
 
 
 def _ffn_params(cfg: ModelConfig, kind: str, active_only: bool) -> int:
@@ -157,8 +165,8 @@ def _cross_src(params, batch: Dict[str, torch.Tensor], cfg: ModelConfig,
     return batch[name].to(torch_dtype(cfg.compute_dtype))
 
 
-def _train_hidden(params, batch: Dict[str, torch.Tensor],
-                  cfg: ModelConfig) -> Tuple[torch.Tensor, torch.Tensor]:
+def _train_hidden(params, batch: Dict[str, torch.Tensor], cfg: ModelConfig,
+                  pctx: ParallelContext) -> Tuple[torch.Tensor, torch.Tensor]:
     """The stack's output over the whole sequence in train mode (no
     decode state, layers rematerialised when ``cfg.remat == "full"``),
     and the summed router aux loss."""
@@ -169,23 +177,26 @@ def _train_hidden(params, batch: Dict[str, torch.Tensor],
     ctx = T.LayerCtx(positions=torch.arange(S, device=tokens.device),
                      cross_src=cross_src, mode="train")
     x, aux, _ = T.apply_stack(params["stack"], x, cfg, ctx,
-                              T.stack_plan(cfg))
+                              T.stack_plan(cfg), pctx=pctx)
     return x, aux
 
 
-def forward_train(params, batch: Dict[str, torch.Tensor],
-                  cfg: ModelConfig) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Returns (logits (B, S, V) f32, aux_loss) (model.py:100-124)."""
-    x, aux = _train_hidden(params, batch, cfg)
+def forward_train(params, batch: Dict[str, torch.Tensor], cfg: ModelConfig,
+                  pctx: ParallelContext = single_device_ctx()
+                  ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Returns (logits (B, S, V) f32, aux_loss) (model.py:100-124).  On a
+    mesh, `batch` is this rank's rows (`train.trainer.shard_batch`)."""
+    x, aux = _train_hidden(params, batch, cfg, pctx)
     return _logits(params, x, cfg), aux
 
 
 def forward_train_hidden(
     params, batch: Dict[str, torch.Tensor], cfg: ModelConfig,
+    pctx: ParallelContext = single_device_ctx(),
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Like `forward_train` but stops before the LM head, at the final
     norm (for `softmax_xent_chunked`; model.py:262-281)."""
-    x, aux = _train_hidden(params, batch, cfg)
+    x, aux = _train_hidden(params, batch, cfg, pctx)
     return apply_norm(cfg.norm, params["final_norm"], x,
                       upcast=cfg.norm_upcast), aux
 
@@ -251,17 +262,25 @@ def softmax_xent_chunked(
     return ce + z, ce
 
 
-def loss_fn(params, batch: Dict[str, torch.Tensor], cfg: ModelConfig):
+def loss_fn(params, batch: Dict[str, torch.Tensor], cfg: ModelConfig,
+            pctx: ParallelContext = single_device_ctx()):
     """(total, {"loss": ce, "aux": router aux, "total": total})
     (model.py:284-301): cross-entropy with z-loss, vocab-chunked when
-    ``cfg.loss_chunk_vocab``, plus the router aux term for MoE configs."""
+    ``cfg.loss_chunk_vocab``, plus the router aux term for MoE configs.
+
+    On a mesh this is one rank's share: `batch` is its rows, the
+    cross-entropy theirs, and the aux term what its MoE layers return
+    (every shard's mean in the all-to-all branch, its own in the local
+    one).  The JAX package's global loss is the mean over the data ranks
+    (`train.trainer` takes it), and its gradient the sum of every rank's
+    autograd over the axes each leaf is replicated on, over dp * tp."""
     if cfg.loss_chunk_vocab:
-        x, aux = forward_train_hidden(params, batch, cfg)
+        x, aux = forward_train_hidden(params, batch, cfg, pctx)
         head = params["embed"].T if cfg.tie_embeddings else params["lm_head"]
         total, ce = softmax_xent_chunked(x, head, batch["targets"],
                                          cfg.loss_chunk_vocab)
     else:
-        logits, aux = forward_train(params, batch, cfg)
+        logits, aux = forward_train(params, batch, cfg, pctx)
         total, ce = softmax_xent(logits, batch["targets"])
     if cfg.moe is not None:
         total = total + cfg.moe.router_aux_weight * aux

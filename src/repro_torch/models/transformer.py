@@ -33,6 +33,7 @@ from repro_torch.models import moe as M
 from repro_torch.models import rglru as R
 from repro_torch.models import ssm as S
 from repro_torch.models.layers import ParamTree, apply_norm, init_norm
+from repro_torch.models.parallel import ParallelContext, single_device_ctx
 
 
 @dataclasses.dataclass(frozen=True)
@@ -143,9 +144,11 @@ def apply_layer(
     cfg: ModelConfig,
     ctx: LayerCtx,
     cache: Optional[Dict] = None,
+    pctx: ParallelContext = single_device_ctx(),
 ) -> Tuple[torch.Tensor, torch.Tensor, Dict]:
     """Returns (x, aux_loss, new_cache); in decode mode new_cache is
-    `cache`, written in place; in train mode None."""
+    `cache`, written in place; in train mode None.  `pctx` reaches the
+    MoE layer (expert-parallel on a mesh with model ranks)."""
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     decode = ctx.mode == "decode"
     train = ctx.mode == "train"
@@ -206,7 +209,7 @@ def apply_layer(
 
     h = apply_norm(cfg.norm, p["ln2"], x, upcast=cfg.norm_upcast)
     if kind == "moe":
-        y, aux = M.apply_moe(p["moe"], h, cfg)
+        y, aux = M.apply_moe(p["moe"], h, cfg, pctx)
     else:
         y = F.apply_ffn(p["ffn"], h, cfg)
     return x + y, aux, new_cache
@@ -230,6 +233,7 @@ def apply_stack(
     ctx: LayerCtx,
     plan: StackPlan,
     caches: Optional[List[Dict]] = None,
+    pctx: ParallelContext = single_device_ctx(),
 ) -> Tuple[torch.Tensor, torch.Tensor, List[Dict]]:
     """Run every layer in order.  Returns (x, total_aux, new_caches);
     new_caches is None in train mode."""
@@ -241,9 +245,9 @@ def apply_stack(
         c = caches[i] if caches is not None else None
         if remat:
             x, aux, nc = checkpoint(apply_layer, kind, params[i], x, cfg, ctx,
-                                    c, use_reentrant=False)
+                                    c, pctx, use_reentrant=False)
         else:
-            x, aux, nc = apply_layer(kind, params[i], x, cfg, ctx, c)
+            x, aux, nc = apply_layer(kind, params[i], x, cfg, ctx, c, pctx)
         aux_total = aux_total + aux
         if not train:
             new_caches.append(nc)

@@ -13,7 +13,7 @@ from __future__ import annotations
 
 import dataclasses
 import math
-from typing import Dict, Iterable, Mapping, Tuple, Union
+from typing import Dict, Iterable, Mapping, Optional, Tuple, Union
 
 import torch
 from torch import nn
@@ -82,14 +82,17 @@ def _decay_mask(name: str) -> bool:
 
 def adamw_update(
     c: AdamWConfig, params: Leaves, grads: Mapping[str, torch.Tensor],
-    opt_state: Dict,
+    opt_state: Dict, gnorm: Optional[torch.Tensor] = None,
 ) -> Tuple[Leaves, Dict, Dict[str, torch.Tensor]]:
     """One step: clip by the global norm, update the moments, step the
     parameters.  Writes the parameters and the moments in place; returns
     (params, opt_state with the step advanced, {"grad_norm" (before
-    clipping), "lr"})."""
+    clipping), "lr"}).  `gnorm`, where given, is the global norm of the
+    whole model's gradient, of which `grads` is a rank's share (blocks of
+    sharded leaves, `train.trainer`)."""
     step = opt_state["step"]
-    gnorm = global_norm(grads)
+    if gnorm is None:
+        gnorm = global_norm(grads)
     scale = torch.clamp(c.clip_norm / torch.clamp(gnorm, min=1e-9), max=1.0)
     lr = lr_at(c, step)
     b1, b2 = c.beta1, c.beta2

@@ -12,8 +12,13 @@ The state is the port's training state, ``{"params": ParamTree, "opt":
 ``opt/m/stack/0/attn/wq``, ``opt/step``.  `restore(like)` checks every
 leaf's shape and writes the stored values into `like`'s tensors, cast to
 their dtypes, so the parameters stay the leaves autograd and the
-optimizer hold.  The JAX package's restore onto a sharded mesh has no
-counterpart on one card.
+optimizer hold.
+
+With experts sharded over the model axis (`models.sharding`) a
+checkpoint holds the whole tensors, as the JAX package's global arrays:
+every rank calls `whole_state` (the sharded leaves of the parameters and
+both moments gathered from every rank) and one rank saves it; each rank
+restores its block with ``restore(like, cut=shard_cut(cfg, pctx))``.
 """
 from __future__ import annotations
 
@@ -21,11 +26,15 @@ import json
 import shutil
 import threading
 from pathlib import Path
-from typing import Dict, List, Optional
+from typing import Callable, Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
 from torch import nn
+
+from repro_torch.configs.base import ModelConfig
+from repro_torch.models.parallel import ParallelContext
+from repro_torch.models.sharding import gather_leaf, local_slice
 
 
 def _flatten(tree, prefix: str = "") -> Dict[str, torch.Tensor]:
@@ -38,6 +47,40 @@ def _flatten(tree, prefix: str = "") -> Dict[str, torch.Tensor]:
         key = str(name).replace(".", "/")
         out.update(_flatten(value, f"{prefix}/{key}" if prefix else key))
     return out
+
+
+def _leaf_name(key: str) -> Optional[str]:
+    """The parameter a state key holds or shadows ("params/stack/0/moe/
+    w_gate", "opt/m/stack/0/moe/w_gate" -> "stack.0.moe.w_gate")."""
+    parts = key.split("/")
+    if parts[0] == "params":
+        return ".".join(parts[1:])
+    if parts[:2] in (["opt", "m"], ["opt", "v"]):
+        return ".".join(parts[2:])
+    return None
+
+
+def whole_state(state, cfg: ModelConfig, pctx: ParallelContext
+                ) -> Dict[str, torch.Tensor]:
+    """The state's leaves by key, each sharded leaf of the parameters and
+    the moments whole (`models.sharding.gather_leaf`).  Every rank of
+    ``pctx.mesh`` calls it, in one order."""
+    out = {}
+    for key, t in _flatten(state).items():
+        name = _leaf_name(key)
+        out[key] = t if name is None else gather_leaf(name, t, cfg, pctx)
+    return out
+
+
+def shard_cut(cfg: ModelConfig, pctx: ParallelContext
+              ) -> Callable[[str, Tuple[int, ...]], Tuple[slice, ...]]:
+    """`restore`'s `cut`: this rank's block of a whole stored leaf."""
+    def cut(key: str, shape: Tuple[int, ...]) -> Tuple[slice, ...]:
+        name = _leaf_name(key)
+        if name is None:
+            return tuple(slice(None) for _ in shape)
+        return local_slice(name, shape, cfg, pctx)
+    return cut
 
 
 def _host(t: torch.Tensor) -> np.ndarray:
@@ -120,10 +163,12 @@ class Checkpointer:
         s = self.steps()
         return s[-1] if s else None
 
-    def restore(self, like, step: Optional[int] = None):
+    def restore(self, like, step: Optional[int] = None,
+                cut: Optional[Callable] = None):
         """Write checkpoint `step` (the latest by default) into the
         tensors of `like`, a state of the saved structure; returns (like,
-        step)."""
+        step).  `cut(key, shape)`, where given, picks the block of each
+        stored array that `like` holds (`shard_cut`)."""
         step = step if step is not None else self.latest_step()
         if step is None:
             raise FileNotFoundError(f"no checkpoints under {self.dir}")
@@ -135,6 +180,8 @@ class Checkpointer:
                 if k not in data.files:
                     raise KeyError(f"checkpoint step {step} has no leaf {k}")
                 arr = data[k]
+                if cut is not None:
+                    arr = np.asarray(arr[cut(k, arr.shape)])
                 if tuple(arr.shape) != tuple(leaf.shape):
                     raise ValueError(
                         f"checkpoint leaf {k}: shape {arr.shape} != "

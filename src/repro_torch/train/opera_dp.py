@@ -25,7 +25,9 @@ gathered, not summed again, so every rank holds the same gradient bits
 and the replicas stay bit-identical (with a pod axis of two, whose
 direct exchange adds the same two terms on both sides).  On one shard
 without compression there is nothing to reduce, and the step is
-`train.trainer.make_train_step` itself.
+`train.trainer.make_train_step` itself.  The model runs on each rank as
+on one process (`single_device_ctx`, opera_dp.py:41-46): on a mesh with
+model ranks they are replicas, each on its data shard's rows.
 
 Best suited to models whose params fit replicated (smollm-class).
 """
@@ -33,40 +35,16 @@ from __future__ import annotations
 
 from typing import Callable, Dict, Tuple
 
-import numpy as np
 import torch
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core import collectives as C
 from repro_torch.models.convert import jax_leaf_groups
 from repro_torch.models.model import loss_fn
-from repro_torch.models.parallel import ParallelContext
+from repro_torch.models.parallel import ParallelContext, single_device_ctx
 from repro_torch.optim.adamw import (AdamWConfig, adamw_update,
                                      init_opt_state, named_leaves)
-from repro_torch.train.trainer import make_train_step
-
-
-def dp_index(pctx: ParallelContext) -> int:
-    """This rank's shard of the batch: its linear index over the DP axes,
-    the first axis major, as ``P(("pod", "data"))`` places the rows."""
-    mesh = pctx.mesh
-    return int(np.ravel_multi_index(
-        [mesh.coords[a] for a in pctx.dp_axes],
-        [mesh.shape[a] for a in pctx.dp_axes]))
-
-
-def shard_batch(batch: Dict[str, torch.Tensor], pctx: ParallelContext
-                ) -> Dict[str, torch.Tensor]:
-    """This rank's rows of the global batch."""
-    n, i = pctx.dp_size, dp_index(pctx)
-    out = {}
-    for k, v in batch.items():
-        if v.shape[0] % n:
-            raise ValueError(f"batch[{k!r}] has {v.shape[0]} rows for "
-                             f"{n} data-parallel shards")
-        rows = v.shape[0] // n
-        out[k] = v[i * rows:(i + 1) * rows]
-    return out
+from repro_torch.train.trainer import make_train_step, shard_batch
 
 
 def make_opera_dp_train_step(cfg: ModelConfig, pctx: ParallelContext,
@@ -76,7 +54,7 @@ def make_opera_dp_train_step(cfg: ModelConfig, pctx: ParallelContext,
     `pctx.mesh`; the state is written in place.  Metrics {"loss", "aux",
     "total", "grad_norm", "lr"} are 0-d tensors, the same on every rank."""
     if pctx.dp_size == 1 and not compress:
-        return make_train_step(cfg, opt)
+        return make_train_step(cfg, single_device_ctx(), opt)
     mesh = pctx.mesh
     data_axis = pctx.dp_axes[-1]
     pod_axis = pctx.pod_axis

@@ -1,44 +1,139 @@
-"""Train-step construction: loss -> grads -> AdamW.
+"""Train-step construction: loss -> grads -> sum over the mesh -> AdamW.
 
-Port of the single-process branch of `repro.train.trainer`
-(trainer.py:56-67): value and grad of `models.model.loss_fn` (autograd
-in place of `jax.value_and_grad`), then `optim.adamw.adamw_update`, with
-the metrics merged.  Its rotor inter-pod branch (a `shard_map` over the
-pod axis whose gradient reduction is `rotor_all_reduce`, trainer.py:69-
-112) needs the `ParallelContext` through the model and sharded weights
-(ROADMAP Queue 1 item 7b); the explicit data-parallel trainer over the
-rotor collectives is `train.opera_dp`.  On one process the JAX package's
-two trainers give the same update (tests/test_trainer_serve.py:49-73),
-which is this one.
+Port of `repro.train.trainer.make_train_step(cfg, pctx, opt)` without its
+rotor inter-pod branch (a `shard_map` over the pod axis whose gradient
+reduction is `rotor_all_reduce`, trainer.py:69-112; ROADMAP Queue 1 item
+7c).  Without a mesh, or on a mesh of one rank, it is the JAX package's
+single-device step (trainer.py:56-67): value and grad of
+`models.model.loss_fn` (autograd in place of `jax.value_and_grad`), then
+`optim.adamw.adamw_update`, with the metrics merged.
+
+On a mesh every rank runs the step, in one order, as the JAX package's
+GSPMD program runs on every device: it takes its rows of the global batch
+(`shard_batch`), autograd of `loss_fn(..., pctx)` on them, whose MoE
+layers run expert-parallel over the model axis with differentiable
+collectives; then each leaf's gradient is summed with `dist.all_reduce`
+over exactly the axes it is replicated on (`models.sharding.
+replicated_axes`: every axis for a replicated leaf, the data axes for a
+block of experts) and divided by the dp * tp ranks.  That is the
+gradient of the JAX package's global loss (`jax.grad` through its
+`shard_map`, whose transpose divides a replicated output's cotangent by
+the ranks it is replicated on and sums a replicated input's over them),
+and GSPMD's inserted collectives are the counterpart of the sums (the
+``xla`` baseline of trainer.py:3-6).  The global norm that AdamW clips
+by adds the expert blocks' squares over the model axis.  Every rank then
+runs the same AdamW update on its leaves, so the ranks of a data row hold
+the same bits of every replicated leaf.  The metrics are averaged over
+the data ranks (the JAX package's global cross-entropy; its aux is
+every shard's mean in the all-to-all branch, ROADMAP Queue 3 R5 for the
+local branch).
 """
 from __future__ import annotations
 
 from typing import Callable, Dict, Tuple
 
+import numpy as np
 import torch
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.core.comm import all_reduce
 from repro_torch.models.model import loss_fn
+from repro_torch.models.parallel import ParallelContext
+from repro_torch.models.sharding import param_spec, replicated_axes
 from repro_torch.optim.adamw import AdamWConfig, adamw_update, init_opt_state
 
 
-def make_train_step(cfg: ModelConfig, opt: AdamWConfig) -> Callable:
+def dp_index(pctx: ParallelContext) -> int:
+    """This rank's shard of the batch: its linear index over the DP axes,
+    the first axis major, as ``P(("pod", "data"))`` places the rows."""
+    mesh = pctx.mesh
+    return int(np.ravel_multi_index(
+        [mesh.coords[a] for a in pctx.dp_axes],
+        [mesh.shape[a] for a in pctx.dp_axes]))
+
+
+def shard_batch(batch: Dict[str, torch.Tensor], pctx: ParallelContext
+                ) -> Dict[str, torch.Tensor]:
+    """This rank's rows of the global batch."""
+    n, i = pctx.dp_size, dp_index(pctx)
+    out = {}
+    for k, v in batch.items():
+        if v.shape[0] % n:
+            raise ValueError(f"batch[{k!r}] has {v.shape[0]} rows for "
+                             f"{n} data-parallel shards")
+        rows = v.shape[0] // n
+        out[k] = v[i * rows:(i + 1) * rows]
+    return out
+
+
+def _grads(params, total: torch.Tensor):
+    names, leaves = zip(*params.named_parameters())
+    # a leaf the loss does not reach gets a zero gradient, as jax.grad
+    grads = torch.autograd.grad(total, leaves, allow_unused=True,
+                                materialize_grads=True)
+    return dict(zip(names, grads))
+
+
+def _squares(grads, device) -> torch.Tensor:
+    return sum((torch.sum(torch.square(g.float())) for g in grads),
+               torch.zeros((), device=device))
+
+
+def sum_grads(grads: Dict[str, torch.Tensor], cfg: ModelConfig,
+              pctx: ParallelContext
+              ) -> Tuple[Dict[str, torch.Tensor], torch.Tensor]:
+    """Every rank's autograd of its `loss_fn` share -> (the gradient of
+    the JAX package's global loss, this rank's block of each leaf, summed
+    in place; the whole gradient's global norm, the same on every
+    rank)."""
+    mesh, ranks = pctx.mesh, pctx.dp_size * pctx.tp_size
+    sharded, replicated = [], []
+    for name, g in grads.items():
+        g = all_reduce(g.contiguous(), mesh,
+                       replicated_axes(name, g.shape, cfg, pctx))
+        grads[name] = g.div_(ranks)
+        spec = param_spec(name, g.shape, cfg, pctx)
+        (sharded if any(spec) else replicated).append(g)
+    # the global norm: the expert blocks' squares summed over the model
+    # axis they are sharded on
+    dev = next(iter(grads.values())).device
+    sq = all_reduce(_squares(sharded, dev), mesh, (pctx.tp_axis,))
+    return grads, torch.sqrt(_squares(replicated, dev) + sq)
+
+
+def make_train_step(cfg: ModelConfig, pctx: ParallelContext,
+                    opt: AdamWConfig) -> Callable:
     """(state, batch) -> (state, metrics): one step on `state` =
     {"params": trainable ParamTree, "opt": optimizer state}, written in
     place; metrics {"loss", "aux", "total", "grad_norm", "lr"} are 0-d
-    tensors on the parameters' device."""
+    tensors on the parameters' device.  On a mesh `batch` is the global
+    batch, and every rank of `pctx.mesh` calls the step."""
+    if pctx.mesh is None or pctx.dp_size * pctx.tp_size == 1:
+
+        def train_step(state: Dict, batch: Dict[str, torch.Tensor]
+                       ) -> Tuple[Dict, Dict[str, torch.Tensor]]:
+            params = state["params"]
+            total, metrics = loss_fn(params, batch, cfg, pctx)
+            grads = _grads(params, total)
+            _, new_opt, om = adamw_update(opt, params, grads, state["opt"])
+            metrics = {k: v.detach() for k, v in metrics.items()}
+            metrics.update(om)
+            return {"params": params, "opt": new_opt}, metrics
+
+        return train_step
 
     def train_step(state: Dict, batch: Dict[str, torch.Tensor]
                    ) -> Tuple[Dict, Dict[str, torch.Tensor]]:
         params = state["params"]
-        names, leaves = zip(*params.named_parameters())
-        total, metrics = loss_fn(params, batch, cfg)
-        # a leaf the loss does not reach gets a zero gradient, as jax.grad
-        grads = torch.autograd.grad(total, leaves, allow_unused=True,
-                                    materialize_grads=True)
-        _, new_opt, om = adamw_update(opt, params, dict(zip(names, grads)),
-                                      state["opt"])
-        metrics = {k: v.detach() for k, v in metrics.items()}
+        total, metrics = loss_fn(params, shard_batch(batch, pctx), cfg, pctx)
+        grads, gnorm = sum_grads(_grads(params, total), cfg, pctx)
+        _, new_opt, om = adamw_update(opt, params, grads, state["opt"],
+                                      gnorm=gnorm)
+        # the JAX package's global metrics: the mean over the data ranks
+        keys = list(metrics)
+        vals = torch.stack([metrics[k].detach().float() for k in keys])
+        all_reduce(vals, pctx.mesh, pctx.dp_axes).div_(pctx.dp_size)
+        metrics = dict(zip(keys, vals.unbind(0)))
         metrics.update(om)
         return {"params": params, "opt": new_opt}, metrics
 

@@ -1343,6 +1343,7 @@ def test_reduced_train_step_on_the_card_equals_cpu(card):
     import copy
 
     from repro_torch.data.pipeline import SyntheticLM, device_batches
+    from repro_torch.models.parallel import single_device_ctx
     from repro_torch.optim.adamw import AdamWConfig
     from repro_torch.train.trainer import init_train_state, make_train_step
 
@@ -1350,8 +1351,9 @@ def test_reduced_train_step_on_the_card_equals_cpu(card):
         compute_dtype="float32", num_heads=3, num_kv_heads=1, head_dim=64)
     cpu = init_params(cfg, 0, device="cpu", masters=True)
     on_card = copy.deepcopy(cpu).to(card)
-    step = make_train_step(cfg, AdamWConfig(lr=1e-4, warmup_steps=2,
-                                            total_steps=10))
+    step = make_train_step(cfg, single_device_ctx(),
+                           AdamWConfig(lr=1e-4, warmup_steps=2,
+                                       total_steps=10))
     src = SyntheticLM(cfg.vocab_size, 64, 4, seed=0)
     runs = {}
     for dev, params in (("cpu", cpu), ("cuda", on_card)):
@@ -1394,14 +1396,16 @@ def test_reduced_arch_train_step_on_the_card_equals_cpu(card, arch):
 
     from repro_torch.data.pipeline import SyntheticLM, device_batches
     from repro_torch.models.transformer import stack_plan
+    from repro_torch.models.parallel import single_device_ctx
     from repro_torch.optim.adamw import AdamWConfig
     from repro_torch.train.trainer import init_train_state, make_train_step
 
     cfg = reduced_config(get_config(arch)).replace(compute_dtype="float32")
     cpu = init_params(cfg, 0, device="cpu", masters=True)
     on_card = copy.deepcopy(cpu).to(card)
-    step = make_train_step(cfg, AdamWConfig(lr=1e-4, warmup_steps=2,
-                                            total_steps=10))
+    step = make_train_step(cfg, single_device_ctx(),
+                           AdamWConfig(lr=1e-4, warmup_steps=2,
+                                       total_steps=10))
     src = SyntheticLM(cfg.vocab_size, 64, 4, seed=0)
     runs = {}
     for dev, params in (("cpu", cpu), ("cuda", on_card)):

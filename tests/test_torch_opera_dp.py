@@ -49,6 +49,7 @@ from repro_torch.data.pipeline import SyntheticLM, device_batches
 from repro_torch.launch.mesh import pctx_for_mesh
 from repro_torch.models.convert import params_from_numpy, tree_from_flat
 from repro_torch.models.model import init_params
+from repro_torch.models.parallel import single_device_ctx
 from repro_torch.optim.adamw import AdamWConfig
 from repro_torch.train.opera_dp import (init_opera_dp_state,
                                         make_opera_dp_train_step)
@@ -240,7 +241,7 @@ def test_a_world_of_one_gives_make_train_step(compress):
         params = init_params(cfg, 0, device="cpu", masters=True)
         if fn == "plain":
             state = init_train_state(cfg, params)
-            step = make_train_step(cfg, opt)
+            step = make_train_step(cfg, single_device_ctx(), opt)
         else:
             state = init_opera_dp_state(params, compress)
             step = make_opera_dp_train_step(cfg, pctx, opt, compress)
@@ -280,7 +281,8 @@ def test_launcher_trains_on_two_ranks_under_torchrun():
     proc = subprocess.run(
         [sys.executable, "-m", "torch.distributed.run", "--standalone",
          "--nproc-per-node", "2", "-m", "repro_torch.launch.train",
-         "--device", "cpu", "--steps", "2", "--compress-grads"],
+         "--device", "cpu", "--reduced", "--steps", "2",
+         "--compress-grads"],
         capture_output=True, text=True, timeout=300, cwd=ROOT,
         env={**os.environ, "PYTHONPATH": str(ROOT / "src"),
              "OMP_NUM_THREADS": "1"})

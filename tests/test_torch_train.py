@@ -71,6 +71,7 @@ from repro_torch.models.model import (
 from repro_torch.optim.adamw import AdamWConfig
 from repro_torch.train import health as H
 from repro_torch.train.checkpoint import Checkpointer
+from repro_torch.models.parallel import single_device_ctx
 from repro_torch.train.trainer import init_train_state, make_train_step
 
 ARCH = "smollm-360m"
@@ -420,7 +421,8 @@ def _port_run(stored, steps: int, arch: str = ARCH, **cfg_kw):
         {k[len("param/"):]: v for k, v in stored.items()
          if k.startswith("param/")}), device="cpu", masters=True)
     state = init_train_state(cfg, params)
-    step = make_train_step(cfg, AdamWConfig(**json.loads(str(stored["opt"]))))
+    step = make_train_step(cfg, single_device_ctx(),
+                           AdamWConfig(**json.loads(str(stored["opt"]))))
     data = json.loads(str(stored["data"]))
     batches = device_batches(SyntheticLM(cfg.vocab_size, data["seq"],
                                          data["batch"], seed=data["seed"]),
@@ -528,8 +530,9 @@ class TestTrainSteps:
                                                        vocab_size=64)
         state = init_train_state(cfg, init_params(cfg, 0, device="cpu",
                                                   masters=True))
-        step = make_train_step(cfg, AdamWConfig(lr=2e-3, warmup_steps=5,
-                                                total_steps=60))
+        step = make_train_step(cfg, single_device_ctx(),
+                               AdamWConfig(lr=2e-3, warmup_steps=5,
+                                           total_steps=60))
         batches = device_batches(SyntheticLM(cfg.vocab_size, 32, 8, seed=0),
                                  0, "cpu")
         losses = []
@@ -616,8 +619,9 @@ class TestCheckpoint:
 
     def test_restart_repeats_the_run_bit_for_bit(self, tmp_path):
         cfg, state = _tiny_state()
-        step = make_train_step(cfg, AdamWConfig(lr=1e-3, warmup_steps=2,
-                                                total_steps=6))
+        step = make_train_step(cfg, single_device_ctx(),
+                               AdamWConfig(lr=1e-3, warmup_steps=2,
+                                           total_steps=6))
         src = SyntheticLM(cfg.vocab_size, 16, 4, seed=0)
         ck = Checkpointer(str(tmp_path))
         straight = []
@@ -677,7 +681,7 @@ class TestHealth:
 
 class TestLauncher:
     def test_main_trains_on_the_cpu(self, capsys, tmp_path):
-        run = train_cli.main(["--device", "cpu", "--steps", "3",
+        run = train_cli.main(["--device", "cpu", "--reduced", "--steps", "3",
                               "--ckpt-dir", str(tmp_path),
                               "--trainer", "gspmd"])
         out = capsys.readouterr().out
@@ -685,13 +689,14 @@ class TestLauncher:
         assert len(run["losses"]) == len(run["step_s"]) == 3
         assert all(np.isfinite(run["losses"]))
         assert Checkpointer(str(tmp_path)).latest_step() == 3
-        resumed = train_cli.main(["--device", "cpu", "--steps", "4",
-                                  "--ckpt-dir", str(tmp_path), "--resume"])
+        resumed = train_cli.main(["--device", "cpu", "--reduced", "--steps",
+                                  "4", "--ckpt-dir", str(tmp_path),
+                                  "--resume"])
         assert resumed["start_step"] == 3 and len(resumed["losses"]) == 1
 
     def test_both_trainers_give_the_same_run(self):
-        a, b = (train_cli.main(["--device", "cpu", "--steps", "2",
-                                "--trainer", t])
+        a, b = (train_cli.main(["--device", "cpu", "--reduced", "--steps",
+                                "2", "--trainer", t])
                 for t in ("opera-dp", "gspmd"))
         assert a["losses"] == b["losses"]
 
@@ -699,23 +704,59 @@ class TestLauncher:
                                        ["--mesh", "multipod"],
                                        ["--tp", "2"], ["--compress-grads"]])
     def test_multi_process_flags_raise(self, flags):
-        """The pod meshes on a world of one rank and tensor parallelism
-        raise, naming item 7b; ``--compress-grads`` trains (opera-dp's
-        int8 gradient sync over a mesh of one rank)."""
-        argv = ["--device", "cpu", "--steps", "2", *flags]
+        """The pod meshes on a world of one rank raise, naming item 7c;
+        ``--tp 2`` on a world of one rank raises a ValueError (two model
+        ranks need a world of a multiple of two); ``--compress-grads``
+        trains (opera-dp's int8 gradient sync over a mesh of one rank)."""
+        argv = ["--device", "cpu", "--reduced", "--steps", "2", *flags]
         if flags == ["--compress-grads"]:
             run = train_cli.main(argv)
             assert len(run["losses"]) == 2 and all(np.isfinite(run["losses"]))
             return
-        with pytest.raises(NotImplementedError, match="item 7b"):
+        if flags == ["--tp", "2"]:
+            with pytest.raises(ValueError, match="--tp 2 does not divide"):
+                train_cli.main(argv)
+            return
+        with pytest.raises(NotImplementedError, match="item 7c"):
             train_cli.main(argv)
+
+    def test_the_full_config_is_the_default_as_in_the_reference(
+            self, monkeypatch):
+        """F5: both launchers train the full config unless given
+        ``--reduced`` (src/repro/launch/train.py:35); the port's
+        ``--no-reduced`` is still accepted.  Each launcher is stopped
+        after its config is chosen."""
+        import repro.launch.train as JT
+
+        class Stop(Exception):
+            pass
+
+        def stop(*a, **k):
+            raise Stop
+
+        def reduced_under(mod, argv, stop_at):
+            calls = []
+            real = mod.reduced_config
+            monkeypatch.setattr(mod, "reduced_config",
+                                lambda c: calls.append(1) or real(c))
+            monkeypatch.setattr(mod, stop_at, stop)
+            with pytest.raises(Stop):
+                mod.main(argv)
+            return bool(calls)
+
+        for argv, want in (([], False), (["--reduced"], True)):
+            assert reduced_under(JT, argv, "make_host_mesh") is want
+            assert reduced_under(train_cli, ["--device", "cpu", *argv],
+                                 "init_params") is want
+        assert not reduced_under(train_cli, ["--device", "cpu",
+                                             "--no-reduced"], "init_params")
 
     def test_module_runs(self):
         root = Path(__file__).resolve().parents[1]
         proc = subprocess.run(
             [sys.executable, "-m", "repro_torch.launch.train", "--device",
-             "cpu", "--steps", "3"], capture_output=True, text=True,
-            timeout=300, cwd=root,
+             "cpu", "--reduced", "--steps", "3"], capture_output=True,
+            text=True, timeout=300, cwd=root,
             env={**os.environ, "PYTHONPATH": str(root / "src"),
                  "OMP_NUM_THREADS": "1"})
         assert proc.returncode == 0, proc.stderr

@@ -68,6 +68,7 @@ def run_torch(args) -> list:
     from repro_torch.configs.base import get_config
     from repro_torch.data.pipeline import SyntheticLM, device_batches
     from repro_torch.models.convert import params_from_numpy
+    from repro_torch.models.parallel import single_device_ctx
     from repro_torch.optim.adamw import AdamWConfig
     from repro_torch.train.trainer import init_train_state, make_train_step
 
@@ -77,7 +78,8 @@ def run_torch(args) -> list:
                                device="cpu", masters=True)
     del jparams
     state = init_train_state(cfg, params)
-    step = make_train_step(cfg, AdamWConfig(**_opt(args)))
+    step = make_train_step(cfg, single_device_ctx(),
+                           AdamWConfig(**_opt(args)))
     batches = device_batches(SyntheticLM(cfg.vocab_size, args.seq, 1, seed=0),
                              0, "cpu")
     rows = []

@@ -106,6 +106,22 @@ raising:
    SHA-256 of all parameters after the last), the flash kernels' launches
    on every rank; step ms and the wire's ms within it, wire and peak
    bytes per rank, and each step's loss beside train_full's.
+   fsdp_golden: the dense weights' FSDP / TP layout (`models.sharding`,
+   fsdp_tp: each rank holds its blocks of every leaf and of both AdamW
+   moments, gathers them on use, gets its gradients reduce-scattered)
+   in `make_train_step` on 4 ranks as `data` 2 x `model` 2: reduced
+   smollm-360m in f32 from the stored weights, 3 steps held to the JAX
+   package's GSPMD `make_train_step` on 4 fake CPU devices
+   (src/repro_torch/data/smollm_360m_reduced_fsdp_golden.npz: losses,
+   grad norms and lr rtol 1e-5, each rank's blocks of the parameters and
+   both moments atol/rtol 1e-5), every leaf the rules shard held as a
+   block, the ranks of one block the same bits, the launches counted.
+   fsdp_full: smollm-360m at full width and depth as train_full through
+   `launch.train.main` at ``--trainer gspmd --tp 2`` on 4 ranks as
+   `data` 2 x `model` 2, 6 steps: every loss finite and falling, the
+   ranks of one block the same bits, the launches counted; step ms and
+   the wire's ms within it, bytes sent, each rank's bytes of parameters
+   and moments and its peak GB, each step's loss beside train_full's.
    ep_golden: experts over the model axis (`models.moe`'s all-to-all
    branch, `train.trainer.make_train_step` on a mesh) on 4 ranks as
    `data` 2 x `model` 2: reduced qwen3-moe-30b-a3b (f32, 4 experts a
@@ -114,10 +130,12 @@ raising:
    `make_train_step` on 4 fake CPU devices
    (src/repro_torch/data/qwen3_moe_30b_a3b_reduced_ep_golden.npz: losses,
    grad norms and lr rtol 1e-5, each rank's block of the parameters
-   atol/rtol 1e-5), the dispatches and the replicas the same bits, the
-   kernels' launches counted on every rank.
+   atol/rtol 1e-5; the dense leaves cut by the FSDP / TP rules too), the
+   dispatches the same bits and the ranks of one block the same bits,
+   the kernels' launches counted on every rank.
    ep_full: qwen3-moe-30b-a3b at full width on 4 ranks as `model` 4 (32
-   experts a rank, rotor dispatch), 1 of 48 layers at S 2048, B 1
+   experts a rank, rotor dispatch; the embedding and head cut over the
+   ranks and gathered on use), 1 of 48 layers at S 2048, B 1
    (printed as `reduced`: 2 layers, or 1 at S 4096, run out of the
    card's 80 GB with 4 ranks on it), 6 steps of `make_train_step`:
    every loss finite, the first batch's loss lower after the run, the
@@ -290,6 +308,7 @@ of the repository.
 from __future__ import annotations
 
 import json
+import math
 import subprocess
 import sys
 import time
@@ -2885,29 +2904,331 @@ def phase_opera_dp_full(train_full: dict) -> dict:
                                          for r in runs.values()))
 
 
+FSDP_GOLDEN = "smollm_360m_reduced_fsdp_golden.npz"
+
+
+def _fsdp_blocks_err(got: dict, want: dict) -> tuple:
+    """(largest distance, leaves outside TRAIN_TOL) of this rank's blocks
+    `got` from `want`, both by leaf name."""
+    worst, bad = 0.0, []
+    for name, w in want.items():
+        err = (got[name].detach() - w.detach()).abs()
+        worst = max(worst, float(err.max()))
+        if not bool((err <= TRAIN_TOL["atol"] + TRAIN_TOL["rtol"]
+                     * w.detach().abs()).all()):
+            bad.append(name)
+    return worst, bad
+
+
+def _fsdp_golden_rank(world, path: str) -> dict:
+    """The stored FSDP run on this rank (`make_train_step` under fsdp_tp
+    at the stored mesh): per step the metrics, the largest distance of
+    this rank's blocks of the parameters and both moments from the
+    stored whole arrays' blocks (cut by `models.sharding.local_slice`),
+    `_block_digests`, and whether every leaf the rules shard is held as
+    a block; the kernels' launches."""
+    import numpy as np
+    import torch
+
+    from repro_torch.configs.base import get_config, reduced_config
+    from repro_torch.core.comm import Mesh
+    from repro_torch.data.pipeline import SyntheticLM, device_batches
+    from repro_torch.kernels import launch_counts
+    from repro_torch.launch.mesh import pctx_for_mesh
+    from repro_torch.models.convert import params_from_numpy, tree_from_flat
+    from repro_torch.models.model import param_shapes
+    from repro_torch.models.sharding import param_spec
+    from repro_torch.optim.adamw import AdamWConfig
+    from repro_torch.train.trainer import init_train_state, make_train_step
+
+    stored = dict(np.load(path))
+    cfg = reduced_config(get_config("smollm-360m")).replace(
+        compute_dtype="float32")
+    spec = json.loads(str(stored["mesh"]))
+    mesh = Mesh(spec["shape"], spec["axes"])
+    pctx = pctx_for_mesh(mesh)
+    data = json.loads(str(stored["data"]))
+
+    def blocks(prefix):
+        return dict(params_from_numpy(cfg, tree_from_flat(
+            {k[len(prefix):]: v for k, v in stored.items()
+             if k.startswith(prefix)}), device=world.device, masters=True,
+            pctx=pctx).named_parameters())
+
+    state = init_train_state(cfg, params_from_numpy(
+        cfg, tree_from_flat({k[len("param/"):]: v for k, v in stored.items()
+                             if k.startswith("param/")}),
+        device=world.device, masters=True, pctx=pctx))
+    step = make_train_step(cfg, pctx, AdamWConfig(**json.loads(str(
+        stored["opt"]))))
+    src = SyntheticLM(cfg.vocab_size, data["seq"], data["batch"],
+                      seed=data["seed"])
+    whole = param_shapes(cfg)
+    rows = []
+    launch_counts.clear()
+    for i, batch in zip(range(len(stored["loss"])),
+                        device_batches(src, 0, world.device)):
+        state, m = step(state, batch)
+        got = {"param": dict(state["params"].named_parameters()),
+               "m": state["opt"]["m"], "v": state["opt"]["v"]}
+        errs = {k: _fsdp_blocks_err(got[k], blocks(f"after{i + 1}/{k}/"))
+                for k in got}
+        cut = all(p.numel() < math.prod(whole[n])
+                  for n, p in got["param"].items()
+                  if any(param_spec(n, p.shape, cfg, pctx)))
+        rows.append(dict(metrics={k: float(v) for k, v in m.items()},
+                         max_abs_err={k: e[0] for k, e in errs.items()},
+                         outside_tol=[f"{k}:{n}" for k, e in errs.items()
+                                      for n in e[1]],
+                         held=_block_digests(got["param"], cfg, pctx),
+                         held_m=_block_digests(got["m"], cfg, pctx),
+                         blocks_only=cut))
+    n_cut = sum(1 for n, p in got["param"].items()
+                if any(param_spec(n, p.shape, cfg, pctx)))
+    return dict(rows=rows, launches=dict(launch_counts), leaves=len(whole),
+                leaves_cut=n_cut, backend=world.backend, why=world.why,
+                peak_bytes=torch.cuda.max_memory_allocated())
+
+
+def phase_fsdp_golden(root: Path) -> dict:
+    """The dense weights' FSDP / TP layout (`models.sharding`, fsdp_tp)
+    in `train.trainer.make_train_step` on 4 ranks as `data` 2 x `model`
+    2 on the one card: reduced smollm-360m in f32 from the stored
+    weights, 3 steps held to the JAX package's GSPMD `make_train_step` on
+    4 fake CPU devices with its parameters and moments placed as its
+    launcher places them (src/repro_torch/data/
+    smollm_360m_reduced_fsdp_golden.npz): losses, grad norms and lr
+    within rtol 1e-5; each rank's blocks of the parameters and both
+    moments after each step at atol/rtol 1e-5 of the stored whole
+    arrays' blocks; every leaf the rules shard held as a block; the ranks
+    that hold one block the same bits (the replicated norm scales on
+    every rank); each rank's flash kernel 2 launches a layer a step and
+    its backward 1."""
+    import numpy as np
+
+    from repro_torch.configs.base import get_config, reduced_config
+    from repro_torch.core.comm import spawn_world
+
+    path = root / "src" / "repro_torch" / "data" / FSDP_GOLDEN
+    stored = dict(np.load(path))
+    steps = len(stored["loss"])
+    t0 = time.perf_counter()
+    ranks = spawn_world(_fsdp_golden_rank, 4, str(path), device="cuda",
+                        timeout_s=300)
+    ranks_s = time.perf_counter() - t0
+    for i in range(steps):
+        rows = [r["rows"][i] for r in ranks]
+        _check_blocks([r["held"] for r in rows], f"fsdp_golden step {i + 1}")
+        _check_blocks([r["held_m"] for r in rows],
+                    f"fsdp_golden m, step {i + 1}")
+        for rank, r in enumerate(rows):
+            _check(not r["outside_tol"] and r["blocks_only"],
+                   f"fsdp_golden rank {rank} step {i + 1}: "
+                   f"{r['outside_tol'][:8]} blocks {r['blocks_only']}")
+        _check(all(r["metrics"] == rows[0]["metrics"] for r in rows),
+               f"fsdp_golden: ranks report other metrics, step {i + 1}")
+    for k in ("loss", "grad_norm", "lr"):
+        got = np.array([r["metrics"][k] for r in ranks[0]["rows"]])
+        rel = float(np.max(np.abs(got - stored[k]) / np.abs(stored[k])))
+        _check(rel <= 1e-5, f"fsdp_golden {k}: {got} != {stored[k]}")
+    cfg = reduced_config(get_config("smollm-360m"))
+    want = _train_launches(cfg, {"flash_attention": "self_attn"}, steps)
+    for r in ranks:
+        _check(r["launches"] == want,
+               f"fsdp_golden launches {r['launches']}")
+    mesh = json.loads(str(stored["mesh"]))
+    return dict(
+        phase="fsdp_golden", arch=cfg.name, layers=cfg.num_layers,
+        layout="fsdp_tp", mesh=dict(zip(mesh["axes"], mesh["shape"])),
+        leaves=ranks[0]["leaves"], leaves_cut=ranks[0]["leaves_cut"],
+        backend=ranks[0]["backend"], why=ranks[0]["why"], steps=steps,
+        losses=[r["metrics"]["loss"] for r in ranks[0]["rows"]],
+        jax_losses=stored["loss"].tolist(),
+        grad_norms=[r["metrics"]["grad_norm"] for r in ranks[0]["rows"]],
+        max_abs_err={k: max(s["max_abs_err"][k] for r in ranks
+                            for s in r["rows"]) for k in ("param", "m", "v")},
+        blocks_held_bit_equal=True, ranks_s=ranks_s,
+        peak_bytes_per_rank=[r["peak_bytes"] for r in ranks],
+        **{f"{k}_launches": sum(r["launches"][k] for r in ranks)
+           for k in want})
+
+
+# smollm-360m at full width and depth under fsdp_tp on (data 2, model 2):
+# train_full's data and seed; global batch 8 (4 rows a data rank, each
+# model rank of a row computing them), S 4096
+FSDP_FULL_STEPS, FSDP_FULL_B, FSDP_FULL_S = 6, 8, 4096
+OPERA_DP_FULL_PEAK_GB = 13.06   # a rank's replica at data 4 (PERF.md 5)
+
+
+def _fsdp_full_rank(world, batch: int) -> dict:
+    """smollm-360m at full width through `launch.train.main` at
+    ``--trainer gspmd --tp 2`` on this rank: the run, `_block_digests` of the
+    parameters after every step (two int64 sums a block), this rank's
+    bytes of the parameters and both moments, peak bytes and the
+    kernels' launches."""
+    import gc
+    import types
+
+    import numpy as np
+    import torch
+
+    from repro_torch.configs.base import get_config
+    from repro_torch.kernels import launch_counts
+    from repro_torch.launch.train import main as train_main
+    from repro_torch.models.parallel import ParallelContext
+
+    shape, axes = (2, 2), ("data", "model")
+    coords = dict(zip(axes, map(int, np.unravel_index(world.rank, shape))))
+    pctx = ParallelContext(mesh=types.SimpleNamespace(
+        shape=dict(zip(axes, shape)), coords=coords))
+    cfg = get_config("smollm-360m")
+    prints, held = [], {}
+
+    def fingerprint(p):
+        w = p.detach().reshape(-1).view(torch.int32).to(torch.int64)
+        idx = torch.arange(1, w.numel() + 1, device=w.device)
+        return torch.stack([w.sum(), (w * idx).sum()]).cpu().tolist()
+
+    def on_step(step, state, metrics):
+        prints.append(_block_digests(dict(state["params"].named_parameters()),
+                                     cfg, pctx, fingerprint))
+        held["state"] = {k: sum(t.numel() * t.element_size()
+                                for t in (dict(state["params"]
+                                               .named_parameters())
+                                          if k == "params" else
+                                          state["opt"][k]).values())
+                         for k in ("params", "m", "v")}
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    launch_counts.clear()
+    run = train_main(
+        ["--arch", "smollm-360m", "--no-reduced", "--trainer", "gspmd",
+         "--tp", "2", "--steps", str(FSDP_FULL_STEPS), "--batch", str(batch),
+         "--seq", str(FSDP_FULL_S), "--log-every", "1", "--device", "cuda"],
+        on_step=on_step)
+    return dict(run=run, prints=prints, state_bytes=held["state"],
+                peak_bytes=torch.cuda.max_memory_allocated(),
+                launches=dict(launch_counts), why=world.why)
+
+
+def phase_fsdp_full(train_full: dict) -> dict:
+    """smollm-360m at full width and depth (32 layers, d_model 960, vocab
+    49,152), f32 masters from seed 0, bf16 compute, S 4096, global batch
+    `FSDP_FULL_B`, train_full's data, through `launch.train.main` at
+    ``--trainer gspmd --tp 2`` on 4 ranks as `data` 2 x `model` 2 on the
+    one card (gloo, staged through host memory): every leaf and both
+    moments held as the rank's block under fsdp_tp, gathered on use and
+    reduce-scattered, 6 steps: every loss finite and falling (the last 3
+    below the first 3 on average), the ranks of one block the same bits
+    after every step, 2 flash launches a layer a step and 1 backward on
+    every rank.  Prints step ms and the wire's ms within it, bytes sent,
+    each rank's bytes of parameters and moments and its peak GB beside
+    opera_dp_full's replica, and each step's loss beside train_full's
+    (same seed and batches; printed, not gated)."""
+    import os
+
+    import numpy as np
+
+    from repro_torch.configs.base import get_config
+    from repro_torch.core.comm import spawn_world
+    from repro_torch.models.model import param_shapes
+
+    _free_card()
+    os.environ.setdefault("PYTORCH_CUDA_ALLOC_CONF",
+                          "expandable_segments:True")
+    if FSDP_FULL_B != 8:
+        print(f"reduced: {json.dumps({'global_batch': [8, FSDP_FULL_B]})} "
+              "(4 ranks share the card's 80 GB)", flush=True)
+    t0 = time.perf_counter()
+    ranks = spawn_world(_fsdp_full_rank, 4, FSDP_FULL_B, device="cuda",
+                        timeout_s=600)
+    wall = time.perf_counter() - t0
+    cfg = get_config("smollm-360m")
+    L = cfg.num_layers
+    losses = ranks[0]["run"]["losses"]
+    _check(all(r["run"]["losses"] == losses for r in ranks),
+           "fsdp_full: ranks report other losses")
+    _check(len(losses) == FSDP_FULL_STEPS and all(np.isfinite(losses)),
+           f"fsdp_full losses {losses}")
+    _check(np.mean(losses[-3:]) < np.mean(losses[:3]),
+           f"fsdp_full: loss did not fall: {losses}")
+    for k in range(FSDP_FULL_STEPS):
+        _check_blocks([r["prints"][k] for r in ranks],
+                    f"fsdp_full step {k + 1}")
+    want = {"flash_attention": 2 * L * FSDP_FULL_STEPS,
+            "flash_attention_bwd": L * FSDP_FULL_STEPS}
+    for r in ranks:
+        _check(r["launches"] == want, f"fsdp_full launches {r['launches']}")
+    whole = 4 * sum(math.prod(s) for s in param_shapes(cfg).values())
+    step_ms = [float(np.median(r["run"]["step_s"][1:])) * 1e3 for r in ranks]
+    wire_ms = [float(np.median(r["run"]["wire_s"][1:])) * 1e3 for r in ranks]
+    out = dict(
+        phase="fsdp_full", arch=cfg.name, layers=L, layout="fsdp_tp",
+        ranks=4, mesh={"data": 2, "model": 2}, batch=FSDP_FULL_B,
+        seq=FSDP_FULL_S, steps=FSDP_FULL_STEPS,
+        backend=ranks[0]["run"]["backend"], why=ranks[0]["why"], wall_s=wall,
+        losses=losses, train_full_losses=train_full["losses"][
+            :FSDP_FULL_STEPS],
+        grad_norms=ranks[0]["run"]["grad_norms"], blocks_held_bit_equal=True,
+        step_ms_per_rank=step_ms, wire_ms_per_rank=wire_ms,
+        wire_share=float(np.median(wire_ms) / np.median(step_ms)),
+        sent_bytes_per_step_per_rank=[r["run"]["sent_bytes"][-1]
+                                      for r in ranks],
+        state_bytes_per_rank=[r["state_bytes"] for r in ranks],
+        whole_params_bytes=whole,
+        peak_gb_per_rank=[r["peak_bytes"] / 1e9 for r in ranks],
+        opera_dp_full_peak_gb=OPERA_DP_FULL_PEAK_GB,
+        init_s=[r["run"]["init_s"] for r in ranks],
+        tokens_per_s=FSDP_FULL_B * FSDP_FULL_S / (np.median(step_ms) / 1e3),
+        **{f"{k}_launches": sum(r["launches"][k] for r in ranks)
+           for k in want})
+    print(f"fsdp_full losses {losses} train_full {out['train_full_losses']} "
+          f"step ms {step_ms} wire ms {wire_ms} peak GB "
+          f"{out['peak_gb_per_rank']}", flush=True)
+    return out
+
+
 EP_GOLDEN = "qwen3_moe_30b_a3b_reduced_ep_golden.npz"
 EP_DISPATCHES = ("rotor", "rotor_vlb", "xla")
 
 
-def _ep_digests(params, cfg, pctx) -> tuple:
-    """SHA-256 of this rank's replicated leaves, and of its expert blocks."""
+def _block_digests(leaves: dict, cfg, pctx, digest=None) -> dict:
+    """{leaf: (this rank's coordinates on the axes the leaf is cut over,
+    `digest` of its block (SHA-256 of its bytes by default))} of `leaves`
+    by name: two ranks of one key must hold the same bits."""
     import hashlib
 
-    from repro_torch.models.sharding import param_spec
+    from repro_torch.models.sharding import sharded_axes
 
-    h = {True: hashlib.sha256(), False: hashlib.sha256()}
-    for name, p in params.named_parameters():
-        part = h[bool(any(param_spec(name, p.shape, cfg, pctx)))]
-        part.update(name.encode())
-        part.update(p.detach().cpu().numpy().tobytes())
-    return h[False].hexdigest(), h[True].hexdigest()
+    def sha(p):
+        return hashlib.sha256(p.detach().cpu().numpy().tobytes()).hexdigest()
+
+    digest = digest or sha
+    return {n: (tuple(pctx.mesh.coords[a]
+                      for a in sharded_axes(n, p.shape, cfg, pctx)),
+                digest(p))
+            for n, p in leaves.items()}
+
+
+def _check_blocks(helds: list, tag: str) -> None:
+    """Each rank's `_block_digests`: the ranks of one block of a leaf hold
+    the same bits of it."""
+    for name in helds[0]:
+        blocks = {}
+        for h in helds:
+            coords, digest = h[name]
+            blocks.setdefault(coords, set()).add(str(digest))
+        _check(all(len(d) == 1 for d in blocks.values()),
+               f"{tag}: the ranks of one block of {name} differ")
 
 
 def _ep_golden_rank(world, path: str) -> dict:
     """The stored expert-parallel run on this rank, with each dispatch:
     per step the metrics, the largest distance of this rank's block of
-    every leaf from the stored one (cut as the rank holds it), the
-    digests; the kernels' launches a dispatch."""
+    every leaf from the stored one (cut as the rank holds it),
+    `_block_digests`; the kernels' launches a dispatch."""
     import numpy as np
     import torch
 
@@ -2956,8 +3277,9 @@ def _ep_golden_rank(world, path: str) -> dict:
                     bad.append(name)
             rows.append(dict(metrics={k: float(v) for k, v in m.items()},
                              params_max_abs_err=worst, outside_tol=bad,
-                             digests=_ep_digests(state["params"], cfg,
-                                                 pctx)))
+                             held=_block_digests(dict(state["params"]
+                                                      .named_parameters()),
+                                                 cfg, pctx)))
         out[dispatch] = dict(rows=rows, launches=dict(launch_counts))
     return dict(runs=out, coords=mesh.coords, backend=world.backend,
                 why=world.why, peak_bytes=torch.cuda.max_memory_allocated())
@@ -2972,11 +3294,11 @@ def phase_ep_golden(root: Path) -> dict:
     `make_train_step` on 4 fake CPU devices
     (src/repro_torch/data/qwen3_moe_30b_a3b_reduced_ep_golden.npz: losses,
     grad norms and lr within rtol 1e-5, each rank's block of the
-    parameters after each step at atol/rtol 1e-5); the three dispatches
-    the same bits; every rank the same bits of the replicated leaves and
-    the ranks of a model coordinate the same experts; each rank's
-    moe_gmm (4 experts, 24 rows) and flash launches 2 a layer a step and
-    their backward kernels 1."""
+    parameters after each step at atol/rtol 1e-5; every leaf placed by
+    the FSDP / TP rules, the dense ones cut too); the three dispatches the
+    same bits; the ranks that hold one block of a leaf the same bits of
+    it; each rank's moe_gmm (4 experts, 24 rows) and flash launches 2 a
+    layer a step and their backward kernels 1."""
     import numpy as np
 
     from repro_torch.configs.base import get_config, reduced_config
@@ -2995,19 +3317,14 @@ def phase_ep_golden(root: Path) -> dict:
     for d in EP_DISPATCHES:
         for i in range(steps):
             rows = [r["runs"][d]["rows"][i] for r in ranks]
-            _check(len({r["digests"][0] for r in rows}) == 1,
-                   f"ep_golden {d}: replicated leaves differ, step {i + 1}")
-            for m in (0, 1):
-                same = [r["runs"][d]["rows"][i]["digests"][1] for r in ranks
-                        if r["coords"]["model"] == m]
-                _check(len(set(same)) == 1,
-                       f"ep_golden {d}: experts differ, step {i + 1}")
+            _check_blocks([r["held"] for r in rows],
+                        f"ep_golden {d} step {i + 1}")
             for rank, r in enumerate(rows):
                 _check(not r["outside_tol"],
                        f"ep_golden {d} rank {rank} step {i + 1}: "
                        f"{r['outside_tol'][:8]}")
-                _check(r["digests"] == ranks[rank]["runs"][
-                    EP_DISPATCHES[0]]["rows"][i]["digests"],
+                _check(r["held"] == ranks[rank]["runs"][
+                    EP_DISPATCHES[0]]["rows"][i]["held"],
                        f"ep_golden {d} rank {rank}: not rotor's bits")
             _check(all(r["metrics"] == rows[0]["metrics"] for r in rows),
                    f"ep_golden {d}: ranks report other metrics")
@@ -3040,14 +3357,15 @@ def phase_ep_golden(root: Path) -> dict:
 
 
 # qwen3-moe-30b-a3b at full width on (data 1, model 4): 32 experts a
-# rank; the untied embedding and head (2 x 311 M parameters) replicated
+# rank; the untied embedding and head (2 x 311 M parameters) cut over the
+# 4 ranks on their vocab dim and gathered on use
 EP_FULL_LAYERS, EP_FULL_STEPS, EP_FULL_B, EP_FULL_S = 1, 6, 1, 2048
-EP_FULL_WHY = ("4 ranks share the card's 80 GB; each needs ~10 GB for the "
-               "replicated embedding and head (f32 masters, gradients, two "
-               "moments), ~2.7 GB a layer (experts at tp 4 and attention) "
-               "and ~2.5 GB a copy of the f32 logits at S 4096, of which the "
-               "loss's backward holds several: 2 layers at S 4096 and 1 "
-               "layer at S 4096 ran out of it (18.3 GiB a rank)")
+EP_FULL_WHY = ("4 ranks share the card's 80 GB; each needs ~2.7 GB a layer "
+               "(experts at tp 4 and attention) and ~2.5 GB a copy of the "
+               "f32 logits at S 4096, of which the loss's backward holds "
+               "several: with the embedding and head replicated (~10 GB a "
+               "rank of f32 masters, gradients and two moments) 2 layers at "
+               "S 4096 and 1 layer at S 4096 ran out of it (18.3 GiB a rank)")
 
 
 def _ep_full_rows() -> tuple:
@@ -3078,7 +3396,7 @@ def _ep_full_rank(world, layers: int) -> dict:
     from repro_torch.data.pipeline import SyntheticLM, device_batches
     from repro_torch.kernels import launch_counts
     from repro_torch.launch.mesh import pctx_for_mesh
-    from repro_torch.models.model import init_params, loss_fn
+    from repro_torch.models.model import init_params, loss_fn, param_shapes
     from repro_torch.models.sharding import param_spec
     from repro_torch.optim.adamw import AdamWConfig
     from repro_torch.train.trainer import (init_train_state, make_train_step,
@@ -3121,9 +3439,7 @@ def _ep_full_rank(world, layers: int) -> dict:
     with torch.no_grad():   # the first batch again, after the last step
         first = loss_fn(state["params"], shard_batch(batches[0][1], pctx),
                         cfg, pctx)[1]["loss"]
-    n_params = sum(p.numel() * (4 if any(param_spec(n, p.shape, cfg, pctx))
-                                else 1)
-                   for n, p in state["params"].named_parameters())
+    n_params = sum(math.prod(s) for s in param_shapes(cfg).values())
     return dict(run, first_batch_after=float(first), launches=launches,
                 init_s=init_s, params=n_params,
                 peak_bytes=torch.cuda.max_memory_allocated(),
@@ -4002,11 +4318,15 @@ def main() -> int:
         run(phase_mamba_scan_bwd))}
     train_runs = [run(phase_train_golden, root, *spec)
                   for spec in TRAIN_RUNS]
-    train_runs.append(run(phase_train_full, root))
+    train_full = run(phase_train_full, root)
+    train_runs.append(train_full)
     # several ranks on the one card: the rotor collectives, opera-dp
     run(phase_collectives)
     train_runs.append(run(phase_opera_dp_golden, root))
-    train_runs.append(run(phase_opera_dp_full, train_runs[-2]))
+    train_runs.append(run(phase_opera_dp_full, train_full))
+    # every leaf under the FSDP / TP layout, 4 ranks on the one card
+    train_runs.append(run(phase_fsdp_golden, root))
+    train_runs.append(run(phase_fsdp_full, train_full))
     # experts sharded over the model axis, 4 ranks on the one card
     train_runs.append(run(phase_ep_golden, root))
     train_runs.append(run(phase_ep_full))

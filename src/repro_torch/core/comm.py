@@ -16,14 +16,17 @@ received from no one passes none.  `all_to_all` is `lax.all_to_all`
 (split and concatenate on the leading axis, tiled) in one
 `dist.all_to_all_single`, its own transpose; `all_reduce` sums a tensor
 in place over the ranks that differ on some axes only (the data-parallel
-gradient sum).  A group whose backend cannot take CUDA tensors (gloo)
-gets the payload staged through page-locked host buffers that the mesh
-keeps, and what arrives is copied back to the tensor's device; NCCL
-takes device tensors as they are.  Each mesh counts the bytes its rank
-sends and the host seconds its exchanges take (`Mesh.sent_bytes`,
-`Mesh.wire_s`; through host memory the wire's and the staging copies',
-with NCCL the enqueue's alone; an all-reduce counts the 2 (n - 1) / n of
-its payload that a ring sends).
+gradient sum); `all_gather` makes a sharded weight whole over one or more
+axes a dim, GSPMD's all-gather of an FSDP operand, and its backward is
+`dist.reduce_scatter` (which gloo has too).  A group whose backend
+cannot take CUDA tensors (gloo) gets the payload staged through
+page-locked host buffers that the mesh keeps, and what arrives is copied
+back to the tensor's device; NCCL takes device tensors as they are.
+Each mesh counts the bytes its rank sends and the host seconds its
+exchanges take (`Mesh.sent_bytes`, `Mesh.wire_s`; through host memory
+the wire's and the staging copies', with NCCL the enqueue's alone; an
+all-reduce counts the 2 (n - 1) / n of its payload that a ring sends, an
+all-gather or a reduce-scatter the (n - 1) blocks it sends).
 
 `init_world` starts the world: from torchrun's environment, or from a
 ``file://`` store (`spawn_world`, which runs a function on N fresh
@@ -295,7 +298,7 @@ def all_reduce(x: torch.Tensor, mesh: Mesh, axes: Sequence[str]
     only, as GSPMD sums a leaf's gradient over the axes it is replicated
     on: over the world's group when `axes` cover every axis of more than
     one rank, else axis by axis.  Returns `x`.  Not differentiable."""
-    live = [a for a in axes if mesh.shape[a] > 1]
+    live = [a for a in dict.fromkeys(axes) if mesh.shape[a] > 1]
     if not live:
         return x
     whole = len(live) == sum(1 for s in mesh.shape.values() if s > 1)
@@ -316,6 +319,99 @@ def all_reduce(x: torch.Tensor, mesh: Mesh, axes: Sequence[str]
         mesh.wire_s += time.perf_counter() - t0
         mesh.sent_bytes += 2 * (n - 1) * x.numel() * x.element_size() // n
     return x
+
+
+def _gather_axis(x: torch.Tensor, mesh: Mesh, axis: str, dim: int
+                 ) -> torch.Tensor:
+    """Every rank's `x` of the axis's line, concatenated along `dim` in
+    axis order: one `dist.all_gather` of its bytes."""
+    n = axis_size(mesh, axis)
+    group = mesh.groups[axis]
+    staged = _staged(group, x)
+    if staged:
+        torch.cuda.current_stream(x.device).synchronize()
+    t0 = time.perf_counter()
+    flat = x.contiguous().view(torch.uint8).reshape(-1)
+    if staged:
+        send, recv = mesh.host_buffers(flat.new_empty(n * flat.numel(),
+                                                      device="meta"))
+        send = send[:flat.numel()]
+        send.copy_(flat)
+    else:
+        send, recv = flat, flat.new_empty(n * flat.numel())
+    dist.all_gather(list(recv.view(n, -1).unbind(0)), send, group=group)
+    out = recv.to(x.device) if staged else recv
+    mesh.wire_s += time.perf_counter() - t0
+    mesh.sent_bytes += (n - 1) * send.numel()
+    out = out.view(x.dtype).view(n, *x.shape)
+    return torch.cat(out.unbind(0), dim=dim) if dim else out.flatten(0, 1)
+
+
+def _reduce_scatter_axis(g: torch.Tensor, mesh: Mesh, axis: str, dim: int
+                         ) -> torch.Tensor:
+    """`_gather_axis`' transpose: the sum over the axis's line of every
+    rank's `g`, this rank's block of it along `dim`: one
+    `dist.reduce_scatter`."""
+    n = axis_size(mesh, axis)
+    group = mesh.groups[axis]
+    staged = _staged(group, g)
+    if staged:
+        torch.cuda.current_stream(g.device).synchronize()
+    t0 = time.perf_counter()
+    parts = torch.stack(g.chunk(n, dim=dim))   # the blocks, contiguous
+    if staged:
+        send, recv = mesh.host_buffers(parts)
+        send.copy_(parts)
+        recv = recv[0]
+    else:
+        send, recv = parts, torch.empty_like(parts[0])
+    dist.reduce_scatter(recv, list(send.unbind(0)), group=group)
+    out = recv.to(g.device) if staged else recv
+    mesh.wire_s += time.perf_counter() - t0
+    mesh.sent_bytes += (n - 1) * out.numel() * out.element_size()
+    return out
+
+
+class _AllGather(torch.autograd.Function):
+    """`all_gather` and its transpose, the reduce-scatter, in float32."""
+
+    @staticmethod
+    def forward(ctx, x, mesh, cuts, dtype):
+        ctx.mesh, ctx.cuts = mesh, cuts
+        y = x.to(dtype)
+        for dim, axes in cuts:
+            for axis in reversed(axes):   # the minor axis first
+                y = _gather_axis(y, mesh, axis, dim)
+        return y
+
+    @staticmethod
+    def backward(ctx, g):
+        dtype = g.dtype
+        g = g.float()
+        for dim, axes in reversed(ctx.cuts):
+            for axis in axes:
+                g = _reduce_scatter_axis(g, ctx.mesh, axis, dim)
+        return g.to(dtype), None, None, None
+
+
+def all_gather(x: torch.Tensor, mesh: Mesh,
+               cuts: Sequence[Tuple[int, Sequence[str]]],
+               dtype: Optional[torch.dtype] = None) -> torch.Tensor:
+    """The whole tensor of which `x` is this rank's block, as GSPMD
+    gathers a sharded operand: for each ``(dim, axes)`` of `cuts`, `dim`
+    is cut over `axes`, the first major (``P(("data", "model"))``'s
+    order).  Cast to `dtype` (default `x`'s) before the wire.  Under
+    autograd the backward is the reduce-scatter: each rank gets, in
+    `x`'s dtype, the sum over the ranks of the gathered axes of their
+    cotangents' blocks at its own coordinates, added in float32.  Every
+    rank of each axis's lines calls it, and its backward, in one order."""
+    cuts = tuple((int(d), tuple(a for a in axes if mesh.shape[a] > 1))
+                 for d, axes in cuts)
+    cuts = tuple((d, axes) for d, axes in cuts if axes)
+    dtype = x.dtype if dtype is None else dtype
+    if not cuts:
+        return x.to(dtype)
+    return _AllGather.apply(x, mesh, cuts, dtype)
 
 
 def _rank_main(fn: Callable, rank: int, size: int, store: str,

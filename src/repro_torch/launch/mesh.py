@@ -41,10 +41,14 @@ def make_host_mesh(model: int = 1) -> Mesh:
 
 def pctx_for_mesh(mesh: Mesh, **kw) -> ParallelContext:
     """The context of `mesh`: data axes ``pod`` and ``data`` (``data``
-    alone without a pod axis), tensor axis ``model``; `kw` sets the other
-    fields (``moe_dispatch``), as the JAX version takes them."""
+    alone without a pod axis), and ``model`` after them under
+    ``layout="dp_only"``; tensor axis ``model``; `kw` sets the other
+    fields (``moe_dispatch``, ``layout``), as the JAX version takes
+    them."""
+    dp = ("pod", "data") if "pod" in mesh.axis_names else ("data",)
+    if kw.get("layout") == "dp_only":
+        dp = dp + ("model",)
     if "pod" in mesh.axis_names:
-        return ParallelContext(mesh=mesh, dp_axes=("pod", "data"),
-                               tp_axis="model", pod_axis="pod", **kw)
-    return ParallelContext(mesh=mesh, dp_axes=("data",), tp_axis="model",
-                           **kw)
+        return ParallelContext(mesh=mesh, dp_axes=dp, tp_axis="model",
+                               pod_axis="pod", **kw)
+    return ParallelContext(mesh=mesh, dp_axes=dp, tp_axis="model", **kw)

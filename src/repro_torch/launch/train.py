@@ -9,7 +9,7 @@
         --reduced --steps 3 [--compress-grads]
     PYTHONPATH=src python -m torch.distributed.run --standalone \
         --nproc-per-node 4 -m repro_torch.launch.train --device cpu \
-        --reduced --arch qwen3-moe-30b-a3b --trainer gspmd --tp 2 --steps 3
+        --reduced --trainer gspmd --tp 2 --steps 3 [--arch qwen3-moe-30b-a3b]
 
 Port of `repro.launch.train` with its flags, plus ``--device`` (the card
 by default) and ``--no-reduced``.  As the JAX launcher, it trains the
@@ -25,10 +25,14 @@ lays its ranks out as (world / tp, tp) over (data, model).
 ``--trainer opera-dp`` (the default, as the JAX launcher's) runs
 `train.opera_dp` over it, each rank on its data shard's rows, the model
 ranks as replicas, with ``--compress-grads`` its int8 gradient sync.
-``--trainer gspmd`` runs `train.trainer.make_train_step` on the mesh:
-with ``--tp`` above 1 each MoE layer's experts are split over the model
-ranks (`models.sharding`) and reached through `rotor_all_to_all`, and
-every gradient is summed over the axes its leaf is replicated on.  On
+``--trainer gspmd`` runs `train.trainer.make_train_step` on the mesh at
+any ``--tp``: every rank holds its blocks of each leaf and of both
+moments, placed as the JAX launcher places them (`models.sharding`,
+``fsdp_tp``: each matrix over `model` on its parallel dim and over
+`data` on the other, so ``--tp 1`` cuts every matrix over the data
+ranks), gathers them whole on use and gets each gradient
+reduce-scattered; with ``--tp`` above 1 each MoE layer's experts are
+split over the model ranks and reached through `rotor_all_to_all`.  On
 one process without a world the mesh is one rank, and both trainers run
 the single-process step (opera-dp without ``--compress-grads``).
 ``--tp`` that does not divide the world raises a ValueError; ``--mesh
@@ -37,9 +41,9 @@ raises (ROADMAP Queue 1 item 7c).
 
 Rank 0 prints the loss floor, each logged step's loss, gradient norm
 and lr, and ``loss a -> b`` at the end, as the JAX launcher does, and
-saves the checkpoints: the whole state, the sharded experts and their
+saves the checkpoints: the whole state, the sharded leaves and their
 moments gathered from every rank (`train.checkpoint.whole_state`); a
-``--resume`` at the same ``--tp`` gives each rank its block back.  The
+``--resume`` at the same ``--tp`` gives each rank its blocks back.  The
 replicas are the same; with ``--compress-grads`` rank 0 saves its own
 gradient error, as the JAX launcher saves device 0's.  `main` returns
 the run: per-step losses, gradient norms, lrs and host seconds (each
@@ -51,6 +55,7 @@ called after each step, outside its time.
 from __future__ import annotations
 
 import argparse
+import math
 import os
 import time
 from typing import Callable, Optional
@@ -64,16 +69,16 @@ from repro_torch.core.comm import init_world
 from repro_torch.data.pipeline import SyntheticLM, device_batches
 from repro_torch.launch.mesh import (make_host_mesh, make_production_mesh,
                                      pctx_for_mesh)
-from repro_torch.models.model import init_params
-from repro_torch.models.sharding import param_spec
+from repro_torch.models.model import init_params, param_shapes
 from repro_torch.optim.adamw import AdamWConfig
 from repro_torch.train.checkpoint import Checkpointer, shard_cut, whole_state
 from repro_torch.train.opera_dp import (init_opera_dp_state,
                                         make_opera_dp_train_step)
 from repro_torch.train.trainer import init_train_state, make_train_step
 
-ITEM_7C = ("the dense weights' FSDP / TP sharding and the GSPMD trainer's "
-           "rotor pod branch are ROADMAP Queue 1 item 7c")
+ITEM_7C = ("the production meshes' GSPMD trainer (its rotor pod branch, "
+           "grad_sync) and the tensor-parallel compute over 'model' are "
+           "ROADMAP Queue 1 item 7c")
 
 
 def _sync(device: torch.device) -> None:
@@ -131,7 +136,7 @@ def main(argv=None, on_step: Optional[Callable] = None) -> dict:
     opt = AdamWConfig(lr=args.lr, total_steps=args.steps,
                       warmup_steps=max(args.steps // 20, 5))
     # the GSPMD trainer keeps this rank's block of each sharded leaf
-    sharded = args.trainer == "gspmd" and pctx.tp_size > 1
+    sharded = args.trainer == "gspmd"
 
     _sync(device)
     t0 = time.perf_counter()
@@ -163,10 +168,7 @@ def main(argv=None, on_step: Optional[Callable] = None) -> dict:
     src = SyntheticLM(cfg.vocab_size, args.seq, args.batch, seed=args.seed)
     batches = device_batches(src, start_step, device)
     floor = src.conditional_entropy()
-    # the whole model's: a block of experts is 1 / tp of its leaf
-    n_params = sum(p.numel() * (pctx.tp_size if any(param_spec(
-        name, p.shape, cfg, pctx)) and sharded else 1)
-        for name, p in params.named_parameters())
+    n_params = sum(math.prod(s) for s in param_shapes(cfg).values())
     say(f"[train] {cfg.name} ({n_params:,} params), device {device}, "
         f"mesh {mesh.shape}, trainer={args.trainer}, floor={floor:.3f} "
         "nats", flush=True)

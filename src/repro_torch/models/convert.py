@@ -35,7 +35,8 @@ from repro_torch.models.layers import (ParamTree, storage_config,
                                       storage_dtype)
 from repro_torch.models.parallel import ParallelContext
 from repro_torch.models.sharding import local_slice
-from repro_torch.models.transformer import StackPlan, encoder_plan, stack_plan
+from repro_torch.models.plan import (StackPlan, encoder_plan, jax_leaf,
+                                     stack_plan)
 
 
 def _leaves(cfg: ModelConfig, tree: Mapping, dev: torch.device,
@@ -118,21 +119,9 @@ def params_from_numpy(cfg: ModelConfig, tree: Mapping,
 
 def jax_leaf_groups(cfg: ModelConfig, names: Sequence[str]) -> List[List[str]]:
     """The port's parameter `names` ("stack.3.attn.wq", ...) grouped as
-    the JAX package's leaves, in the order of `names`' first members: a
-    scanned leaf ``stack/blocks/<j>/...`` stacks the leaves of the layers
-    ``prefix + i * len(pattern) + j`` over the scan steps i, in order; an
-    unrolled layer's leaf, or any other, is a group of one."""
-    plans = {"stack": stack_plan(cfg)}
-    if cfg.family == "encdec":
-        plans["encoder"] = encoder_plan(cfg)
+    the JAX package's leaves (`models.plan.jax_leaf`), in the order of
+    `names`' first members; a scanned leaf's group is in scan order."""
     groups: Dict[Tuple, List[str]] = {}
     for name in names:
-        parts = name.split(".")
-        key: Tuple = (name,)
-        if parts[0] in plans and len(parts) > 2:
-            plan, layer = plans[parts[0]], int(parts[1])
-            k = layer - len(plan.prefix)
-            if 0 <= k < plan.n_scan * len(plan.pattern):
-                key = (parts[0], k % len(plan.pattern), *parts[2:])
-        groups.setdefault(key, []).append(name)
+        groups.setdefault(jax_leaf(name, cfg)[0], []).append(name)
     return list(groups.values())

@@ -5,7 +5,10 @@ Port of `repro.models.model`.  Entry points take parameters built by
 `init_params` (random, from a seed, on the card by default) or by
 `models.convert.params_from_numpy` (the JAX package's parameters); with
 ``masters=True`` both give trainable float32 masters, which
-`forward_train`, `loss_fn` and `train.trainer` differentiate.
+`forward_train`, `loss_fn` and `train.trainer` differentiate; on a
+mesh each rank holds its blocks (`models.sharding`) and the train
+forwards gather them on use, while the serving forwards take whole
+weights.
 An encdec model's prefill takes ``batch["encoder_embeds"]`` (B, Sx, D),
 the frames its encoder reads (the modality frontend is a stub, as in the
 JAX package); a vlm's ``batch["image_embeds"]`` (B, Sx, D).  Either is
@@ -17,6 +20,7 @@ from typing import Dict, List, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
+from torch import nn
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch import DeviceLike, resolve_device
@@ -35,12 +39,57 @@ from repro_torch.models.layers import (
     torch_dtype,
 )
 from repro_torch.models.parallel import ParallelContext, single_device_ctx
-from repro_torch.models.sharding import shard_params
+from repro_torch.models.sharding import (local_slice, on_use, shard_params,
+                                        use_leaf)
 
 
 # the batch entry a family's cross-attention reads: (B, Sx, D) encoder
 # frames or image embeddings
 CROSS_INPUT = {"encdec": "encoder_embeds", "vlm": "image_embeds"}
+
+
+class _MetaGenerator(torch.Generator):
+    """A generator whose draws land on the meta device: shapes, no
+    memory."""
+
+    @property
+    def device(self) -> torch.device:
+        return torch.device("meta")
+
+
+def _draw(cfg: ModelConfig, gen: torch.Generator, keep) -> ParamTree:
+    """The tree in the JAX package's draw order, each leaf drawn by
+    `gen` on its device; `keep(name, tree)` takes each top-level leaf and
+    each layer's tree as it is drawn, before the next draw, and returns
+    what the tree holds of it."""
+    dev = gen.device
+
+    def stack(name: str, plan: T.StackPlan) -> nn.ModuleList:
+        return nn.ModuleList(
+            [keep(f"{name}.{i}", ParamTree(T.init_layer(gen, cfg, kind)))
+             for i, kind in enumerate(plan.kinds)])
+
+    p = {
+        "embed": keep("embed", embed_init(gen, cfg.vocab_size, cfg.d_model,
+                                          storage_dtype(cfg, "embed"))),
+        "stack": stack("stack", T.stack_plan(cfg)),
+        "final_norm": init_norm(cfg.norm, cfg.d_model, dev),
+    }
+    if not cfg.tie_embeddings:
+        p["lm_head"] = keep("lm_head", dense_init(
+            gen, cfg.d_model, cfg.vocab_size, torch.float32))
+    if cfg.family == "encdec":
+        p["encoder"] = stack("encoder", T.encoder_plan(cfg))
+        p["enc_norm"] = init_norm(cfg.norm, cfg.d_model, dev)
+    return ParamTree(p)
+
+
+def param_shapes(cfg: ModelConfig) -> Dict[str, Tuple[int, ...]]:
+    """Every leaf's whole shape by dotted name, in the tree's order, with
+    nothing allocated: the tree drawn on the meta device (the JAX
+    package's `param_shapes`, model.py:43)."""
+    tree = _draw(cfg, _MetaGenerator(), lambda name, t: t)
+    return {name: tuple(p.shape) for name, p in tree.named_parameters()}
 
 
 def init_params(cfg: ModelConfig, seed: int, device: DeviceLike = None,
@@ -50,27 +99,22 @@ def init_params(cfg: ModelConfig, seed: int, device: DeviceLike = None,
     `device` from a `torch.Generator` seeded with `seed`, each weight in
     its storage dtype (`layers.storage_dtype`); with `masters`, trainable
     float32 masters (`layers.storage_config`) of the same draws.  Given a
-    mesh `pctx`, every rank draws the whole tree and keeps its block of
-    each sharded leaf (`models.sharding.shard_params`)."""
+    mesh `pctx`, every rank draws the whole tree, a layer (or the
+    embedding, or the head) at a time, and keeps its block of each leaf
+    before the next draw (`models.sharding.local_slice`): the bits of a
+    one-process draw, and never the whole model on a rank."""
     dev = resolve_device(device)
     cfg = storage_config(cfg, masters)
     gen = torch.Generator(device=dev).manual_seed(seed)
-    p = {
-        "embed": embed_init(gen, cfg.vocab_size, cfg.d_model,
-                            storage_dtype(cfg, "embed")),
-        "stack": T.init_stack(gen, cfg, T.stack_plan(cfg)),
-        "final_norm": init_norm(cfg.norm, cfg.d_model, dev),
-    }
-    if not cfg.tie_embeddings:
-        p["lm_head"] = dense_init(gen, cfg.d_model, cfg.vocab_size,
-                                  torch.float32)
-    if cfg.family == "encdec":
-        p["encoder"] = T.init_stack(gen, cfg, T.encoder_plan(cfg))
-        p["enc_norm"] = init_norm(cfg.norm, cfg.d_model, dev)
-    tree = ParamTree(p).requires_grad_(masters)
-    if pctx is not None and pctx.mesh is not None:
-        tree = shard_params(tree, cfg, pctx)
-    return tree
+
+    def keep(name: str, t):
+        if pctx is None or pctx.mesh is None:
+            return t
+        if isinstance(t, torch.Tensor):
+            return t[local_slice(name, t.shape, cfg, pctx)].clone()
+        return shard_params(t, cfg, pctx, prefix=name)
+
+    return _draw(cfg, gen, keep).requires_grad_(masters)
 
 
 def _ffn_params(cfg: ModelConfig, kind: str, active_only: bool) -> int:
@@ -141,7 +185,8 @@ def _logits(params, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
 
 
 def _encode(params, encoder_embeds: torch.Tensor, cfg: ModelConfig,
-            mode: str = "prefill") -> torch.Tensor:
+            mode: str = "prefill",
+            pctx: ParallelContext = single_device_ctx()) -> torch.Tensor:
     """The encoder stack over (B, Sx, D) frames, then its norm
     (model.py:89-97); `mode` "train" rematerialises its layers."""
     S = encoder_embeds.shape[1]
@@ -149,20 +194,38 @@ def _encode(params, encoder_embeds: torch.Tensor, cfg: ModelConfig,
                      mode=mode)
     x = encoder_embeds.to(torch_dtype(cfg.compute_dtype))
     x, _, _ = T.apply_stack(params["encoder"], x, cfg, ctx,
-                            T.encoder_plan(cfg))
+                            T.encoder_plan(cfg), pctx=pctx, name="encoder")
     return apply_norm(cfg.norm, params["enc_norm"], x, upcast=cfg.norm_upcast)
 
 
 def _cross_src(params, batch: Dict[str, torch.Tensor], cfg: ModelConfig,
-               mode: str = "prefill") -> Optional[torch.Tensor]:
+               mode: str = "prefill",
+               pctx: ParallelContext = single_device_ctx()
+               ) -> Optional[torch.Tensor]:
     """What cross-attention reads (model.py:140-145): the encoder's output
     (encdec) or the image embeddings (vlm)."""
     name = CROSS_INPUT.get(cfg.family)
     if name is None:
         return None
     if cfg.family == "encdec":
-        return _encode(params, batch[name], cfg, mode)
+        return _encode(params, batch[name], cfg, mode, pctx)
     return batch[name].to(torch_dtype(cfg.compute_dtype))
+
+
+def _on_use(params, cfg: ModelConfig, pctx: ParallelContext):
+    """The tree as the train forwards read it: on a mesh, the top-level
+    leaves (embedding, head, final and encoder norms) gathered whole
+    (`models.sharding.on_use`) and the stacks as they are, each layer
+    gathering its own; `params` itself without a mesh or when done
+    already."""
+    if pctx.mesh is None or not isinstance(params, nn.Module):
+        return params
+    out = {name: sub if name in ("stack", "encoder")
+           else on_use(sub, name, cfg, pctx)
+           for name, sub in params.named_children()}
+    for name, p in params.named_parameters(recurse=False):
+        out[name] = use_leaf(name, p, cfg, pctx)
+    return out
 
 
 def _train_hidden(params, batch: Dict[str, torch.Tensor], cfg: ModelConfig,
@@ -170,9 +233,10 @@ def _train_hidden(params, batch: Dict[str, torch.Tensor], cfg: ModelConfig,
     """The stack's output over the whole sequence in train mode (no
     decode state, layers rematerialised when ``cfg.remat == "full"``),
     and the summed router aux loss."""
+    params = _on_use(params, cfg, pctx)
     tokens = batch["tokens"]
     S = tokens.shape[1]
-    cross_src = _cross_src(params, batch, cfg, mode="train")
+    cross_src = _cross_src(params, batch, cfg, mode="train", pctx=pctx)
     x = _embed(params, tokens, cfg)
     ctx = T.LayerCtx(positions=torch.arange(S, device=tokens.device),
                      cross_src=cross_src, mode="train")
@@ -185,7 +249,9 @@ def forward_train(params, batch: Dict[str, torch.Tensor], cfg: ModelConfig,
                   pctx: ParallelContext = single_device_ctx()
                   ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Returns (logits (B, S, V) f32, aux_loss) (model.py:100-124).  On a
-    mesh, `batch` is this rank's rows (`train.trainer.shard_batch`)."""
+    mesh, `batch` is this rank's rows (`train.trainer.shard_batch`) and
+    `params` its blocks, which the forward gathers on use."""
+    params = _on_use(params, cfg, pctx)
     x, aux = _train_hidden(params, batch, cfg, pctx)
     return _logits(params, x, cfg), aux
 
@@ -196,6 +262,7 @@ def forward_train_hidden(
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Like `forward_train` but stops before the LM head, at the final
     norm (for `softmax_xent_chunked`; model.py:262-281)."""
+    params = _on_use(params, cfg, pctx)
     x, aux = _train_hidden(params, batch, cfg, pctx)
     return apply_norm(cfg.norm, params["final_norm"], x,
                       upcast=cfg.norm_upcast), aux
@@ -268,12 +335,16 @@ def loss_fn(params, batch: Dict[str, torch.Tensor], cfg: ModelConfig,
     (model.py:284-301): cross-entropy with z-loss, vocab-chunked when
     ``cfg.loss_chunk_vocab``, plus the router aux term for MoE configs.
 
-    On a mesh this is one rank's share: `batch` is its rows, the
-    cross-entropy theirs, and the aux term what its MoE layers return
-    (every shard's mean in the all-to-all branch, its own in the local
-    one).  The JAX package's global loss is the mean over the data ranks
-    (`train.trainer` takes it), and its gradient the sum of every rank's
-    autograd over the axes each leaf is replicated on, over dp * tp."""
+    On a mesh this is one rank's share: `params` its blocks, gathered
+    on use, whose backward reduce-scatters each leaf's gradient over the
+    axes it is cut on; `batch` its rows, the cross-entropy theirs, and
+    the aux term what its MoE layers return (every shard's mean in the
+    all-to-all branch, its own in the local one).  The JAX package's
+    global loss is the mean over the data ranks (`train.trainer` takes
+    it), and its gradient the sum of every rank's autograd over every
+    axis (the cut ones here, the replicated ones in the trainer), over
+    dp * tp."""
+    params = _on_use(params, cfg, pctx)
     if cfg.loss_chunk_vocab:
         x, aux = forward_train_hidden(params, batch, cfg, pctx)
         head = params["embed"].T if cfg.tie_embeddings else params["lm_head"]

@@ -1,33 +1,89 @@
-"""Which parameters are sharded over the mesh, and a rank's share of them.
+"""Where each parameter lives on the mesh, a rank's share of it, and the
+weights made whole where a layer uses them.
 
-Port of the expert rule of `repro.models.sharding.param_spec`
-(sharding.py:89-96): a MoE layer's stacked experts (``w_gate``, ``w_up``,
-``w_down``, (E, D, F) or (E, F, D)) put their E dim over the model axis
-when the axis's size divides it; every other leaf is replicated.  A spec
-is a tuple of one axis name or None a dim, as a `PartitionSpec`.  The
-JAX rules' FSDP half (the D dim over the data axes) and the TP rules of
-the dense weights (`_MATRIX_RULES`, `batch_spec`, `cache_spec`) come
-with their readers (ROADMAP Queue 1 item 7c).
+Port of `repro.models.sharding` (`param_spec`, `batch_spec`): the FSDP
+(+TP) layout, in which every weight matrix is sharded over `model` on
+its "parallel" dim and over the data axes on the other (ZeRO-3 with
+tensor parallelism), by name and shape with divisibility fallbacks (a
+dim that does not divide an axis stays replicated on it).  The same
+rules place the float32 masters and both AdamW moments, for all ten
+archs, under the three layouts of `models.parallel` (``fsdp_tp``,
+``dp_only``, ``tp_only``).  A spec is a tuple, an entry a dim: None, an
+axis name, or a tuple of axes whose first is major, as a
+`PartitionSpec` places ``("data", "model")``.  A rule reads the shape of
+the JAX leaf a port leaf belongs to (`models.plan.jax_leaf`): the JAX
+package stacks its scanned layers, so a per-layer norm scale, 1-D here,
+is 2-D there and never takes the 1-D rule that puts ``final_norm``'s
+scale over `model` at widths of 4,096 and more.  `cache_spec` waits for
+serving over a mesh (ROADMAP Queue 1 item 7c).
 
-`shard_params` cuts a whole parameter tree to this rank's experts and
-`gather_params` puts the whole tensors back (an all-gather over the
-model axis); `local_slice` gives the cut for a leaf by name, which
-`models.convert` and `train.checkpoint` apply to whole numpy arrays.
-`replicated_axes` names the axes a leaf's gradient is summed over
-(`train.trainer`).
+`shard_params` cuts a whole parameter tree to this rank's blocks and
+`gather_params` puts the whole tensors back; `local_slice` gives the
+cut for a leaf by name, which `models.model.init_params`,
+`models.convert` and `train.checkpoint` apply to whole tensors.
+`on_use` is the compute's side (GSPMD's inserted all-gather, the
+``xla`` baseline of the JAX trainer): a layer's blocks gathered whole,
+their backward the reduce-scatter (`core.comm.all_gather`), inside the
+layer's rematerialised body so that no whole weight outlives it; the
+expert leaves keep their E dim split, which the expert-parallel branch
+of `models.moe` consumes as it is.  `replicated_axes` and
+`sharded_axes` name the axes a leaf's gradient and its squares are
+summed over (`train.trainer`).
 """
 from __future__ import annotations
 
-from typing import Optional, Sequence, Tuple
+import functools
+import math
+from typing import Dict, Optional, Sequence, Tuple, Union
 
 import torch
 from torch import nn
 
 from repro_torch.configs.base import ModelConfig
-from repro_torch.core import collectives as C
+from repro_torch.core.comm import all_gather
+from repro_torch.models.layers import storage_dtype
 from repro_torch.models.parallel import ParallelContext
+from repro_torch.models.plan import jax_leaf
 
-Spec = Tuple[Optional[str], ...]
+Entry = Union[None, str, Tuple[str, ...]]
+Spec = Tuple[Entry, ...]
+
+# rule: param name -> spec kinds of the trailing dims, rightmost aligned
+# (sharding.py:24-56): "tp" the model axis, "dp" FSDP over the data
+# axes, None replicated
+_MATRIX_RULES: Dict[str, Tuple[Optional[str], ...]] = {
+    # embeddings / head: vocab on tp
+    "embed": ("tp", "dp"),
+    "lm_head": ("dp", "tp"),
+    # attention
+    "wq": ("dp", "tp"),
+    "wk": ("dp", "tp"),
+    "wv": ("dp", "tp"),
+    "wo": ("tp", "dp"),
+    # dense ffn
+    "w_gate": ("dp", "tp"),
+    "w_up": ("dp", "tp"),
+    "w_down": ("tp", "dp"),
+    "w_in": ("dp", "tp"),
+    "w_out": ("tp", "dp"),
+    # moe (the stacked experts have a rule of their own)
+    "router": ("dp", None),
+    "shared_gate": ("dp", "tp"),
+    "shared_up": ("dp", "tp"),
+    "shared_down": ("tp", "dp"),
+    # mamba
+    "in_proj": ("dp", "tp"),
+    "x_proj": ("tp", None),
+    "dt_proj": (None, "tp"),
+    "out_proj": ("tp", "dp"),
+    "A_log": ("tp", None),
+    # rg-lru
+    "w_y": ("dp", "tp"),
+    "w_x": ("dp", "tp"),
+    "w_a": ("tp", None),
+    "w_i": ("tp", None),
+    "w_out_rec": ("tp", "dp"),
+}
 
 _EXPERT_LEAVES = ("w_gate", "w_up", "w_down")
 
@@ -36,56 +92,150 @@ def _axis_ok(dim: int, size: int) -> bool:
     return size > 1 and dim % size == 0
 
 
+def entry_axes(entry: Entry) -> Tuple[str, ...]:
+    """The axes of a spec entry, the major first."""
+    if entry is None:
+        return ()
+    return (entry,) if isinstance(entry, str) else tuple(entry)
+
+
+def _entry(axes: Tuple[str, ...]) -> Entry:
+    return axes[0] if len(axes) == 1 else axes
+
+
+def _rule(parts: Sequence[str], shape: Sequence[int],
+          pctx: ParallelContext) -> list:
+    """The JAX package's `param_spec` (sharding.py:59-111) of a leaf at
+    path `parts` whose JAX shape is `shape`."""
+    name = parts[-1]
+    tp, tp_n = pctx.tp_axis, pctx.tp_size
+    dp = _entry(tuple(pctx.dp_axes))
+    dp_n = pctx.dp_size if pctx.fsdp_params else 1
+    ndim = len(shape)
+
+    def resolve(kinds, dims):
+        out = []
+        for kind, d in zip(kinds, dims):
+            if kind == "tp" and _axis_ok(d, tp_n):
+                out.append(tp)
+            elif kind == "dp" and _axis_ok(d, dp_n):
+                out.append(dp)
+            else:
+                out.append(None)
+        return out
+
+    if "moe" in parts[:-1] and name in _EXPERT_LEAVES:
+        # stacked experts (..., E, D, F): experts over tp, D / F over dp
+        return [None] * (ndim - 3) + resolve(("tp", "dp", None), shape[-3:])
+    # the RG-LRU's final projection shares "w_out" with the plain MLPs
+    rule = _MATRIX_RULES.get(
+        "w_out_rec" if name == "w_out" and "rec" in parts else name)
+    if rule is None or ndim < 2:
+        # biases / norms / scalars: the last dim over tp if large
+        if ndim == 1 and _axis_ok(shape[0], tp_n) and shape[0] >= 4096:
+            return [tp]
+        return [None] * ndim
+    return [None] * (ndim - 2) + resolve(rule, shape[-2:])
+
+
+class _CfgKey:
+    """A config as a cache key (a `ModelConfig` holds a dict and has no
+    hash): equal when their reprs are."""
+
+    def __init__(self, cfg: ModelConfig):
+        self.cfg, self._repr = cfg, repr(cfg)
+
+    def __hash__(self) -> int:
+        return hash(self._repr)
+
+    def __eq__(self, other) -> bool:
+        return isinstance(other, _CfgKey) and self._repr == other._repr
+
+
+@functools.lru_cache(maxsize=16)
+def _whole_shapes(key: _CfgKey) -> Dict[str, Tuple[int, ...]]:
+    # models.model builds the tree and imports this module: the shapes
+    # are read at call time
+    from repro_torch.models.model import param_shapes
+
+    return param_shapes(key.cfg)
+
+
 def param_spec(name: str, shape: Sequence[int], cfg: ModelConfig,
                pctx: ParallelContext) -> Spec:
-    """The spec of the leaf `name` ("stack.3.moe.w_gate", a `ParamTree`'s
-    dotted name) of `shape`, whole or a rank's block: the expert dim over
-    ``pctx.tp_axis`` where it divides ``cfg.moe.num_experts`` (the whole
-    leaf's dim, sharding.py:92), else every dim replicated."""
-    parts = name.split(".")
-    spec: list = [None] * len(shape)
-    if ("moe" in parts[:-1] and parts[-1] in _EXPERT_LEAVES
-            and len(shape) >= 3
-            and _axis_ok(cfg.moe.num_experts, pctx.tp_size)):
-        spec[-3] = pctx.tp_axis
-    return tuple(spec)
+    """The spec of the leaf `name` ("stack.3.attn.wq", a `ParamTree`'s
+    dotted name) of `shape`, whole or a rank's block: the JAX package's
+    `param_spec` of the JAX leaf it belongs to, on the whole leaf's
+    shape (`models.model.param_shapes`; `shape` itself for a name the
+    config's tree lacks), without the JAX leaf's scan axis."""
+    whole = _whole_shapes(_CfgKey(cfg)).get(name, tuple(shape))
+    if len(whole) != len(shape):
+        raise ValueError(f"{name}: {len(shape)} dims for a leaf of "
+                         f"shape {tuple(whole)}")
+    n_scan = jax_leaf(name, cfg)[1]
+    jshape = ((n_scan,) if n_scan else ()) + tuple(whole)
+    return tuple(_rule(name.split("."), jshape, pctx)[1 if n_scan else 0:])
+
+
+def sharded_axes(name: str, shape: Sequence[int], cfg: ModelConfig,
+                 pctx: ParallelContext) -> Tuple[str, ...]:
+    """The mesh axes the leaf is cut over: its squares' sum runs over
+    them."""
+    return tuple(a for e in param_spec(name, shape, cfg, pctx)
+                 for a in entry_axes(e))
 
 
 def replicated_axes(name: str, shape: Sequence[int], cfg: ModelConfig,
                     pctx: ParallelContext) -> Tuple[str, ...]:
-    """The mesh axes the leaf is replicated on: its gradient's sum runs
-    over them."""
-    spec = param_spec(name, shape, cfg, pctx)
-    return tuple(a for a in pctx.all_axes if a not in spec)
+    """The mesh axes the leaf is replicated on, each once: its
+    gradient's sum runs over them."""
+    cut = sharded_axes(name, shape, cfg, pctx)
+    return tuple(a for a in dict.fromkeys(pctx.all_axes) if a not in cut)
 
 
 def local_slice(name: str, shape: Sequence[int], cfg: ModelConfig,
                 pctx: ParallelContext) -> Tuple[slice, ...]:
-    """This rank's block of the whole leaf `name` of `shape`."""
+    """This rank's block of the whole leaf `name` of `shape`: along a dim
+    cut over several axes, block ``i_0 n_1 ... + i_1 ...`` of the
+    coordinates' row-major index, the first axis major."""
+    mesh = pctx.mesh
     out = []
-    for dim, axis in zip(shape, param_spec(name, shape, cfg, pctx)):
-        if axis is None:
+    for dim, entry in zip(shape, param_spec(name, shape, cfg, pctx)):
+        axes = entry_axes(entry)
+        if not axes:
             out.append(slice(None))
-        else:
-            n = dim // pctx.mesh.shape[axis]
-            i = pctx.mesh.coords[axis]
-            out.append(slice(i * n, (i + 1) * n))
+            continue
+        n, i = math.prod(mesh.shape[a] for a in axes), 0
+        for a in axes:
+            i = i * mesh.shape[a] + mesh.coords[a]
+        out.append(slice(i * (dim // n), (i + 1) * (dim // n)))
     return tuple(out)
 
 
-def _leaf_owners(params: nn.Module):
-    """(dotted name, owning module, attribute) of every parameter."""
-    for mod_name, mod in params.named_modules():
+def batch_spec(name: str, shape: Sequence[int],
+               pctx: ParallelContext) -> Spec:
+    """A batch entry's spec (sharding.py:129-134): rows over the data
+    axes where they divide, else replicated."""
+    if not _axis_ok(shape[0], pctx.dp_size):
+        return (None,) * len(shape)
+    return (_entry(tuple(pctx.dp_axes)),) + (None,) * (len(shape) - 1)
+
+
+def _leaf_owners(params: nn.Module, prefix: str = ""):
+    """(dotted name, owning module, attribute) of every parameter, the
+    names under `prefix`."""
+    for mod_name, mod in params.named_modules(prefix=prefix):
         for attr, p in mod.named_parameters(recurse=False):
             yield (f"{mod_name}.{attr}" if mod_name else attr), mod, attr
 
 
 def shard_params(params: nn.Module, cfg: ModelConfig,
-                 pctx: ParallelContext) -> nn.Module:
-    """Cut every sharded leaf of the whole tree `params` to this rank's
-    block, in place (a copy of the block, so that the whole tensor is
-    freed); requires_grad as it was.  Returns `params`."""
-    for name, mod, attr in list(_leaf_owners(params)):
+                 pctx: ParallelContext, prefix: str = "") -> nn.Module:
+    """Cut every sharded leaf of the whole tree `params`, whose leaves are
+    named `prefix` + their dotted path, to this rank's block, in place (a
+    copy of the block, so that the whole tensor is freed); requires_grad
+    as it was.  Returns `params`."""
+    for name, mod, attr in list(_leaf_owners(params, prefix)):
         p = getattr(mod, attr)
         cut = local_slice(name, p.shape, cfg, pctx)
         if any(s != slice(None) for s in cut):
@@ -94,17 +244,22 @@ def shard_params(params: nn.Module, cfg: ModelConfig,
     return params
 
 
+def _cuts(spec: Spec, skip: Sequence[int] = ()) -> tuple:
+    return tuple((d, entry_axes(e)) for d, e in enumerate(spec)
+                 if e is not None and d not in skip)
+
+
 def gather_leaf(name: str, t: torch.Tensor, cfg: ModelConfig,
                 pctx: ParallelContext) -> torch.Tensor:
     """The whole tensor of this rank's block `t` of leaf `name`, from
-    every rank's (`rotor_all_gather` over each sharded axis); `t` itself
-    where the leaf is replicated.  Every rank of the mesh calls it."""
+    every rank's (`core.comm.all_gather` over each sharded axis), outside
+    autograd; `t` itself where the leaf is replicated.  Every rank of the
+    mesh calls it."""
+    cuts = _cuts(param_spec(name, t.shape, cfg, pctx))
+    if not cuts:
+        return t
     with torch.no_grad():
-        for dim, axis in enumerate(param_spec(name, t.shape, cfg, pctx)):
-            if axis is not None:
-                parts = C.rotor_all_gather(t.detach(), pctx.mesh, axis)
-                t = torch.cat(list(parts.unbind(0)), dim=dim)
-    return t
+        return all_gather(t.detach(), pctx.mesh, cuts)
 
 
 def gather_params(params: nn.Module, cfg: ModelConfig,
@@ -118,3 +273,42 @@ def gather_params(params: nn.Module, cfg: ModelConfig,
             setattr(mod, attr, nn.Parameter(whole,
                                             requires_grad=p.requires_grad))
     return params
+
+
+def use_leaf(name: str, p: torch.Tensor, cfg: ModelConfig,
+             pctx: ParallelContext) -> torch.Tensor:
+    """Leaf `name` as its use reads it: this rank's block `p`
+    all-gathered whole, differentiably, over the axes it is cut on (an
+    expert leaf keeps its E dim split), first cast to the compute dtype
+    where its use casts it to a narrower one (`layers.storage_dtype`),
+    which halves the wire's bytes and gives the same bits; `p` itself
+    where the leaf is replicated, or without a mesh."""
+    if pctx.mesh is None:
+        return p
+    spec = param_spec(name, p.shape, cfg, pctx)
+    parts = name.split(".")
+    expert = "moe" in parts[:-1] and parts[-1] in _EXPERT_LEAVES
+    cuts = _cuts(spec, skip=(len(spec) - 3,) if expert else ())
+    if not cuts:
+        return p
+    dtype = min(p.dtype, storage_dtype(cfg, parts[-1]),
+                key=lambda t: torch.finfo(t).bits)
+    return all_gather(p, pctx.mesh, cuts, dtype)
+
+
+def on_use(tree: nn.Module, prefix: str, cfg: ModelConfig,
+           pctx: ParallelContext):
+    """`use_leaf` of every leaf of `tree`, whose leaves are named
+    `prefix` + their dotted path ("stack.3"): nested dicts (lists for a
+    `ModuleList`) of what a layer reads; `tree` itself without a mesh.
+    Every rank of the mesh calls it in one order."""
+    if pctx.mesh is None:
+        return tree
+    if isinstance(tree, nn.ModuleList):
+        return [on_use(t, f"{prefix}.{i}", cfg, pctx)
+                for i, t in enumerate(tree)]
+    out = {attr: on_use(sub, f"{prefix}.{attr}", cfg, pctx)
+           for attr, sub in tree.named_children()}
+    for attr, p in tree.named_parameters(recurse=False):
+        out[attr] = use_leaf(f"{prefix}.{attr}", p, cfg, pctx)
+    return out

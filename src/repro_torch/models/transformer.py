@@ -1,4 +1,5 @@
-"""Transformer stacks: stack plan, per-layer init and apply.
+"""Transformer stacks: per-layer init and apply, over the stack plan
+(`models.plan`).
 
 Port of `repro.models.transformer`: uniform stacks of ``self_attn``,
 ``moe`` or ``ssm`` layers, MoE stacks with leading ``dense`` layers
@@ -15,7 +16,8 @@ with ``cfg.remat == "full"`` each layer is rematerialised in the
 backward pass, `torch.utils.checkpoint`, as the JAX package checkpoints
 its scanned blocks), "prefill" (full sequence, also returns the decode
 state; an encoder layer returns none) and "decode" (one token against
-the state, which it writes in place).
+the state, which it writes in place).  Trained on a mesh, a layer holds
+this rank's blocks of its weights and gathers them on use.
 """
 from __future__ import annotations
 
@@ -32,51 +34,14 @@ from repro_torch.models import ffn as F
 from repro_torch.models import moe as M
 from repro_torch.models import rglru as R
 from repro_torch.models import ssm as S
-from repro_torch.models.layers import ParamTree, apply_norm, init_norm
+from repro_torch.models.layers import apply_norm, init_norm
 from repro_torch.models.parallel import ParallelContext, single_device_ctx
-
-
-@dataclasses.dataclass(frozen=True)
-class StackPlan:
-    """The JAX package's split: the unrolled `prefix`, the scanned
-    superblock `pattern` repeated `n_scan` times, then the unrolled
-    `tail`."""
-    prefix: Tuple[str, ...]
-    pattern: Tuple[str, ...]
-    n_scan: int
-    tail: Tuple[str, ...] = ()
-
-    @property
-    def kinds(self) -> Tuple[str, ...]:
-        return self.prefix + self.pattern * self.n_scan + self.tail
-
-
-def stack_plan(cfg: ModelConfig) -> StackPlan:
-    """The JAX package's split of the stack (transformer.py:52-70), kept
-    so that parameters convert layer by layer."""
-    kinds = cfg.layer_kinds()
-    if cfg.family == "encdec":
-        return StackPlan((), ("decoder",), cfg.num_layers)
-    if cfg.family == "moe" and cfg.moe.first_dense_layers:
-        r = cfg.moe.first_dense_layers
-        return StackPlan(tuple(kinds[:r]), ("moe",), cfg.num_layers - r)
-    if cfg.family == "hybrid":
-        p = cfg.hybrid.pattern
-        n = cfg.num_layers // len(p)
-        return StackPlan((), tuple(p), n, tuple(kinds[len(p) * n:]))
-    if cfg.family == "vlm" and cfg.cross_attn_every:
-        pe = cfg.cross_attn_every
-        if cfg.num_layers % pe:
-            raise ValueError(f"{cfg.num_layers} layers are no whole number "
-                             f"of {pe}-layer blocks")
-        return StackPlan((), kinds[:pe], cfg.num_layers // pe)
-    return StackPlan((), (kinds[0],), cfg.num_layers)
-
-
-def encoder_plan(cfg: ModelConfig) -> StackPlan:
-    """The encoder's stack (transformer.py:73): `encoder_layers` of kind
-    ``encoder``; none outside the encdec family."""
-    return StackPlan((), ("encoder",), cfg.encoder_layers)
+from repro_torch.models.plan import (  # noqa: F401  (the stack's API)
+    StackPlan,
+    encoder_plan,
+    stack_plan,
+)
+from repro_torch.models.sharding import on_use
 
 
 # --------------------------------------------------------------------------
@@ -145,10 +110,17 @@ def apply_layer(
     ctx: LayerCtx,
     cache: Optional[Dict] = None,
     pctx: ParallelContext = single_device_ctx(),
+    prefix: Optional[str] = None,
 ) -> Tuple[torch.Tensor, torch.Tensor, Dict]:
     """Returns (x, aux_loss, new_cache); in decode mode new_cache is
-    `cache`, written in place; in train mode None.  `pctx` reaches the
-    MoE layer (expert-parallel on a mesh with model ranks)."""
+    `cache`, written in place; in train mode None.  On a mesh `p` holds
+    this rank's blocks of the leaves named `prefix` + their path
+    ("stack.3"), gathered here on use (`models.sharding.on_use`), and
+    `pctx` reaches the MoE layer (expert-parallel with model ranks)."""
+    if pctx.mesh is not None:
+        if prefix is None:
+            raise ValueError("a layer on a mesh needs its leaves' prefix")
+        p = on_use(p, prefix, cfg, pctx)
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     decode = ctx.mode == "decode"
     train = ctx.mode == "train"
@@ -216,14 +188,8 @@ def apply_layer(
 
 
 # --------------------------------------------------------------------------
-# stack init / apply
+# stack apply
 # --------------------------------------------------------------------------
-
-
-def init_stack(gen: torch.Generator, cfg: ModelConfig,
-               plan: StackPlan) -> nn.ModuleList:
-    return nn.ModuleList(
-        [ParamTree(init_layer(gen, cfg, kind)) for kind in plan.kinds])
 
 
 def apply_stack(
@@ -234,9 +200,14 @@ def apply_stack(
     plan: StackPlan,
     caches: Optional[List[Dict]] = None,
     pctx: ParallelContext = single_device_ctx(),
+    name: str = "stack",
 ) -> Tuple[torch.Tensor, torch.Tensor, List[Dict]]:
     """Run every layer in order.  Returns (x, total_aux, new_caches);
-    new_caches is None in train mode."""
+    new_caches is None in train mode.  `name` is the stack's in the
+    model's tree ("stack" or "encoder"): on a mesh each layer gathers its
+    blocks on use, inside its rematerialised body when ``cfg.remat ==
+    "full"``, so that the backward gathers them again and no whole weight
+    outlives its layer."""
     aux_total = torch.zeros((), dtype=torch.float32, device=x.device)
     train = ctx.mode == "train"
     remat = train and cfg.remat == "full"
@@ -245,9 +216,11 @@ def apply_stack(
         c = caches[i] if caches is not None else None
         if remat:
             x, aux, nc = checkpoint(apply_layer, kind, params[i], x, cfg, ctx,
-                                    c, pctx, use_reentrant=False)
+                                    c, pctx, f"{name}.{i}",
+                                    use_reentrant=False)
         else:
-            x, aux, nc = apply_layer(kind, params[i], x, cfg, ctx, c, pctx)
+            x, aux, nc = apply_layer(kind, params[i], x, cfg, ctx, c, pctx,
+                                     f"{name}.{i}")
         aux_total = aux_total + aux
         if not train:
             new_caches.append(nc)

@@ -14,11 +14,12 @@ leaf's shape and writes the stored values into `like`'s tensors, cast to
 their dtypes, so the parameters stay the leaves autograd and the
 optimizer hold.
 
-With experts sharded over the model axis (`models.sharding`) a
-checkpoint holds the whole tensors, as the JAX package's global arrays:
-every rank calls `whole_state` (the sharded leaves of the parameters and
-both moments gathered from every rank) and one rank saves it; each rank
-restores its block with ``restore(like, cut=shard_cut(cfg, pctx))``.
+With the leaves sharded over the mesh (`models.sharding`, along a dim
+over one axis or several) a checkpoint holds the whole tensors, as the
+JAX package's global arrays: every rank calls `whole_state` (the sharded
+leaves of the parameters and both moments gathered from every rank) and
+one rank saves it; each rank restores its block at the same mesh and
+layout with ``restore(like, cut=shard_cut(cfg, pctx))``.
 """
 from __future__ import annotations
 

@@ -9,24 +9,28 @@ single-device step (trainer.py:56-67): value and grad of
 `optim.adamw.adamw_update`, with the metrics merged.
 
 On a mesh every rank runs the step, in one order, as the JAX package's
-GSPMD program runs on every device: it takes its rows of the global batch
-(`shard_batch`), autograd of `loss_fn(..., pctx)` on them, whose MoE
-layers run expert-parallel over the model axis with differentiable
-collectives; then each leaf's gradient is summed with `dist.all_reduce`
-over exactly the axes it is replicated on (`models.sharding.
-replicated_axes`: every axis for a replicated leaf, the data axes for a
-block of experts) and divided by the dp * tp ranks.  That is the
+GSPMD program runs on every device, and holds only its blocks of each
+leaf and of both AdamW moments, placed by the JAX package's rules under
+``pctx.layout`` (`models.sharding`: ``fsdp_tp`` by default, ``dp_only``
+or ``tp_only``).  It takes its rows of the global batch (`shard_batch`,
+by `batch_spec`) and runs autograd of `loss_fn(..., pctx)` on them.  The
+forward gathers each layer's blocks whole on use, GSPMD's inserted
+all-gather (the ``xla`` baseline of trainer.py:3-6), so its backward
+reduce-scatters each leaf's gradient over the axes the leaf is cut on;
+the MoE layers run expert-parallel over the model axis with
+differentiable collectives.  `sum_grads` then sums each leaf's gradient
+with `dist.all_reduce` over the axes it is replicated on (`models.
+sharding.replicated_axes`) and divides by the dp * tp ranks.  That is the
 gradient of the JAX package's global loss (`jax.grad` through its
 `shard_map`, whose transpose divides a replicated output's cotangent by
-the ranks it is replicated on and sums a replicated input's over them),
-and GSPMD's inserted collectives are the counterpart of the sums (the
-``xla`` baseline of trainer.py:3-6).  The global norm that AdamW clips
-by adds the expert blocks' squares over the model axis.  Every rank then
-runs the same AdamW update on its leaves, so the ranks of a data row hold
-the same bits of every replicated leaf.  The metrics are averaged over
-the data ranks (the JAX package's global cross-entropy; its aux is
-every shard's mean in the all-to-all branch, ROADMAP Queue 3 R5 for the
-local branch).
+the ranks it is replicated on and sums a replicated input's over them).
+The global norm that AdamW clips by sums each leaf's squares over
+exactly the axes it is cut on.  Every rank then runs AdamW on its
+blocks, so the ranks that hold one block hold the same bits of it.  The
+metrics are averaged over the data ranks (the JAX package's global
+cross-entropy; its aux is every shard's mean in the all-to-all branch,
+ROADMAP Queue 3 R5 for the local branch).  The rotor pod branch, and
+with it ``grad_sync``, waits in item 7c.
 """
 from __future__ import annotations
 
@@ -39,7 +43,8 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.core.comm import all_reduce
 from repro_torch.models.model import loss_fn
 from repro_torch.models.parallel import ParallelContext
-from repro_torch.models.sharding import param_spec, replicated_axes
+from repro_torch.models.sharding import (batch_spec, replicated_axes,
+                                        sharded_axes)
 from repro_torch.optim.adamw import AdamWConfig, adamw_update, init_opt_state
 
 
@@ -54,15 +59,17 @@ def dp_index(pctx: ParallelContext) -> int:
 
 def shard_batch(batch: Dict[str, torch.Tensor], pctx: ParallelContext
                 ) -> Dict[str, torch.Tensor]:
-    """This rank's rows of the global batch."""
+    """This rank's rows of the global batch, as `models.sharding.
+    batch_spec` places them: a block of rows over the data axes where
+    they divide, else every row."""
     n, i = pctx.dp_size, dp_index(pctx)
     out = {}
     for k, v in batch.items():
-        if v.shape[0] % n:
-            raise ValueError(f"batch[{k!r}] has {v.shape[0]} rows for "
-                             f"{n} data-parallel shards")
-        rows = v.shape[0] // n
-        out[k] = v[i * rows:(i + 1) * rows]
+        if batch_spec(k, v.shape, pctx)[0] is None:
+            out[k] = v
+        else:
+            rows = v.shape[0] // n
+            out[k] = v[i * rows:(i + 1) * rows]
     return out
 
 
@@ -82,23 +89,27 @@ def _squares(grads, device) -> torch.Tensor:
 def sum_grads(grads: Dict[str, torch.Tensor], cfg: ModelConfig,
               pctx: ParallelContext
               ) -> Tuple[Dict[str, torch.Tensor], torch.Tensor]:
-    """Every rank's autograd of its `loss_fn` share -> (the gradient of
-    the JAX package's global loss, this rank's block of each leaf, summed
-    in place; the whole gradient's global norm, the same on every
-    rank)."""
+    """Every rank's autograd of its `loss_fn` share, each leaf's already
+    reduce-scattered over the axes it is cut on (the backward of its
+    gather on use) -> (the gradient of the JAX package's global loss,
+    this rank's block of each leaf, summed in place over the axes the
+    leaf is replicated on and divided by dp * tp; the whole gradient's
+    global norm, the same on every rank)."""
     mesh, ranks = pctx.mesh, pctx.dp_size * pctx.tp_size
-    sharded, replicated = [], []
+    by_axes: Dict[Tuple[str, ...], list] = {}
     for name, g in grads.items():
         g = all_reduce(g.contiguous(), mesh,
                        replicated_axes(name, g.shape, cfg, pctx))
         grads[name] = g.div_(ranks)
-        spec = param_spec(name, g.shape, cfg, pctx)
-        (sharded if any(spec) else replicated).append(g)
-    # the global norm: the expert blocks' squares summed over the model
-    # axis they are sharded on
+        cut = tuple(sorted(set(sharded_axes(name, g.shape, cfg, pctx))))
+        by_axes.setdefault(cut, []).append(g)
+    # the global norm: each leaf's squares summed over exactly the axes
+    # it is cut on, in one sum a set of axes
     dev = next(iter(grads.values())).device
-    sq = all_reduce(_squares(sharded, dev), mesh, (pctx.tp_axis,))
-    return grads, torch.sqrt(_squares(replicated, dev) + sq)
+    sq = torch.zeros((), device=dev)
+    for axes, gs in sorted(by_axes.items()):
+        sq = sq + all_reduce(_squares(gs, dev), mesh, axes)
+    return grads, torch.sqrt(sq)
 
 
 def make_train_step(cfg: ModelConfig, pctx: ParallelContext,

@@ -28,15 +28,17 @@ tests/torch_ep_cases.py:
   ``src/repro_torch/data/qwen3_moe_30b_a3b_reduced_ep_golden.npz`` for
   chip_smoke.py's ``ep_golden``: losses, gradient norms and lrs within
   rtol 1e-5, the parameters after each step at atol/rtol 1e-5, every
-  rank the same bits of the replicated leaves and the ranks of a model
-  coordinate of the experts'.  Regenerate it with ``JAX_PLATFORMS=cpu
+  rank the same bits of the replicated leaves and the ranks that hold
+  one block of a leaf the same bits of it.  Regenerate it with
+  ``JAX_PLATFORMS=cpu
   PYTHONPATH=src python tests/test_torch_expert_parallel.py``
   (`test_stored_ep_golden_is_current` fails when it is stale);
-* `models.sharding`: the leaves cut are those whose expert dim the JAX
-  package's `param_spec` puts over `model`, and `shard_params` /
+* `models.sharding`: every leaf is placed as the JAX package's
+  `param_spec` places its JAX leaf (the experts over `model` on E, the
+  dense leaves by the FSDP / TP rules), and `shard_params` /
   `gather_params` round-trip bit for bit;
 * the launcher at ``--trainer gspmd --tp 2``: a checkpoint holds the
-  whole experts, and a run resumed from it ends in the bits of an
+  whole tensors, and a run resumed from it ends in the bits of an
   uninterrupted one; under torchrun, ``--trainer gspmd --tp 2`` and
   ``--trainer opera-dp --tp 2`` train;
 * no fallback: a world of one rank is the single-process step bit for
@@ -62,6 +64,7 @@ import torch
 
 import torch_arch_parity as P
 import torch_ep_cases as K
+import torch_fsdp_cases as FK
 from repro.models.model import init_params as j_init_params
 from repro.models.model import loss_fn as j_loss_fn
 from repro.models.model import param_shapes as j_param_shapes
@@ -388,13 +391,26 @@ def test_train_steps_equal_the_stored_jax_run(port_out, dispatch, i):
 
 @pytest.mark.parametrize("dispatch", K.DISPATCHES)
 def test_train_step_replicas_hold_the_same_bits(port_out, dispatch):
-    """After every step the ranks of a model coordinate hold the same
-    bits (their experts too), every rank the same replicated leaves, and
-    every rank reports the same metrics."""
+    """After every step the ranks that hold one block of a leaf (the same
+    coordinates on the axes it is cut over: its experts' model coordinate
+    and, where their D dim is cut over `data`, its data coordinate) hold
+    the same bits of it, every rank the same replicated leaves, and every
+    rank reports the same metrics."""
+    cfg = K.port_config(K.EP_ARCH)
+    n_moe = sum(1 for k in cfg.layer_kinds() if k == "moe")
     for i in range(K.EP_STEPS):
         rows = [r["golden"][dispatch]["rows"][i] for r in port_out]
-        assert rows[0]["digest"] == rows[2]["digest"], i
-        assert rows[1]["digest"] == rows[3]["digest"], i
+        experts = 0
+        for name in rows[0]["held"]:
+            blocks = {}
+            for r in rows:
+                coords, digest = r["held"][name]
+                blocks.setdefault(coords, set()).add(digest)
+            assert all(len(d) == 1 for d in blocks.values()), (i, name)
+            experts += name.split(".")[-1] in ("w_gate", "w_up", "w_down")
+            assert len(blocks) > 1 or name.split(".")[-1] not in (
+                "w_gate", "w_up", "w_down"), name
+        assert experts == 3 * n_moe
         assert all(r["metrics"] == rows[0]["metrics"] for r in rows), i
     for i in range(K.EP_STEPS):
         got = [port_out[0]["golden"][d]["rows"][i]["params"]
@@ -408,34 +424,38 @@ def test_train_step_replicas_hold_the_same_bits(port_out, dispatch):
 
 
 def test_the_leaves_cut_are_jax_param_spec_experts():
-    """The leaves the port cuts over `model` at tp 2 are the JAX package's
-    whose expert dim its `param_spec` puts over `model` (its FSDP and
-    dense TP rules are item 7c), each layer's."""
+    """Every leaf the port places at (data 2, model 2) is placed as the
+    JAX package's `param_spec` places the JAX leaf it belongs to (a
+    scanned leaf's without its scan axis): the experts over `model` on
+    their E dim and over `data` on their D dim, the dense leaves by the
+    FSDP / TP rules, each layer's."""
     for arch in K.ARCHS:
         jcfg, _ = P.cfgs(arch, "float32", layout=False)
         cfg = K.port_config(arch)
         fake = types.SimpleNamespace(shape={"data": 2, "model": 2})
         jpctx = JParallelContext(mesh=fake)
-        E = cfg.moe.num_experts
-        want = set()
+        want = {}
         for path, leaf in jax.tree_util.tree_flatten_with_path(
                 j_param_shapes(jcfg))[0]:
-            spec = tuple(j_param_spec(path, leaf.shape, jcfg, jpctx))
-            keys = [str(getattr(k, "key", getattr(k, "idx", k)))
-                    for k in path]
-            if (len(leaf.shape) >= 3 and leaf.shape[-3] == E
-                    and spec[len(leaf.shape) - 3] == "model"):
-                want.add("/".join(keys[-2:]))
+            key = "/".join(str(getattr(k, "key", getattr(k, "idx", k)))
+                           for k in path)
+            want[key] = tuple(e[0] if isinstance(e, tuple) and len(e) == 1
+                              else e for e in j_param_spec(
+                                  path, leaf.shape, jcfg, jpctx))
         pctx = ParallelContext(mesh=types.SimpleNamespace(
             shape={"data": 2, "model": 2}))
         params = init_params(cfg, 0, device="cpu")
-        got = {".".join(n.split(".")[-2:]).replace(".", "/")
-               for n, p in params.named_parameters()
-               if any(param_spec(n, p.shape, cfg, pctx))}
-        assert got == want == {"moe/w_gate", "moe/w_up", "moe/w_down"}, arch
+        experts = 0
+        for n, p in params.named_parameters():
+            key, i = FK.jax_key(n, cfg)
+            spec = param_spec(n, p.shape, cfg, pctx)
+            assert spec == want[key][0 if i is None else 1:], (arch, n)
+            if n.split(".")[-1] in ("w_gate", "w_up", "w_down") and \
+                    ".moe." in n:
+                assert spec[0] == "model", (arch, n)
+                experts += 1
         n_moe = sum(1 for k in cfg.layer_kinds() if k == "moe")
-        assert sum(1 for n, p in params.named_parameters()
-                   if any(param_spec(n, p.shape, cfg, pctx))) == 3 * n_moe
+        assert experts == 3 * n_moe, arch
 
 
 def test_shard_and_gather_round_trip_and_the_checkpoint_resumes(port_out):
@@ -450,8 +470,14 @@ def test_shard_and_gather_round_trip_and_the_checkpoint_resumes(port_out):
         assert d["straight"] == d["resumed"]
         assert r["round_trip"]["equal"], r["round_trip"]
         assert r["round_trip"]["cut"] == r0["round_trip"]["cut"]
-    assert {n.split(".")[-1] for n in r0["round_trip"]["cut"]} == {
-        "w_gate", "w_up", "w_down"}
+    cfg = K.port_config(K.EP_ARCH)
+    pctx = ParallelContext(mesh=types.SimpleNamespace(
+        shape={"data": 2, "model": 2}))
+    assert r0["round_trip"]["cut"] == sorted(
+        n for n, p in init_params(cfg, 0, device="cpu").named_parameters()
+        if any(param_spec(n, p.shape, cfg, pctx)))
+    assert {"w_gate", "w_up", "w_down"} <= {
+        n.split(".")[-1] for n in r0["round_trip"]["cut"]}
 
 
 TRAINERS = ("gspmd", "opera-dp")

@@ -182,7 +182,9 @@ def _losses(world, meshes, jax_path: str) -> dict:
 def golden_steps(world, path: str, dispatch: str, mesh=None) -> dict:
     """The stored run's steps through the port's `make_train_step` on
     this rank, with `dispatch`: per step the metrics, the parameters made
-    whole (rank 0 only) and a digest of this rank's own."""
+    whole (rank 0 only) and `held` of this rank's own."""
+    from torch_fsdp_cases import held
+
     from repro_torch.core.comm import Mesh
     from repro_torch.data.pipeline import SyntheticLM, device_batches
     from repro_torch.launch.mesh import pctx_for_mesh
@@ -209,10 +211,9 @@ def golden_steps(world, path: str, dispatch: str, mesh=None) -> dict:
     for _, batch in zip(range(len(stored["loss"])),
                         device_batches(src, 0, world.device)):
         state, m = step(state, batch)
-        mine = {k: _np(p) for k, p in state["params"].named_parameters()}
         whole = _whole(dict(state["params"].named_parameters()), cfg, pctx)
         row = {"metrics": {k: float(v) for k, v in m.items()},
-               "digest": _digest(mine)}
+               "held": held(state["params"], cfg, pctx)}
         if world.rank == 0:
             row["params"] = whole
         rows.append(row)

@@ -99,8 +99,8 @@ raising:
    `make_train_step` on the whole batch.
    opera_dp_full: smollm-360m at full width as train_full (f32 masters
    from seed 0, bf16 compute, S 4096, global B 8) through
-   `launch.train.main` on 4 ranks as `data` 4 on the one card, 6 steps
-   plain, then 6 with ``--compress-grads``: every loss finite and
+   `launch.train.main` on 4 ranks as `data` 4 on the one card, 4 steps
+   plain, then 4 with ``--compress-grads``: every loss finite and
    falling, the four replicas the same bits after every step (two
    position-weighted sums of every leaf's words after each step, the
    SHA-256 of all parameters after the last), the flash kernels' launches
@@ -118,7 +118,7 @@ raising:
    block, the ranks of one block the same bits, the launches counted.
    fsdp_full: smollm-360m at full width and depth as train_full through
    `launch.train.main` at ``--trainer gspmd --tp 2`` on 4 ranks as
-   `data` 2 x `model` 2, 6 steps: every loss finite and falling, the
+   `data` 2 x `model` 2, 4 steps: every loss finite and falling, the
    ranks of one block the same bits, the launches counted; step ms and
    the wire's ms within it, bytes sent, each rank's bytes of parameters
    and moments and its peak GB, each step's loss beside train_full's.
@@ -141,6 +141,22 @@ raising:
    every loss finite, the first batch's loss lower after the run, the
    replicated leaves the same bits on every rank, the launches counted;
    step ms and the wire's ms within it, wire bytes and peak GB a rank.
+   tp_golden: the tensor-parallel compute over `model` (attention split
+   by heads, the FFN by width, the embedding and the head by vocab with
+   the logsumexp combined over `model`) as fsdp_golden, on reduced
+   qwen1.5-110b (QKV bias, untied head) against
+   src/repro_torch/data/qwen15_110b_reduced_tp_golden.npz.
+   tp_full: yi-9b at full width on 4 ranks as `model` 4 (8 / 1 heads, a
+   quarter of the FFN's width and of the vocabulary a rank), 12 of 48
+   layers at S 4096, B 1, 6 steps of `make_train_step`, then the same
+   run on one rank on whole weights: every loss finite and falling and
+   within bf16's 2e-2 of the one rank's, the first gradient norms too;
+   the replicated leaves the same bits on every rank; the leaves
+   gathered over `model` exactly those the rules cut over it that do not
+   compute tensor-parallel (`final_norm`'s scale); each rank's state its
+   blocks; the launches counted; step ms and the wire's ms and bytes
+   within it, the collectives a step by kind and axis, the flash calls
+   by heads, peak GB a rank.
    train_full_qwen3, train_full_falcon_mamba, train_full_rgemma: the
    MoE, SSM and hybrid archs at full width, the same way at B 1, S 4096
    (printed as `reduced`), 10 steps without a checkpoint: qwen3-moe at 4
@@ -2787,7 +2803,8 @@ def phase_opera_dp_golden(root: Path) -> dict:
             r["launches"]["flash_attention_bwd"] for r in ranks))
 
 
-DP_FULL_STEPS, DP_FULL_B, DP_FULL_S = 6, 8, 4096
+# 4 steps, so that the script keeps within its 1,200 s
+DP_FULL_STEPS, DP_FULL_B, DP_FULL_S = 4, 8, 4096
 
 
 def _dp_full_rank(world, seq: int) -> list:
@@ -2830,9 +2847,10 @@ def phase_opera_dp_full(train_full: dict) -> dict:
     """smollm-360m at full width (32 layers, d_model 960, vocab 49,152),
     f32 masters from seed 0, bf16 compute, S 4096, global batch 8 as
     train_full, through `launch.train.main` on 4 ranks as `data` 4 on the
-    one card (gloo, staged through host memory), 6 steps plain, then 6
-    with ``--compress-grads``: every loss finite and falling (the last 3
-    below the first 3 on average), the four replicas the same bits after
+    one card (gloo, staged through host memory), `DP_FULL_STEPS` steps
+    plain, then as many with ``--compress-grads``: every loss finite and
+    falling (the last half below the first on average), the four replicas
+    the same bits after
     every step, 2 flash launches a layer a step and 1 backward on every
     rank.  Prints step ms and the wire's ms within it, wire bytes and peak
     bytes per rank, and each step's loss beside train_full's (same seed
@@ -2861,7 +2879,8 @@ def phase_opera_dp_full(train_full: dict) -> dict:
                f"opera_dp_full {tag}: ranks report other losses")
         _check(len(losses) == DP_FULL_STEPS and all(np.isfinite(losses)),
                f"opera_dp_full {tag} losses {losses}")
-        _check(np.mean(losses[-3:]) < np.mean(losses[:3]),
+        half = DP_FULL_STEPS // 2
+        _check(np.mean(losses[-half:]) < np.mean(losses[:half]),
                f"opera_dp_full {tag}: loss did not fall: {losses}")
         for k in range(DP_FULL_STEPS + 1):
             _check(len({str(r["prints"][k]) for r in per_rank}) == 1,
@@ -2904,7 +2923,123 @@ def phase_opera_dp_full(train_full: dict) -> dict:
                                          for r in runs.values()))
 
 
+class _Census:
+    """While entered on a rank of a mesh of `shape` ({axis: size}, the
+    ranks row-major), counts its collectives by kind and axis (`calls`,
+    `payload` bytes: ``("all_reduce", "model", "SUM")``; a group is named
+    by the axes its ranks' coordinates differ on, "data+model" for the
+    world's), the (leaf, axis) pairs a gather on use sends over
+    (`gathered`) and the flash kernel's calls by their (query, KV) heads
+    (`heads`), by wrapping `torch.distributed`'s collectives,
+    `core.comm._gather_axis`, `models.sharding.use_leaf` (where
+    `models.model` and `on_use` reach it) and
+    `models.attention.flash_attention`.  It reads names every tree of the
+    port has had since its FSDP layout, so that `scripts/chip_ab.py` can
+    run it on a parent's tree."""
+
+    def __init__(self, shape: dict):
+        import collections
+
+        self.shape = dict(shape)
+        self.names = {}
+        self.calls = collections.Counter()
+        self.payload = collections.Counter()
+        self.gathered = collections.Counter()
+        self.heads = collections.Counter()
+        self._leaf = None
+        self._saved = []
+
+    def _wrap(self, owner, attr, make) -> None:
+        orig = getattr(owner, attr)
+        self._saved.append((owner, attr, orig))
+        setattr(owner, attr, make(orig))
+
+    def _name(self, group) -> str:
+        import numpy as np
+        import torch.distributed as dist
+
+        if id(group) not in self.names:
+            coords = np.array(np.unravel_index(
+                dist.get_process_group_ranks(group),
+                list(self.shape.values())))
+            self.names[id(group)] = "+".join(
+                a for a, c in zip(self.shape, coords) if len(set(c)) > 1)
+        return self.names[id(group)]
+
+    def _count(self, kind, group, op, t) -> None:
+        key = (kind, self._name(group), op)
+        self.calls[key] += 1
+        self.payload[key] += t.numel() * t.element_size()
+
+    def __enter__(self):
+        import torch.distributed as dist
+
+        from repro_torch.core import comm
+        from repro_torch.models import attention, model, sharding
+
+        world = dist.group.WORLD
+
+        def collective(kind, arg):
+            def make(orig):
+                def fn(*args, **kw):
+                    op = kw.get("op", dist.ReduceOp.SUM)
+                    self._count(kind, kw.get("group", world),
+                                str(op).split(".")[-1] if kind == "all_reduce"
+                                else "", args[arg])
+                    return orig(*args, **kw)
+                return fn
+            return make
+
+        for kind, arg in (("all_reduce", 0), ("all_gather", 1),
+                          ("reduce_scatter", 0), ("all_to_all_single", 1)):
+            self._wrap(dist, kind, collective(kind, arg))
+
+        def p2p(orig):
+            def fn(ops):
+                for op in ops:
+                    if op.op is dist.isend:
+                        self._count("send", op.group, "", op.tensor)
+                return orig(ops)
+            return fn
+
+        def use_leaf(orig):
+            def fn(name, *args, **kw):
+                self._leaf = name
+                try:
+                    return orig(name, *args, **kw)
+                finally:
+                    self._leaf = None
+            return fn
+
+        def gather_axis(orig):
+            def fn(x, mesh, axis, dim):
+                if self._leaf is not None:
+                    self.gathered[(self._leaf, axis)] += 1
+                return orig(x, mesh, axis, dim)
+            return fn
+
+        def flash(orig):
+            def fn(q, k, v, *args, **kw):
+                self.heads[(int(q.shape[1]), int(k.shape[1]))] += 1
+                return orig(q, k, v, *args, **kw)
+            return fn
+
+        self._wrap(dist, "batch_isend_irecv", p2p)
+        self._wrap(sharding, "use_leaf", use_leaf)
+        self._wrap(model, "use_leaf", use_leaf)
+        self._wrap(comm, "_gather_axis", gather_axis)
+        self._wrap(attention, "flash_attention", flash)
+        return self
+
+    def __exit__(self, *exc):
+        for owner, attr, orig in reversed(self._saved):
+            setattr(owner, attr, orig)
+        self._saved.clear()
+        return False
+
+
 FSDP_GOLDEN = "smollm_360m_reduced_fsdp_golden.npz"
+TP_GOLDEN = "qwen15_110b_reduced_tp_golden.npz"
 
 
 def _fsdp_blocks_err(got: dict, want: dict) -> tuple:
@@ -2920,13 +3055,13 @@ def _fsdp_blocks_err(got: dict, want: dict) -> tuple:
     return worst, bad
 
 
-def _fsdp_golden_rank(world, path: str) -> dict:
-    """The stored FSDP run on this rank (`make_train_step` under fsdp_tp
-    at the stored mesh): per step the metrics, the largest distance of
-    this rank's blocks of the parameters and both moments from the
-    stored whole arrays' blocks (cut by `models.sharding.local_slice`),
-    `_block_digests`, and whether every leaf the rules shard is held as
-    a block; the kernels' launches."""
+def _mesh_golden_rank(world, path: str, arch: str) -> dict:
+    """The stored FSDP run of reduced `arch` on this rank
+    (`make_train_step` under fsdp_tp at the stored mesh): per step the
+    metrics, the largest distance of this rank's blocks of the parameters
+    and both moments from the stored whole arrays' blocks (cut by
+    `models.sharding.local_slice`), `_block_digests`, and whether every
+    leaf the rules shard is held as a block; the kernels' launches."""
     import numpy as np
     import torch
 
@@ -2942,8 +3077,7 @@ def _fsdp_golden_rank(world, path: str) -> dict:
     from repro_torch.train.trainer import init_train_state, make_train_step
 
     stored = dict(np.load(path))
-    cfg = reduced_config(get_config("smollm-360m")).replace(
-        compute_dtype="float32")
+    cfg = reduced_config(get_config(arch)).replace(compute_dtype="float32")
     spec = json.loads(str(stored["mesh"]))
     mesh = Mesh(spec["shape"], spec["axes"])
     pctx = pctx_for_mesh(mesh)
@@ -2997,48 +3131,66 @@ def phase_fsdp_golden(root: Path) -> dict:
     weights, 3 steps held to the JAX package's GSPMD `make_train_step` on
     4 fake CPU devices with its parameters and moments placed as its
     launcher places them (src/repro_torch/data/
-    smollm_360m_reduced_fsdp_golden.npz): losses, grad norms and lr
-    within rtol 1e-5; each rank's blocks of the parameters and both
-    moments after each step at atol/rtol 1e-5 of the stored whole
-    arrays' blocks; every leaf the rules shard held as a block; the ranks
-    that hold one block the same bits (the replicated norm scales on
-    every rank); each rank's flash kernel 2 launches a layer a step and
-    its backward 1."""
+    smollm_360m_reduced_fsdp_golden.npz; `_mesh_golden`).  Attention (4 /
+    2 heads), the FFN and the tied embedding compute tensor-parallel over
+    `model`."""
+    return _mesh_golden(root, "fsdp_golden", FSDP_GOLDEN, "smollm-360m")
+
+
+def phase_tp_golden(root: Path) -> dict:
+    """The tensor-parallel compute over `model` (`models.sharding.
+    computes_tp`) in `make_train_step` under fsdp_tp on 4 ranks as `data`
+    2 x `model` 2 on the one card: reduced qwen1.5-110b (QKV bias, untied
+    head) in f32 from the stored weights, attention split by heads (2 / 1
+    a rank), the FFN by width, the embedding and the head by vocab with
+    the logsumexp combined over `model`; 3 steps held to the JAX
+    package's GSPMD `make_train_step` on 4 fake CPU devices
+    (src/repro_torch/data/qwen15_110b_reduced_tp_golden.npz;
+    `_mesh_golden`)."""
+    return _mesh_golden(root, "tp_golden", TP_GOLDEN, "qwen1.5-110b")
+
+
+def _mesh_golden(root: Path, phase: str, fname: str, arch: str) -> dict:
+    """A stored GSPMD run of reduced `arch` under fsdp_tp on 4 ranks as
+    its stored mesh on the one card: losses, grad norms and lr within
+    rtol 1e-5; each rank's blocks of the parameters and both moments
+    after each step at atol/rtol 1e-5 of the stored whole arrays' blocks;
+    every leaf the rules shard held as a block; the ranks that hold one
+    block the same bits (the replicated norm scales on every rank); each
+    rank's flash kernel 2 launches a layer a step and its backward 1."""
     import numpy as np
 
     from repro_torch.configs.base import get_config, reduced_config
     from repro_torch.core.comm import spawn_world
 
-    path = root / "src" / "repro_torch" / "data" / FSDP_GOLDEN
+    path = root / "src" / "repro_torch" / "data" / fname
     stored = dict(np.load(path))
     steps = len(stored["loss"])
     t0 = time.perf_counter()
-    ranks = spawn_world(_fsdp_golden_rank, 4, str(path), device="cuda",
+    ranks = spawn_world(_mesh_golden_rank, 4, str(path), arch, device="cuda",
                         timeout_s=300)
     ranks_s = time.perf_counter() - t0
     for i in range(steps):
         rows = [r["rows"][i] for r in ranks]
-        _check_blocks([r["held"] for r in rows], f"fsdp_golden step {i + 1}")
-        _check_blocks([r["held_m"] for r in rows],
-                    f"fsdp_golden m, step {i + 1}")
+        _check_blocks([r["held"] for r in rows], f"{phase} step {i + 1}")
+        _check_blocks([r["held_m"] for r in rows], f"{phase} m, step {i + 1}")
         for rank, r in enumerate(rows):
             _check(not r["outside_tol"] and r["blocks_only"],
-                   f"fsdp_golden rank {rank} step {i + 1}: "
+                   f"{phase} rank {rank} step {i + 1}: "
                    f"{r['outside_tol'][:8]} blocks {r['blocks_only']}")
         _check(all(r["metrics"] == rows[0]["metrics"] for r in rows),
-               f"fsdp_golden: ranks report other metrics, step {i + 1}")
+               f"{phase}: ranks report other metrics, step {i + 1}")
     for k in ("loss", "grad_norm", "lr"):
         got = np.array([r["metrics"][k] for r in ranks[0]["rows"]])
         rel = float(np.max(np.abs(got - stored[k]) / np.abs(stored[k])))
-        _check(rel <= 1e-5, f"fsdp_golden {k}: {got} != {stored[k]}")
-    cfg = reduced_config(get_config("smollm-360m"))
+        _check(rel <= 1e-5, f"{phase} {k}: {got} != {stored[k]}")
+    cfg = reduced_config(get_config(arch))
     want = _train_launches(cfg, {"flash_attention": "self_attn"}, steps)
     for r in ranks:
-        _check(r["launches"] == want,
-               f"fsdp_golden launches {r['launches']}")
+        _check(r["launches"] == want, f"{phase} launches {r['launches']}")
     mesh = json.loads(str(stored["mesh"]))
     return dict(
-        phase="fsdp_golden", arch=cfg.name, layers=cfg.num_layers,
+        phase=phase, arch=cfg.name, layers=cfg.num_layers,
         layout="fsdp_tp", mesh=dict(zip(mesh["axes"], mesh["shape"])),
         leaves=ranks[0]["leaves"], leaves_cut=ranks[0]["leaves_cut"],
         backend=ranks[0]["backend"], why=ranks[0]["why"], steps=steps,
@@ -3056,7 +3208,8 @@ def phase_fsdp_golden(root: Path) -> dict:
 # smollm-360m at full width and depth under fsdp_tp on (data 2, model 2):
 # train_full's data and seed; global batch 8 (4 rows a data rank, each
 # model rank of a row computing them), S 4096
-FSDP_FULL_STEPS, FSDP_FULL_B, FSDP_FULL_S = 6, 8, 4096
+# 4 steps, so that the script keeps within its 1,200 s
+FSDP_FULL_STEPS, FSDP_FULL_B, FSDP_FULL_S = 4, 8, 4096
 OPERA_DP_FULL_PEAK_GB = 13.06   # a rank's replica at data 4 (PERF.md 5)
 
 
@@ -3103,14 +3256,16 @@ def _fsdp_full_rank(world, batch: int) -> dict:
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
     launch_counts.clear()
-    run = train_main(
-        ["--arch", "smollm-360m", "--no-reduced", "--trainer", "gspmd",
-         "--tp", "2", "--steps", str(FSDP_FULL_STEPS), "--batch", str(batch),
-         "--seq", str(FSDP_FULL_S), "--log-every", "1", "--device", "cuda"],
-        on_step=on_step)
+    with _Census(dict(zip(axes, shape))) as census:
+        run = train_main(
+            ["--arch", "smollm-360m", "--no-reduced", "--trainer", "gspmd",
+             "--tp", "2", "--steps", str(FSDP_FULL_STEPS), "--batch",
+             str(batch), "--seq", str(FSDP_FULL_S), "--log-every", "1",
+             "--device", "cuda"], on_step=on_step)
     return dict(run=run, prints=prints, state_bytes=held["state"],
                 peak_bytes=torch.cuda.max_memory_allocated(),
-                launches=dict(launch_counts), why=world.why)
+                launches=dict(launch_counts), why=world.why,
+                calls={"/".join(k): v for k, v in census.calls.items()})
 
 
 def phase_fsdp_full(train_full: dict) -> dict:
@@ -3120,8 +3275,9 @@ def phase_fsdp_full(train_full: dict) -> dict:
     ``--trainer gspmd --tp 2`` on 4 ranks as `data` 2 x `model` 2 on the
     one card (gloo, staged through host memory): every leaf and both
     moments held as the rank's block under fsdp_tp, gathered on use and
-    reduce-scattered, 6 steps: every loss finite and falling (the last 3
-    below the first 3 on average), the ranks of one block the same bits
+    reduce-scattered, `FSDP_FULL_STEPS` steps: every loss finite and
+    falling (the last half below the first on average), the ranks of one
+    block the same bits
     after every step, 2 flash launches a layer a step and 1 backward on
     every rank.  Prints step ms and the wire's ms within it, bytes sent,
     each rank's bytes of parameters and moments and its peak GB beside
@@ -3152,7 +3308,8 @@ def phase_fsdp_full(train_full: dict) -> dict:
            "fsdp_full: ranks report other losses")
     _check(len(losses) == FSDP_FULL_STEPS and all(np.isfinite(losses)),
            f"fsdp_full losses {losses}")
-    _check(np.mean(losses[-3:]) < np.mean(losses[:3]),
+    half = FSDP_FULL_STEPS // 2
+    _check(np.mean(losses[-half:]) < np.mean(losses[:half]),
            f"fsdp_full: loss did not fall: {losses}")
     for k in range(FSDP_FULL_STEPS):
         _check_blocks([r["prints"][k] for r in ranks],
@@ -3181,6 +3338,8 @@ def phase_fsdp_full(train_full: dict) -> dict:
         peak_gb_per_rank=[r["peak_bytes"] / 1e9 for r in ranks],
         opera_dp_full_peak_gb=OPERA_DP_FULL_PEAK_GB,
         init_s=[r["run"]["init_s"] for r in ranks],
+        collectives_per_step={k: v / FSDP_FULL_STEPS
+                              for k, v in ranks[0]["calls"].items()},
         tokens_per_s=FSDP_FULL_B * FSDP_FULL_S / (np.median(step_ms) / 1e3),
         **{f"{k}_launches": sum(r["launches"][k] for r in ranks)
            for k in want})
@@ -3420,10 +3579,12 @@ def _ep_full_rank(world, layers: int) -> dict:
         cfg.vocab_size, EP_FULL_S, EP_FULL_B, seed=0), 0, world.device)))
     launch_counts.clear()
     run = dict(losses=[], step_s=[], sent_bytes=[], wire_s=[], prints=[])
+    census = _Census(mesh.shape)
     for _, batch in batches:
         t0 = time.perf_counter()
         sent, wire = mesh.sent_bytes, mesh.wire_s
-        state, m = step(state, batch)
+        with census:
+            state, m = step(state, batch)
         run["losses"].append(float(m["loss"]))   # waits for the step
         run["step_s"].append(time.perf_counter() - t0)
         run["sent_bytes"].append(mesh.sent_bytes - sent)
@@ -3441,6 +3602,7 @@ def _ep_full_rank(world, layers: int) -> dict:
                         cfg, pctx)[1]["loss"]
     n_params = sum(math.prod(s) for s in param_shapes(cfg).values())
     return dict(run, first_batch_after=float(first), launches=launches,
+                calls={"/".join(k): v for k, v in census.calls.items()},
                 init_s=init_s, params=n_params,
                 peak_bytes=torch.cuda.max_memory_allocated(),
                 why=world.why, backend=world.backend)
@@ -3518,11 +3680,258 @@ def phase_ep_full() -> dict:
         sent_bytes_per_step_per_rank=[r["sent_bytes"][-1] for r in ranks],
         peak_gb_per_rank=[r["peak_bytes"] / 1e9 for r in ranks],
         init_s=[r["init_s"] for r in ranks],
+        collectives_per_step={k: v / EP_FULL_STEPS
+                              for k, v in ranks[0]["calls"].items()},
         tokens_per_s=EP_FULL_B * EP_FULL_S / (np.median(step_ms) / 1e3),
         **{f"{k}_launches": sum(r["launches"][k] for r in ranks)
            for k in want})
     print(f"ep_full losses {losses} step ms {step_ms} wire ms {wire_ms} "
           f"peak GB {out['peak_gb_per_rank']}", flush=True)
+    return out
+
+
+# yi-9b at full width on (data 1, model 4): 32 / 4 heads split 8 / 1 a
+# rank, the FFN's 11,008 and the vocabulary's 64,000 by 4; the depth the
+# card's 80 GB hold for four ranks
+TP_FULL_LAYERS, TP_FULL_STEPS, TP_FULL_B, TP_FULL_S = 12, 6, 1, 4096
+TP_FULL_WHY = ("4 ranks share the card's 80 GB; at 16 B a parameter "
+               "(f32 masters, gradients and two moments) a layer needs "
+               "~2.8 GB and the embedding and head ~8.4 GB, beside each "
+               "rank's activations, and after them the one-rank run on "
+               "whole weights (~47 GB at 12 layers); 16 layers fit too "
+               "(PERF.md), but not the script's 1,200 s")
+# the launcher's 1e-3 makes the loss rise from step 5 at this depth and
+# batch, on 4 model ranks and on one rank alike (ROADMAP Queue 3, U2)
+TP_FULL_LR = 3e-4
+
+
+def _tp_full_rank(world, layers: int, lr: float) -> dict:
+    """yi-9b at full width cut to `layers` on 4 model ranks under
+    fsdp_tp: `make_train_step` from seed 0 on this rank, the launcher's
+    AdamW.  Per step the loss, host seconds, bytes sent and host seconds
+    on the wire, a fingerprint of the replicated leaves; the collectives
+    a step (`_Census`), the leaves gathered over each axis, the flash
+    calls by heads; which leaves compute tensor-parallel and which the
+    rules cut over `model` (in this tree); this rank's bytes of the
+    parameters and both moments, peak bytes, the kernels' launches."""
+    import gc
+
+    import torch
+
+    from repro_torch.configs.base import get_config
+    from repro_torch.core.comm import Mesh
+    from repro_torch.data.pipeline import SyntheticLM, device_batches
+    from repro_torch.kernels import launch_counts
+    from repro_torch.launch.mesh import pctx_for_mesh
+    from repro_torch.models import sharding
+    from repro_torch.models.model import init_params, param_shapes
+    from repro_torch.models.sharding import param_spec
+    from repro_torch.optim.adamw import AdamWConfig
+    from repro_torch.train.trainer import init_train_state, make_train_step
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = get_config("yi-9b").replace(num_layers=layers)
+    mesh = Mesh((1, 4), ("data", "model"))
+    pctx = pctx_for_mesh(mesh)
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    state = init_train_state(cfg, init_params(cfg, 0, device=world.device,
+                                              masters=True, pctx=pctx))
+    gc.collect()
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    step = make_train_step(cfg, pctx, AdamWConfig(
+        lr=lr, total_steps=TP_FULL_STEPS, warmup_steps=5))
+    batches = device_batches(SyntheticLM(cfg.vocab_size, TP_FULL_S,
+                                         TP_FULL_B, seed=0), 0, world.device)
+    # a tree from before the tensor-parallel compute has no predicate:
+    # every leaf is computed whole there
+    tp = getattr(sharding, "computes_tp", lambda *a: False)
+    whole = param_shapes(cfg)
+    launch_counts.clear()
+    run = dict(losses=[], grad_norms=[], step_s=[], sent_bytes=[],
+               wire_s=[], prints=[])
+    with _Census(mesh.shape) as census:
+        for _, batch in zip(range(TP_FULL_STEPS), batches):
+            t0 = time.perf_counter()
+            sent, wire = mesh.sent_bytes, mesh.wire_s
+            state, m = step(state, batch)
+            run["losses"].append(float(m["loss"]))   # waits for the step
+            run["step_s"].append(time.perf_counter() - t0)
+            run["grad_norms"].append(float(m["grad_norm"]))
+            run["sent_bytes"].append(mesh.sent_bytes - sent)
+            run["wire_s"].append(mesh.wire_s - wire)
+            run["prints"].append(_dp_fingerprint(
+                state["params"],
+                lambda n, p: not any(param_spec(n, p.shape, cfg, pctx))))
+            if world.rank == 0:
+                print(f"[tp_full] step {len(run['losses'])} loss "
+                      f"{run['losses'][-1]:.4f} {run['step_s'][-1]:.2f} s, "
+                      f"{run['wire_s'][-1]:.2f} s on the wire", flush=True)
+    held = {k: sum(t.numel() * t.element_size() for t in (
+        dict(state["params"].named_parameters()) if k == "params"
+        else state["opt"][k]).values()) for k in ("params", "m", "v")}
+    return dict(
+        run, init_s=init_s, launches=dict(launch_counts),
+        calls={"/".join(k): v for k, v in census.calls.items()},
+        payload={"/".join(k): v for k, v in census.payload.items()},
+        gathered=sorted(census.gathered),
+        heads={f"{q}/{kv}": n for (q, kv), n in census.heads.items()},
+        tp=sorted(n for n in whole if tp(n, cfg, pctx)),
+        model_cut=sorted(n for n, s in whole.items()
+                         if "model" in param_spec(n, s, cfg, pctx)),
+        state_bytes=held, peak_bytes=torch.cuda.max_memory_allocated(),
+        why=world.why, backend=world.backend)
+
+
+def _tp_full_whole(layers: int, lr: float) -> dict:
+    """The tp_full run in this process on whole weights (`make_train_step`
+    without a mesh, one rank): the same seed-0 draws, batches and AdamW;
+    per step the loss and the gradient norm, and the host seconds."""
+    import torch
+
+    from repro_torch.configs.base import get_config
+    from repro_torch.data.pipeline import SyntheticLM, device_batches
+    from repro_torch.models.model import init_params
+    from repro_torch.models.parallel import single_device_ctx
+    from repro_torch.optim.adamw import AdamWConfig
+    from repro_torch.train.trainer import init_train_state, make_train_step
+
+    _free_card()
+    cfg = get_config("yi-9b").replace(num_layers=layers)
+    torch.cuda.reset_peak_memory_stats()
+    state = init_train_state(cfg, init_params(cfg, 0, device="cuda",
+                                              masters=True))
+    step = make_train_step(cfg, single_device_ctx(), AdamWConfig(
+        lr=lr, total_steps=TP_FULL_STEPS, warmup_steps=5))
+    run = dict(losses=[], grad_norms=[], step_s=[])
+    for _, batch in zip(range(TP_FULL_STEPS), device_batches(SyntheticLM(
+            cfg.vocab_size, TP_FULL_S, TP_FULL_B, seed=0), 0, "cuda")):
+        t0 = time.perf_counter()
+        state, m = step(state, batch)
+        run["losses"].append(float(m["loss"]))   # waits for the step
+        run["step_s"].append(time.perf_counter() - t0)
+        run["grad_norms"].append(float(m["grad_norm"]))
+    run["peak_bytes"] = torch.cuda.max_memory_allocated()
+    del state, step
+    _free_card()
+    return run
+
+
+def phase_tp_full() -> dict:
+    """yi-9b at full width (d 4,096, 32 / 4 heads of 128, FFN 11,008,
+    vocab 64,000, untied head) cut to `TP_FULL_LAYERS` of 48 layers
+    (printed as `reduced` with the reason), f32 masters from seed 0, bf16
+    compute, full remat, B 1, S 4096, on 4 ranks as `data` 1 x `model` 4
+    on the one card (gloo staged through host memory), `TP_FULL_STEPS`
+    steps of `make_train_step` under fsdp_tp: attention split by heads (8
+    / 1 a rank), the FFN by width, the embedding and the head by vocab
+    (`models.sharding.computes_tp`).  Then the same run in this process
+    on whole weights, one rank (`_tp_full_whole`).  Every loss finite and
+    falling (the last 3 below the first 3 on average), the same on every
+    rank and within bf16's 2e-2 of the one rank's, the first step's
+    gradient norm too; the
+    replicated leaves the same bits on every rank after every step; the
+    leaves gathered over `model` exactly the leaves the rules cut over it
+    that do not compute tensor-parallel (`final_norm`'s scale alone);
+    each rank's state its blocks, about a quarter of the whole; flash 2
+    launches a layer a step and its backward 1.  Prints step ms and the
+    wire's ms and bytes within it, the collectives a step by kind and
+    axis, the flash calls by heads, state bytes and peak GB a rank."""
+    import os
+
+    import numpy as np
+    import torch
+
+    from repro_torch.configs.base import get_config
+    from repro_torch.core.comm import spawn_world
+    from repro_torch.models.model import param_shapes
+
+    _free_card()
+    os.environ.setdefault("PYTORCH_CUDA_ALLOC_CONF",
+                          "expandable_segments:True")
+    full = get_config("yi-9b")
+    cfg = full.replace(num_layers=TP_FULL_LAYERS)
+    reduced = {"num_layers": [full.num_layers, TP_FULL_LAYERS],
+               "global_batch": [256, TP_FULL_B]}
+    print(f"reduced: {json.dumps(reduced)} ({TP_FULL_WHY})", flush=True)
+    t0 = time.perf_counter()
+    ranks = spawn_world(_tp_full_rank, 4, TP_FULL_LAYERS, TP_FULL_LR,
+                        device="cuda", timeout_s=900)
+    wall = time.perf_counter() - t0
+    whole_run = _tp_full_whole(TP_FULL_LAYERS, TP_FULL_LR)
+    losses = ranks[0]["losses"]
+    step_ms = [float(np.median(r["step_s"][1:])) * 1e3 for r in ranks]
+    wire_ms = [float(np.median(r["wire_s"][1:])) * 1e3 for r in ranks]
+    print(f"tp_full losses {losses} grad norms {ranks[0]['grad_norms']}; "
+          f"whole weights on one rank {whole_run['losses']} grad norms "
+          f"{whole_run['grad_norms']}; step ms {step_ms} wire ms {wire_ms} "
+          f"peak GB {[r['peak_bytes'] / 1e9 for r in ranks]}", flush=True)
+    _check(all(r["losses"] == losses for r in ranks),
+           "tp_full: ranks report other losses")
+    _check(len(losses) == TP_FULL_STEPS and all(np.isfinite(losses)),
+           f"tp_full losses {losses}")
+    # the one rank's compute on whole weights, in bf16's tolerance: every
+    # loss, and the first step's gradient norm (the same parameters and
+    # batch)
+    tol = _tol(torch.bfloat16)
+    _check(np.allclose(losses, whole_run["losses"], rtol=tol, atol=0),
+           f"tp_full losses {losses} against one rank's "
+           f"{whole_run['losses']}")
+    _check(np.isclose(ranks[0]["grad_norms"][0], whole_run["grad_norms"][0],
+                      rtol=tol, atol=0),
+           f"tp_full first grad norm {ranks[0]['grad_norms'][0]} against "
+           f"one rank's {whole_run['grad_norms'][0]}")
+    _check(np.mean(losses[-3:]) < np.mean(losses[:3]),
+           f"tp_full: loss did not fall: {losses}")
+    for k in range(TP_FULL_STEPS):
+        _check(len({str(r["prints"][k]) for r in ranks}) == 1,
+               f"tp_full: replicated leaves differ after step {k + 1}")
+    for r in ranks:
+        over_model = {leaf for leaf, axis in r["gathered"] if axis == "model"}
+        want = set(r["model_cut"]) - set(r["tp"])
+        _check(over_model == want, f"tp_full: gathered over model "
+               f"{sorted(over_model ^ want)[:8]} against the plan")
+    shapes = param_shapes(cfg)
+    whole = 4 * sum(math.prod(s) for s in shapes.values())
+    for r in ranks:
+        _check(r["state_bytes"]["params"] < whole / 4 * 1.01,
+               f"tp_full: a rank holds {r['state_bytes']} of {whole} B")
+    want = _train_launches(cfg, {"flash_attention": "self_attn"},
+                           TP_FULL_STEPS)
+    for r in ranks:
+        _check(r["launches"] == want, f"tp_full launches {r['launches']}")
+    out = dict(
+        phase="tp_full", arch=cfg.name, layers=cfg.num_layers,
+        d_model=cfg.d_model, heads=[cfg.num_heads, cfg.num_kv_heads],
+        d_ff=cfg.d_ff, vocab=cfg.vocab_size, reduced=reduced,
+        reduced_why=TP_FULL_WHY, layout="fsdp_tp",
+        mesh={"data": 1, "model": 4}, batch=TP_FULL_B, seq=TP_FULL_S,
+        steps=TP_FULL_STEPS, backend=ranks[0]["backend"],
+        why=ranks[0]["why"], wall_s=wall, lr=TP_FULL_LR, losses=losses,
+        grad_norms=ranks[0]["grad_norms"], whole_losses=whole_run["losses"],
+        whole_grad_norms=whole_run["grad_norms"],
+        whole_step_ms=float(np.median(whole_run["step_s"][1:])) * 1e3,
+        whole_peak_gb=whole_run["peak_bytes"] / 1e9,
+        replicated_bit_equal=True, tp_leaves=len(ranks[0]["tp"]),
+        leaves=len(shapes),
+        gathered_over_model=sorted({leaf for leaf, axis in ranks[0][
+            "gathered"] if axis == "model"}),
+        step_ms_per_rank=step_ms, wire_ms_per_rank=wire_ms,
+        wire_share=float(np.median(wire_ms) / np.median(step_ms)),
+        sent_bytes_per_step_per_rank=[r["sent_bytes"][-1] for r in ranks],
+        collectives_per_step={k: v / TP_FULL_STEPS
+                              for k, v in ranks[0]["calls"].items()},
+        payload_bytes_per_step={k: v / TP_FULL_STEPS
+                                for k, v in ranks[0]["payload"].items()},
+        flash_calls_by_heads=ranks[0]["heads"],
+        state_bytes_per_rank=[r["state_bytes"] for r in ranks],
+        whole_params_bytes=whole,
+        peak_gb_per_rank=[r["peak_bytes"] / 1e9 for r in ranks],
+        init_s=[r["init_s"] for r in ranks],
+        tokens_per_s=TP_FULL_B * TP_FULL_S / (np.median(step_ms) / 1e3),
+        **{f"{k}_launches": sum(r["launches"][k] for r in ranks)
+           for k in want})
     return out
 
 
@@ -4330,6 +4739,9 @@ def main() -> int:
     # experts sharded over the model axis, 4 ranks on the one card
     train_runs.append(run(phase_ep_golden, root))
     train_runs.append(run(phase_ep_full))
+    # attention, FFNs and the vocabulary split over `model`, 4 ranks
+    train_runs.append(run(phase_tp_golden, root))
+    train_runs.append(run(phase_tp_full))
     train_runs += [run(phase_train_arch_full, *spec)
                    for spec in ARCH_TRAIN_RUNS]
     _free_card()

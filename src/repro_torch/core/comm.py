@@ -18,7 +18,12 @@ received from no one passes none.  `all_to_all` is `lax.all_to_all`
 in place over the ranks that differ on some axes only (the data-parallel
 gradient sum); `all_gather` makes a sharded weight whole over one or more
 axes a dim, GSPMD's all-gather of an FSDP operand, and its backward is
-`dist.reduce_scatter` (which gloo has too).  A group whose backend
+`dist.reduce_scatter` (which gloo has too).  `copy_to_parallel` and
+`reduce_from_parallel` are Megatron's pair around a tensor-parallel
+block: the identity with the sum over an axis as its backward, before a
+column-parallel product, and the sum with the identity as its backward,
+after a row-parallel one; `all_reduce_max` is the maximum of a
+logsumexp split over an axis, outside autograd.  A group whose backend
 cannot take CUDA tensors (gloo) gets the payload staged through
 page-locked host buffers that the mesh keeps, and what arrives is copied
 back to the tensor's device; NCCL takes device tensors as they are.
@@ -292,12 +297,13 @@ def all_to_all(x: torch.Tensor, mesh: Mesh, axis: str) -> torch.Tensor:
     return _AllToAll.apply(x, mesh, axis)
 
 
-def all_reduce(x: torch.Tensor, mesh: Mesh, axes: Sequence[str]
-               ) -> torch.Tensor:
-    """Sum `x` in place over the ranks whose coordinates differ on `axes`
-    only, as GSPMD sums a leaf's gradient over the axes it is replicated
-    on: over the world's group when `axes` cover every axis of more than
-    one rank, else axis by axis.  Returns `x`.  Not differentiable."""
+def all_reduce(x: torch.Tensor, mesh: Mesh, axes: Sequence[str],
+               op=dist.ReduceOp.SUM) -> torch.Tensor:
+    """Sum `x` in place (or reduce it by `op`) over the ranks whose
+    coordinates differ on `axes` only, as GSPMD sums a leaf's gradient
+    over the axes it is replicated on: over the world's group when `axes`
+    cover every axis of more than one rank, else axis by axis.  Returns
+    `x`.  Not differentiable."""
     live = [a for a in dict.fromkeys(axes) if mesh.shape[a] > 1]
     if not live:
         return x
@@ -312,13 +318,74 @@ def all_reduce(x: torch.Tensor, mesh: Mesh, axes: Sequence[str]
         if staged:
             buf, _ = mesh.host_buffers(x)
             buf.copy_(x)
-            dist.all_reduce(buf, group=group)
+            dist.all_reduce(buf, op=op, group=group)
             x.copy_(buf)
         else:
-            dist.all_reduce(x, group=group)
+            dist.all_reduce(x, op=op, group=group)
         mesh.wire_s += time.perf_counter() - t0
         mesh.sent_bytes += 2 * (n - 1) * x.numel() * x.element_size() // n
     return x
+
+
+class _CopyToParallel(torch.autograd.Function):
+    """Identity forward, the cotangents summed over the axis backward."""
+
+    @staticmethod
+    def forward(ctx, x, mesh, axis, mean):
+        ctx.mesh, ctx.axis, ctx.mean = mesh, axis, mean
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        g = all_reduce(g.contiguous().clone(), ctx.mesh, (ctx.axis,))
+        if ctx.mean:
+            g = g.div_(axis_size(ctx.mesh, ctx.axis))
+        return g, None, None, None
+
+
+class _ReduceFromParallel(torch.autograd.Function):
+    """The sum over the axis forward, identity backward."""
+
+    @staticmethod
+    def forward(ctx, x, mesh, axis):
+        return all_reduce(x.contiguous().clone(), mesh, (axis,))
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None, None
+
+
+def copy_to_parallel(x: torch.Tensor, mesh: Mesh, axis: str,
+                     mean: bool = False) -> torch.Tensor:
+    """Megatron's entry into a tensor-parallel region, taken before a
+    column-parallel product: `x` itself, every rank of the axis holding
+    the same; under autograd its cotangent is the sum over the axis of
+    every rank's (each rank's product reads its own columns), with
+    `mean` divided by the axis's size.  One `dist.all_reduce` in the
+    backward pass, none forward.  Every rank of the axis's line calls
+    it, and its backward, in one order."""
+    if axis_size(mesh, axis) == 1:
+        return x
+    return _CopyToParallel.apply(x, mesh, axis, mean)
+
+
+def reduce_from_parallel(x: torch.Tensor, mesh: Mesh, axis: str
+                         ) -> torch.Tensor:
+    """Megatron's exit from a tensor-parallel region, taken after a
+    row-parallel product: the sum over the axis of every rank's `x` (a
+    new tensor); under autograd each rank's cotangent passes as it is.
+    One `dist.all_reduce` forward, none backward."""
+    if axis_size(mesh, axis) == 1:
+        return x
+    return _ReduceFromParallel.apply(x, mesh, axis)
+
+
+def all_reduce_max(x: torch.Tensor, mesh: Mesh, axis: str) -> torch.Tensor:
+    """The largest of every rank's `x` over the axis, elementwise, outside
+    autograd (a new tensor): the running maximum of a logsumexp split
+    over the axis, whose value the gradient does not depend on."""
+    return all_reduce(x.detach().contiguous().clone(), mesh, (axis,),
+                      op=dist.ReduceOp.MAX)
 
 
 def _gather_axis(x: torch.Tensor, mesh: Mesh, axis: str, dim: int

@@ -30,9 +30,12 @@ any ``--tp``: every rank holds its blocks of each leaf and of both
 moments, placed as the JAX launcher places them (`models.sharding`,
 ``fsdp_tp``: each matrix over `model` on its parallel dim and over
 `data` on the other, so ``--tp 1`` cuts every matrix over the data
-ranks), gathers them whole on use and gets each gradient
-reduce-scattered; with ``--tp`` above 1 each MoE layer's experts are
-split over the model ranks and reached through `rotor_all_to_all`.  On
+ranks), gathers them on use and gets each gradient reduce-scattered;
+with ``--tp`` above 1 attention splits by heads, the FFNs by width and
+the embedding and head by vocab over the model ranks where they divide
+(`models.sharding.computes_tp`; those leaves are gathered over `data`
+alone), and each MoE layer's experts are split over the model ranks and
+reached through `rotor_all_to_all`.  On
 one process without a world the mesh is one rank, and both trainers run
 the single-process step (opera-dp without ``--compress-grads``).
 ``--tp`` that does not divide the world raises a ValueError; ``--mesh
@@ -77,8 +80,7 @@ from repro_torch.train.opera_dp import (init_opera_dp_state,
 from repro_torch.train.trainer import init_train_state, make_train_step
 
 ITEM_7C = ("the production meshes' GSPMD trainer (its rotor pod branch, "
-           "grad_sync) and the tensor-parallel compute over 'model' are "
-           "ROADMAP Queue 1 item 7c")
+           "grad_sync) is ROADMAP Queue 1 item 7c")
 
 
 def _sync(device: torch.device) -> None:

@@ -20,10 +20,14 @@ no TPU kernel computes it in the JAX package.  A cross cache may be
 longer than its source (a serving slot sized for the longest); decode
 masks it at the source's length (`cross_attention_decode`), where the
 JAX package attends over the zero padding too (ROADMAP.md Queue 3, R4).
+Trained on a mesh whose `model` axis divides both head counts, a layer
+computes this rank's heads alone (`models.sharding.computes_tp`): the
+projections, the QKV bias, the q/k norms, RoPE and the kernel on them,
+and the output projection's partial sum added over `model`.
 """
 from __future__ import annotations
 
-from typing import Dict, Tuple
+from typing import Dict, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -36,6 +40,7 @@ from repro_torch.models.layers import (
     rms_head_norm,
     storage_dtype,
 )
+from repro_torch.models.parallel import ParallelContext, tp_enter, tp_exit
 
 NEG_INF = -1e30
 
@@ -68,11 +73,13 @@ def init_attention(gen: torch.Generator, cfg: ModelConfig,
 
 
 def _project_q(p, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
+    """The query heads `p["wq"]` holds: every head, or a rank's contiguous
+    part of them when the layer is split over `model`."""
     B, S, _ = x.shape
     q = x @ p["wq"].to(x.dtype)
     if "bq" in p:
         q = q + p["bq"].to(x.dtype)
-    q = q.reshape(B, S, cfg.num_heads, cfg.head_dim_).transpose(1, 2)
+    q = q.reshape(B, S, -1, cfg.head_dim_).transpose(1, 2)
     if "q_norm" in p:
         q = rms_head_norm(p["q_norm"], q)
     return q  # (B, Hq, S, hd)
@@ -86,8 +93,8 @@ def _project_kv(p, x: torch.Tensor, cfg: ModelConfig):
     if "bk" in p:
         k = k + p["bk"].to(x.dtype)
         v = v + p["bv"].to(x.dtype)
-    k = k.reshape(B, S, cfg.num_kv_heads, hd).transpose(1, 2)
-    v = v.reshape(B, S, cfg.num_kv_heads, hd).transpose(1, 2)
+    k = k.reshape(B, S, -1, hd).transpose(1, 2)
+    v = v.reshape(B, S, -1, hd).transpose(1, 2)
     if "k_norm" in p:
         k = rms_head_norm(p["k_norm"], k)
     return k, v  # (B, Hkv, S, hd)
@@ -168,21 +175,28 @@ def attention_block(
     window: int = 0,
     causal: bool = True,
     return_kv: bool = False,
+    tp: Optional[ParallelContext] = None,
 ):
     """Self-attention over a full sequence (prefill): causal, within the
     last `window` positions when window > 0, or bidirectional with
-    causal=False (an encoder layer).
+    causal=False (an encoder layer).  With `tp`, `p` holds this rank's
+    heads (`models.sharding.computes_tp`): `x` enters the split block
+    (`models.parallel.tp_enter`), the kernel runs on the rank's query
+    heads and the KV heads of their groups, and the output projection's
+    partial sums are added over `model` (`tp_exit`).
 
     With return_kv=True also returns the (roped) K/V actually used — the
     exact tensors a decode cache must contain: for a window no longer
     than the sequence, the trailing `window` entries rolled so that
     position t sits in ring slot t % window (attention.py:253-259)."""
     B, S, _ = x.shape
+    x = tp_enter(x, tp)
     q = apply_rope(_project_q(p, x, cfg), positions, cfg.rope_theta)
     k, v = _project_kv(p, x, cfg)
     k = apply_rope(k, positions, cfg.rope_theta)
     o = flash_attention(q, k, v, causal=causal, window=window)
-    y = o.transpose(1, 2).reshape(B, S, -1) @ p["wo"].to(x.dtype)
+    y = tp_exit(o.transpose(1, 2).reshape(B, S, -1) @ p["wo"].to(x.dtype),
+                tp)
     if return_kv:
         if window > 0 and S >= window:
             k, v = k[:, :, -window:], v[:, :, -window:]
@@ -219,10 +233,12 @@ def attention_block_decode(
     return o.reshape(x.shape[0], 1, -1) @ p["wo"].to(x.dtype), k_cache, v_cache
 
 
-def project_cross_kv(p, src: torch.Tensor, cfg: ModelConfig):
+def project_cross_kv(p, src: torch.Tensor, cfg: ModelConfig,
+                     tp: Optional[ParallelContext] = None):
     """Cross-attention K/V (B, Hkv, Sx, hd) from encoder states or image
-    embeddings (B, Sx, D), computed once a prefill (attention.py:313)."""
-    return _project_kv(p, src, cfg)
+    embeddings (B, Sx, D), computed once a prefill (attention.py:313);
+    with `tp`, the KV heads of this rank's part (`attention_block`)."""
+    return _project_kv(p, tp_enter(src, tp), cfg)
 
 
 def cross_attention_block(
@@ -231,13 +247,17 @@ def cross_attention_block(
     cfg: ModelConfig,
     cross_k: torch.Tensor,            # (B, Hkv, Sx, hd)
     cross_v: torch.Tensor,
+    tp: Optional[ParallelContext] = None,
 ) -> torch.Tensor:
     """Every query attends every source position: no RoPE, no mask
-    (attention.py:296-310), through the flash kernel."""
+    (attention.py:296-310), through the flash kernel; with `tp`, this
+    rank's heads, their partial outputs added over `model`
+    (`attention_block`)."""
     B, S, _ = x.shape
-    o = flash_attention(_project_q(p, x, cfg), cross_k, cross_v,
-                        causal=False)
-    return o.transpose(1, 2).reshape(B, S, -1) @ p["wo"].to(x.dtype)
+    o = flash_attention(_project_q(p, tp_enter(x, tp), cfg), cross_k,
+                        cross_v, causal=False)
+    return tp_exit(o.transpose(1, 2).reshape(B, S, -1) @ p["wo"].to(x.dtype),
+                   tp)
 
 
 def cross_attention_decode(

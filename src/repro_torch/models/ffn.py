@@ -1,7 +1,11 @@
 """Dense feed-forward blocks: SwiGLU / GeGLU (gated) and plain MLP.
 
 Port of `repro.models.ffn`, for the layers of dense stacks and the dense
-prefix layers of MoE stacks (`d_ff` = `d_ff_dense`).
+prefix layers of MoE stacks (`d_ff` = `d_ff_dense`).  Trained on a mesh
+whose `model` axis divides the width, a rank computes its own columns of
+it (`models.sharding.computes_tp`): column-parallel in, row-parallel
+out, the partial sums added over `model`, then the plain MLP's output
+bias once.
 """
 from __future__ import annotations
 
@@ -11,6 +15,7 @@ import torch
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models.layers import act_fn, dense_init, storage_dtype
+from repro_torch.models.parallel import ParallelContext, tp_enter, tp_exit
 
 
 def gated(cfg: ModelConfig) -> bool:
@@ -44,11 +49,15 @@ def init_ffn(gen: torch.Generator, cfg: ModelConfig,
     }
 
 
-def apply_ffn(p, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
+def apply_ffn(p, x: torch.Tensor, cfg: ModelConfig,
+              tp: Optional[ParallelContext] = None) -> torch.Tensor:
+    """With `tp`, `p` holds this rank's columns of the width (and the
+    whole output bias)."""
     f = act_fn(cfg.act)
+    x = tp_enter(x, tp)
     if "w_gate" in p:
         g = f(x @ p["w_gate"].to(x.dtype))
         u = x @ p["w_up"].to(x.dtype)
-        return (g * u) @ p["w_down"].to(x.dtype)
+        return tp_exit((g * u) @ p["w_down"].to(x.dtype), tp)
     h = f(x @ p["w_in"].to(x.dtype) + p["b_in"].to(x.dtype))
-    return h @ p["w_out"].to(x.dtype) + p["b_out"].to(x.dtype)
+    return tp_exit(h @ p["w_out"].to(x.dtype), tp) + p["b_out"].to(x.dtype)

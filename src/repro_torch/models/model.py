@@ -7,8 +7,10 @@ Port of `repro.models.model`.  Entry points take parameters built by
 ``masters=True`` both give trainable float32 masters, which
 `forward_train`, `loss_fn` and `train.trainer` differentiate; on a
 mesh each rank holds its blocks (`models.sharding`) and the train
-forwards gather them on use, while the serving forwards take whole
-weights.
+forwards gather them on use, or compute tensor-parallel on them
+(`models.sharding.computes_tp`): the embedding as a vocab-parallel
+lookup and the head as vocab-parallel logits with a logsumexp combined
+over `model`.  The serving forwards take whole weights.
 An encdec model's prefill takes ``batch["encoder_embeds"]`` (B, Sx, D),
 the frames its encoder reads (the modality frontend is a stub, as in the
 JAX package); a vlm's ``batch["image_embeds"]`` (B, Sx, D).  Either is
@@ -38,9 +40,11 @@ from repro_torch.models.layers import (
     storage_dtype,
     torch_dtype,
 )
-from repro_torch.models.parallel import ParallelContext, single_device_ctx
-from repro_torch.models.sharding import (local_slice, on_use, shard_params,
-                                        use_leaf)
+from repro_torch.core.comm import all_reduce_max
+from repro_torch.models.parallel import (ParallelContext, single_device_ctx,
+                                        tp_enter, tp_exit)
+from repro_torch.models.sharding import (computes_tp, local_slice, on_use,
+                                        shard_params, use_leaf)
 
 
 # the batch entry a family's cross-attention reads: (B, Sx, D) encoder
@@ -69,18 +73,21 @@ def _draw(cfg: ModelConfig, gen: torch.Generator, keep) -> ParamTree:
             [keep(f"{name}.{i}", ParamTree(T.init_layer(gen, cfg, kind)))
              for i, kind in enumerate(plan.kinds)])
 
+    def norm(name: str) -> ParamTree:
+        return keep(name, ParamTree(init_norm(cfg.norm, cfg.d_model, dev)))
+
     p = {
         "embed": keep("embed", embed_init(gen, cfg.vocab_size, cfg.d_model,
                                           storage_dtype(cfg, "embed"))),
         "stack": stack("stack", T.stack_plan(cfg)),
-        "final_norm": init_norm(cfg.norm, cfg.d_model, dev),
+        "final_norm": norm("final_norm"),
     }
     if not cfg.tie_embeddings:
         p["lm_head"] = keep("lm_head", dense_init(
             gen, cfg.d_model, cfg.vocab_size, torch.float32))
     if cfg.family == "encdec":
         p["encoder"] = stack("encoder", T.encoder_plan(cfg))
-        p["enc_norm"] = init_norm(cfg.norm, cfg.d_model, dev)
+        p["enc_norm"] = norm("enc_norm")
     return ParamTree(p)
 
 
@@ -174,14 +181,47 @@ def count_params(cfg: ModelConfig, active_only: bool = False) -> int:
     return total
 
 
-def _embed(params, tokens: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
-    return params["embed"][tokens].to(torch_dtype(cfg.compute_dtype))
+def _vocab_split(name: str, cfg: ModelConfig, pctx: ParallelContext
+                 ) -> Tuple[Optional[ParallelContext], int]:
+    """(`pctx`, the first word of this rank's rows) where the leaf `name`
+    (the embedding or the head) splits by vocab over `model`; (None, 0)
+    where it is whole."""
+    if not computes_tp(name, cfg, pctx):
+        return None, 0
+    return pctx, (pctx.mesh.coords[pctx.tp_axis]
+                  * (cfg.vocab_size // pctx.tp_size))
 
 
-def _logits(params, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
+def _head_name(cfg: ModelConfig) -> str:
+    return "embed" if cfg.tie_embeddings else "lm_head"
+
+
+def _head(params, cfg: ModelConfig) -> torch.Tensor:
+    return params["embed"].T if cfg.tie_embeddings else params["lm_head"]
+
+
+def _embed(params, tokens: torch.Tensor, cfg: ModelConfig,
+           pctx: ParallelContext = single_device_ctx()) -> torch.Tensor:
+    """The tokens' rows; split by vocab, each rank's rows where the token
+    falls in them and zeros elsewhere, summed over `model`."""
+    dtype = torch_dtype(cfg.compute_dtype)
+    tp, lo = _vocab_split("embed", cfg, pctx)
+    if tp is None:
+        return params["embed"][tokens].to(dtype)
+    n = params["embed"].shape[0]
+    local = tokens - lo
+    inside = (local >= 0) & (local < n)
+    rows = params["embed"][local.clamp(0, n - 1)].to(dtype)
+    return tp_exit(torch.where(inside[..., None], rows, 0), tp)
+
+
+def _logits(params, x: torch.Tensor, cfg: ModelConfig,
+            pctx: ParallelContext = single_device_ctx()) -> torch.Tensor:
+    """The final norm, then the head: every word's logit, or this rank's
+    words' where the head splits by vocab over `model`."""
     x = apply_norm(cfg.norm, params["final_norm"], x, upcast=cfg.norm_upcast)
-    head = params["embed"].T if cfg.tie_embeddings else params["lm_head"]
-    return x.float() @ head.float()
+    tp, _ = _vocab_split(_head_name(cfg), cfg, pctx)
+    return tp_enter(x.float(), tp) @ _head(params, cfg).float()
 
 
 def _encode(params, encoder_embeds: torch.Tensor, cfg: ModelConfig,
@@ -214,10 +254,11 @@ def _cross_src(params, batch: Dict[str, torch.Tensor], cfg: ModelConfig,
 
 def _on_use(params, cfg: ModelConfig, pctx: ParallelContext):
     """The tree as the train forwards read it: on a mesh, the top-level
-    leaves (embedding, head, final and encoder norms) gathered whole
-    (`models.sharding.on_use`) and the stacks as they are, each layer
-    gathering its own; `params` itself without a mesh or when done
-    already."""
+    leaves as `models.sharding.use_leaf` gives them (the final and
+    encoder norms whole; the embedding and the head this rank's words,
+    gathered over the data axes only, where they split by vocab over
+    `model`) and the stacks as they are, each layer gathering its own;
+    `params` itself without a mesh or when done already."""
     if pctx.mesh is None or not isinstance(params, nn.Module):
         return params
     out = {name: sub if name in ("stack", "encoder")
@@ -237,7 +278,7 @@ def _train_hidden(params, batch: Dict[str, torch.Tensor], cfg: ModelConfig,
     tokens = batch["tokens"]
     S = tokens.shape[1]
     cross_src = _cross_src(params, batch, cfg, mode="train", pctx=pctx)
-    x = _embed(params, tokens, cfg)
+    x = _embed(params, tokens, cfg, pctx)
     ctx = T.LayerCtx(positions=torch.arange(S, device=tokens.device),
                      cross_src=cross_src, mode="train")
     x, aux, _ = T.apply_stack(params["stack"], x, cfg, ctx,
@@ -250,10 +291,11 @@ def forward_train(params, batch: Dict[str, torch.Tensor], cfg: ModelConfig,
                   ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Returns (logits (B, S, V) f32, aux_loss) (model.py:100-124).  On a
     mesh, `batch` is this rank's rows (`train.trainer.shard_batch`) and
-    `params` its blocks, which the forward gathers on use."""
+    `params` its blocks, which the forward gathers on use; where the head
+    splits by vocab, the logits are this rank's words' (B, S, V / tp)."""
     params = _on_use(params, cfg, pctx)
     x, aux = _train_hidden(params, batch, cfg, pctx)
-    return _logits(params, x, cfg), aux
+    return _logits(params, x, cfg, pctx), aux
 
 
 def forward_train_hidden(
@@ -269,10 +311,19 @@ def forward_train_hidden(
 
 
 def softmax_xent(logits: torch.Tensor, targets: torch.Tensor,
-                 z_weight: float = 1e-4):
-    """Mean token cross-entropy (+ z-loss) in fp32: (ce + z, ce)."""
-    lse = torch.logsumexp(logits, dim=-1)
-    gold = torch.gather(logits, -1, targets.long()[..., None])[..., 0]
+                 z_weight: float = 1e-4,
+                 tp: Optional[ParallelContext] = None, lo: int = 0):
+    """Mean token cross-entropy (+ z-loss) in fp32: (ce + z, ce).  With
+    `tp`, `logits` are this rank's words from `lo` on, and the logsumexp
+    and the gold logit are combined over `model` (`_lse_gold`)."""
+    if tp is None:
+        lse = torch.logsumexp(logits, dim=-1)
+        gold = torch.gather(logits, -1, targets.long()[..., None])[..., 0]
+    else:
+        zero = torch.zeros(targets.shape, dtype=torch.float32,
+                           device=logits.device)
+        lse, gold = _lse_gold(*_xent_logits(zero - 1e30, zero, zero, logits,
+                                            targets.long(), lo), tp)
     ce = (lse - gold).mean()
     z = (lse**2).mean() * z_weight
     return ce + z, ce
@@ -289,8 +340,12 @@ def _xent_chunk(m, s, gold, x32, h, targets, lo: int):
     """One vocab chunk of the online logsumexp: logits (B, S, c) of the
     chunk, the running max and sum, the gold logit where the target
     falls in the chunk."""
-    c = h.shape[1]
-    logits = x32 @ h
+    return _xent_logits(m, s, gold, x32 @ h, targets, lo)
+
+
+def _xent_logits(m, s, gold, logits, targets, lo: int):
+    """`_xent_chunk` of the chunk's logits, its words from `lo` on."""
+    c = logits.shape[-1]
     m_new = torch.maximum(m, logits.amax(-1))
     s = s * torch.exp(m - m_new) + torch.exp(logits - m_new[..., None]).sum(-1)
     t_loc = targets - lo
@@ -305,28 +360,47 @@ def softmax_xent_chunked(
     targets: torch.Tensor,  # (B, S)
     chunk: int,
     z_weight: float = 1e-4,
+    tp: Optional[ParallelContext] = None,
+    lo: int = 0,
 ):
     """Vocab-chunked CE: the (B, S, V) logits are never materialized.
 
     Online logsumexp over vocab chunks, each chunk rematerialised in the
     backward pass (`torch.utils.checkpoint`, as the JAX package's
-    `jax.checkpoint` scan body; model.py:215-259)."""
+    `jax.checkpoint` scan body; model.py:215-259).  With `tp`, `head` is
+    this rank's words from `lo` on (D, V / tp), chunked here, and the
+    logsumexp and the gold logit are combined over `model`
+    (`_lse_gold`)."""
     D, V = head.shape
     c = _pick_chunk(V, chunk)
-    x32, h32 = x.float(), head.float()
+    x32, h32 = tp_enter(x.float(), tp), head.float()
     targets = targets.long()
     B, S = targets.shape
     m = torch.full((B, S), -1e30, dtype=torch.float32, device=x.device)
     s = torch.zeros((B, S), dtype=torch.float32, device=x.device)
     gold = torch.zeros((B, S), dtype=torch.float32, device=x.device)
-    for lo in range(0, V, c):
+    for a in range(0, V, c):
         m, s, gold = checkpoint(_xent_chunk, m, s, gold, x32,
-                                h32[:, lo:lo + c], targets, lo,
+                                h32[:, a:a + c], targets, lo + a,
                                 use_reentrant=False)
-    lse = m + torch.log(torch.clamp(s, min=1e-30))
+    lse, gold = _lse_gold(m, s, gold, tp)
     ce = (lse - gold).mean()
     z = (lse**2).mean() * z_weight
     return ce + z, ce
+
+
+def _lse_gold(m, s, gold, tp: Optional[ParallelContext]):
+    """(logsumexp, gold logit) from the running max `m`, the sum `s` of
+    exp(logit - m) and the gold logit of this rank's words: with `tp`,
+    the max combined over `model` outside autograd (the logsumexp does
+    not depend on it), the rescaled sums and the gold logits (the target
+    falls in one rank's words) added over `model` differentiably."""
+    if tp is not None:
+        top = all_reduce_max(m, tp.mesh, tp.tp_axis)
+        s = tp_exit(s * torch.exp(m - top), tp)
+        gold = tp_exit(gold, tp)
+        m = top
+    return m + torch.log(torch.clamp(s, min=1e-30)), gold
 
 
 def loss_fn(params, batch: Dict[str, torch.Tensor], cfg: ModelConfig,
@@ -337,22 +411,26 @@ def loss_fn(params, batch: Dict[str, torch.Tensor], cfg: ModelConfig,
 
     On a mesh this is one rank's share: `params` its blocks, gathered
     on use, whose backward reduce-scatters each leaf's gradient over the
-    axes it is cut on; `batch` its rows, the cross-entropy theirs, and
-    the aux term what its MoE layers return (every shard's mean in the
-    all-to-all branch, its own in the local one).  The JAX package's
-    global loss is the mean over the data ranks (`train.trainer` takes
-    it), and its gradient the sum of every rank's autograd over every
-    axis (the cut ones here, the replicated ones in the trainer), over
-    dp * tp."""
+    axes it is cut on, or computed tensor-parallel over `model` (the
+    embedding and the head by vocab, the cross-entropy's logsumexp
+    combined over `model`); `batch` its rows, the cross-entropy theirs
+    (every `model` rank of a row the same), and the aux term what its
+    MoE layers return (every shard's mean in the all-to-all branch, its
+    own in the local one).  The JAX package's global loss is the mean
+    over the data ranks (`train.trainer` takes it), and its gradient the
+    sum of every rank's autograd over the axes the leaf is cut on (here)
+    and replicated on (in the trainer), over dp, and over tp too for a
+    leaf every `model` rank computes whole (`train.trainer.sum_grads`)."""
     params = _on_use(params, cfg, pctx)
+    tp, lo = _vocab_split(_head_name(cfg), cfg, pctx)
     if cfg.loss_chunk_vocab:
         x, aux = forward_train_hidden(params, batch, cfg, pctx)
-        head = params["embed"].T if cfg.tie_embeddings else params["lm_head"]
-        total, ce = softmax_xent_chunked(x, head, batch["targets"],
-                                         cfg.loss_chunk_vocab)
+        total, ce = softmax_xent_chunked(x, _head(params, cfg),
+                                         batch["targets"],
+                                         cfg.loss_chunk_vocab, tp=tp, lo=lo)
     else:
         logits, aux = forward_train(params, batch, cfg, pctx)
-        total, ce = softmax_xent(logits, batch["targets"])
+        total, ce = softmax_xent(logits, batch["targets"], tp=tp, lo=lo)
     if cfg.moe is not None:
         total = total + cfg.moe.router_aux_weight * aux
     return total, {"loss": ce, "aux": aux, "total": total}

@@ -35,6 +35,14 @@ package's `shard_map` body as per-rank code (moe.py:202-278):
 
 Every collective is differentiable (`core.comm.ppermute`), so autograd
 gives each rank its share of the gradient; `train.trainer` sums them.
+These collectives are exact transposes: the shares of the input's
+cotangent over the model ranks add up to tp times its gradient, and a
+rank's share covers only what it routed.  The branch's input enters
+through `models.parallel.tp_enter` with their mean, so that every model
+rank reads the whole gradient, as the tensor-parallel blocks before it
+(attention split by heads, Megatron's pair) need.  The shared branch
+splits by width over `model` where its width divides tp
+(`models.sharding.computes_tp`), as the dense FFN does.
 """
 from __future__ import annotations
 
@@ -49,7 +57,8 @@ from repro_torch.core.comm import all_to_all
 from repro_torch.kernels.moe_gmm import moe_gmm
 from repro_torch.models.layers import (act_fn, dense_init, normal_init,
                                        storage_dtype)
-from repro_torch.models.parallel import ParallelContext, single_device_ctx
+from repro_torch.models.parallel import (ParallelContext, single_device_ctx,
+                                        tp_enter, tp_exit)
 
 
 # ---------------- params ---------------------------------------------------
@@ -175,13 +184,15 @@ def _aux_loss(probs: torch.Tensor, idx: torch.Tensor, E: int) -> torch.Tensor:
 
 
 def apply_moe(p, x: torch.Tensor, cfg: ModelConfig,
-              pctx: ParallelContext = single_device_ctx()
+              pctx: ParallelContext = single_device_ctx(),
+              shared_tp: Optional[ParallelContext] = None,
               ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Returns (y, aux_loss) for x (B, S, D), this rank's rows.  Without
     a mesh, or with one model rank, every token of the batch competes for
     one capacity buffer (T = B * S) and `p` holds every expert; with tp >
     1 model ranks, `p` holds this rank's E / tp experts and the experts
-    run expert-parallel (the module's docstring)."""
+    run expert-parallel (the module's docstring).  With `shared_tp`, `p`
+    holds this rank's columns of the shared experts' width."""
     if cfg.act != "silu":
         raise NotImplementedError(
             f"act {cfg.act!r}: the moe_gmm kernel computes silu only")
@@ -204,9 +215,10 @@ def apply_moe(p, x: torch.Tensor, cfg: ModelConfig,
         y, aux = _apply_sharded(p, x, cfg, pctx)
     if m.num_shared_experts:  # always-on branch (DeepSeekMoE)
         f = act_fn(cfg.act)
-        g = f(x @ p["shared_gate"].to(x.dtype))
-        u = x @ p["shared_up"].to(x.dtype)
-        y = y + (g * u) @ p["shared_down"].to(x.dtype)
+        xs = tp_enter(x, shared_tp)
+        g = f(xs @ p["shared_gate"].to(x.dtype))
+        u = xs @ p["shared_up"].to(x.dtype)
+        y = y + tp_exit((g * u) @ p["shared_down"].to(x.dtype), shared_tp)
     return y, aux
 
 
@@ -227,6 +239,7 @@ def _apply_sharded(p, x: torch.Tensor, cfg: ModelConfig,
                          "(models.sharding.shard_params)")
     me = mesh.coords[tp_axis]
     weights = (p["w_gate"], p["w_up"], p["w_down"])
+    x = tp_enter(x, pctx, mean=True)   # the module's docstring
 
     if S > 1 and S % tp == 0:   # tokens sharded over data x seq / tp
         s = S // tp

@@ -22,15 +22,21 @@ context's default), ``rotor_vlb`` (its two-hop Valiant form), ``xla``
 When `mesh` is None the models run on one process (`single_device_ctx`).
 `train.trainer` and `train.opera_dp` read the axes.
 
-Every layout computes the same way: a layer gathers its weights whole
-on use and its activations stay replicated over `model`
-(`models.sharding.on_use`); the tensor-parallel compute that gives
-``tp_only`` a plan without gathers is ROADMAP Queue 1 item 7c.  The JAX
-context's ``grad_sync`` waits for the GSPMD trainer's rotor pod branch
-(item 7c too).  Two of its fields have no counterpart: ``use_pallas``
-(the port picks a kernel or its plain version by the device of the
-tensors it is given, kernels/__init__.py) and ``act_sharding``
-(sequence sharding over the model axis, item 7c).
+The compute is GSPMD's partition of the JAX package's under these
+rules (`models.sharding.computes_tp`): attention split by heads, the
+FFNs and DeepSeek's shared experts by width, the embedding and the head
+by vocab, each block entered through `tp_enter` and left through
+`tp_exit` (Megatron's pair, `core.comm`), so that its leaves are
+gathered over the data axes only under ``fsdp_tp`` and not at all under
+``tp_only``; every other leaf is gathered whole on use.  Activations
+stay replicated over `model` at layer boundaries (the JAX package's
+``act_sharding="dp"``).  ROADMAP Queue 1 item 7c keeps what is left: the
+mamba and RG-LRU mixers' channel splits (they gather on use), serving
+over a mesh, the JAX context's ``grad_sync`` (the GSPMD trainer's rotor
+pod branch) and ``act_sharding="sp"``.  Two of the JAX context's fields
+have no counterpart: ``use_pallas`` (the port picks a kernel or its
+plain version by the device of the tensors it is given,
+kernels/__init__.py) and ``act_sharding``.
 """
 from __future__ import annotations
 
@@ -38,7 +44,10 @@ import dataclasses
 import math
 from typing import Optional, Tuple
 
-from repro_torch.core.comm import Mesh
+import torch
+
+from repro_torch.core.comm import (Mesh, copy_to_parallel,
+                                   reduce_from_parallel)
 
 LAYOUTS = ("fsdp_tp", "dp_only", "tp_only")
 
@@ -81,3 +90,20 @@ class ParallelContext:
 
 def single_device_ctx(**kw) -> ParallelContext:
     return ParallelContext(mesh=None, **kw)
+
+
+def tp_enter(x: torch.Tensor, tp: Optional[ParallelContext],
+             mean: bool = False) -> torch.Tensor:
+    """`x` entering a block split over ``tp``'s model axis (`core.comm.
+    copy_to_parallel`); `x` itself when `tp` is None (a whole block)."""
+    if tp is None:
+        return x
+    return copy_to_parallel(x, tp.mesh, tp.tp_axis, mean=mean)
+
+
+def tp_exit(x: torch.Tensor, tp: Optional[ParallelContext]) -> torch.Tensor:
+    """A split block's partial output summed over ``tp``'s model axis
+    (`core.comm.reduce_from_parallel`); `x` itself when `tp` is None."""
+    if tp is None:
+        return x
+    return reduce_from_parallel(x, tp.mesh, tp.tp_axis)

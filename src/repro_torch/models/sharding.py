@@ -21,14 +21,19 @@ serving over a mesh (ROADMAP Queue 1 item 7c).
 `gather_params` puts the whole tensors back; `local_slice` gives the
 cut for a leaf by name, which `models.model.init_params`,
 `models.convert` and `train.checkpoint` apply to whole tensors.
-`on_use` is the compute's side (GSPMD's inserted all-gather, the
-``xla`` baseline of the JAX trainer): a layer's blocks gathered whole,
-their backward the reduce-scatter (`core.comm.all_gather`), inside the
-layer's rematerialised body so that no whole weight outlives it; the
-expert leaves keep their E dim split, which the expert-parallel branch
-of `models.moe` consumes as it is.  `replicated_axes` and
-`sharded_axes` name the axes a leaf's gradient and its squares are
-summed over (`train.trainer`).
+`on_use` is the compute's side, as GSPMD partitions the JAX package's
+compute under these rules: a layer's blocks gathered on use, their
+backward the reduce-scatter (`core.comm.all_gather`), inside the
+layer's rematerialised body so that no whole weight outlives it.  A
+leaf that `computes_tp` (attention split by heads, the FFNs and the
+shared experts by width, the embedding and the head by vocab) is
+gathered over its data axes only, the FSDP gather, and keeps its
+`model` block, which the modules compute on; under ``tp_only`` it is
+not gathered at all.  Every other leaf is gathered whole; the expert
+leaves keep their E dim split, which the expert-parallel branch of
+`models.moe` consumes as it is.  `replicated_axes` and `sharded_axes`
+name the axes a leaf's gradient and its squares are summed over
+(`train.trainer`).
 """
 from __future__ import annotations
 
@@ -275,6 +280,56 @@ def gather_params(params: nn.Module, cfg: ModelConfig,
     return params
 
 
+# the leaves of the blocks that compute tensor-parallel over `model`, and
+# the dim each is split on (None: shared by every rank's part, whole):
+# attention by heads (the query heads of a rank contiguous, and so the
+# KV heads of their groups), the FFNs and the shared experts by width,
+# the embedding and the head by vocab
+_TP_DIM: Dict[str, Dict[str, Optional[int]]] = {
+    "attn": {"wq": 1, "wk": 1, "wv": 1, "wo": 0, "bq": 0, "bk": 0, "bv": 0,
+             "q_norm": None, "k_norm": None},
+    "ffn": {"w_gate": 1, "w_up": 1, "w_down": 0, "w_in": 1, "b_in": 0,
+            "w_out": 0},
+    "moe": {"shared_gate": 1, "shared_up": 1, "shared_down": 0},
+    "": {"embed": 0, "lm_head": 1},
+}
+_TP_DIM["xattn"] = _TP_DIM["attn"]
+
+
+def _tp_dim(name: str) -> Tuple[str, bool, Optional[int]]:
+    """(the block of leaf `name`, whether the leaf is one of a block that
+    can split over `model`, the dim it is split on)."""
+    parts = name.split(".")
+    block = parts[-2] if len(parts) > 1 else ""
+    dims = _TP_DIM.get(block, {})
+    return block, parts[-1] in dims, dims.get(parts[-1])
+
+
+def computes_tp(name: str, cfg: ModelConfig, pctx: ParallelContext) -> bool:
+    """Whether the leaf `name` computes tensor-parallel over `model`, as
+    GSPMD partitions the JAX package's compute under its rules: each
+    `model` rank computes its own heads (when `num_heads` and
+    `num_kv_heads` both divide ``tp_size``; a cut inside a head is
+    resharded, so the layer's attention gathers whole), its own columns
+    of the gated or plain FFN's width and of the shared experts' (where
+    the width divides ``tp_size``), and its own rows of the vocabulary in
+    the embedding and the head, tied or not (where it divides).  Every
+    other leaf (norms, the router, the experts, which are
+    expert-parallel, the mamba and RG-LRU mixers, the plain FFN's output
+    bias) is gathered whole on use.  False without a mesh and under
+    ``dp_only``.  One rule for every module: `use_leaf` gathers such a
+    leaf over its data axes only, the modules split their compute by
+    it, and `train.trainer.sum_grads` counts its gradient once."""
+    tp = pctx.tp_size
+    block, splits, dim = _tp_dim(name)
+    if pctx.mesh is None or tp == 1 or not splits:
+        return False
+    if block in ("attn", "xattn"):
+        return cfg.num_heads % tp == 0 and cfg.num_kv_heads % tp == 0
+    shape = _whole_shapes(_CfgKey(cfg)).get(name)
+    return shape is not None and shape[dim] % tp == 0
+
+
 def use_leaf(name: str, p: torch.Tensor, cfg: ModelConfig,
              pctx: ParallelContext) -> torch.Tensor:
     """Leaf `name` as its use reads it: this rank's block `p`
@@ -282,18 +337,30 @@ def use_leaf(name: str, p: torch.Tensor, cfg: ModelConfig,
     expert leaf keeps its E dim split), first cast to the compute dtype
     where its use casts it to a narrower one (`layers.storage_dtype`),
     which halves the wire's bytes and gives the same bits; `p` itself
-    where the leaf is replicated, or without a mesh."""
+    where the leaf is replicated, or without a mesh.  A leaf that
+    `computes_tp` is gathered over its data axes only and read as this
+    rank's `model` block: its block as it holds it, or, where the rules
+    leave it replicated (a bias under 4,096 wide), its part cut here."""
     if pctx.mesh is None:
         return p
     spec = param_spec(name, p.shape, cfg, pctx)
     parts = name.split(".")
     expert = "moe" in parts[:-1] and parts[-1] in _EXPERT_LEAVES
     cuts = _cuts(spec, skip=(len(spec) - 3,) if expert else ())
-    if not cuts:
-        return p
-    dtype = min(p.dtype, storage_dtype(cfg, parts[-1]),
-                key=lambda t: torch.finfo(t).bits)
-    return all_gather(p, pctx.mesh, cuts, dtype)
+    tp = computes_tp(name, cfg, pctx)
+    if tp:
+        cuts = tuple((d, axes) for d, axes in (
+            (d, tuple(a for a in axes if a != pctx.tp_axis))
+            for d, axes in cuts) if axes)
+    if cuts:
+        dtype = min(p.dtype, storage_dtype(cfg, parts[-1]),
+                    key=lambda t: torch.finfo(t).bits)
+        p = all_gather(p, pctx.mesh, cuts, dtype)
+    dim = _tp_dim(name)[2]
+    if tp and dim is not None and pctx.tp_axis not in entry_axes(spec[dim]):
+        n, i = pctx.tp_size, pctx.mesh.coords[pctx.tp_axis]
+        p = p.narrow(dim, i * (p.shape[dim] // n), p.shape[dim] // n)
+    return p
 
 
 def on_use(tree: nn.Module, prefix: str, cfg: ModelConfig,

@@ -17,7 +17,9 @@ backward pass, `torch.utils.checkpoint`, as the JAX package checkpoints
 its scanned blocks), "prefill" (full sequence, also returns the decode
 state; an encoder layer returns none) and "decode" (one token against
 the state, which it writes in place).  Trained on a mesh, a layer holds
-this rank's blocks of its weights and gathers them on use.
+this rank's blocks of its weights and gathers them on use; its
+attention, FFN and shared experts compute tensor-parallel over `model`
+where `models.sharding.computes_tp` says so.
 """
 from __future__ import annotations
 
@@ -41,7 +43,7 @@ from repro_torch.models.plan import (  # noqa: F401  (the stack's API)
     encoder_plan,
     stack_plan,
 )
-from repro_torch.models.sharding import on_use
+from repro_torch.models.sharding import computes_tp, on_use
 
 
 # --------------------------------------------------------------------------
@@ -88,18 +90,21 @@ def _write(cache: Dict, new: Dict) -> Dict:
 
 
 def _cross(p, h: torch.Tensor, cfg: ModelConfig, ctx: LayerCtx,
-           cache: Optional[Dict]) -> Tuple[torch.Tensor, Dict]:
+           cache: Optional[Dict], tp: Optional[ParallelContext] = None
+           ) -> Tuple[torch.Tensor, Dict]:
     """Cross-attention: prefill projects the source's K/V and returns
     them as the decode state; decode reads them from `cache`, masked past
-    `ctx.cross_len` (all of it when None)."""
+    `ctx.cross_len` (all of it when None).  With `tp`, this rank's heads
+    (`attention.attention_block`)."""
     if ctx.mode == "decode":
         ck, cv = cache["ck"], cache["cv"]
         n = ctx.cross_len
         if n is None:
             n = torch.full((h.shape[0],), ck.shape[2], device=h.device)
         return A.cross_attention_decode(p, h, cfg, ck, cv, n), cache
-    ck, cv = A.project_cross_kv(p, ctx.cross_src, cfg)
-    return A.cross_attention_block(p, h, cfg, ck, cv), {"ck": ck, "cv": cv}
+    ck, cv = A.project_cross_kv(p, ctx.cross_src, cfg, tp)
+    return (A.cross_attention_block(p, h, cfg, ck, cv, tp),
+            {"ck": ck, "cv": cv})
 
 
 def apply_layer(
@@ -116,11 +121,21 @@ def apply_layer(
     `cache`, written in place; in train mode None.  On a mesh `p` holds
     this rank's blocks of the leaves named `prefix` + their path
     ("stack.3"), gathered here on use (`models.sharding.on_use`), and
-    `pctx` reaches the MoE layer (expert-parallel with model ranks)."""
+    `pctx` reaches the MoE layer (expert-parallel with model ranks) and
+    each block that computes tensor-parallel (`split`)."""
     if pctx.mesh is not None:
         if prefix is None:
             raise ValueError("a layer on a mesh needs its leaves' prefix")
         p = on_use(p, prefix, cfg, pctx)
+
+    def split(block: str, leaf: str) -> Optional[ParallelContext]:
+        """`pctx` where the layer's `block` computes tensor-parallel over
+        `model`, else None."""
+        if pctx.mesh is None or not computes_tp(f"{prefix}.{block}.{leaf}",
+                                                cfg, pctx):
+            return None
+        return pctx
+
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     decode = ctx.mode == "decode"
     train = ctx.mode == "train"
@@ -149,10 +164,12 @@ def apply_layer(
             y, cs, hs = R.rglru_block_mix(p["rec"], h, cfg, return_state=True)
             new_cache = {"conv": cs, "lru": hs}
     elif kind == "cross_attn":
-        y, new_cache = _cross(p["attn"], h, cfg, ctx, cache)
+        y, new_cache = _cross(p["attn"], h, cfg, ctx, cache,
+                              split("attn", "wq"))
         new_cache = None if train else new_cache
     elif kind == "encoder":   # bidirectional, no decode state
-        y = A.attention_block(p["attn"], h, cfg, ctx.positions, causal=False)
+        y = A.attention_block(p["attn"], h, cfg, ctx.positions, causal=False,
+                              tp=split("attn", "wq"))
         new_cache = None
     else:   # self_attn / moe / dense / local_attn / decoder
         window = cfg.hybrid.local_window if kind == "local_attn" else 0
@@ -163,7 +180,7 @@ def apply_layer(
             new_cache = {"k": nk, "v": nv}
         elif train:
             y = A.attention_block(p["attn"], h, cfg, ctx.positions,
-                                  window=window)
+                                  window=window, tp=split("attn", "wq"))
             new_cache = None
         else:
             y, kc, vc = A.attention_block(p["attn"], h, cfg, ctx.positions,
@@ -172,7 +189,8 @@ def apply_layer(
     x = x + y
     if kind == "decoder":   # then cross-attention over the encoder's output
         h = apply_norm(cfg.norm, p["ln_x"], x, upcast=cfg.norm_upcast)
-        y, cross = _cross(p["xattn"], h, cfg, ctx, cache)
+        y, cross = _cross(p["xattn"], h, cfg, ctx, cache,
+                          split("xattn", "wq"))
         if decode:
             new_cache = cache
         elif not train:
@@ -181,9 +199,11 @@ def apply_layer(
 
     h = apply_norm(cfg.norm, p["ln2"], x, upcast=cfg.norm_upcast)
     if kind == "moe":
-        y, aux = M.apply_moe(p["moe"], h, cfg, pctx)
+        y, aux = M.apply_moe(p["moe"], h, cfg, pctx, split("moe",
+                                                            "shared_gate"))
     else:
-        y = F.apply_ffn(p["ffn"], h, cfg)
+        y = F.apply_ffn(p["ffn"], h, cfg,
+                        split("ffn", "w_gate" if F.gated(cfg) else "w_in"))
     return x + y, aux, new_cache
 
 

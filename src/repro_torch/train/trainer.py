@@ -14,16 +14,22 @@ leaf and of both AdamW moments, placed by the JAX package's rules under
 ``pctx.layout`` (`models.sharding`: ``fsdp_tp`` by default, ``dp_only``
 or ``tp_only``).  It takes its rows of the global batch (`shard_batch`,
 by `batch_spec`) and runs autograd of `loss_fn(..., pctx)` on them.  The
-forward gathers each layer's blocks whole on use, GSPMD's inserted
-all-gather (the ``xla`` baseline of trainer.py:3-6), so its backward
-reduce-scatters each leaf's gradient over the axes the leaf is cut on;
-the MoE layers run expert-parallel over the model axis with
+forward computes tensor-parallel over `model` where `models.sharding.
+computes_tp` says so (attention by heads, the FFNs and shared experts by
+width, the embedding and the head by vocab; Megatron's pair, so a
+`model` rank's autograd gives the gradient of its block once) and
+gathers every other leaf whole on use, GSPMD's inserted all-gather (the
+``xla`` baseline of trainer.py:3-6), whose backward reduce-scatters the
+leaf's gradient over the axes it is cut on; every `model` rank computes
+such a leaf's whole use, so the sum over `model` counts it tp times.
+The MoE layers run expert-parallel over the model axis with
 differentiable collectives.  `sum_grads` then sums each leaf's gradient
 with `dist.all_reduce` over the axes it is replicated on (`models.
-sharding.replicated_axes`) and divides by the dp * tp ranks.  That is the
-gradient of the JAX package's global loss (`jax.grad` through its
-`shard_map`, whose transpose divides a replicated output's cotangent by
-the ranks it is replicated on and sums a replicated input's over them).
+sharding.replicated_axes`) and divides by the dp data ranks, and by tp
+for a leaf that does not compute tensor-parallel.  That is the gradient
+of the JAX package's global loss (`jax.grad` through its `shard_map`,
+whose transpose divides a replicated output's cotangent by the ranks it
+is replicated on and sums a replicated input's over them).
 The global norm that AdamW clips by sums each leaf's squares over
 exactly the axes it is cut on.  Every rank then runs AdamW on its
 blocks, so the ranks that hold one block hold the same bits of it.  The
@@ -43,8 +49,8 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.core.comm import all_reduce
 from repro_torch.models.model import loss_fn
 from repro_torch.models.parallel import ParallelContext
-from repro_torch.models.sharding import (batch_spec, replicated_axes,
-                                        sharded_axes)
+from repro_torch.models.sharding import (batch_spec, computes_tp,
+                                        replicated_axes, sharded_axes)
 from repro_torch.optim.adamw import AdamWConfig, adamw_update, init_opt_state
 
 
@@ -93,14 +99,16 @@ def sum_grads(grads: Dict[str, torch.Tensor], cfg: ModelConfig,
     reduce-scattered over the axes it is cut on (the backward of its
     gather on use) -> (the gradient of the JAX package's global loss,
     this rank's block of each leaf, summed in place over the axes the
-    leaf is replicated on and divided by dp * tp; the whole gradient's
-    global norm, the same on every rank)."""
-    mesh, ranks = pctx.mesh, pctx.dp_size * pctx.tp_size
+    leaf is replicated on and divided by dp, and by tp where the leaf
+    does not compute tensor-parallel; the whole gradient's global norm,
+    the same on every rank)."""
+    mesh = pctx.mesh
     by_axes: Dict[Tuple[str, ...], list] = {}
     for name, g in grads.items():
         g = all_reduce(g.contiguous(), mesh,
                        replicated_axes(name, g.shape, cfg, pctx))
-        grads[name] = g.div_(ranks)
+        once = computes_tp(name, cfg, pctx)
+        grads[name] = g.div_(pctx.dp_size * (1 if once else pctx.tp_size))
         cut = tuple(sorted(set(sharded_axes(name, g.shape, cfg, pctx))))
         by_axes.setdefault(cut, []).append(g)
     # the global norm: each leaf's squares summed over exactly the axes

@@ -87,6 +87,9 @@ raising:
    input (atol/rtol 1e-5; the compressed one within a relative 0.05);
    each rank's wire bytes per input byte beside `schedule_stats`'s, and
    the host ms of a call over loopback, not NVLink.
+   The 4-rank phases that follow, opera_dp_golden to serve_mesh_full,
+   run on four rank processes started once (`_RankPool`), a task a
+   phase; a phase run alone (scripts/chip_ab.py) opens a pool for it.
    opera_dp_golden: the explicit data-parallel trainer
    (`train.opera_dp`) on 4 ranks as `pod` 2 x `data` 2: reduced
    smollm-360m (2 layers, vocab 64, hd 64 with 3 query heads a KV head,
@@ -157,6 +160,29 @@ raising:
    blocks; the launches counted; step ms and the wire's ms and bytes
    within it, the collectives a step by kind and axis, the flash calls
    by heads, peak GB a rank.
+   serve_mesh_golden, serve_mesh_full: serving over `model`
+   (`ServeEngine` with a mesh context, the cache placed by
+   `models.sharding.cache_spec`), 4 ranks as `model` 4 in one task
+   of the rank pool (`phase_serve_mesh`).  Reduced qwen3-moe-30b-a3b (f32,
+   8 / 4 heads, 1,024 positions a slot: the cache cut by positions)
+   against the stored JAX `ServeEngine` run on 4 fake CPU devices
+   (src/repro_torch/data/qwen3_moe_30b_a3b_reduced_serve_mesh_golden.npz:
+   tokens equal, every prefill's and tick's logits within 1e-4; prompts
+   whose lengths divide 4 take the MoE's all-to-all prefill); then
+   qwen3-moe at full width in bf16 (12 of 48 layers, printed as
+   `reduced`; 8 / 1 heads, 32 experts and 37,984 words a rank), 4 slots
+   of 1,024, 8 requests of odd lengths, 8 new tokens each, held to the
+   same requests on one rank on whole weights with the mesh's router
+   decisions replayed (prefill logits within bf16's 2e-2 of its largest
+   magnitude), and to the free one-rank run within a limit that parts a
+   one-rank run with the attention in f32 from one with the KV heads
+   rolled, both run and checked, with no first-layer router decision
+   apart at a logit gap above 2e-2 (ROADMAP Queue 3, B7); every rank's
+   tokens the same, every tick's logits finite, moe_gmm on 32 experts in every
+   MoE layer of every prefill and tick and flash on 8 / 1 heads in every
+   layer of every prefill, counted; tick and prefill ms with the wire's
+   within them, the collectives a tick by kind and axis, bytes a rank
+   sends, peak GB a rank.
    train_full_qwen3, train_full_falcon_mamba, train_full_rgemma: the
    MoE, SSM and hybrid archs at full width, the same way at B 1, S 4096
    (printed as `reduced`), 10 steps without a checkpoint: qwen3-moe at 4
@@ -344,6 +370,151 @@ def _emit(obj) -> None:
 def _check(ok: bool, msg: str) -> None:
     if not ok:
         raise RuntimeError(f"chip_smoke check failed: {msg}")
+
+
+# ---------------- four ranks shared by the multi-rank phases -------------------
+
+# the open `_RankPool` (`main`'s, or a phase's own when it runs alone)
+_POOL = None
+
+
+def _pool_rank(rank: int, size: int, store: str, device: str, tasks,
+               results) -> None:
+    """A `_RankPool` rank: joins the world once, then runs each task
+    ``(fn, args)`` as ``fn(world, *args)`` with the kernels' launch counts
+    cleared and the peak memory reset, as a fresh process starts, and
+    frees the card's cached memory after it, until None."""
+    import gc
+    import traceback
+
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch.core.comm import init_world
+    from repro_torch.kernels import launch_counts
+
+    try:
+        world = init_world(device, store=store, rank=rank, size=size)
+        card = world.device.type == "cuda"
+        while True:
+            task = tasks.get()
+            if task is None:
+                break
+            fn, args = task
+            launch_counts.clear()
+            if card:
+                torch.cuda.reset_peak_memory_stats()
+            out = fn(world, *args)
+            del task, args
+            gc.collect()
+            if card:
+                torch.cuda.empty_cache()
+            results.put((rank, True, out))
+    except BaseException:   # reported to the parent, which fails the run
+        results.put((rank, False, traceback.format_exc()))
+        raise
+    finally:
+        if dist.is_initialized():
+            dist.destroy_process_group()
+
+
+class _RankPool:
+    """Four rank processes on the card, joined once, that run the 4-rank
+    phases' rank functions one after another (`run`), where each phase
+    would start four processes of its own (`core.comm.spawn_world`): the
+    imports, the CUDA start-up and the world's join, ~15 s a phase on the
+    card's host, come once.  Entered by `main` around those phases
+    (`_ranks` then runs on it); a phase run alone (scripts/chip_ab.py)
+    opens one for its call.  A rank that fails or outlives a task's time
+    fails the run, and every rank is stopped."""
+
+    def __init__(self, size: int = 4, device: str = "cuda"):
+        self.size, self.device = size, device
+
+    def __enter__(self):
+        import multiprocessing as mp
+        import os
+        import tempfile
+
+        global _POOL
+        # what the large phases ask of the allocator, set before the
+        # ranks start it
+        os.environ.setdefault("PYTORCH_CUDA_ALLOC_CONF",
+                              "expandable_segments:True")
+        ctx = mp.get_context("spawn")
+        self._tmp = tempfile.TemporaryDirectory()
+        store = os.path.join(self._tmp.name, "store")
+        self.results = ctx.Queue()
+        self.tasks = [ctx.Queue() for _ in range(self.size)]
+        self.procs = [ctx.Process(target=_pool_rank, daemon=True, args=(
+            r, self.size, store, self.device, self.tasks[r], self.results))
+            for r in range(self.size)]
+        for p in self.procs:
+            p.start()
+        _POOL = self
+        return self
+
+    def run(self, fn, *args, timeout_s: float) -> list:
+        """``fn(world, *args)`` on every rank: each rank's result in rank
+        order, as `spawn_world` returns them."""
+        import queue
+
+        for q in self.tasks:
+            q.put((fn, args))
+        got, failure = {}, None
+        deadline = time.monotonic() + timeout_s
+        while len(got) < self.size and failure is None:
+            left = deadline - time.monotonic()
+            if left <= 0:
+                failure = (f"ranks {sorted(set(range(self.size)) - set(got))}"
+                           f" still running after {timeout_s:.0f} s")
+                break
+            try:
+                rank, ok, out = self.results.get(timeout=min(left, 1.0))
+            except queue.Empty:
+                dead = [r for r, p in enumerate(self.procs)
+                        if r not in got and not p.is_alive()]
+                if dead:
+                    failure = (f"rank {dead[0]} exited with "
+                               f"{self.procs[dead[0]].exitcode}")
+                continue
+            if ok:
+                got[rank] = out
+            else:
+                failure = f"rank {rank} failed:\n{out}"
+        if failure is not None:
+            self._stop(kill=True)
+            raise RuntimeError(f"rank pool, {getattr(fn, '__name__', fn)}: "
+                               f"{failure}")
+        return [got[r] for r in range(self.size)]
+
+    def _stop(self, kill: bool) -> None:
+        global _POOL
+        _POOL = None
+        for q, p in zip(self.tasks, self.procs):
+            if p.is_alive() and not kill:
+                q.put(None)
+        for p in self.procs:
+            p.join(timeout=0 if kill else 60)
+            if p.is_alive():
+                p.kill()
+                p.join()
+        self._tmp.cleanup()
+
+    def __exit__(self, *exc):
+        if _POOL is self:
+            self._stop(kill=exc[0] is not None)
+        return False
+
+
+def _ranks(fn, *args, timeout_s: float) -> list:
+    """``fn(world, *args)`` on 4 ranks sharing the card, on `main`'s
+    `_RankPool`, or on a pool of its own opened for this call when none
+    is open (a phase run alone): one way to start ranks either way."""
+    if _POOL is not None:
+        return _POOL.run(fn, *args, timeout_s=timeout_s)
+    with _RankPool() as pool:
+        return pool.run(fn, *args, timeout_s=timeout_s)
 
 
 def _cuda_ms(fn, reps: int, warmup: int = 2) -> float:
@@ -2739,7 +2910,6 @@ def phase_opera_dp_golden(root: Path) -> dict:
     import numpy as np
 
     from repro_torch.configs.base import get_config, reduced_config
-    from repro_torch.core.comm import spawn_world
     from repro_torch.data.pipeline import SyntheticLM, device_batches
     from repro_torch.optim.adamw import AdamWConfig
     from repro_torch.models.parallel import single_device_ctx
@@ -2749,8 +2919,7 @@ def phase_opera_dp_golden(root: Path) -> dict:
     stored = dict(np.load(path))
     steps = len(stored["loss"])
     t0 = time.perf_counter()
-    ranks = spawn_world(_dp_golden_rank, 4, str(path), device="cuda",
-                        timeout_s=300)
+    ranks = _ranks(_dp_golden_rank, str(path), timeout_s=300)
     ranks_s = time.perf_counter() - t0
     rows = [r["rows"] for r in ranks]
     for i in range(steps):
@@ -2860,14 +3029,12 @@ def phase_opera_dp_full(train_full: dict) -> dict:
     import numpy as np
 
     from repro_torch.configs.base import get_config
-    from repro_torch.core.comm import spawn_world
 
     _free_card()
     os.environ.setdefault("PYTORCH_CUDA_ALLOC_CONF",
                           "expandable_segments:True")
     t0 = time.perf_counter()
-    ranks = spawn_world(_dp_full_rank, 4, DP_FULL_S, device="cuda",
-                        timeout_s=900)
+    ranks = _ranks(_dp_full_rank, DP_FULL_S, timeout_s=900)
     wall = time.perf_counter() - t0
     L = get_config("smollm-360m").num_layers
     runs = {}
@@ -2929,13 +3096,13 @@ class _Census:
     `payload` bytes: ``("all_reduce", "model", "SUM")``; a group is named
     by the axes its ranks' coordinates differ on, "data+model" for the
     world's), the (leaf, axis) pairs a gather on use sends over
-    (`gathered`) and the flash kernel's calls by their (query, KV) heads
-    (`heads`), by wrapping `torch.distributed`'s collectives,
-    `core.comm._gather_axis`, `models.sharding.use_leaf` (where
-    `models.model` and `on_use` reach it) and
-    `models.attention.flash_attention`.  It reads names every tree of the
-    port has had since its FSDP layout, so that `scripts/chip_ab.py` can
-    run it on a parent's tree."""
+    (`gathered`), the flash kernel's calls by their (query, KV) heads
+    (`heads`) and the moe_gmm kernel's by their experts (`experts`), by
+    wrapping `torch.distributed`'s collectives, `core.comm._gather_axis`,
+    `models.sharding.use_leaf` (where `models.model` and `on_use` reach
+    it), `models.attention.flash_attention` and `models.moe.moe_gmm`.  It
+    reads names every tree of the port has had since its FSDP layout, so
+    that `scripts/chip_ab.py` can run it on a parent's tree."""
 
     def __init__(self, shape: dict):
         import collections
@@ -2946,6 +3113,7 @@ class _Census:
         self.payload = collections.Counter()
         self.gathered = collections.Counter()
         self.heads = collections.Counter()
+        self.experts = collections.Counter()
         self._leaf = None
         self._saved = []
 
@@ -2975,7 +3143,7 @@ class _Census:
         import torch.distributed as dist
 
         from repro_torch.core import comm
-        from repro_torch.models import attention, model, sharding
+        from repro_torch.models import attention, model, moe, sharding
 
         world = dist.group.WORLD
 
@@ -3024,7 +3192,14 @@ class _Census:
                 return orig(q, k, v, *args, **kw)
             return fn
 
+        def gmm(orig):
+            def fn(h, *args, **kw):
+                self.experts[int(h.shape[0])] += 1
+                return orig(h, *args, **kw)
+            return fn
+
         self._wrap(dist, "batch_isend_irecv", p2p)
+        self._wrap(moe, "moe_gmm", gmm)
         self._wrap(sharding, "use_leaf", use_leaf)
         self._wrap(model, "use_leaf", use_leaf)
         self._wrap(comm, "_gather_axis", gather_axis)
@@ -3161,14 +3336,12 @@ def _mesh_golden(root: Path, phase: str, fname: str, arch: str) -> dict:
     import numpy as np
 
     from repro_torch.configs.base import get_config, reduced_config
-    from repro_torch.core.comm import spawn_world
 
     path = root / "src" / "repro_torch" / "data" / fname
     stored = dict(np.load(path))
     steps = len(stored["loss"])
     t0 = time.perf_counter()
-    ranks = spawn_world(_mesh_golden_rank, 4, str(path), arch, device="cuda",
-                        timeout_s=300)
+    ranks = _ranks(_mesh_golden_rank, str(path), arch, timeout_s=300)
     ranks_s = time.perf_counter() - t0
     for i in range(steps):
         rows = [r["rows"][i] for r in ranks]
@@ -3288,7 +3461,6 @@ def phase_fsdp_full(train_full: dict) -> dict:
     import numpy as np
 
     from repro_torch.configs.base import get_config
-    from repro_torch.core.comm import spawn_world
     from repro_torch.models.model import param_shapes
 
     _free_card()
@@ -3298,8 +3470,7 @@ def phase_fsdp_full(train_full: dict) -> dict:
         print(f"reduced: {json.dumps({'global_batch': [8, FSDP_FULL_B]})} "
               "(4 ranks share the card's 80 GB)", flush=True)
     t0 = time.perf_counter()
-    ranks = spawn_world(_fsdp_full_rank, 4, FSDP_FULL_B, device="cuda",
-                        timeout_s=600)
+    ranks = _ranks(_fsdp_full_rank, FSDP_FULL_B, timeout_s=600)
     wall = time.perf_counter() - t0
     cfg = get_config("smollm-360m")
     L = cfg.num_layers
@@ -3461,14 +3632,12 @@ def phase_ep_golden(root: Path) -> dict:
     import numpy as np
 
     from repro_torch.configs.base import get_config, reduced_config
-    from repro_torch.core.comm import spawn_world
 
     path = root / "src" / "repro_torch" / "data" / EP_GOLDEN
     stored = dict(np.load(path))
     steps = len(stored["loss"])
     t0 = time.perf_counter()
-    ranks = spawn_world(_ep_golden_rank, 4, str(path), device="cuda",
-                        timeout_s=300)
+    ranks = _ranks(_ep_golden_rank, str(path), timeout_s=300)
     ranks_s = time.perf_counter() - t0
     cfg = reduced_config(get_config("qwen3-moe-30b-a3b"))
     want = _train_launches(cfg, {"flash_attention": "moe",
@@ -3627,7 +3796,6 @@ def phase_ep_full() -> dict:
     import numpy as np
 
     from repro_torch.configs.base import get_config
-    from repro_torch.core.comm import spawn_world
     from repro_torch.models.model import count_params
 
     _free_card()
@@ -3639,8 +3807,7 @@ def phase_ep_full() -> dict:
                "seq": [4096, EP_FULL_S], "global_batch": [256, EP_FULL_B]}
     print(f"reduced: {json.dumps(reduced)} ({EP_FULL_WHY})", flush=True)
     t0 = time.perf_counter()
-    ranks = spawn_world(_ep_full_rank, 4, EP_FULL_LAYERS, device="cuda",
-                        timeout_s=600)
+    ranks = _ranks(_ep_full_rank, EP_FULL_LAYERS, timeout_s=600)
     wall = time.perf_counter() - t0
     losses = ranks[0]["losses"]
     _check(all(r["losses"] == losses for r in ranks),
@@ -3844,7 +4011,6 @@ def phase_tp_full() -> dict:
     import torch
 
     from repro_torch.configs.base import get_config
-    from repro_torch.core.comm import spawn_world
     from repro_torch.models.model import param_shapes
 
     _free_card()
@@ -3856,8 +4022,7 @@ def phase_tp_full() -> dict:
                "global_batch": [256, TP_FULL_B]}
     print(f"reduced: {json.dumps(reduced)} ({TP_FULL_WHY})", flush=True)
     t0 = time.perf_counter()
-    ranks = spawn_world(_tp_full_rank, 4, TP_FULL_LAYERS, TP_FULL_LR,
-                        device="cuda", timeout_s=900)
+    ranks = _ranks(_tp_full_rank, TP_FULL_LAYERS, TP_FULL_LR, timeout_s=900)
     wall = time.perf_counter() - t0
     whole_run = _tp_full_whole(TP_FULL_LAYERS, TP_FULL_LR)
     losses = ranks[0]["losses"]
@@ -3933,6 +4098,569 @@ def phase_tp_full() -> dict:
         **{f"{k}_launches": sum(r["launches"][k] for r in ranks)
            for k in want})
     return out
+
+
+# ---------------- serving over a mesh ----------------------------------------
+
+SERVE_MESH_GOLDEN = "qwen3_moe_30b_a3b_reduced_serve_mesh_golden.npz"
+# qwen3-moe-30b-a3b at full width on (data 1, model 4): 32 / 4 heads of
+# 128 (8 / 1 a rank), 128 experts (32 a rank), 151,936 words (37,984 a
+# rank); 4 slots of 1,024 positions (cut by positions: 256 a rank);
+# prompts of odd lengths, so that every prefill takes the MoE's local
+# branch, whose capacity is the one-rank run's
+SERVE_MESH_LAYERS = 12
+SERVE_MESH_SLOTS, SERVE_MESH_SEQ, SERVE_MESH_NEW = 4, 1024, 8
+SERVE_MESH_LENS = (455, 373, 325, 231, 247, 143, 157, 135)
+# the limit of the free one-rank run's distance (each prefill's largest
+# logit distance over its largest magnitude), between a one-rank run that
+# rounds otherwise and one with a wrong kernel (`_serve_mesh_whole`)
+SERVE_MESH_FREE_LIMIT = 0.1
+SERVE_MESH_WHY = ("the script's 1,200 s, not the card's 80 GB: a rank "
+                  "holds ~4 GB of bf16 weights at 12 layers, ~15 GB at 48")
+
+
+class _Logits:
+    """While entered, keeps the logits every `forward_prefill` and
+    `forward_decode` of `serve.engine` returns (each a copy on the
+    host), and of a `_Census` the collectives the decode ticks issue
+    (`tick_calls`)."""
+
+    def __init__(self, census=None):
+        import collections
+
+        self.census = census
+        self.tick_calls = collections.Counter()
+
+    def __enter__(self):
+        from repro_torch.serve import engine
+
+        self.prefill, self.tick = [], []
+        self._saved = (engine.forward_prefill, engine.forward_decode)
+        pf, dc = self._saved
+
+        def prefill(*args, **kw):
+            out = pf(*args, **kw)
+            self.prefill.append(out[0].float().cpu())
+            return out
+
+        def decode(*args, **kw):
+            before = dict(self.census.calls) if self.census else {}
+            out = dc(*args, **kw)
+            self.tick.append(out[0].float().cpu())
+            if self.census:
+                self.tick_calls.update({k: v - before.get(k, 0) for k, v in
+                                        self.census.calls.items()})
+            return out
+
+        engine.forward_prefill, engine.forward_decode = prefill, decode
+        return self
+
+    def __exit__(self, *exc):
+        from repro_torch.serve import engine
+
+        engine.forward_prefill, engine.forward_decode = self._saved
+        return False
+
+
+class _Routes:
+    """While entered, keeps the experts each `models.moe._topk_route` call
+    picks, in call order, each token's margin between its k-th and
+    (k+1)-th router probabilities, and the gap between its k-th and
+    (k+1)-th router logits over its largest logit magnitude; given
+    `replay`, a run's kept picks, each call takes the picks of the same
+    call there instead, its gates renormalised over them as the router
+    renormalises its own."""
+
+    def __init__(self, replay=None):
+        self.replay = replay
+
+    def __enter__(self):
+        import torch
+
+        from repro_torch.models import moe
+
+        self.picks, self.margins, self.gaps = [], [], []
+        self._orig = route = moe._topk_route
+
+        def topk_route(logits, k):
+            gates, idx, probs = route(logits, k)
+            if self.replay is not None:
+                idx = self.replay[len(self.picks)].to(idx.device)
+                vals = torch.gather(probs, -1, idx)
+                gates = vals / vals.sum(-1, keepdim=True).clamp(min=1e-9)
+            top = torch.topk(probs, k + 1, dim=-1).values
+            lt = torch.topk(logits.float(), k + 1, dim=-1).values
+            self.picks.append(idx.cpu())
+            self.margins.append((top[:, k - 1] - top[:, k]).cpu())
+            self.gaps.append(((lt[:, k - 1] - lt[:, k])
+                              / logits.float().abs().amax(-1)).cpu())
+            return gates, idx, probs
+
+        moe._topk_route = topk_route
+        return self
+
+    def __exit__(self, *exc):
+        from repro_torch.models import moe
+
+        moe._topk_route = self._orig
+        return False
+
+
+def _serve_mesh_prompts(vocab: int) -> list:
+    import numpy as np
+
+    rng = np.random.default_rng(0)
+    return [rng.integers(0, vocab, n).astype(np.int32)
+            for n in SERVE_MESH_LENS]
+
+
+def _serve(cfg, params, pctx, slots, max_seq, prompts, new, device,
+           census=None):
+    """A `ServeEngine` on `prompts` to completion: (the engine, each
+    request's tokens, the recorded logits (`_Logits` of `census`), the
+    kernels' launches)."""
+    from repro_torch.kernels import launch_counts
+    from repro_torch.serve.engine import Request, ServeEngine
+
+    eng = ServeEngine(cfg, params, pctx, slots=slots, max_seq=max_seq,
+                      device=device)
+    for rid, prompt in enumerate(prompts):
+        eng.submit(Request(rid=rid, prompt=prompt, max_new_tokens=new))
+    launch_counts.clear()
+    with _Logits(census) as logits:
+        done = eng.run_to_completion(max_ticks=400)
+    _check(len(done) == len(prompts),
+           f"served {len(done)} of {len(prompts)} requests")
+    return (eng, {r.rid: r.out_tokens for r in done}, logits,
+            dict(launch_counts))
+
+
+def _serve_mesh_golden_rank(world, path: str, mesh) -> dict:
+    """The stored JAX mesh run (`serve_mesh_golden`) on this rank: the
+    tokens, the largest distance of every prefill's and tick's logits
+    from the stored ones and whether each is within 1e-4, the launches,
+    the flash calls by heads and the moe_gmm calls by experts."""
+    import numpy as np
+    import torch
+
+    from repro_torch.configs.base import get_config, reduced_config
+    from repro_torch.launch.mesh import pctx_for_mesh
+    from repro_torch.models.convert import params_from_numpy, tree_from_flat
+
+    stored = dict(np.load(path))
+    cfg = reduced_config(get_config(ARCH)).replace(
+        compute_dtype="float32", **json.loads(str(stored["config"])))
+    pctx = pctx_for_mesh(mesh)
+    params = params_from_numpy(cfg, tree_from_flat(
+        {k[len("param/"):]: v for k, v in stored.items()
+         if k.startswith("param/")}), device=world.device, pctx=pctx)
+    prompts = [stored[f"prompt/{i}"] for i in range(sum(
+        1 for k in stored if k.startswith("prompt/")))]
+    t0 = time.perf_counter()
+    with _Census(mesh.shape) as census:
+        eng, tokens, logits, launches = _serve(
+            cfg, params, pctx, int(stored["slots"]), int(stored["max_seq"]),
+            prompts, int(stored["max_new"]), world.device)
+    seconds = time.perf_counter() - t0
+    errs = {}
+    for kind, got in (("prefill", logits.prefill), ("tick", logits.tick)):
+        want = torch.as_tensor(stored[f"{kind}_logits"])
+        got = (torch.cat(got) if kind == "prefill" else torch.stack(got))
+        if got.shape != want.shape:
+            errs[kind] = (float("inf"), False)
+            continue
+        err = (got - want).abs()
+        errs[kind] = (float(err.max()),
+                      bool((err <= 1e-4 + 1e-4 * want.abs()).all()))
+    return dict(tokens=tokens, errs=errs, launches=launches,
+                heads=dict(census.heads), experts=dict(census.experts),
+                prefills=eng.prefills, ticks=eng.ticks, seconds=seconds,
+                layers=cfg.num_layers, backend=world.backend, why=world.why)
+
+
+def _serve_mesh_full_rank(world, mesh, layers: int) -> dict:
+    """qwen3-moe-30b-a3b at full width cut to `layers` on this rank of
+    (data 1, model 4), seed-0 bf16 weights, `SERVE_MESH_SLOTS` slots of
+    `SERVE_MESH_SEQ`: the tokens, the prefills' logits (rank 0) and the
+    count of ticks with non-finite logits, prefill and tick host seconds
+    with the wire's within them and the bytes sent, the collectives by
+    kind and axis, the flash calls by heads and the moe_gmm calls by
+    experts, the launches and the peak bytes."""
+    import gc
+
+    import torch
+
+    from repro_torch.configs.base import get_config
+    from repro_torch.launch.mesh import pctx_for_mesh
+    from repro_torch.models.model import init_params
+
+    cfg = get_config(ARCH).replace(num_layers=layers)
+    pctx = pctx_for_mesh(mesh)
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params = init_params(cfg, 0, device=world.device, pctx=pctx)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    prompts = _serve_mesh_prompts(cfg.vocab_size)
+    with torch.no_grad(), _Census(mesh.shape) as census, _Routes() as routes:
+        eng, tokens, logits, launches = _serve(
+            cfg, params, pctx, SERVE_MESH_SLOTS, SERVE_MESH_SEQ, prompts,
+            SERVE_MESH_NEW, world.device, census)
+    out = dict(
+        tokens=tokens, init_s=init_s, prefills=eng.prefills, ticks=eng.ticks,
+        nonfinite_ticks=sum(1 for t in logits.tick
+                            if not bool(torch.isfinite(t).all())),
+        prefill_s=eng.prefill_s, prefill_wire_s=eng.prefill_wire_s,
+        prefill_sent=eng.prefill_sent, decode_s=eng.decode_s,
+        decode_wire_s=eng.decode_wire_s, decode_sent=eng.decode_sent,
+        prefill_tokens=eng.prefill_tokens,
+        calls={"/".join(k): v for k, v in census.calls.items()},
+        tick_calls={"/".join(k): v for k, v in logits.tick_calls.items()},
+        payload={"/".join(k): v for k, v in census.payload.items()},
+        heads={f"{q}/{kv}": n for (q, kv), n in census.heads.items()},
+        experts=dict(census.experts), launches=launches,
+        param_bytes=sum(p.numel() * p.element_size()
+                        for p in params.parameters()),
+        cache_bytes=sum(t.numel() * t.element_size()
+                        for c in eng.cache for t in c.values()),
+        cuts=sorted({how for c in eng.cache.cuts for how in c.values()}),
+        peak_bytes=torch.cuda.max_memory_allocated())
+    if world.rank == 0:   # numpy: a tensor crosses as a handle to this
+        # process's memory, which ends with it
+        out.update(prefill_logits=torch.cat(logits.prefill).numpy(),
+                   picks=[p.numpy() for p in routes.picks])
+    del params, eng
+    return out
+
+
+def _serve_mesh_rank(world, golden_path: str, layers: int) -> dict:
+    """Both serving-over-a-mesh phases on this rank, in one world."""
+    import torch
+
+    from repro_torch.core.comm import Mesh
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    mesh = Mesh((1, 4), ("data", "model"))
+    golden = _serve_mesh_golden_rank(world, golden_path, mesh)
+    return dict(golden=golden,
+                full=_serve_mesh_full_rank(world, mesh, layers))
+
+
+class _Flash:
+    """While entered, `models.attention`'s flash calls take q, k and v
+    in f32 and round the output back (``"f32"``: the f32 kernel, a run
+    that rounds otherwise than bf16's), or read the KV heads rolled by
+    one (``"rolled"``: each query group attends another group's keys and
+    values, as a kernel or a cut that mixes up heads would)."""
+
+    def __init__(self, how: str):
+        self.how = how
+
+    def __enter__(self):
+        from repro_torch.models import attention
+
+        self._orig = flash = attention.flash_attention
+
+        def f32(q, k, v, **kw):
+            return flash(q.float(), k.float(), v.float(), **kw).to(q.dtype)
+
+        def rolled(q, k, v, **kw):
+            return flash(q, k.roll(1, 1), v.roll(1, 1), **kw)
+
+        attention.flash_attention = {"f32": f32, "rolled": rolled}[self.how]
+        return self
+
+    def __exit__(self, *exc):
+        from repro_torch.models import attention
+
+        attention.flash_attention = self._orig
+        return False
+
+
+# the one-rank runs of serve_mesh_full's requests on whole weights: (name,
+# the mesh's routes replayed, the flash variant)
+SERVE_MESH_WHOLE_RUNS = (("free", False, None), ("held", True, None),
+                         ("witness", False, "f32"), ("wrong", False, "rolled"))
+
+
+def _serve_mesh_whole(layers: int, picks: list) -> dict:
+    """serve_mesh_full's requests in this process on whole weights, one
+    rank, four times (`SERVE_MESH_WHOLE_RUNS`): as they come (``free``:
+    its tokens, each prefill's logits, the routes with their margins and
+    gaps, host seconds, peak bytes); with the mesh's `picks` of every
+    router call replayed (``held``); with the attention in f32 (the
+    rounding ``witness``); and with the KV heads rolled (a ``wrong``
+    kernel)."""
+    import contextlib
+
+    import torch
+
+    from repro_torch.configs.base import get_config
+    from repro_torch.models.model import init_params
+    from repro_torch.models.parallel import single_device_ctx
+
+    _free_card()
+    cfg = get_config(ARCH).replace(num_layers=layers)
+    torch.cuda.reset_peak_memory_stats()
+    params = init_params(cfg, 0, device="cuda")
+    out = {}
+    for name, replay, flash in SERVE_MESH_WHOLE_RUNS:
+        with (torch.no_grad(), _Routes(picks if replay else None) as routes,
+              _Flash(flash) if flash else contextlib.nullcontext()):
+            eng, tokens, logits, _ = _serve(
+                cfg, params, single_device_ctx(), SERVE_MESH_SLOTS,
+                SERVE_MESH_SEQ, _serve_mesh_prompts(cfg.vocab_size),
+                SERVE_MESH_NEW, "cuda")
+        out[name] = dict(tokens=tokens,
+                         prefill_logits=torch.cat(logits.prefill),
+                         picks=routes.picks, margins=routes.margins,
+                         gaps=routes.gaps, prefill_s=eng.prefill_s,
+                         decode_s=eng.decode_s, ticks=eng.ticks,
+                         prefills=eng.prefills)
+    out["peak_bytes"] = torch.cuda.max_memory_allocated()
+    del params, eng
+    _free_card()
+    return out
+
+
+def _route_flips(mesh_picks: list, run: dict, slots: int,
+                 layers: int = 0) -> dict:
+    """The prefills' router decisions (a token's set of experts in a
+    layer) that the mesh and one rank take apart, and the one rank's
+    margins (its k-th less its (k+1)-th probability) and gaps (the same
+    of its router logits, over their largest magnitude) at them and at
+    all; given `layers`, the first layer's alone (a prefill routes once a
+    layer, and every layer of qwen3-moe is an MoE).  A prefill's call
+    routes more tokens than the slots, and both runs prefill the same
+    prompts in the same order."""
+    import torch
+
+    def prefills(calls):
+        got = [i for i, a in enumerate(calls) if a.shape[0] > slots]
+        return got[::layers] if layers else got
+
+    flips, total, at_flips, gaps, every = 0, 0, [], [], []
+    for i, j in zip(prefills(mesh_picks), prefills(run["picks"])):
+        a, b = mesh_picks[i], run["picks"][j]
+        apart = (a.sort(-1).values != b.sort(-1).values).any(-1)
+        flips += int(apart.sum())
+        total += a.shape[0]
+        at_flips.append(run["margins"][j][apart])
+        gaps.append(run["gaps"][j][apart])
+        every.append(run["margins"][j])
+    at_flips, gaps = torch.cat(at_flips), torch.cat(gaps)
+    every = torch.cat(every)
+    return dict(prefill_decisions=total, flipped=flips,
+                max_margin_at_flips=float(at_flips.max()) if flips else 0.0,
+                max_gap_at_flips=float(gaps.max()) if flips else 0.0,
+                median_margin=float(every.median()))
+
+
+def phase_serve_mesh(root: Path) -> dict:
+    """Serving over a mesh (`ServeEngine` with a mesh context,
+    `models.sharding.cache_spec`), 4 ranks as `data` 1 x `model` 4 on the
+    one card (gloo staged through host memory), both phases in one task
+    of the rank pool (`_ranks`); `main` prints them as two lines:
+
+    serve_mesh_golden: reduced qwen3-moe-30b-a3b in f32 with 8 / 4 heads
+    (2 / 1 a rank), 4 slots of 1,024 positions (the cache cut by
+    positions), prompts whose lengths divide 4 (the MoE's all-to-all
+    prefill through `rotor_all_to_all`) and do not, from the stored JAX
+    `ServeEngine` run on 4 fake CPU devices at the same mesh
+    (src/repro_torch/data/qwen3_moe_30b_a3b_reduced_serve_mesh_golden.npz):
+    every rank's greedy tokens equal to it, every prefill's and tick's
+    logits within 1e-4; flash on 2 / 1 heads once a layer a prefill,
+    moe_gmm on 2 experts a rank once a layer a prefill and a tick.
+
+    serve_mesh_full: qwen3-moe-30b-a3b at full width in bf16, seed-0
+    weights, each rank its blocks, cut to `SERVE_MESH_LAYERS` of 48
+    layers (printed as `reduced`), 4 slots of 1,024 positions (256 a
+    rank), 8 requests of odd lengths (the MoE's local branch at every
+    prefill and tick), 8 new tokens each; then the same requests in this
+    process on whole weights, one rank (`_serve_mesh_whole`).  Every
+    rank's tokens the same; each prefill's logits within bf16's 2e-2 of
+    the one rank's largest magnitude where that run takes the mesh's
+    router decisions, and within `SERVE_MESH_FREE_LIMIT` where it takes
+    its own, a limit that a one-rank run with its attention in f32 meets
+    and one with its KV heads rolled does not (both checked); no
+    decision of the first MoE layer taken apart at a router-logit gap
+    above 2e-2 of the largest; every tick's logits finite; moe_gmm on 32 experts a rank
+    in every MoE layer of every prefill and tick, flash on 8 / 1 heads in
+    every layer of every prefill, both counted.  Prints tick and prefill
+    ms with the wire's ms within each, the collectives a tick by kind and
+    axis, the bytes a rank sends a tick, peak GB a rank, and the share of
+    greedy tokens equal to the one rank's."""
+    import numpy as np
+    import torch
+
+    from repro_torch.configs.base import get_config
+
+    _free_card()
+    path = root / "src" / "repro_torch" / "data" / SERVE_MESH_GOLDEN
+    stored = dict(np.load(path))
+    full = get_config(ARCH)
+    reduced = {"num_layers": [full.num_layers, SERVE_MESH_LAYERS]}
+    print(f"reduced: {json.dumps(reduced)} ({SERVE_MESH_WHY})", flush=True)
+    t0 = time.perf_counter()
+    ranks = _ranks(_serve_mesh_rank, str(path), SERVE_MESH_LAYERS,
+                   timeout_s=600)
+    wall = time.perf_counter() - t0
+    # the stored JAX mesh run
+    g = [r["golden"] for r in ranks]
+    n = sum(1 for k in stored if k.startswith("prompt/"))
+    for rank, r in enumerate(g):
+        for rid in range(n):
+            want = stored[f"tokens/{rid}"].tolist()
+            _check(r["tokens"].get(rid) == want,
+                   f"serve_mesh_golden rank {rank} tokens {rid}: "
+                   f"{r['tokens'].get(rid)} != {want}")
+        for kind, (err, ok) in r["errs"].items():
+            _check(ok, f"serve_mesh_golden rank {rank} {kind} logits: {err}")
+        per = g[0]["layers"]
+        want = {"flash_attention": per * r["prefills"],
+                "moe_gmm": per * (r["prefills"] + r["ticks"])}
+        _check(r["launches"] == want,
+               f"serve_mesh_golden launches {r['launches']} != {want}")
+        _check(r["heads"] == {(2, 1): per * r["prefills"]}
+               and r["experts"] == {2: per * (r["prefills"] + r["ticks"])},
+               f"serve_mesh_golden heads {r['heads']} experts "
+               f"{r['experts']}")
+    lens = [len(stored[f"prompt/{i}"]) for i in range(n)]
+    golden = dict(
+        phase="serve_mesh_golden", arch=ARCH, layers=g[0]["layers"],
+        config=json.loads(str(stored["config"])), mesh={"data": 1, "model": 4},
+        backend=g[0]["backend"], why=g[0]["why"], prompt_lens=lens,
+        all_to_all_prefills=sum(1 for L in lens if L % 4 == 0),
+        slots=int(stored["slots"]), max_seq=int(stored["max_seq"]),
+        prefills=g[0]["prefills"], ticks=g[0]["ticks"], tokens_equal=True,
+        logits_max_abs_err={k: max(r["errs"][k][0] for r in g)
+                            for k in ("prefill", "tick")},
+        seconds_per_rank=[r["seconds"] for r in g],
+        **{f"{k}_launches": sum(r["launches"].get(k, 0) for r in g)
+           for k in ("flash_attention", "moe_gmm")})
+    # qwen3-moe at full width against one rank on whole weights
+    f = [r["full"] for r in ranks]
+    picks = [torch.as_tensor(p) for p in f[0]["picks"]]
+    whole = _serve_mesh_whole(SERVE_MESH_LAYERS, picks)
+    cfg = full.replace(num_layers=SERVE_MESH_LAYERS)
+    tp = 4
+    for rank, r in enumerate(f):
+        _check(r["tokens"] == f[0]["tokens"],
+               f"serve_mesh_full: rank {rank}'s tokens differ from rank 0's")
+        _check(r["nonfinite_ticks"] == 0,
+               f"serve_mesh_full rank {rank}: {r['nonfinite_ticks']} ticks "
+               "with non-finite logits")
+        per = cfg.num_layers
+        _check(r["experts"] == {cfg.moe.num_experts // tp:
+                                per * (r["prefills"] + r["ticks"])},
+               f"serve_mesh_full moe_gmm calls by experts {r['experts']}")
+        _check(r["heads"] == {f"{cfg.num_heads // tp}/"
+                              f"{cfg.num_kv_heads // tp}":
+                              per * r["prefills"]},
+               f"serve_mesh_full flash calls by heads {r['heads']}")
+        want = {"flash_attention": per * r["prefills"],
+                "moe_gmm": per * (r["prefills"] + r["ticks"])}
+        _check(r["launches"] == want,
+               f"serve_mesh_full launches {r['launches']} != {want}")
+        _check(r["cuts"] == ["positions"],
+               f"serve_mesh_full caches cut by {r['cuts']}")
+    got = torch.as_tensor(f[0]["prefill_logits"])
+    one = whole["free"]["prefill_logits"]
+    _check(got.shape == one.shape and bool(torch.isfinite(got).all()),
+           f"serve_mesh_full prefill logits {tuple(got.shape)}")
+
+    def apart(a, b):
+        """Each prefill's largest distance of `a`'s logits from `b`'s,
+        over `b`'s largest magnitude."""
+        return ((a - b).abs() / b.abs().amax(-1, keepdim=True)).amax(-1)
+
+    # the routers' near ties: one rank and the mesh round apart, and a
+    # token whose k-th and (k+1)-th experts tie takes another expert,
+    # which moves its logits by more than bf16's 2e-2 where the rounding
+    # alone does not (ROADMAP Queue 3, B7).  So the one rank's run with
+    # the mesh's routes is held to 2e-2; the free run to a limit that a
+    # one-rank run rounding otherwise (the witness) meets and a wrong
+    # kernel (the KV heads rolled) does not, both read here; and no
+    # decision of the first MoE layer, before which no flip can move the
+    # router's input, falls apart at a gap above bf16's 2e-2
+    tol = _tol(torch.bfloat16)
+    rel = apart(got, whole["held"]["prefill_logits"])
+    rel_free = apart(got, one)
+    rel_witness = apart(whole["witness"]["prefill_logits"], one)
+    rel_wrong = apart(whole["wrong"]["prefill_logits"], one)
+    _check(bool((rel <= tol).all()),
+           f"serve_mesh_full prefill logits against one rank's with the "
+           f"mesh's routes: {rel}")
+    _check(float(rel_witness.max()) <= SERVE_MESH_FREE_LIMIT
+           < float(rel_wrong.min()),
+           f"serve_mesh_full: the limit {SERVE_MESH_FREE_LIMIT} does not "
+           f"part the rounding witness {rel_witness} from the wrong "
+           f"kernel {rel_wrong}")
+    _check(bool((rel_free <= SERVE_MESH_FREE_LIMIT).all()),
+           f"serve_mesh_full prefill logits against one rank's: {rel_free}"
+           f" above {SERVE_MESH_FREE_LIMIT}")
+    flips = _route_flips(picks, whole["free"], SERVE_MESH_SLOTS)
+    first = _route_flips(picks, whole["free"], SERVE_MESH_SLOTS,
+                         layers=cfg.num_layers)
+    _check(first["max_gap_at_flips"] <= tol,
+           f"serve_mesh_full: a first-layer router decision falls apart at "
+           f"a gap of {first['max_gap_at_flips']} > {tol}")
+    free = whole["free"]
+    same = sum(a == b for rid in free["tokens"] for a, b in zip(
+        f[0]["tokens"][rid], free["tokens"][rid]))
+    total = sum(len(t) for t in free["tokens"].values())
+    ticks = f[0]["ticks"]
+
+    def per_tick(key):
+        return [r[key] / ticks * 1e3 for r in f]
+
+    full_out = dict(
+        phase="serve_mesh_full", arch=cfg.name, layers=cfg.num_layers,
+        reduced=reduced, reduced_why=SERVE_MESH_WHY, d_model=cfg.d_model,
+        heads=[cfg.num_heads, cfg.num_kv_heads],
+        experts=cfg.moe.num_experts, vocab=cfg.vocab_size,
+        mesh={"data": 1, "model": tp}, backend=g[0]["backend"],
+        slots=SERVE_MESH_SLOTS,
+        max_seq=SERVE_MESH_SEQ, prompt_lens=list(SERVE_MESH_LENS),
+        new_tokens=SERVE_MESH_NEW, wall_s=wall,
+        init_s=[r["init_s"] for r in f],
+        prefills=f[0]["prefills"], ticks=ticks,
+        tick_ms_per_rank=per_tick("decode_s"),
+        tick_wire_ms_per_rank=per_tick("decode_wire_s"),
+        prefill_ms_per_rank=[r["prefill_s"] / r["prefills"] * 1e3
+                             for r in f],
+        prefill_wire_ms_per_rank=[r["prefill_wire_s"] / r["prefills"] * 1e3
+                                  for r in f],
+        prefill_tokens_per_s=[r["prefill_tokens"] / r["prefill_s"]
+                              for r in f],
+        sent_bytes_per_tick_per_rank=[r["decode_sent"] / ticks for r in f],
+        sent_bytes_per_prefill_per_rank=[r["prefill_sent"] / r["prefills"]
+                                         for r in f],
+        collectives_per_tick={k: v / ticks
+                              for k, v in f[0]["tick_calls"].items()},
+        collectives=f[0]["calls"], collective_bytes=f[0]["payload"],
+        flash_calls_by_heads=f[0]["heads"],
+        moe_gmm_calls_by_experts=f[0]["experts"],
+        param_bytes_per_rank=[r["param_bytes"] for r in f],
+        cache_bytes_per_rank=[r["cache_bytes"] for r in f],
+        peak_gb_per_rank=[r["peak_bytes"] / 1e9 for r in f],
+        prefill_logits_rel_err_routes_held=rel.tolist(),
+        prefill_logits_rel_err_free=rel_free.tolist(),
+        prefill_logits_rel_err_witness=rel_witness.tolist(),
+        prefill_logits_rel_err_wrong=rel_wrong.tolist(),
+        free_limit=SERVE_MESH_FREE_LIMIT, route_flips=flips,
+        first_layer_route_flips=first,
+        tokens_equal_to_one_rank=same / total,
+        whole_tick_ms=free["decode_s"] / free["ticks"] * 1e3,
+        whole_prefill_ms=free["prefill_s"] / free["prefills"] * 1e3,
+        whole_peak_gb=whole["peak_bytes"] / 1e9,
+        **{f"{k}_launches": sum(r["launches"].get(k, 0) for r in f)
+           for k in ("flash_attention", "moe_gmm")})
+    return dict(phase="serve_mesh", wall_s=wall,
+                golden_s=max(r["seconds"] for r in g), golden=golden,
+                full=full_out)
 
 
 # The MoE, SSM and hybrid archs' full-width training runs: (phase, arch,
@@ -4731,17 +5459,28 @@ def main() -> int:
     train_runs.append(train_full)
     # several ranks on the one card: the rotor collectives, opera-dp
     run(phase_collectives)
-    train_runs.append(run(phase_opera_dp_golden, root))
-    train_runs.append(run(phase_opera_dp_full, train_full))
-    # every leaf under the FSDP / TP layout, 4 ranks on the one card
-    train_runs.append(run(phase_fsdp_golden, root))
-    train_runs.append(run(phase_fsdp_full, train_full))
-    # experts sharded over the model axis, 4 ranks on the one card
-    train_runs.append(run(phase_ep_golden, root))
-    train_runs.append(run(phase_ep_full))
-    # attention, FFNs and the vocabulary split over `model`, 4 ranks
-    train_runs.append(run(phase_tp_golden, root))
-    train_runs.append(run(phase_tp_full))
+    # the 4-rank phases, on four rank processes started once
+    with _RankPool():
+        train_runs.append(run(phase_opera_dp_golden, root))
+        train_runs.append(run(phase_opera_dp_full, train_full))
+        # every leaf under the FSDP / TP layout
+        train_runs.append(run(phase_fsdp_golden, root))
+        train_runs.append(run(phase_fsdp_full, train_full))
+        # experts sharded over the model axis
+        train_runs.append(run(phase_ep_golden, root))
+        train_runs.append(run(phase_ep_full))
+        # attention, FFNs and the vocabulary split over `model`
+        train_runs.append(run(phase_tp_golden, root))
+        train_runs.append(run(phase_tp_full))
+        # serving over `model`: two phases of one task
+        t0 = time.perf_counter()
+        serve_mesh = phase_serve_mesh(root)
+        seconds["serve_mesh_golden"] = serve_mesh["golden_s"]
+        seconds["serve_mesh_full"] = (time.perf_counter() - t0
+                                      - serve_mesh["golden_s"])
+        mesh_runs = [serve_mesh["golden"], serve_mesh["full"]]
+        for out in mesh_runs:
+            _emit(out)
     train_runs += [run(phase_train_arch_full, *spec)
                    for spec in ARCH_TRAIN_RUNS]
     _free_card()
@@ -4824,7 +5563,7 @@ def main() -> int:
                      if r["dtype"] == "float32" and r["S"] == 3300)
     # launches: every full serving run the kernel is on, summed, and for
     # flash the training runs too
-    runs += train_runs
+    runs += train_runs + mesh_runs
     for name, row, phase, replaces in (
             ("flash_attention", flash_row, flash,
              "src/repro/kernels/flash_attention/kernel.py:22"),

@@ -19,7 +19,9 @@ Every function is *per-rank* code, called by every rank of the axis's
 line with its own shard, as the JAX functions are called inside a
 `shard_map`; each takes the `comm.Mesh` and the axis name where the JAX
 function takes the axis name.  The order of the matchings and of every
-addition is the JAX package's, so the sums round as its do.  Reference
+addition is the JAX package's, so the sums round as its do, but for the
+direct all-reduce's, which adds in axis order so that every rank gets
+the same bits (`rotor_all_reduce`).  Reference
 semantics (tests/test_torch_collectives.py holds them to the JAX
 package's outputs):
 
@@ -126,17 +128,28 @@ def rotor_all_reduce(x: torch.Tensor, mesh: Mesh, axis: str,
     mode="direct": every slice exchanges the *whole* tensor with the direct
                   partner ((N-1) * |x| bytes; fewer rounds, optimal for
                   small N, e.g. the 2-pod axis).
+
+    In direct mode every rank adds the N tensors in axis order, where the
+    JAX code adds them in the order they arrive (its partner's first):
+    the same sum, and the same bits on every rank.  Ranks that rounded
+    apart could take different decisions on it (the MoE's local branch
+    routes every token on every rank from this sum); on two ranks the two
+    orders are one.
     """
     if mode == "direct":
         n, i = axis_size(mesh, axis), axis_index(mesh, axis)
-        acc = x
+        parts = {i: x}
         for p in _matchings(n):
             pairs = _perm_pairs(p)
             if not pairs:
                 continue
             partner = int(p[i])
             recv = ppermute(x, mesh, axis, pairs)
-            acc = acc + _unless_fixed(recv, partner, i)
+            if partner != i:
+                parts[partner] = recv
+        acc = parts[0]
+        for j in range(1, n):
+            acc = acc + parts[j]
         return acc
     if mode != "rs_ag":
         raise ValueError(f"mode {mode!r}: rs_ag or direct")

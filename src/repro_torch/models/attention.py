@@ -24,6 +24,22 @@ Trained on a mesh whose `model` axis divides both head counts, a layer
 computes this rank's heads alone (`models.sharding.computes_tp`): the
 projections, the QKV bias, the q/k norms, RoPE and the kernel on them,
 and the output projection's partial sum added over `model`.
+
+Served on a mesh, decode follows its cache's cut over `model`
+(`models.sharding.kv_split`).  Cut by KV heads, a rank projects its
+query heads and the KV heads of their groups, writes them into its
+block, attends, and adds the output projection's partials over `model`,
+as in training.  Cut by positions (a cache of 1,024 positions or more,
+flash-decoding style), a rank holds L / tp positions of every KV head:
+the step's q, k and v are gathered over `model` (one gather of a few KB,
+where the heads split), the rank that holds a row's position writes
+it, and each rank attends every head over its positions; the maxima
+are combined over `model` (`core.comm.all_reduce_max`), then the sums
+of exponentials and the unnormalised outputs (`tp_exit`), as
+`models.model._lse_gold` combines a logsumexp.  Its heads' part goes
+through its rows of the output projection.  A prefill's K/V come from
+the rank's heads and are gathered over `model` where the cache is cut
+by positions (`models.kvcache.recut`).
 """
 from __future__ import annotations
 
@@ -33,7 +49,9 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.core.comm import all_reduce_max
 from repro_torch.kernels.flash_attention import flash_attention
+from repro_torch.models.kvcache import gather_heads
 from repro_torch.models.layers import (
     apply_rope,
     dense_init,
@@ -142,6 +160,22 @@ def block_local_attention(
     return out.reshape(B, Hq, S, hd)[:, :, :S_in].to(q.dtype)
 
 
+def _decode_scores(q, k_cache, kv_len, window: int, lo: int = 0):
+    """Scores (B, Hkv, G, S) of one query a row against the cache, whose
+    entries are positions lo, lo + 1, ...: masked past each row's
+    `kv_len` valid entries, and within the last `window` of them."""
+    B, Hq, _, hd = q.shape
+    Hkv, S = k_cache.shape[1], k_cache.shape[2]
+    qg = q.reshape(B, Hkv, Hq // Hkv, hd).float()
+    s = torch.einsum("bhgd,bhkd->bhgk", qg, k_cache.float()) * hd**-0.5
+    idx = lo + torch.arange(S, device=q.device)[None, :]
+    kv_len = kv_len.reshape(-1, 1)
+    valid = idx < kv_len
+    if window > 0:
+        valid &= idx >= kv_len - window
+    return torch.where(valid[:, None, None, :], s, NEG_INF)
+
+
 def decode_attention(
     q: torch.Tensor,          # (B, Hq, 1, hd)
     k_cache: torch.Tensor,    # (B, Hkv, S, hd)
@@ -150,18 +184,47 @@ def decode_attention(
     window: int = 0,
 ) -> torch.Tensor:
     B, Hq, _, hd = q.shape
-    Hkv, S = k_cache.shape[1], k_cache.shape[2]
-    qg = q.reshape(B, Hkv, Hq // Hkv, hd).float()
-    s = torch.einsum("bhgd,bhkd->bhgk", qg, k_cache.float()) * hd**-0.5
-    idx = torch.arange(S, device=q.device)[None, :]
-    kv_len = kv_len.reshape(-1, 1)
-    valid = idx < kv_len
-    if window > 0:
-        valid &= idx >= kv_len - window
-    s = torch.where(valid[:, None, None, :], s, NEG_INF)
-    p = torch.softmax(s, dim=-1)
+    p = torch.softmax(_decode_scores(q, k_cache, kv_len, window), dim=-1)
     out = torch.einsum("bhgk,bhkd->bhgd", p, v_cache.float())
     return out.reshape(B, Hq, 1, hd).to(q.dtype)
+
+
+def decode_attention_split(
+    q: torch.Tensor,          # (B, Hq, 1, hd): every head
+    k_cache: torch.Tensor,    # (B, Hkv, L / tp, hd): this rank's positions
+    v_cache: torch.Tensor,
+    kv_len: torch.Tensor,     # (B,): valid entries of the whole cache
+    seq: ParallelContext,
+    window: int = 0,
+) -> torch.Tensor:
+    """`decode_attention` over a cache cut by positions over `seq`'s
+    model axis, this rank's block from position ``i L / tp`` on: the
+    scores' maxima combined over `model` (`core.comm.all_reduce_max`),
+    then each rank's sum of exponentials and unnormalised output from
+    them added over `model` (one `tp_exit`), and divided."""
+    B, Hq, _, hd = q.shape
+    lo = seq.mesh.coords[seq.tp_axis] * k_cache.shape[2]
+    s = _decode_scores(q, k_cache, kv_len, window, lo)
+    top = all_reduce_max(s.amax(-1), seq.mesh, seq.tp_axis)
+    p = torch.exp(s - top[..., None])       # 0 where masked
+    o = torch.einsum("bhgk,bhkd->bhgd", p, v_cache.float())
+    both = tp_exit(torch.cat([o, p.sum(-1, keepdim=True)], -1), seq)
+    out = both[..., :hd] / both[..., hd:]
+    return out.reshape(B, Hq, 1, hd).to(q.dtype)
+
+
+def _decode_out(p, o: torch.Tensor, x: torch.Tensor,
+                tp: Optional[ParallelContext],
+                seq: Optional[ParallelContext]) -> torch.Tensor:
+    """A decode step's attention output (B, H, 1, hd) through the output
+    projection: with `tp`, the rank's heads (its part of every head when
+    the cache is cut by positions) through its rows, added over
+    `model`."""
+    B = x.shape[0]
+    if tp is not None and seq is not None:
+        n = tp.tp_size
+        o = o.reshape(B, n, -1, *o.shape[2:])[:, tp.mesh.coords[tp.tp_axis]]
+    return tp_exit(o.reshape(B, 1, -1) @ p["wo"].to(x.dtype), tp)
 
 
 # ---------------- module-level apply ---------------------------------------
@@ -214,23 +277,46 @@ def attention_block_decode(
     k_cache: torch.Tensor,            # (B, Hkv, S, hd), written in place
     v_cache: torch.Tensor,
     window: int = 0,
+    tp: Optional[ParallelContext] = None,
+    seq: Optional[ParallelContext] = None,
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """One decode step: write the new K/V into the caches (in place,
     where the JAX package returns updated copies), attend over them.  A
     cache exactly `window` long is a ring: position t goes to slot
-    t % window (attention.py:281-283).  Returns (y, k_cache, v_cache)."""
+    t % window (attention.py:281-283).  Returns (y, k_cache, v_cache).
+    With `tp`, `p` holds this rank's heads (`attention_block`); with
+    `seq`, the caches are this rank's positions of every KV head, slot t
+    on rank t // (S / tp) of the whole cache's S (the module's
+    docstring)."""
+    B = x.shape[0]
+    x = tp_enter(x, tp)
     q = apply_rope(_project_q(p, x, cfg), pos[:, None], cfg.rope_theta)
     k, v = _project_kv(p, x, cfg)
     k = apply_rope(k, pos[:, None], cfg.rope_theta)
-    S = k_cache.shape[2]
+    if tp is not None and seq is not None:
+        q, k, v = gather_heads((q, k, v), tp)
+    n = k_cache.shape[2]
+    S = n * (seq.tp_size if seq is not None else 1)
     ring = window > 0 and S == window
     slot = pos % window if ring else torch.clamp(pos, max=S - 1)
-    bidx = torch.arange(x.shape[0], device=x.device)
-    k_cache[bidx, :, slot] = k[:, :, 0].to(k_cache.dtype)
-    v_cache[bidx, :, slot] = v[:, :, 0].to(v_cache.dtype)
-    o = decode_attention(q, k_cache, v_cache, torch.clamp(pos + 1, max=S),
-                         window=0 if ring else window)
-    return o.reshape(x.shape[0], 1, -1) @ p["wo"].to(x.dtype), k_cache, v_cache
+    bidx = torch.arange(B, device=x.device)
+    if seq is None:
+        k_cache[bidx, :, slot] = k[:, :, 0].to(k_cache.dtype)
+        v_cache[bidx, :, slot] = v[:, :, 0].to(v_cache.dtype)
+    else:   # the row's slot on the rank that holds it, the others as they are
+        local = slot - seq.mesh.coords[seq.tp_axis] * n
+        mine = ((local >= 0) & (local < n))[:, None, None]
+        at = local.clamp(0, n - 1)
+        for cache, new in ((k_cache, k), (v_cache, v)):
+            cache[bidx, :, at] = torch.where(
+                mine, new[:, :, 0].to(cache.dtype), cache[bidx, :, at])
+    kv_len = torch.clamp(pos + 1, max=S)
+    window = 0 if ring else window
+    if seq is None:
+        o = decode_attention(q, k_cache, v_cache, kv_len, window=window)
+    else:
+        o = decode_attention_split(q, k_cache, v_cache, kv_len, seq, window)
+    return _decode_out(p, o, x, tp, seq), k_cache, v_cache
 
 
 def project_cross_kv(p, src: torch.Tensor, cfg: ModelConfig,
@@ -267,8 +353,18 @@ def cross_attention_decode(
     cross_k: torch.Tensor,            # (B, Hkv, Lx, hd)
     cross_v: torch.Tensor,
     src_len: torch.Tensor,            # (B,): valid source positions
+    tp: Optional[ParallelContext] = None,
+    seq: Optional[ParallelContext] = None,
 ) -> torch.Tensor:
     """One decode step's cross-attention over the cache, masked past each
-    row's source length (the JAX package attends all Lx: R4)."""
-    o = decode_attention(_project_q(p, x, cfg), cross_k, cross_v, src_len)
-    return o.reshape(x.shape[0], 1, -1) @ p["wo"].to(x.dtype)
+    row's source length (the JAX package attends all Lx: R4); `tp` and
+    `seq` as `attention_block_decode`'s."""
+    x = tp_enter(x, tp)
+    q = _project_q(p, x, cfg)
+    if seq is None:
+        o = decode_attention(q, cross_k, cross_v, src_len)
+    else:
+        if tp is not None:
+            q, = gather_heads((q,), tp)
+        o = decode_attention_split(q, cross_k, cross_v, src_len, seq)
+    return _decode_out(p, o, x, tp, seq)

@@ -11,15 +11,26 @@ zero-filled tensor stacked over the layers of that kind (kinds differ in
 leaves and shapes).  Decode writes into those views in place
 (`models.attention.attention_block_decode`,
 `models.transformer.apply_layer`).
+
+On a mesh each rank holds its block of every leaf
+(`models.sharding.cache_slice`), in a `CacheBlocks`, which also tells
+how each K/V leaf is cut over `model`: a block alone does not (512
+positions may be a whole cache or a quarter of 2,048).  `recut` moves a
+K/V block from one cut to another (a prefill's heads to a slot's
+positions, a short cross source into a longer slot).
 """
 from __future__ import annotations
 
-from typing import Dict, List
+from typing import Dict, List, Optional
 
 import torch
+import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.core.comm import all_gather
 from repro_torch.models.layers import torch_dtype
+from repro_torch.models.parallel import ParallelContext
+from repro_torch.models.sharding import KV_LEAVES, cache_slice, kv_split
 
 
 def layer_cache_shape(cfg: ModelConfig, kind: str, B: int, L: int) -> Dict:
@@ -52,18 +63,98 @@ def layer_cache_shape(cfg: ModelConfig, kind: str, B: int, L: int) -> Dict:
     raise ValueError(f"no decode state for {kind!r} layers")
 
 
-def init_cache(cfg: ModelConfig, B: int, L: int,
-               device=None) -> List[Dict[str, torch.Tensor]]:
-    """Zero-filled decode state, one dict per layer."""
+class CacheBlocks(list):
+    """A rank's blocks of the decode state on a mesh, one dict a layer as
+    a whole cache's, and `cuts`, one dict a layer: each K/V leaf's cut
+    over `model` (`models.sharding.kv_split`: "positions", "heads" or
+    None)."""
+
+    def __init__(self, layers, cuts: List[Dict[str, Optional[str]]]):
+        super().__init__(layers)
+        self.cuts = cuts
+
+
+def gather_heads(ts, tp: ParallelContext) -> list:
+    """Each tensor of `ts` (B, H / tp, S, hd), this rank's heads, with
+    every rank's heads (B, H, S, hd), in one all-gather over `model`."""
+    mesh, axis = tp.mesh, tp.tp_axis
+    n, B = tp.tp_size, ts[0].shape[0]
+    flat = torch.cat([t.reshape(B, -1) for t in ts], dim=1)
+    got = all_gather(flat[None], mesh, ((0, (axis,)),))    # (n, B, ...)
+    out, at = [], 0
+    for t in ts:
+        size = t[0].numel()
+        part = got[:, :, at:at + size].reshape((n,) + tuple(t.shape))
+        out.append(part.transpose(0, 1).reshape(
+            B, n * t.shape[1], *t.shape[2:]))
+        at += size
+    return out
+
+
+def recut(ts, was: Optional[str], to: Optional[str], length: int,
+          pctx: ParallelContext) -> list:
+    """K/V tensors `ts` (B, H', n, hd) of one layer, cut over `model` by
+    `was` ("heads", "positions" or None, `models.sharding.kv_split`), as
+    this rank's blocks cut by `to` of a whole leaf of `length` positions:
+    `ts` as they are where the cuts agree (and, cut by positions, the
+    lengths), else gathered over `model` (one all-gather) and cut again,
+    the source's positions zero-padded to `length` where `to` cuts
+    them."""
+    tp = pctx.tp_size
+    n = ts[0].shape[2] * (tp if was == "positions" else 1)
+    if n > length:
+        raise ValueError(f"{n} source positions > the cache's {length}")
+    if was == to and (to != "positions" or n == length):
+        return list(ts)
+    if was == "heads":
+        ts = gather_heads(ts, pctx)
+    elif was == "positions":
+        both = all_gather(torch.cat(list(ts), 1), pctx.mesh,
+                          ((2, (pctx.tp_axis,)),))
+        ts = both.split([t.shape[1] for t in ts], 1)
+    i = pctx.mesh.coords[pctx.tp_axis]
+    if to == "heads":
+        h = ts[0].shape[1] // tp
+        return [t[:, i * h:(i + 1) * h] for t in ts]
+    if to == "positions":
+        per = length // tp
+        return [F.pad(t, (0, 0, 0, length - n))[:, :, i * per:(i + 1) * per]
+                for t in ts]
+    return list(ts)
+
+
+def _held_shape(name: str, shape, pctx: ParallelContext) -> tuple:
+    """The shape of a rank's block of the leaf of whole `shape`."""
+    return tuple(len(range(*s.indices(d))) for s, d in
+                 zip(cache_slice(name, shape, pctx), shape))
+
+
+def init_cache(cfg: ModelConfig, B: int, L: int, device=None,
+               pctx: Optional[ParallelContext] = None
+               ) -> List[Dict[str, torch.Tensor]]:
+    """Zero-filled decode state, one dict per layer.  Given a mesh
+    `pctx`, a `CacheBlocks` of this rank's block of every leaf
+    (`models.sharding.cache_slice`): the batch over the data axes, the
+    K/V caches by positions or by KV heads over `model`
+    (`models.sharding.cache_spec`); the conv, SSM and LRU states keep
+    their channels whole on every `model` rank, where `cache_spec` cuts
+    them, since the mamba and RG-LRU mixers still gather their weights
+    whole on use (ROADMAP Queue 1 item 7c: the channel splits come
+    first)."""
     from repro_torch.models.transformer import stack_plan
 
+    mesh = pctx is not None and pctx.mesh is not None
     kinds = stack_plan(cfg).kinds
     caches: List[Dict[str, torch.Tensor]] = [{} for _ in kinds]
+    cuts: List[Dict[str, Optional[str]]] = [{} for _ in kinds]
     for kind in dict.fromkeys(kinds):
         layers = [i for i, k in enumerate(kinds) if k == kind]
         for name, (shape, dt) in layer_cache_shape(cfg, kind, B, L).items():
-            stacked = torch.zeros((len(layers),) + shape, dtype=dt,
+            held = _held_shape(name, shape, pctx) if mesh else shape
+            stacked = torch.zeros((len(layers),) + held, dtype=dt,
                                   device=device)
             for j, i in enumerate(layers):
                 caches[i][name] = stacked[j]
-    return caches
+                if mesh and name in KV_LEAVES:
+                    cuts[i][name] = kv_split(name, shape, pctx)
+    return CacheBlocks(caches, cuts) if mesh else caches

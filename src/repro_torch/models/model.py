@@ -10,11 +10,13 @@ mesh each rank holds its blocks (`models.sharding`) and the train
 forwards gather them on use, or compute tensor-parallel on them
 (`models.sharding.computes_tp`): the embedding as a vocab-parallel
 lookup and the head as vocab-parallel logits with a logsumexp combined
-over `model`.  The serving forwards take whole weights.
-An encdec model's prefill takes ``batch["encoder_embeds"]`` (B, Sx, D),
-the frames its encoder reads (the modality frontend is a stub, as in the
-JAX package); a vlm's ``batch["image_embeds"]`` (B, Sx, D).  Either is
-cast to the compute dtype.
+over `model`.  The serving forwards do the same on a mesh, and
+return the logits whole and the decode state as this rank's blocks
+(`kvcache.CacheBlocks`).  An encdec model's prefill takes
+``batch["encoder_embeds"]`` (B, Sx, D), the frames its encoder reads (the
+modality frontend is a stub, as in the JAX package); a vlm's
+``batch["image_embeds"]`` (B, Sx, D).  Either is cast to the compute
+dtype.
 """
 from __future__ import annotations
 
@@ -40,11 +42,12 @@ from repro_torch.models.layers import (
     storage_dtype,
     torch_dtype,
 )
-from repro_torch.core.comm import all_reduce_max
+from repro_torch.core.comm import all_gather, all_reduce_max
+from repro_torch.models.kvcache import CacheBlocks, recut
 from repro_torch.models.parallel import (ParallelContext, single_device_ctx,
                                         tp_enter, tp_exit)
-from repro_torch.models.sharding import (computes_tp, local_slice, on_use,
-                                        shard_params, use_leaf)
+from repro_torch.models.sharding import (computes_tp, kv_split, local_slice,
+                                        on_use, shard_params, use_leaf)
 
 
 # the batch entry a family's cross-attention reads: (B, Sx, D) encoder
@@ -441,6 +444,7 @@ def forward_prefill(
     batch: Dict[str, torch.Tensor],
     cfg: ModelConfig,
     cache_len: Optional[int] = None,
+    pctx: ParallelContext = single_device_ctx(),
 ) -> Tuple[torch.Tensor, List[Dict[str, torch.Tensor]]]:
     """Returns (last-token logits (B, V) f32, decode caches).
 
@@ -448,19 +452,30 @@ def forward_prefill(
     length so decode steps have slots to write into; a local-attention
     cache to min(cache_len, window), its ring's length (model.py:154-173).
     Cross K/V keep the source's length, SSM and LRU states have none:
-    they are left as they are."""
+    they are left as they are.
+
+    On a mesh `batch` is this rank's rows (`models.sharding.batch_spec`)
+    and `params` its blocks, gathered on use or computed tensor-parallel
+    over `model` as in training; the logits are whole on every rank,
+    gathered over `model` from each rank's words where the head splits
+    by vocab, and the caches a `kvcache.CacheBlocks` of this rank's
+    blocks (`_blocks`), the padding cut with them."""
+    params = _on_use(params, cfg, pctx)
     tokens = batch["tokens"]
     S = tokens.shape[1]
-    cross_src = _cross_src(params, batch, cfg)
-    x = _embed(params, tokens, cfg)
+    cross_src = _cross_src(params, batch, cfg, pctx=pctx)
+    x = _embed(params, tokens, cfg, pctx)
     ctx = T.LayerCtx(positions=torch.arange(S, device=tokens.device),
                      cross_src=cross_src, mode="prefill")
     plan = T.stack_plan(cfg)
-    x, _, caches = T.apply_stack(params["stack"], x, cfg, ctx, plan)
+    x, _, caches = T.apply_stack(params["stack"], x, cfg, ctx, plan,
+                                 pctx=pctx)
     if cache_len is not None and cache_len > S:
         caches = [_pad_kv(c, kind, cfg, S, cache_len)
                   for c, kind in zip(caches, plan.kinds)]
-    return _logits(params, x[:, -1:], cfg)[:, 0], caches
+    if pctx.mesh is not None:
+        caches = _blocks(caches, cfg, pctx)
+    return _whole_logits(params, x[:, -1:], cfg, pctx)[:, 0], caches
 
 
 def _pad_kv(cache: Dict[str, torch.Tensor], kind: str, cfg: ModelConfig,
@@ -475,6 +490,44 @@ def _pad_kv(cache: Dict[str, torch.Tensor], kind: str, cfg: ModelConfig,
             for name, t in cache.items()}
 
 
+def _blocks(caches: List[Dict[str, torch.Tensor]], cfg: ModelConfig,
+            pctx: ParallelContext) -> CacheBlocks:
+    """A prefill's decode state on a mesh as this rank's blocks: each
+    self or cross K/V pair, the rank's heads where its attention splits
+    by them, else whole, recut to the cache's cut of its whole shape
+    (`models.sharding.kv_split`, `kvcache.recut`: one gather a pair where
+    they differ); the recurrent states as they are (their channels whole,
+    `models.sharding.held_cache_spec`)."""
+    Hkv = cfg.num_kv_heads
+    out, cuts = [], []
+    for cache in caches:
+        layer, cut = dict(cache), {}
+        for pair in (("k", "v"), ("ck", "cv")):
+            if pair[0] not in cache:
+                continue
+            k = cache[pair[0]]
+            L = k.shape[2]
+            to = kv_split(pair[0], (k.shape[0], Hkv, L, k.shape[3]), pctx)
+            was = "heads" if k.shape[1] != Hkv else None
+            layer.update(zip(pair, recut([cache[n] for n in pair], was, to,
+                                         L, pctx)))
+            cut.update(dict.fromkeys(pair, to))
+        out.append(layer)
+        cuts.append(cut)
+    return CacheBlocks(out, cuts)
+
+
+def _whole_logits(params, x: torch.Tensor, cfg: ModelConfig,
+                  pctx: ParallelContext) -> torch.Tensor:
+    """`_logits`, every word's on every rank: where the head splits by
+    vocab, each rank's words gathered over `model` (one gather)."""
+    logits = _logits(params, x, cfg, pctx)
+    tp, _ = _vocab_split(_head_name(cfg), cfg, pctx)
+    if tp is None:
+        return logits
+    return all_gather(logits, pctx.mesh, ((logits.ndim - 1, (tp.tp_axis,)),))
+
+
 def forward_decode(
     params,
     tokens: torch.Tensor,        # (B, 1)
@@ -482,13 +535,23 @@ def forward_decode(
     caches: List[Dict[str, torch.Tensor]],
     cfg: ModelConfig,
     cross_len: Optional[torch.Tensor] = None,
+    pctx: ParallelContext = single_device_ctx(),
 ) -> Tuple[torch.Tensor, List[Dict[str, torch.Tensor]]]:
     """One decode step; writes the caches in place.  Returns (logits
     (B, V) f32, caches).  `cross_len` (B,) is each row's source length in
     the cross caches, which may be longer (a serving slot's); None reads
-    every cross position, as after `forward_prefill`."""
-    x = _embed(params, tokens, cfg)
+    every cross position, as after `forward_prefill`.  On a mesh, as
+    `forward_prefill`: this rank's rows and blocks, the caches a
+    `kvcache.CacheBlocks` (from `forward_prefill` or
+    `kvcache.init_cache`), the logits whole."""
+    if pctx.mesh is not None and not isinstance(caches, CacheBlocks):
+        raise TypeError("decode on a mesh takes a rank's CacheBlocks "
+                        "(forward_prefill, kvcache.init_cache with pctx)")
+    params = _on_use(params, cfg, pctx)
+    x = _embed(params, tokens, cfg, pctx)
     ctx = T.LayerCtx(pos=positions, cross_len=cross_len, mode="decode")
-    x, _, caches = T.apply_stack(params["stack"], x, cfg, ctx,
-                                 T.stack_plan(cfg), caches=caches)
-    return _logits(params, x, cfg)[:, 0], caches
+    x, _, new = T.apply_stack(params["stack"], x, cfg, ctx,
+                              T.stack_plan(cfg), caches=caches, pctx=pctx)
+    if isinstance(caches, CacheBlocks):
+        new = CacheBlocks(new, caches.cuts)
+    return _whole_logits(params, x, cfg, pctx)[:, 0], new

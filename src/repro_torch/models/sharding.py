@@ -14,8 +14,12 @@ axis name, or a tuple of axes whose first is major, as a
 the JAX leaf a port leaf belongs to (`models.plan.jax_leaf`): the JAX
 package stacks its scanned layers, so a per-layer norm scale, 1-D here,
 is 2-D there and never takes the 1-D rule that puts ``final_norm``'s
-scale over `model` at widths of 4,096 and more.  `cache_spec` waits for
-serving over a mesh (ROADMAP Queue 1 item 7c).
+scale over `model` at widths of 4,096 and more.  `cache_spec` places
+the decode state (sharding.py:149-176): the batch over the data axes,
+a K/V cache's positions over `model` from 1,024 on (flash-decoding
+style), else its KV heads, and the recurrent states' channels;
+`cache_slice` gives a rank's block of a leaf, `kv_split` the cut of a
+K/V leaf over `model` that `models.attention`'s decode follows.
 
 `shard_params` cuts a whole parameter tree to this rank's blocks and
 `gather_params` puts the whole tensors back; `local_slice` gives the
@@ -203,9 +207,13 @@ def local_slice(name: str, shape: Sequence[int], cfg: ModelConfig,
     """This rank's block of the whole leaf `name` of `shape`: along a dim
     cut over several axes, block ``i_0 n_1 ... + i_1 ...`` of the
     coordinates' row-major index, the first axis major."""
-    mesh = pctx.mesh
+    return _block(shape, param_spec(name, shape, cfg, pctx), pctx.mesh)
+
+
+def _block(shape: Sequence[int], spec: Spec, mesh) -> Tuple[slice, ...]:
+    """`local_slice` of a leaf of `shape` placed by `spec` on `mesh`."""
     out = []
-    for dim, entry in zip(shape, param_spec(name, shape, cfg, pctx)):
+    for dim, entry in zip(shape, spec):
         axes = entry_axes(entry)
         if not axes:
             out.append(slice(None))
@@ -224,6 +232,75 @@ def batch_spec(name: str, shape: Sequence[int],
     if not _axis_ok(shape[0], pctx.dp_size):
         return (None,) * len(shape)
     return (_entry(tuple(pctx.dp_axes)),) + (None,) * (len(shape) - 1)
+
+
+# ---------------- the decode state ------------------------------------------
+
+# the rank of each decode-state leaf's base shape (kvcache.py:22-50): the
+# batch is its first dim
+_CACHE_RANK = {"k": 4, "v": 4, "ck": 4, "cv": 4, "conv": 3, "ssm": 3,
+               "lru": 2}
+KV_LEAVES = ("k", "v", "ck", "cv")
+RECURRENT_LEAVES = ("conv", "ssm", "lru")
+# a K/V cache of this many positions or more is cut by positions
+SEQ_SPLIT_MIN = 1024
+
+
+def cache_spec(name: str, shape: Sequence[int],
+               pctx: ParallelContext) -> Spec:
+    """The spec of one layer's decode-state leaf `name` ("k", "v", "ck",
+    "cv", "conv", "ssm", "lru") of whole `shape`: the JAX package's
+    `cache_spec` (sharding.py:149-176) without a scan axis.  The batch
+    over the data axes where it divides; a self or cross K/V cache (B,
+    Hkv, L, hd) by positions over `model` where L divides and is at
+    least 1,024, else by KV heads where they divide; the conv and SSM
+    states' channels ((B, K-1, C), (B, C, N)) and the LRU's width over
+    `model`."""
+    spec: list = [None] * len(shape)
+    bdim = len(shape) - _CACHE_RANK.get(name, len(shape))
+    if 0 <= bdim < len(shape) and _axis_ok(shape[bdim], pctx.dp_size):
+        spec[bdim] = _entry(tuple(pctx.dp_axes))
+    tp, tp_n = pctx.tp_axis, pctx.tp_size
+    if name in KV_LEAVES:
+        if _axis_ok(shape[-2], tp_n) and shape[-2] >= SEQ_SPLIT_MIN:
+            spec[-2] = tp
+        elif _axis_ok(shape[-3], tp_n):
+            spec[-3] = tp
+    elif name in RECURRENT_LEAVES:
+        cdim = -2 if name == "ssm" else -1
+        if _axis_ok(shape[cdim], tp_n):
+            spec[cdim] = tp
+    return tuple(spec)
+
+
+def held_cache_spec(name: str, shape: Sequence[int],
+                    pctx: ParallelContext) -> Spec:
+    """The cut a rank holds of the leaf: `cache_spec`'s, but the conv,
+    SSM and LRU states keep their channels whole on every `model` rank:
+    the mamba and RG-LRU mixers gather their weights whole on use and
+    compute every channel (ROADMAP Queue 1 item 7c, the channel splits).
+    Their results are the same."""
+    spec = cache_spec(name, shape, pctx)
+    if name in RECURRENT_LEAVES:
+        spec = tuple(None if e == pctx.tp_axis else e for e in spec)
+    return spec
+
+
+def cache_slice(name: str, shape: Sequence[int],
+                pctx: ParallelContext) -> Tuple[slice, ...]:
+    """This rank's block of the whole decode-state leaf `name` of
+    `shape` (`held_cache_spec`), as `local_slice` cuts a parameter."""
+    return _block(shape, held_cache_spec(name, shape, pctx), pctx.mesh)
+
+
+def kv_split(name: str, shape: Sequence[int],
+             pctx: ParallelContext) -> Optional[str]:
+    """How the K/V leaf of whole `shape` (B, Hkv, L, hd) is cut over
+    `model` (`cache_spec`): "positions" (each rank L / tp positions of
+    every KV head), "heads" (Hkv / tp heads at every position) or None
+    (whole on every `model` rank)."""
+    spec = cache_spec(name, shape, pctx)
+    return "positions" if spec[-2] else "heads" if spec[-3] else None
 
 
 def _leaf_owners(params: nn.Module, prefix: str = ""):

@@ -19,7 +19,11 @@ state; an encoder layer returns none) and "decode" (one token against
 the state, which it writes in place).  Trained on a mesh, a layer holds
 this rank's blocks of its weights and gathers them on use; its
 attention, FFN and shared experts compute tensor-parallel over `model`
-where `models.sharding.computes_tp` says so.
+where `models.sharding.computes_tp` says so.  Served on a mesh, prefill
+and decode do the same, and decode follows each K/V cache's cut over
+`model` (`kvcache.CacheBlocks.cuts`: by KV heads or by positions,
+`models.attention`); the MoE layer's decode takes the expert-parallel
+local branch (`models.moe`).
 """
 from __future__ import annotations
 
@@ -90,18 +94,21 @@ def _write(cache: Dict, new: Dict) -> Dict:
 
 
 def _cross(p, h: torch.Tensor, cfg: ModelConfig, ctx: LayerCtx,
-           cache: Optional[Dict], tp: Optional[ParallelContext] = None
+           cache: Optional[Dict], tp: Optional[ParallelContext] = None,
+           seq: Optional[ParallelContext] = None
            ) -> Tuple[torch.Tensor, Dict]:
     """Cross-attention: prefill projects the source's K/V and returns
     them as the decode state; decode reads them from `cache`, masked past
     `ctx.cross_len` (all of it when None).  With `tp`, this rank's heads
-    (`attention.attention_block`)."""
+    (`attention.attention_block`); with `seq`, the cache is this rank's
+    positions (`attention.cross_attention_decode`)."""
     if ctx.mode == "decode":
         ck, cv = cache["ck"], cache["cv"]
         n = ctx.cross_len
         if n is None:
-            n = torch.full((h.shape[0],), ck.shape[2], device=h.device)
-        return A.cross_attention_decode(p, h, cfg, ck, cv, n), cache
+            whole = ck.shape[2] * (seq.tp_size if seq is not None else 1)
+            n = torch.full((h.shape[0],), whole, device=h.device)
+        return A.cross_attention_decode(p, h, cfg, ck, cv, n, tp, seq), cache
     ck, cv = A.project_cross_kv(p, ctx.cross_src, cfg, tp)
     return (A.cross_attention_block(p, h, cfg, ck, cv, tp),
             {"ck": ck, "cv": cv})
@@ -116,13 +123,17 @@ def apply_layer(
     cache: Optional[Dict] = None,
     pctx: ParallelContext = single_device_ctx(),
     prefix: Optional[str] = None,
+    cut: Optional[Dict[str, Optional[str]]] = None,
 ) -> Tuple[torch.Tensor, torch.Tensor, Dict]:
     """Returns (x, aux_loss, new_cache); in decode mode new_cache is
     `cache`, written in place; in train mode None.  On a mesh `p` holds
     this rank's blocks of the leaves named `prefix` + their path
     ("stack.3"), gathered here on use (`models.sharding.on_use`), and
     `pctx` reaches the MoE layer (expert-parallel with model ranks) and
-    each block that computes tensor-parallel (`split`)."""
+    each block that computes tensor-parallel (`split`); a prefill's K/V
+    are the rank's heads where its attention splits.  In decode mode
+    `cut` tells how each K/V leaf of `cache` is cut over `model`
+    (`kvcache.CacheBlocks.cuts`)."""
     if pctx.mesh is not None:
         if prefix is None:
             raise ValueError("a layer on a mesh needs its leaves' prefix")
@@ -135,6 +146,16 @@ def apply_layer(
                                                 cfg, pctx):
             return None
         return pctx
+
+    def seq(name: str, block: str) -> Optional[ParallelContext]:
+        """`pctx` where the K/V leaf `name` of `cache` is cut by
+        positions over `model`, else None; a cut by heads needs the
+        `block` split by heads."""
+        how = (cut or {}).get(name)
+        if how == "heads" and split(block, "wq") is None:
+            raise ValueError(f"{prefix}.{name}: a cache cut by heads for "
+                             "attention that does not split by them")
+        return pctx if how == "positions" else None
 
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     decode = ctx.mode == "decode"
@@ -165,7 +186,7 @@ def apply_layer(
             new_cache = {"conv": cs, "lru": hs}
     elif kind == "cross_attn":
         y, new_cache = _cross(p["attn"], h, cfg, ctx, cache,
-                              split("attn", "wq"))
+                              split("attn", "wq"), seq("ck", "attn"))
         new_cache = None if train else new_cache
     elif kind == "encoder":   # bidirectional, no decode state
         y = A.attention_block(p["attn"], h, cfg, ctx.positions, causal=False,
@@ -176,7 +197,7 @@ def apply_layer(
         if decode:
             y, nk, nv = A.attention_block_decode(
                 p["attn"], h, cfg, ctx.pos, cache["k"], cache["v"],
-                window=window)
+                window=window, tp=split("attn", "wq"), seq=seq("k", "attn"))
             new_cache = {"k": nk, "v": nv}
         elif train:
             y = A.attention_block(p["attn"], h, cfg, ctx.positions,
@@ -184,13 +205,14 @@ def apply_layer(
             new_cache = None
         else:
             y, kc, vc = A.attention_block(p["attn"], h, cfg, ctx.positions,
-                                          window=window, return_kv=True)
+                                          window=window, return_kv=True,
+                                          tp=split("attn", "wq"))
             new_cache = {"k": kc, "v": vc}
     x = x + y
     if kind == "decoder":   # then cross-attention over the encoder's output
         h = apply_norm(cfg.norm, p["ln_x"], x, upcast=cfg.norm_upcast)
         y, cross = _cross(p["xattn"], h, cfg, ctx, cache,
-                          split("xattn", "wq"))
+                          split("xattn", "wq"), seq("ck", "xattn"))
         if decode:
             new_cache = cache
         elif not train:
@@ -227,11 +249,13 @@ def apply_stack(
     model's tree ("stack" or "encoder"): on a mesh each layer gathers its
     blocks on use, inside its rematerialised body when ``cfg.remat ==
     "full"``, so that the backward gathers them again and no whole weight
-    outlives its layer."""
+    outlives its layer.  A mesh's decode state (`kvcache.CacheBlocks`)
+    gives each layer its K/V leaves' cuts."""
     aux_total = torch.zeros((), dtype=torch.float32, device=x.device)
     train = ctx.mode == "train"
     remat = train and cfg.remat == "full"
     new_caches = None if train else []
+    cuts = getattr(caches, "cuts", None)
     for i, kind in enumerate(plan.kinds):
         c = caches[i] if caches is not None else None
         if remat:
@@ -240,7 +264,8 @@ def apply_stack(
                                     use_reentrant=False)
         else:
             x, aux, nc = apply_layer(kind, params[i], x, cfg, ctx, c, pctx,
-                                     f"{name}.{i}")
+                                     f"{name}.{i}",
+                                     cuts[i] if cuts is not None else None)
         aux_total = aux_total + aux
         if not train:
             new_caches.append(nc)

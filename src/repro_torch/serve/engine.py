@@ -34,9 +34,24 @@ The f32 router, decode attention and head match the JAX package's f32
 dots only with TF32 off, PyTorch's default; the entry points
 (`launch.serve`, chip_smoke.py) set it so.
 
+On a mesh (`pctx`, serving over `model`) every rank runs this host
+loop on the same queue, with its blocks of the weights
+(`models.model.init_params` or `models.convert.params_from_numpy` given
+the context) and of the slots' cache (`kvcache.init_cache` given it),
+and gets the same tokens: the logits come back whole on every rank.  A
+prefill pads its K/V to the slots' length, so that its blocks are the
+slot's; a cross cache whose source is shorter than the slot is gathered
+over `model` and cut again (`_insert`, `kvcache.recut`).  The engine
+decodes with the JAX engine's MoE dispatch (the local branch at a
+tick, the all-to-all at a prefill whose length divides tp).  A mesh
+with more than one data rank is refused: the JAX engine cannot prefill an MoE arch there (a
+batch of one over `data` in its `shard_map`), and slots over `data`
+wait (ROADMAP Queue 1 item 7c).
+
 The engine counts its prefills and decode ticks and the host seconds
 each took (each ends in a copy of the next token to the host, which
-waits for the device).
+waits for the device), and on a mesh the seconds of each on the wire
+and the bytes sent (`core.comm.Mesh.wire_s`, `sent_bytes`).
 """
 from __future__ import annotations
 
@@ -49,13 +64,14 @@ import torch
 
 from repro_torch import DeviceLike, resolve_device
 from repro_torch.configs.base import ModelConfig
-from repro_torch.models.kvcache import init_cache
+from repro_torch.models.kvcache import init_cache, recut
 from repro_torch.models.layers import torch_dtype
 from repro_torch.models.model import (
     CROSS_INPUT,
     forward_decode,
     forward_prefill,
 )
+from repro_torch.models.parallel import ParallelContext, single_device_ctx
 
 
 @dataclasses.dataclass
@@ -75,18 +91,26 @@ class ServeEngine:
         self,
         cfg: ModelConfig,
         params,
+        pctx: ParallelContext = single_device_ctx(),
         slots: int = 4,
         max_seq: int = 128,
         greedy: bool = True,
         device: DeviceLike = None,
     ):
+        if pctx.mesh is not None and pctx.dp_size > 1:
+            raise ValueError(
+                f"serving on {pctx.dp_size} data ranks: slots over `data` "
+                "are not served yet (ROADMAP Queue 1 item 7c, 'slots over "
+                "data'); serve on a mesh of data 1")
         self.cfg = cfg
         self.params = params
+        self.pctx = pctx
         self.slots = slots
         self.max_seq = max_seq
         self.greedy = greedy
         self.device = resolve_device(device)
-        self.cache = init_cache(cfg, slots, max_seq, device=self.device)
+        self.cache = init_cache(cfg, slots, max_seq, device=self.device,
+                                pctx=pctx)
         self.pos = np.zeros(slots, np.int32)
         # each slot's source length in its cross caches (encdec, vlm)
         self.cross_len = None
@@ -101,6 +125,8 @@ class ServeEngine:
         self.prefill_s = 0.0
         self.ticks = 0
         self.decode_s = 0.0
+        self.prefill_wire_s = self.decode_wire_s = 0.0
+        self.prefill_sent = self.decode_sent = 0
 
     # ---------------- request plumbing -------------------------------------
     def submit(self, req: Request):
@@ -112,25 +138,35 @@ class ServeEngine:
         if L > self.max_seq:
             raise ValueError(f"prompt of {L} tokens > max_seq {self.max_seq}")
         t0 = time.perf_counter()
+        wire = self._wire()
         tokens = torch.as_tensor(np.asarray(req.prompt, np.int64)[None, :],
                                  device=self.device)
-        logits, pc = forward_prefill(self.params, self._batch(req, tokens),
-                                     self.cfg)
+        mesh = self.pctx.mesh is not None
+        logits, pc = forward_prefill(
+            self.params, self._batch(req, tokens), self.cfg,
+            cache_len=self.max_seq if mesh else None, pctx=self.pctx)
         # the single-request state into the batched slot
-        for layer, pre in zip(self.cache, pc):
+        tp = self.pctx.tp_size
+        for i, (layer, pre) in enumerate(zip(self.cache, pc)):
             for name, buf in layer.items():
-                src = pre[name][0].to(buf.dtype)
-                if name in ("k", "v", "ck", "cv"):   # (Hkv, len, hd)
-                    n = src.shape[1]
-                    if n > buf.shape[2]:
-                        raise ValueError(f"{n} source positions > the "
+                src = pre[name].to(buf.dtype)
+                if name in ("k", "v", "ck", "cv"):   # (1, Hkv, len, hd)
+                    n = src.shape[2]
+                    if mesh:   # the slot's block of the source's positions
+                        was, to = pc.cuts[i][name], self.cache.cuts[i][name]
+                        n *= tp if was == "positions" else 1
+                        src, = recut([src], was, to, buf.shape[2] * (
+                            tp if to == "positions" else 1), self.pctx)
+                    held = src.shape[2]
+                    if held > buf.shape[2]:
+                        raise ValueError(f"{held} source positions > the "
                                          f"cache's {buf.shape[2]}")
-                    buf[slot, :, :n] = src
-                    buf[slot, :, n:] = 0
+                    buf[slot, :, :held] = src[0]
+                    buf[slot, :, held:] = 0
                     if name == "ck":
                         self.cross_len[slot] = n
                 else:                    # conv (K-1, C), ssm (Di, N), lru
-                    buf[slot] = src
+                    buf[slot] = src[0]
         if self.greedy:
             tok = int(torch.argmax(logits[0]))
         else:
@@ -140,9 +176,20 @@ class ServeEngine:
         self.prefills += 1
         self.prefill_tokens += L
         self.prefill_s += time.perf_counter() - t0
+        wire_s, sent = self._wire(wire)
+        self.prefill_wire_s += wire_s
+        self.prefill_sent += sent
         req.out_tokens.append(tok)
         self.active[slot] = req
         self.pos[slot] = L
+
+    def _wire(self, since=None):
+        """The mesh's (wire seconds, bytes sent) so far, or since `since`;
+        (0, 0) without a mesh."""
+        mesh = self.pctx.mesh
+        now = (mesh.wire_s, mesh.sent_bytes) if mesh is not None else (0, 0)
+        return now if since is None else (now[0] - since[0],
+                                          now[1] - since[1])
 
     def _batch(self, req: Request, tokens: torch.Tensor) -> dict:
         """The prefill's inputs: tokens, and the encoder's frames or the
@@ -178,16 +225,20 @@ class ServeEngine:
         if not live:
             return 0
         t0 = time.perf_counter()
+        wire = self._wire()
         toks = np.zeros((self.slots, 1), np.int64)
         for i in live:
             toks[i, 0] = self.active[i].out_tokens[-1]
         logits, self.cache = forward_decode(
             self.params, torch.as_tensor(toks, device=self.device),
             torch.as_tensor(self.pos.astype(np.int64), device=self.device),
-            self.cache, self.cfg, cross_len=self.cross_len)
+            self.cache, self.cfg, cross_len=self.cross_len, pctx=self.pctx)
         nxt = torch.argmax(logits, dim=-1).cpu().numpy()
         self.ticks += 1
         self.decode_s += time.perf_counter() - t0
+        wire_s, sent = self._wire(wire)
+        self.decode_wire_s += wire_s
+        self.decode_sent += sent
         for i in live:
             r = self.active[i]
             self.pos[i] += 1

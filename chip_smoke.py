@@ -183,6 +183,35 @@ raising:
    layer of every prefill, counted; tick and prefill ms with the wire's
    within them, the collectives a tick by kind and axis, bytes a rank
    sends, peak GB a rank.
+   tp_ssm_golden: the mamba and RG-LRU mixers split by channels over
+   `model` (`models.sharding.computes_tp`; mamba's in_proj held as the
+   rank's x and z columns, `held_columns`) on 4 ranks as `model` 4:
+   reduced falcon-mamba-7b (32 of 128 channels a rank) and
+   recurrentgemma-2b (16 of 64) in f32 against the stored JAX GSPMD runs
+   on 4 fake CPU devices (src/repro_torch/data/
+   <arch>_reduced_tp_golden.npz): 3 steps of `make_train_step` under
+   fsdp_tp (losses, grad norms and lr rtol 1e-5, each rank's blocks of
+   the parameters and both moments after the last atol/rtol 1e-5, the
+   ranks of one block the same bits) and `ServeEngine` (4 slots, 6
+   prompts of 9 and 12 tokens, 4 new each: tokens equal, every prefill's
+   and tick's logits within 1e-4, the conv / SSM / LRU states a quarter
+   of the channels a rank); no mixer leaf gathered over `model`, the
+   scans launched on the rank's channels alone (`_Census.scans`), every
+   launch counted.
+   tp_ssm_full: falcon-mamba-7b at full width on `model` 4 (2,048 of
+   8,192 channels a rank), 8 of 64 layers (printed as `reduced`), f32
+   masters from seed 0, bf16 compute, B 1, S 4096, 4 steps at lr 3e-4,
+   then `ServeEngine` (4 slots, 4 prompts of 135-455 tokens, 8 new each)
+   on the seed-0 bf16 weights; both again on one rank on whole weights
+   (`_tp_ssm_whole`): losses within 2e-2 and the first grad norm within
+   1e-3 of the one rank's, prefill logits within 2e-2 of its largest
+   magnitude, every rank's tokens the same, every tick's logits finite,
+   no mixer leaf gathered over `model`, `mamba_scan` and
+   `mamba_scan_bwd` on 2,048 channels in every layer of every step, the
+   states held at (4, 3, 2,048) / (4, 2,048, 16) a rank; step, prefill
+   and tick ms with the wire's ms within each, collectives by kind,
+   bytes sent, peak GB a rank, a rank's mixer weights and states beside
+   the whole ones, beside the card's name and power limit.
    train_full_qwen3, train_full_falcon_mamba, train_full_rgemma: the
    MoE, SSM and hybrid archs at full width, the same way at B 1, S 4096
    (printed as `reduced`), 10 steps without a checkpoint: qwen3-moe at 4
@@ -291,7 +320,15 @@ raising:
    the share of the byte bound and GB/s.  No single PyTorch call
    computes the fused gated FFN, so no library time; as a yardstick
    never on the path, `bmm_trio_ms` times three `torch.bmm` calls plus
-   silu in the row's type (it rounds g and u to that type).
+   silu in the row's type (it rounds g and u to that type).  Then the
+   gate's gelu (tanh form) and relu instantiations of both kernels
+   (ROADMAP Queue 3, F7): the sweep in f32 and bf16, forward against
+   `moe_gmm_ref` (f32 2e-5, bf16 2e-2) and backward against
+   `moe_gmm_bwd_ref` (f32 1e-4, bf16 2e-2 of each gradient's largest
+   value) with the same activation, and qwen3-moe's shapes (forward C 4
+   and C 40, backward C 320 in bf16; forward C 40 and backward on 16
+   experts at C 40 in f32), each timed beside silu's instantiation on
+   the same inputs (`act_rows`; the kernels line's `instantiations`).
 10. mamba_scan: the same at tests/test_kernels.py:47-53 (f32 1e-4, bf16
    2e-2) and at falcon-mamba-7b's prefill (B 1, D 8192, N 16; S 512 with
    x bf16 or f32 beside f32 dt, B, C, and S 134 with x bf16) and training
@@ -661,8 +698,10 @@ def _hgmma(lib: Path) -> int:
     return sum("HGMMA" in ln for ln in sass.splitlines())
 
 
-# the moe_gmm backward's bf16 kernels (csrc/moe_gmm_bwd.cu) by ptxas name
-GMM_BWD_WGMMA_KERNELS = ("moe_bwd_act_wgmma", "moe_bwd_wgrad_wgmma<1>",
+# the moe_gmm backward's bf16 kernels (csrc/moe_gmm_bwd.cu) by ptxas name:
+# the activation pass in silu's, gelu's and relu's instantiations
+GMM_BWD_WGMMA_KERNELS = ("moe_bwd_act_wgmma<0>", "moe_bwd_act_wgmma<1>",
+                         "moe_bwd_act_wgmma<2>", "moe_bwd_wgrad_wgmma<1>",
                          "moe_bwd_wgrad_wgmma<2>", "moe_bwd_dh_wgmma",
                          "wgmma_probe_products")
 
@@ -724,7 +763,8 @@ def phase_build() -> dict:
            f"flash backward D instantiations {sorted(bwd)}")
     _check("flash_bwd_kv_reduce" in bwd,
            f"flash backward sum of parts missing: {sorted(bwd)}")
-    # the moe_gmm backward: bf16 on wgmma (four kernels and the probe)
+    # the moe_gmm backward: bf16 on wgmma (four kernels, the activation
+    # pass in three instantiations, and the probe)
     gmm_wgmma = {k: v for k, v in out[f"ptxas_{gmm.BWD_NAME}"].items()
                  if "wgmma" in k}
     _check(sorted(gmm_wgmma) == sorted(GMM_BWD_WGMMA_KERNELS),
@@ -2246,6 +2286,9 @@ def phase_rglru_scan_bwd() -> dict:
                                         (1, 200, 8)]]
     rows = [dict(arch="recurrentgemma-2b", **row(torch.float32, 1, 4096,
                                                  2560)),
+            # a rank's 640 channels at `model` 4
+            dict(arch="recurrentgemma-2b tp4", **row(torch.float32, 1, 4096,
+                                                     640)),
             dict(arch="small f32", **row(torch.float32, 1, 512, 2560)),
             dict(arch="ragged", **row(torch.bfloat16, 2, 1000, 2500))]
     return dict(phase="rglru_scan_bwd", tiling=rg.bwd_tiling(),
@@ -2351,6 +2394,10 @@ def phase_mamba_scan_bwd() -> dict:
              for with_hs in (False, True)]
     rows = [dict(arch="falcon-mamba-7b", **row(
                 torch.bfloat16, torch.float32, 1, 4096, 8192, 16, False,
+                explicit=True)),
+            # a rank's 2,048 channels at `model` 4 (tp_ssm_full)
+            dict(arch="falcon-mamba-7b tp4", **row(
+                torch.bfloat16, torch.float32, 1, 4096, 2048, 16, False,
                 explicit=True)),
             dict(arch="small f32", **row(torch.float32, torch.float32, 1,
                                          512, 8192, 16, True)),
@@ -3097,12 +3144,15 @@ class _Census:
     by the axes its ranks' coordinates differ on, "data+model" for the
     world's), the (leaf, axis) pairs a gather on use sends over
     (`gathered`), the flash kernel's calls by their (query, KV) heads
-    (`heads`) and the moe_gmm kernel's by their experts (`experts`), by
-    wrapping `torch.distributed`'s collectives, `core.comm._gather_axis`,
-    `models.sharding.use_leaf` (where `models.model` and `on_use` reach
-    it), `models.attention.flash_attention` and `models.moe.moe_gmm`.  It
-    reads names every tree of the port has had since its FSDP layout, so
-    that `scripts/chip_ab.py` can run it on a parent's tree."""
+    (`heads`), the moe_gmm kernel's by their experts (`experts`) and the
+    scan kernels' launches by (kernel, channels) (`scans`:
+    ``("mamba_scan_bwd", 2048)``), by wrapping `torch.distributed`'s
+    collectives, `core.comm._gather_axis`, `models.sharding.use_leaf`
+    (where `models.model` and `on_use` reach it),
+    `models.attention.flash_attention`, `models.moe.moe_gmm` and the
+    kernel wrappers the scans' ops call.  It reads names every tree of
+    the port has had since its FSDP layout, so that `scripts/chip_ab.py`
+    can run it on a parent's tree."""
 
     def __init__(self, shape: dict):
         import collections
@@ -3114,6 +3164,7 @@ class _Census:
         self.gathered = collections.Counter()
         self.heads = collections.Counter()
         self.experts = collections.Counter()
+        self.scans = collections.Counter()
         self._leaf = None
         self._saved = []
 
@@ -3143,6 +3194,8 @@ class _Census:
         import torch.distributed as dist
 
         from repro_torch.core import comm
+        from repro_torch.kernels.mamba_scan import ops as mamba_ops
+        from repro_torch.kernels.rglru_scan import ops as rglru_ops
         from repro_torch.models import attention, model, moe, sharding
 
         world = dist.group.WORLD
@@ -3198,6 +3251,19 @@ class _Census:
                 return orig(h, *args, **kw)
             return fn
 
+        def scan(name):
+            def make(orig):
+                def fn(x, *args, **kw):
+                    self.scans[(name, int(x.shape[-1]))] += 1
+                    return orig(x, *args, **kw)
+                return fn
+            return make
+
+        for mod, fwd, bwd in ((mamba_ops, "mamba_scan_fwd", "mamba_scan_bwd"),
+                              (rglru_ops, "rglru_scan_fwd",
+                               "rglru_scan_bwd")):
+            self._wrap(mod, fwd, scan(fwd[:-4]))
+            self._wrap(mod, bwd, scan(bwd))
         self._wrap(dist, "batch_isend_irecv", p2p)
         self._wrap(moe, "moe_gmm", gmm)
         self._wrap(sharding, "use_leaf", use_leaf)
@@ -4241,7 +4307,6 @@ def _serve_mesh_golden_rank(world, path: str, mesh) -> dict:
     from the stored ones and whether each is within 1e-4, the launches,
     the flash calls by heads and the moe_gmm calls by experts."""
     import numpy as np
-    import torch
 
     from repro_torch.configs.base import get_config, reduced_config
     from repro_torch.launch.mesh import pctx_for_mesh
@@ -4262,18 +4327,9 @@ def _serve_mesh_golden_rank(world, path: str, mesh) -> dict:
             cfg, params, pctx, int(stored["slots"]), int(stored["max_seq"]),
             prompts, int(stored["max_new"]), world.device)
     seconds = time.perf_counter() - t0
-    errs = {}
-    for kind, got in (("prefill", logits.prefill), ("tick", logits.tick)):
-        want = torch.as_tensor(stored[f"{kind}_logits"])
-        got = (torch.cat(got) if kind == "prefill" else torch.stack(got))
-        if got.shape != want.shape:
-            errs[kind] = (float("inf"), False)
-            continue
-        err = (got - want).abs()
-        errs[kind] = (float(err.max()),
-                      bool((err <= 1e-4 + 1e-4 * want.abs()).all()))
-    return dict(tokens=tokens, errs=errs, launches=launches,
-                heads=dict(census.heads), experts=dict(census.experts),
+    return dict(tokens=tokens, errs=_logits_errs(logits, stored, ""),
+                launches=launches, heads=dict(census.heads),
+                experts=dict(census.experts),
                 prefills=eng.prefills, ticks=eng.ticks, seconds=seconds,
                 layers=cfg.num_layers, backend=world.backend, why=world.why)
 
@@ -4823,6 +4879,613 @@ def phase_train_arch_full(phase: str, arch: str, layers: int, why: str,
         **{f"{k}_launches": v for k, v in launches.items()})
 
 
+# ---------------- the mamba and RG-LRU mixers split over `model` ------------
+
+# the stored JAX runs of reduced falcon-mamba-7b and recurrentgemma-2b at
+# (data 1, model 4) (tests/test_torch_tp_recurrent.py writes them), and
+# the kernels each arch's layers launch by layer kind: a forward twice a
+# layer a step under remat and a backward once in training, a forward
+# once a layer a prefill and none at a decode tick in serving
+TP_SSM_GOLDEN = {"falcon-mamba-7b": "falcon_mamba_7b_reduced_tp_golden.npz",
+                 "recurrentgemma-2b":
+                 "recurrentgemma_2b_reduced_tp_golden.npz"}
+TP_SSM_KERNELS = {"falcon-mamba-7b": {"mamba_scan": "ssm"},
+                  "recurrentgemma-2b": {"rglru_scan": "rglru",
+                                        "flash_attention": "local_attn"}}
+# falcon-mamba-7b at full width on (data 1, model 4): d_inner 8,192, 2,048
+# channels a rank; the depth, the steps and the requests the script's
+# 1,200 s hold beside the one-rank reference
+TP_SSM_FULL_ARCH = "falcon-mamba-7b"
+TP_SSM_FULL_LAYERS, TP_SSM_FULL_STEPS = 8, 4
+TP_SSM_FULL_B, TP_SSM_FULL_S = 1, 4096
+TP_SSM_FULL_LR = ARCH_TRAIN_LR[TP_SSM_FULL_ARCH]   # U1
+TP_SSM_FULL_SLOTS, TP_SSM_FULL_SEQ, TP_SSM_FULL_NEW = 4, 1024, 8
+TP_SSM_FULL_LENS = (455, 373, 247, 135)
+TP_SSM_FULL_WHY = ("the script's 1,200 s, and 4 ranks and the one-rank "
+                   "reference on whole weights sharing the card's 80 GB: at "
+                   "16 B a parameter a layer needs ~1.7 GB, the untied "
+                   "embedding and head ~8.5 GB, ~22 GB at 8 layers for the "
+                   "reference alone")
+
+
+def _card() -> str:
+    """The card's name and power limit, as nvidia-smi reports them."""
+    return subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        check=True, timeout=60).stdout.strip()
+
+
+def _mixer_leaf(name: str) -> bool:
+    return ".mixer." in name or ".rec." in name
+
+
+def _logits_errs(logits, stored: dict, prefix: str) -> dict:
+    """{"prefill" | "tick": (the largest distance of the recorded logits
+    from the stored ones, whether each is within 1e-4)}."""
+    import torch
+
+    errs = {}
+    for kind, got in (("prefill", logits.prefill), ("tick", logits.tick)):
+        want = torch.as_tensor(stored[f"{prefix}{kind}_logits"])
+        got = torch.cat(got) if kind == "prefill" else torch.stack(got)
+        if got.shape != want.shape:
+            errs[kind] = (float("inf"), False)
+            continue
+        err = (got - want).abs()
+        errs[kind] = (float(err.max()),
+                      bool((err <= 1e-4 + 1e-4 * want.abs()).all()))
+    return errs
+
+
+def _cache_shapes(cache) -> list:
+    return sorted({(n, tuple(t.shape)) for c in cache for n, t in c.items()})
+
+
+def _tp_ssm_golden_rank(world, root: str) -> dict:
+    """Both stored runs on this rank, by arch: the stored steps through
+    `make_train_step` under fsdp_tp (per step the metrics; after the last
+    the largest distance of this rank's blocks of the parameters and both
+    moments from the stored whole arrays' blocks, `_block_digests`), and
+    the stored requests through `ServeEngine` (the tokens, the logits'
+    distances, the slots' state shapes); in each, the kernels' launches,
+    the scans' launches by channels and the mixer leaves gathered over
+    `model` (`_Census`)."""
+    import numpy as np
+    import torch
+
+    from repro_torch.configs.base import get_config, reduced_config
+    from repro_torch.core.comm import Mesh
+    from repro_torch.data.pipeline import SyntheticLM, device_batches
+    from repro_torch.kernels import launch_counts
+    from repro_torch.launch.mesh import pctx_for_mesh
+    from repro_torch.models.convert import params_from_numpy, tree_from_flat
+    from repro_torch.optim.adamw import AdamWConfig
+    from repro_torch.train.trainer import init_train_state, make_train_step
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    out = {}
+    for arch, fname in TP_SSM_GOLDEN.items():
+        stored = dict(np.load(Path(root) / "src" / "repro_torch" / "data"
+                              / fname))
+        cfg = reduced_config(get_config(arch)).replace(
+            compute_dtype="float32")
+        spec = json.loads(str(stored["mesh"]))
+        mesh = Mesh(spec["shape"], spec["axes"])
+        pctx = pctx_for_mesh(mesh)
+        data = json.loads(str(stored["data"]))
+
+        def blocks(prefix, masters=True):
+            return params_from_numpy(cfg, tree_from_flat(
+                {k[len(prefix):]: v for k, v in stored.items()
+                 if k.startswith(prefix)}), device=world.device,
+                masters=masters, pctx=pctx)
+
+        state = init_train_state(cfg, blocks("param/"))
+        step = make_train_step(cfg, pctx, AdamWConfig(**json.loads(str(
+            stored["opt"]))))
+        src = SyntheticLM(cfg.vocab_size, data["seq"], data["batch"],
+                          seed=data["seed"])
+        steps = len(stored["loss"])
+        metrics = []
+        launch_counts.clear()
+        with _Census(mesh.shape) as census:
+            for _, batch in zip(range(steps),
+                                device_batches(src, 0, world.device)):
+                state, m = step(state, batch)
+                metrics.append({k: float(v) for k, v in m.items()})
+        got = {"param": dict(state["params"].named_parameters()),
+               "m": state["opt"]["m"], "v": state["opt"]["v"]}
+        errs = {k: _fsdp_blocks_err(got[k], dict(blocks(
+            f"after{steps}/{k}/").named_parameters())) for k in got}
+        train = dict(
+            metrics=metrics, launches=dict(launch_counts),
+            max_abs_err={k: e[0] for k, e in errs.items()},
+            outside_tol=[f"{k}:{n}" for k, e in errs.items() for n in e[1]],
+            held=_block_digests(got["param"], cfg, pctx),
+            held_m=_block_digests(got["m"], cfg, pctx),
+            scans=dict(census.scans),
+            mixer_over_model=sorted(leaf for leaf, axis in census.gathered
+                                    if axis == "model" and _mixer_leaf(leaf)))
+        del state, got
+        n = sum(1 for k in stored if k.startswith("serve/prompt/"))
+        with torch.no_grad(), _Census(mesh.shape) as census:
+            eng, tokens, logits, launches = _serve(
+                cfg, blocks("param/", masters=False), pctx,
+                int(stored["serve/slots"]), int(stored["serve/max_seq"]),
+                [stored[f"serve/prompt/{i}"] for i in range(n)],
+                int(stored["serve/max_new"]), world.device)
+        serve = dict(
+            tokens=tokens, errs=_logits_errs(logits, stored, "serve/"),
+            launches=launches, prefills=eng.prefills, ticks=eng.ticks,
+            cache_shapes=_cache_shapes(eng.cache), scans=dict(census.scans),
+            mixer_over_model=sorted(leaf for leaf, axis in census.gathered
+                                    if axis == "model" and _mixer_leaf(leaf)))
+        out[arch] = dict(train=train, serve=serve, layers=cfg.num_layers,
+                         backend=world.backend, why=world.why)
+    return out
+
+
+def phase_tp_ssm_golden(root: Path) -> dict:
+    """The mamba and RG-LRU mixers split by channels over `model`
+    (`models.sharding.computes_tp`) on 4 ranks as `data` 1 x `model` 4 on
+    the one card: reduced falcon-mamba-7b (d_inner 128, 32 channels a
+    rank) and recurrentgemma-2b (lru_width 64, 16 a rank) in f32 from the
+    stored weights (src/repro_torch/data/*_reduced_tp_golden.npz, the JAX
+    package's GSPMD runs on 4 fake CPU devices).  Training: 3 steps of
+    `make_train_step` under fsdp_tp, the losses, gradient norms and lr
+    within rtol 1e-5, each rank's blocks of the parameters and both
+    moments after the last within atol/rtol 1e-5 of the stored whole
+    arrays' blocks (mamba's in_proj through `held_columns`), the ranks of
+    one block the same bits.  Serving: `ServeEngine` with 4 slots, 6
+    prompts of 9 and 12 tokens, 4 new tokens each: the greedy tokens
+    equal, every prefill's and tick's logits within 1e-4, each slot's
+    conv, SSM and LRU states a quarter of the channels.  In both no mixer
+    leaf gathered over `model`, every kernel's launches exact, the scans
+    on the rank's channels alone (`_Census.scans`)."""
+    import numpy as np
+
+    from repro_torch.configs.base import get_config, reduced_config
+    from repro_torch.models.transformer import stack_plan
+
+    t0 = time.perf_counter()
+    ranks = _ranks(_tp_ssm_golden_rank, str(root), timeout_s=300)
+    wall = time.perf_counter() - t0
+    tp = 4
+    out = dict(phase="tp_ssm_golden", card=_card(),
+               mesh={"data": 1, "model": tp},
+               layout="fsdp_tp", backend=ranks[0][TP_SSM_FULL_ARCH]["backend"],
+               why=ranks[0][TP_SSM_FULL_ARCH]["why"], ranks_s=wall, archs={})
+    for arch, fname in TP_SSM_GOLDEN.items():
+        stored = dict(np.load(root / "src" / "repro_torch" / "data" / fname))
+        cfg = reduced_config(get_config(arch))
+        width = cfg.d_inner_ if cfg.ssm is not None else cfg.lru_width_
+        steps = len(stored["loss"])
+        kernels = TP_SSM_KERNELS[arch]
+        scan = next(k for k in kernels if k.endswith("_scan"))
+        kind = kernels[scan]
+        tag = f"tp_ssm_golden {arch}"
+        train = [r[arch]["train"] for r in ranks]
+        serve = [r[arch]["serve"] for r in ranks]
+        _check_blocks([r["held"] for r in train], f"{tag} params")
+        _check_blocks([r["held_m"] for r in train], f"{tag} m")
+        layers = stack_plan(cfg).kinds.count(kind)
+        for rank, (t, s) in enumerate(zip(train, serve)):
+            _check(t["metrics"] == train[0]["metrics"],
+                   f"{tag}: rank {rank} reports other metrics")
+            _check(not t["outside_tol"], f"{tag} rank {rank}: "
+                   f"{t['outside_tol'][:8]} beyond atol/rtol 1e-5")
+            want = _train_launches(cfg, kernels, steps)
+            _check(t["launches"] == want,
+                   f"{tag} training launches {t['launches']} != {want}")
+            _check(t["scans"] == {(scan, width // tp): 2 * layers * steps,
+                                  (f"{scan}_bwd", width // tp):
+                                  layers * steps},
+                   f"{tag} training scans {t['scans']}")
+            _check(not t["mixer_over_model"] and not s["mixer_over_model"],
+                   f"{tag}: mixer leaves gathered over model "
+                   f"{t['mixer_over_model'] + s['mixer_over_model']}")
+            for rid, toks in s["tokens"].items():
+                want = stored[f"serve/tokens/{rid}"].tolist()
+                _check(toks == want, f"{tag} rank {rank} tokens {rid}: "
+                       f"{toks} != {want}")
+            _check(len(s["tokens"]) == sum(
+                1 for k in stored if k.startswith("serve/tokens/")),
+                f"{tag}: {len(s['tokens'])} requests served")
+            for what, (err, ok) in s["errs"].items():
+                _check(ok, f"{tag} rank {rank} {what} logits: {err}")
+            want = _expected_launches(
+                cfg, {k: ((v,), 1, 0) for k, v in kernels.items()},
+                s["prefills"], s["ticks"])
+            _check(s["launches"] == want,
+                   f"{tag} serving launches {s['launches']} != {want}")
+            _check(s["scans"] == {(scan, width // tp): layers * s["prefills"]},
+                   f"{tag} serving scans {s['scans']}")
+            for name, shape in s["cache_shapes"]:
+                if name in ("conv", "ssm", "lru"):
+                    c = 1 if name == "ssm" else len(shape) - 1
+                    _check(shape[c] * tp == width,
+                           f"{tag} {name} state held as {shape}")
+        for k in ("loss", "grad_norm", "lr"):
+            got = np.array([m[k] for m in train[0]["metrics"]])
+            rel = float(np.max(np.abs(got - stored[k]) / np.abs(stored[k])))
+            _check(rel <= 1e-5, f"{tag} {k}: {got} != {stored[k]}")
+        out["archs"][arch] = dict(
+            layers=cfg.num_layers, channels_per_rank=width // tp,
+            width=width, steps=steps,
+            losses=[m["loss"] for m in train[0]["metrics"]],
+            jax_losses=stored["loss"].tolist(),
+            max_abs_err={k: max(t["max_abs_err"][k] for t in train)
+                         for k in ("param", "m", "v")},
+            prefills=serve[0]["prefills"], ticks=serve[0]["ticks"],
+            tokens_equal=True,
+            logits_max_abs_err={k: max(s["errs"][k][0] for s in serve)
+                                for k in ("prefill", "tick")},
+            state_shapes_per_rank=[list(x) for x in serve[0]["cache_shapes"]
+                                   if x[0] in ("conv", "ssm", "lru")])
+        for k in set(kernels) | {f"{k}_bwd" for k in kernels}:
+            out[f"{k}_launches"] = out.get(f"{k}_launches", 0) + sum(
+                t["launches"].get(k, 0) + s["launches"].get(k, 0)
+                for t, s in zip(train, serve))
+    return out
+
+
+def _tp_ssm_prompts(vocab: int) -> list:
+    import numpy as np
+
+    rng = np.random.default_rng(0)
+    return [rng.integers(0, vocab, n).astype(np.int32)
+            for n in TP_SSM_FULL_LENS]
+
+
+def _tp_ssm_full_rank(world, layers: int) -> dict:
+    """falcon-mamba-7b at full width cut to `layers` on this rank of
+    (data 1, model 4): `make_train_step` under fsdp_tp from seed 0 (per
+    step the loss, gradient norm, host seconds, the wire's seconds and
+    bytes sent; the collectives, the scans by channels and the mixer
+    leaves gathered over `model` (`_Census`); the launches; this rank's
+    bytes of the mixer leaves and of the state; peak bytes), then, its
+    state freed, `ServeEngine` on the seed-0 bf16 weights (the tokens,
+    the prefills' logits on rank 0, the ticks with non-finite logits,
+    prefill and tick host seconds with the wire's within them and the
+    bytes sent, the collectives of the ticks and of all, the scans, the
+    slots' state shapes and bytes, this rank's bytes of the mixer
+    weights, peak bytes)."""
+    import gc
+
+    import numpy as np
+    import torch
+
+    from repro_torch.configs.base import get_config
+    from repro_torch.core.comm import Mesh
+    from repro_torch.data.pipeline import SyntheticLM, device_batches
+    from repro_torch.kernels import launch_counts
+    from repro_torch.launch.mesh import pctx_for_mesh
+    from repro_torch.models.model import init_params, param_shapes
+    from repro_torch.optim.adamw import AdamWConfig
+    from repro_torch.train.trainer import init_train_state, make_train_step
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = get_config(TP_SSM_FULL_ARCH).replace(num_layers=layers)
+    mesh = Mesh((1, 4), ("data", "model"))
+    pctx = pctx_for_mesh(mesh)
+    shapes = param_shapes(cfg)
+
+    def nbytes(ts) -> int:
+        return sum(t.numel() * t.element_size() for t in ts)
+
+    def mixer_bytes(tree) -> tuple:
+        """(this rank's bytes of the mixer leaves of `tree`, the whole
+        leaves' in the same dtypes)."""
+        held = [(n, p) for n, p in tree.named_parameters()
+                if _mixer_leaf(n)]
+        return (nbytes(p for _, p in held),
+                sum(math.prod(shapes[n]) * p.element_size()
+                    for n, p in held))
+
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    state = init_train_state(cfg, init_params(cfg, 0, device=world.device,
+                                              masters=True, pctx=pctx))
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    step = make_train_step(cfg, pctx, AdamWConfig(
+        lr=TP_SSM_FULL_LR, total_steps=TP_SSM_FULL_STEPS, warmup_steps=5))
+    batches = device_batches(SyntheticLM(cfg.vocab_size, TP_SSM_FULL_S,
+                                         TP_SSM_FULL_B, seed=0), 0,
+                             world.device)
+    launch_counts.clear()
+    train = dict(losses=[], grad_norms=[], step_s=[], sent_bytes=[],
+                 wire_s=[])
+    with _Census(mesh.shape) as census:
+        for _, batch in zip(range(TP_SSM_FULL_STEPS), batches):
+            t0 = time.perf_counter()
+            sent, wire = mesh.sent_bytes, mesh.wire_s
+            state, m = step(state, batch)
+            train["losses"].append(float(m["loss"]))   # waits for the step
+            train["step_s"].append(time.perf_counter() - t0)
+            train["grad_norms"].append(float(m["grad_norm"]))
+            train["sent_bytes"].append(mesh.sent_bytes - sent)
+            train["wire_s"].append(mesh.wire_s - wire)
+            if world.rank == 0:
+                print(f"[tp_ssm_full] step {len(train['losses'])} loss "
+                      f"{train['losses'][-1]:.4f} "
+                      f"{train['step_s'][-1]:.2f} s, "
+                      f"{train['wire_s'][-1]:.2f} s on the wire", flush=True)
+    params = dict(state["params"].named_parameters())
+    train.update(
+        init_s=init_s, launches=dict(launch_counts),
+        calls={"/".join(k): v for k, v in census.calls.items()},
+        payload={"/".join(k): v for k, v in census.payload.items()},
+        scans=dict(census.scans),
+        mixer_over_model=sorted(leaf for leaf, axis in census.gathered
+                                if axis == "model" and _mixer_leaf(leaf)),
+        mixer_bytes=mixer_bytes(state["params"]),
+        state_bytes={k: nbytes(params.values() if k == "params"
+                               else state["opt"][k].values())
+                     for k in ("params", "m", "v")},
+        peak_bytes=torch.cuda.max_memory_allocated())
+    del state, params, step, m
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    weights = init_params(cfg, 0, device=world.device, pctx=pctx)
+    with torch.no_grad(), _Census(mesh.shape) as census:
+        eng, tokens, logits, launches = _serve(
+            cfg, weights, pctx, TP_SSM_FULL_SLOTS, TP_SSM_FULL_SEQ,
+            _tp_ssm_prompts(cfg.vocab_size), TP_SSM_FULL_NEW, world.device,
+            census)
+    serve = dict(
+        tokens=tokens, prefills=eng.prefills, ticks=eng.ticks,
+        nonfinite_ticks=sum(1 for t in logits.tick
+                            if not bool(torch.isfinite(t).all())),
+        prefill_s=eng.prefill_s, prefill_wire_s=eng.prefill_wire_s,
+        prefill_sent=eng.prefill_sent, decode_s=eng.decode_s,
+        decode_wire_s=eng.decode_wire_s, decode_sent=eng.decode_sent,
+        prefill_tokens=eng.prefill_tokens, launches=launches,
+        calls={"/".join(k): v for k, v in census.calls.items()},
+        tick_calls={"/".join(k): v for k, v in logits.tick_calls.items()},
+        scans=dict(census.scans),
+        mixer_over_model=sorted(leaf for leaf, axis in census.gathered
+                                if axis == "model" and _mixer_leaf(leaf)),
+        cache_shapes=_cache_shapes(eng.cache),
+        state_bytes=nbytes(t for c in eng.cache for n, t in c.items()
+                           if n in ("conv", "ssm")),
+        mixer_bytes=mixer_bytes(weights),
+        peak_bytes=torch.cuda.max_memory_allocated())
+    if world.rank == 0:   # numpy: a tensor crosses as a handle
+        serve["prefill_logits"] = np.stack(
+            [t[0].numpy() for t in logits.prefill])
+    del weights, eng
+    return dict(train=train, serve=serve, backend=world.backend,
+                why=world.why)
+
+
+def _tp_ssm_whole(layers: int) -> dict:
+    """tp_ssm_full's steps and requests in this process on whole weights,
+    one rank: the losses, gradient norms, host seconds and peak bytes of
+    the steps; the tokens, the prefills' logits, host seconds and peak
+    bytes of the requests."""
+    import numpy as np
+    import torch
+
+    from repro_torch.configs.base import get_config
+    from repro_torch.data.pipeline import SyntheticLM, device_batches
+    from repro_torch.models.model import init_params
+    from repro_torch.models.parallel import single_device_ctx
+    from repro_torch.optim.adamw import AdamWConfig
+    from repro_torch.train.trainer import init_train_state, make_train_step
+
+    _free_card()
+    cfg = get_config(TP_SSM_FULL_ARCH).replace(num_layers=layers)
+    torch.cuda.reset_peak_memory_stats()
+    state = init_train_state(cfg, init_params(cfg, 0, device="cuda",
+                                              masters=True))
+    step = make_train_step(cfg, single_device_ctx(), AdamWConfig(
+        lr=TP_SSM_FULL_LR, total_steps=TP_SSM_FULL_STEPS, warmup_steps=5))
+    train = dict(losses=[], grad_norms=[], step_s=[])
+    for _, batch in zip(range(TP_SSM_FULL_STEPS), device_batches(SyntheticLM(
+            cfg.vocab_size, TP_SSM_FULL_S, TP_SSM_FULL_B, seed=0), 0,
+            "cuda")):
+        t0 = time.perf_counter()
+        state, m = step(state, batch)
+        train["losses"].append(float(m["loss"]))   # waits for the step
+        train["step_s"].append(time.perf_counter() - t0)
+        train["grad_norms"].append(float(m["grad_norm"]))
+    train["peak_bytes"] = torch.cuda.max_memory_allocated()
+    del state, step, m
+    _free_card()
+    torch.cuda.reset_peak_memory_stats()
+    weights = init_params(cfg, 0, device="cuda")
+    with torch.no_grad():
+        eng, tokens, logits, _ = _serve(
+            cfg, weights, single_device_ctx(), TP_SSM_FULL_SLOTS,
+            TP_SSM_FULL_SEQ, _tp_ssm_prompts(cfg.vocab_size),
+            TP_SSM_FULL_NEW, "cuda")
+    serve = dict(tokens=tokens,
+                 prefill_logits=np.stack([t[0].numpy()
+                                          for t in logits.prefill]),
+                 prefill_s=eng.prefill_s, decode_s=eng.decode_s,
+                 prefills=eng.prefills, ticks=eng.ticks,
+                 peak_bytes=torch.cuda.max_memory_allocated())
+    del weights, eng
+    _free_card()
+    return dict(train=train, serve=serve)
+
+
+def phase_tp_ssm_full() -> dict:
+    """falcon-mamba-7b at full width (d 4,096, d_inner 8,192, N 16, dt_rank
+    256, vocab 65,024, untied head) cut to `TP_SSM_FULL_LAYERS` of 64
+    layers (printed as `reduced` with the reason), f32 masters from seed
+    0, bf16 compute, full remat, on 4 ranks as `data` 1 x `model` 4 on the
+    one card (gloo staged through host memory): the mixer split by
+    channels, 2,048 a rank (`models.sharding.computes_tp`).  Training:
+    `TP_SSM_FULL_STEPS` steps of `make_train_step` under fsdp_tp at B 1, S
+    4096, lr 3e-4 (U1); serving: `ServeEngine` with 4 slots, 4 prompts of
+    odd lengths from 135 to 455, 8 new tokens each, on the seed-0 bf16
+    weights.  Then both in this process on whole weights, one rank
+    (`_tp_ssm_whole`).  Every loss finite, the same on every rank and
+    within bf16's 2e-2 of the one rank's; the first gradient norm within
+    1e-3 of it; every rank's tokens the same; every prefill's last-token
+    logits within 2e-2 of the one rank's largest magnitude; every tick's
+    logits finite; no mixer leaf gathered over `model`; `mamba_scan`
+    twice and `mamba_scan_bwd` once on 2,048 channels in every layer of
+    every step, and `mamba_scan` once a layer a prefill; the conv and SSM
+    states held at (slots, 3, 2,048) and (slots, 2,048, 16) a rank.
+    Prints, beside the card's name and power limit, step, prefill and
+    tick ms with the wire's ms within each, the collectives a step and a
+    tick by kind, the bytes a rank sends, peak GB a rank, and a rank's
+    bytes of the mixer weights and of the serving states beside the
+    whole ones."""
+    import os
+
+    import numpy as np
+    import torch
+
+    from repro_torch.configs.base import get_config
+
+    _free_card()
+    os.environ.setdefault("PYTORCH_CUDA_ALLOC_CONF",
+                          "expandable_segments:True")
+    full = get_config(TP_SSM_FULL_ARCH)
+    cfg = full.replace(num_layers=TP_SSM_FULL_LAYERS)
+    reduced = {"num_layers": [full.num_layers, TP_SSM_FULL_LAYERS],
+               "global_batch": [256, TP_SSM_FULL_B]}
+    print(f"reduced: {json.dumps(reduced)} ({TP_SSM_FULL_WHY})", flush=True)
+    t0 = time.perf_counter()
+    ranks = _ranks(_tp_ssm_full_rank, TP_SSM_FULL_LAYERS, timeout_s=700)
+    wall = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    whole = _tp_ssm_whole(TP_SSM_FULL_LAYERS)
+    whole_s = time.perf_counter() - t0
+    tp, L, steps = 4, cfg.num_layers, TP_SSM_FULL_STEPS
+    ch = cfg.d_inner_ // tp
+    train = [r["train"] for r in ranks]
+    serve = [r["serve"] for r in ranks]
+    losses = train[0]["losses"]
+    tol = _tol(torch.bfloat16)
+    print(f"tp_ssm_full losses {losses} grad norms {train[0]['grad_norms']};"
+          f" whole weights on one rank {whole['train']['losses']} grad norms"
+          f" {whole['train']['grad_norms']}", flush=True)
+    _check(all(t["losses"] == losses for t in train),
+           "tp_ssm_full: ranks report other losses")
+    _check(len(losses) == steps and all(np.isfinite(losses)),
+           f"tp_ssm_full losses {losses}")
+    _check(np.allclose(losses, whole["train"]["losses"], rtol=tol, atol=0),
+           f"tp_ssm_full losses {losses} against one rank's "
+           f"{whole['train']['losses']}")
+    g0, w0 = train[0]["grad_norms"][0], whole["train"]["grad_norms"][0]
+    _check(abs(g0 - w0) <= 1e-3 * abs(w0),
+           f"tp_ssm_full first grad norm {g0} against one rank's {w0}")
+    train_scans = {("mamba_scan", ch): 2 * L * steps,
+                   ("mamba_scan_bwd", ch): L * steps}
+    want = _train_launches(cfg, {"mamba_scan": "ssm"}, steps)
+    for rank, (t, s) in enumerate(zip(train, serve)):
+        _check(not t["mixer_over_model"] and not s["mixer_over_model"],
+               f"tp_ssm_full rank {rank}: mixer leaves gathered over model "
+               f"{t['mixer_over_model'] + s['mixer_over_model']}")
+        _check(t["scans"] == train_scans,
+               f"tp_ssm_full rank {rank} training scans {t['scans']}")
+        _check(t["launches"] == want,
+               f"tp_ssm_full rank {rank} launches {t['launches']}")
+        _check(s["tokens"] == serve[0]["tokens"],
+               f"tp_ssm_full: rank {rank}'s tokens differ from rank 0's")
+        _check(len(s["tokens"]) == len(TP_SSM_FULL_LENS),
+               f"tp_ssm_full: {len(s['tokens'])} requests served")
+        _check(s["nonfinite_ticks"] == 0, f"tp_ssm_full rank {rank}: "
+               f"{s['nonfinite_ticks']} ticks with non-finite logits")
+        _check(s["scans"] == {("mamba_scan", ch): L * s["prefills"]},
+               f"tp_ssm_full rank {rank} serving scans {s['scans']}")
+        _check(s["launches"] == {"mamba_scan": L * s["prefills"]},
+               f"tp_ssm_full rank {rank} serving launches {s['launches']}")
+        shapes = dict(s["cache_shapes"])
+        _check(shapes == {"conv": (TP_SSM_FULL_SLOTS, 3, ch),
+                          "ssm": (TP_SSM_FULL_SLOTS, ch,
+                                  cfg.ssm.state_dim)},
+               f"tp_ssm_full rank {rank} states held as {shapes}")
+    got = np.asarray(serve[0]["prefill_logits"])
+    one = np.asarray(whole["serve"]["prefill_logits"])
+    _check(got.shape == one.shape and bool(np.isfinite(got).all()),
+           f"tp_ssm_full prefill logits {got.shape} against {one.shape}")
+    rel = np.abs(got - one).max(-1) / np.abs(one).max(-1)
+    _check(bool((rel <= tol).all()),
+           f"tp_ssm_full prefill logits against one rank's: {rel}")
+    state_whole = TP_SSM_FULL_SLOTS * L * cfg.d_inner_ * (
+        (cfg.ssm.conv_kernel - 1) * 2 + cfg.ssm.state_dim * 4)
+    same = sum(a == b for rid in whole["serve"]["tokens"] for a, b in zip(
+        serve[0]["tokens"][rid], whole["serve"]["tokens"][rid]))
+    total = sum(len(t) for t in whole["serve"]["tokens"].values())
+    ticks, prefills = serve[0]["ticks"], serve[0]["prefills"]
+
+    def med_ms(key):
+        return [float(np.median(t[key][1:])) * 1e3 for t in train]
+
+    step_ms, wire_ms = med_ms("step_s"), med_ms("wire_s")
+    out = dict(
+        phase="tp_ssm_full", card=_card(), arch=cfg.name, layers=L,
+        d_model=cfg.d_model, d_inner=cfg.d_inner_, channels_per_rank=ch,
+        state_dim=cfg.ssm.state_dim, dt_rank=cfg.dt_rank_,
+        vocab=cfg.vocab_size, reduced=reduced, reduced_why=TP_SSM_FULL_WHY,
+        layout="fsdp_tp", mesh={"data": 1, "model": tp},
+        backend=ranks[0]["backend"], why=ranks[0]["why"], wall_s=wall,
+        whole_s=whole_s, batch=TP_SSM_FULL_B, seq=TP_SSM_FULL_S,
+        steps=steps, lr=TP_SSM_FULL_LR, losses=losses,
+        grad_norms=train[0]["grad_norms"],
+        whole_losses=whole["train"]["losses"],
+        whole_grad_norms=whole["train"]["grad_norms"],
+        first_grad_norm_rel=abs(g0 - w0) / abs(w0),
+        step_ms_per_rank=step_ms, step_wire_ms_per_rank=wire_ms,
+        whole_step_ms=float(np.median(whole["train"]["step_s"][1:])) * 1e3,
+        sent_bytes_per_step_per_rank=[t["sent_bytes"][-1] for t in train],
+        collectives_per_step={k: v / steps
+                              for k, v in train[0]["calls"].items()},
+        payload_bytes_per_step={k: v / steps
+                                for k, v in train[0]["payload"].items()},
+        train_peak_gb_per_rank=[t["peak_bytes"] / 1e9 for t in train],
+        whole_train_peak_gb=whole["train"]["peak_bytes"] / 1e9,
+        init_s=[t["init_s"] for t in train],
+        mixer_master_bytes_per_rank=[t["mixer_bytes"][0] for t in train],
+        whole_mixer_master_bytes=train[0]["mixer_bytes"][1],
+        state_bytes_per_rank=[t["state_bytes"] for t in train],
+        scans_per_step={f"{k}/{c}": n / steps
+                        for (k, c), n in train[0]["scans"].items()},
+        slots=TP_SSM_FULL_SLOTS, max_seq=TP_SSM_FULL_SEQ,
+        prompt_lens=list(TP_SSM_FULL_LENS), new_tokens=TP_SSM_FULL_NEW,
+        prefills=prefills, ticks=ticks,
+        tick_ms_per_rank=[s["decode_s"] / ticks * 1e3 for s in serve],
+        tick_wire_ms_per_rank=[s["decode_wire_s"] / ticks * 1e3
+                               for s in serve],
+        prefill_ms_per_rank=[s["prefill_s"] / prefills * 1e3 for s in serve],
+        prefill_wire_ms_per_rank=[s["prefill_wire_s"] / prefills * 1e3
+                                  for s in serve],
+        whole_tick_ms=whole["serve"]["decode_s"] / whole["serve"]["ticks"]
+        * 1e3,
+        whole_prefill_ms=whole["serve"]["prefill_s"]
+        / whole["serve"]["prefills"] * 1e3,
+        sent_bytes_per_tick_per_rank=[s["decode_sent"] / ticks
+                                      for s in serve],
+        sent_bytes_per_prefill_per_rank=[s["prefill_sent"] / prefills
+                                         for s in serve],
+        collectives_per_tick={k: v / ticks
+                              for k, v in serve[0]["tick_calls"].items()},
+        serve_collectives=serve[0]["calls"],
+        serve_peak_gb_per_rank=[s["peak_bytes"] / 1e9 for s in serve],
+        whole_serve_peak_gb=whole["serve"]["peak_bytes"] / 1e9,
+        mixer_weight_bytes_per_rank=[s["mixer_bytes"][0] for s in serve],
+        whole_mixer_weight_bytes=serve[0]["mixer_bytes"][1],
+        state_shapes_per_rank=[list(x) for x in serve[0]["cache_shapes"]],
+        serve_state_bytes_per_rank=[s["state_bytes"] for s in serve],
+        whole_serve_state_bytes=state_whole,
+        prefill_logits_rel_err=rel.tolist(),
+        tokens_equal_to_one_rank=same / total,
+        mamba_scan_launches=sum(t["launches"].get("mamba_scan", 0)
+                                + s["launches"].get("mamba_scan", 0)
+                                for t, s in zip(train, serve)),
+        mamba_scan_bwd_launches=sum(t["launches"].get("mamba_scan_bwd", 0)
+                                    for t in train))
+    return out
+
+
 def _bmm_trio(h, wg, wu, wd):
     """The expert FFN as three batched products and silu in h's type: a
     yardstick only (it rounds g and u to that type)."""
@@ -4899,8 +5562,138 @@ def phase_moe_gmm() -> dict:
                                  if device_ms else None)))
         del w, h, got
         torch.cuda.empty_cache()
+    acts = _moe_gmm_acts(gen)
     return dict(phase="moe_gmm", sweep_cases=2 * len(GMM_SWEEP),
-                sweep_max_abs_err=sweep_err, rows=rows)
+                sweep_max_abs_err=sweep_err, rows=rows, **acts)
+
+
+# the gate's activations beside silu (ROADMAP Queue 3, F7), and the f32
+# backward's tolerance for them: of each gradient's largest value
+GMM_ACTS = ("gelu", "relu")
+GMM_ACT_BWD_TOL = {"float32": 1e-4, "bfloat16": 2e-2}
+
+
+# relu's derivative steps at G = 0: where the plain version's G lies within
+# this share of sum |h| |Wg| of zero, two f32 summation orders may take
+# either side of the step
+RELU_STEP_SHARE = 2.0**-16
+
+
+def _relu_steps(h, wg, wu, wd, dout) -> tuple:
+    """relu's step in the backward: (the elements (e, c, f) whose G = h Wg
+    lies within `RELU_STEP_SHARE` of sum |h| |Wg| of zero, each gradient's
+    most the kernel may move by taking the other side of the step there:
+    dh by sum_f |dA U| |Wg|, dWg by sum_c |h| |dA U| over those elements,
+    dWu and dWd not at all)."""
+    import torch
+
+    h32, g32, u32, d32, o32 = (t.float() for t in (h, wg, wu, wd, dout))
+    g = torch.einsum("ecd,edf->ecf", h32, g32)
+    near = g.abs() <= RELU_STEP_SHARE * torch.einsum(
+        "ecd,edf->ecf", h32.abs(), g32.abs())
+    step = (torch.einsum("ecd,efd->ecf", o32, d32)
+            * torch.einsum("ecd,edf->ecf", h32, u32)).abs() * near
+    zero = torch.zeros((), device=h.device)
+    return int(near.sum()), [
+        torch.einsum("ecf,edf->ecd", step, g32.abs()),
+        torch.einsum("ecd,ecf->edf", h32.abs(), step), zero, zero]
+
+
+def _act_grads_held(got, want, dtype, what: str, steps=None) -> float:
+    """Each gradient within tol max|want| + tol |want| (`GMM_ACT_BWD_TOL`),
+    plus what `steps` (`_relu_steps`) allows it; the largest difference
+    over max|want|."""
+    tol, worst = GMM_ACT_BWD_TOL[_dname(dtype)], 0.0
+    allow = steps[1] if steps is not None else [0.0] * len(got)
+    for i, (g, w) in enumerate(zip(got, want)):
+        g, w = g.float(), w.float()
+        scale = float(w.abs().max())
+        err = (g - w).abs()
+        _check(float((err - tol * w.abs() - allow[i]).max()) <= tol * scale,
+               f"{what} d{i}: |diff| {float(err.max())} beyond {tol} of "
+               f"{scale}")
+        worst = max(worst, float(err.max()) / max(scale, 1e-30))
+    return worst
+
+
+def _moe_gmm_acts(gen) -> dict:
+    """The gelu (tanh form) and relu instantiations of both moe_gmm
+    kernels: the sweep in f32 and bf16, forward against `moe_gmm_ref`
+    (f32 2e-5, bf16 2e-2) and backward (`kernel.moe_gmm_bwd`) against
+    `moe_gmm_bwd_ref` with the same activation (f32 1e-4, bf16 2e-2 of
+    each gradient's largest value), then qwen3-moe's shapes (E 128, D
+    2048, F 768: forward at C 4 and C 40, backward at its training C
+    320, bf16; forward at C 40 and backward at C 40 on 16 experts in
+    f32), held the same way and timed (events, and the profiler's device
+    ms) beside silu's instantiation on the same inputs.  relu's backward
+    is held beside its step (`_relu_steps`: the elements whose G lies
+    within rounding of zero, counted, may take either side), as long as
+    under 1e-3 of the elements lie there."""
+    import torch
+
+    from repro_torch.kernels.moe_gmm import kernel as gmm
+    from repro_torch.kernels.moe_gmm.ops import moe_gmm
+    from repro_torch.kernels.moe_gmm.ref import moe_gmm_bwd_ref, moe_gmm_ref
+
+    def inputs(E, C, D, Fd, dtype, scale=None):
+        h = _randn((E, C, D), gen, dtype)
+        w = [_randn(s, gen, dtype, scale or s[1] ** -0.5)
+             for s in ((E, D, Fd), (E, D, Fd), (E, Fd, D))]
+        return h, w, _randn((E, C, D), gen, dtype)
+
+    fwd_err, bwd_rel, n = 0.0, 0.0, 0
+    for dtype in (torch.float32, torch.bfloat16):
+        for case in GMM_SWEEP:
+            h, w, dout = inputs(*case, dtype, scale=0.1)
+            for act in GMM_ACTS:
+                what = f"moe_gmm {act} sweep {case} {_dname(dtype)}"
+                fwd_err = max(fwd_err, _held(moe_gmm(h, *w, act),
+                                             moe_gmm_ref(h, *w, act), dtype,
+                                             what))
+                bwd_rel = max(bwd_rel, _act_grads_held(
+                    gmm.moe_gmm_bwd(h, *w, dout, act),
+                    moe_gmm_bwd_ref(h, *w, dout, act), dtype, what,
+                    _relu_steps(h, *w, dout) if act == "relu" else None))
+                n += 1
+    rows = []
+    for dtype, pass_, E, C in ((torch.bfloat16, "forward", 128, 4),
+                               (torch.bfloat16, "forward", 128, 40),
+                               (torch.bfloat16, "backward", 128, 320),
+                               (torch.float32, "forward", 128, 40),
+                               (torch.float32, "backward", 16, 40)):
+        h, w, dout = inputs(E, C, 2048, 768, dtype)
+        row = {"pass": pass_, "dtype": _dname(dtype), "E": E, "C": C,
+               "D": 2048, "F": 768}
+        for act in ("silu",) + GMM_ACTS:
+            what = f"moe_gmm {act} {pass_} E={E} C={C} {_dname(dtype)}"
+            if pass_ == "forward":
+                def call(act=act):
+                    return gmm.moe_gmm_fwd(h, *w, act)
+                if act != "silu":
+                    row[f"{act}_max_abs_err"] = _held(
+                        call(), moe_gmm_ref(h, *w, act), dtype, what)
+                names = ("moe_gmm",)
+            else:
+                def call(act=act):
+                    return gmm.moe_gmm_bwd(h, *w, dout, act)
+                steps = None
+                if act == "relu":
+                    steps = _relu_steps(h, *w, dout)
+                    row["relu_step_elements"] = steps[0]
+                    _check(steps[0] <= 1e-3 * E * C * 768,
+                           f"{what}: {steps[0]} elements at relu's step")
+                if act != "silu":
+                    row[f"{act}_max_rel_err"] = _act_grads_held(
+                        call(), moe_gmm_bwd_ref(h, *w, dout, act), dtype,
+                        what, steps)
+                names = ("moe_bwd",)
+            row[f"{act}_ms"] = _cuda_ms(call, reps=5)
+            row[f"{act}_device_ms"] = _device_ms(call, names, reps=5)
+        rows.append(row)
+        del h, w, dout
+        torch.cuda.empty_cache()
+    return dict(act_sweep_cases=n, act_sweep_max_abs_err=fwd_err,
+                act_sweep_bwd_max_rel_err=bwd_rel, act_rows=rows)
 
 
 MAMBA_SWEEP = [(1, 16, 8, 4), (2, 32, 16, 4), (1, 24, 12, 2), (2, 16, 8, 8)]
@@ -4984,9 +5777,15 @@ def phase_mamba_scan() -> dict:
             _check(torch.equal(y, y2) and torch.equal(h, h2),
                    f"{what} not deterministic")
     rows = []
-    B, D, N = 1, 8192, 16
-    for S, x_dtype in ((512, torch.bfloat16), (512, torch.float32),
-                       (134, torch.bfloat16), (4096, torch.bfloat16)):
+    B, N = 1, 16
+    # falcon-mamba's 8,192 channels, and a rank's 2,048 of them at
+    # `model` 4 (tp_ssm_full's training and prefill shapes)
+    for S, x_dtype, D in ((512, torch.bfloat16, 8192),
+                          (512, torch.float32, 8192),
+                          (134, torch.bfloat16, 8192),
+                          (4096, torch.bfloat16, 8192),
+                          (4096, torch.bfloat16, 2048),
+                          (512, torch.bfloat16, 2048)):
         # the model's draws: A = -(1..N) (S4D-real), D = 1, dt = softplus
         # of the projection plus a bias set for steps in [1e-3, 1e-1]
         x = _randn((B, S, D), gen, x_dtype)
@@ -4999,7 +5798,7 @@ def phase_mamba_scan() -> dict:
                 torch.ones(D, device="cuda"))
         y, h = mamba_scan(*args)
         ry, rh = mamba_scan_ref(*args)
-        what = f"mamba_scan falcon-mamba S {S} x {x_dtype}"
+        what = f"mamba_scan falcon-mamba S {S} D {D} x {x_dtype}"
         err = max(_held(y, ry, x_dtype, what, 1e-4),
                   _held(h, rh, x_dtype, what + " h_S", 1e-4))
         y2, h2 = mamba_scan(*args)
@@ -5067,8 +5866,11 @@ def phase_rglru_scan() -> dict:
 
     gen = torch.Generator(device="cuda").manual_seed(3)
     sweep_err = 0.0
+    # recurrentgemma's 2,560 channels, and a rank's 640 of them at
+    # `model` 4
     shapes = RGLRU_SWEEP + [(1, 3300, 2560), (1, 900, 2560),
-                            (1, 32768, 2560)]
+                            (1, 32768, 2560), (1, 3300, 640),
+                            (1, 4096, 640)]
     rows = []
     for dtype in (torch.float32, torch.bfloat16):
         for B, S, D in shapes:
@@ -5481,6 +6283,9 @@ def main() -> int:
         mesh_runs = [serve_mesh["golden"], serve_mesh["full"]]
         for out in mesh_runs:
             _emit(out)
+        # the mamba and RG-LRU mixers split by channels over `model`
+        train_runs.append(run(phase_tp_ssm_golden, root))
+        train_runs.append(run(phase_tp_ssm_full))
     train_runs += [run(phase_train_arch_full, *spec)
                    for spec in ARCH_TRAIN_RUNS]
     _free_card()
@@ -5558,9 +6363,11 @@ def main() -> int:
     # the main paths' shapes: falcon-mamba's 512-token prefill (x bf16),
     # recurrentgemma's 3,300-token prefill (f32 gates)
     mamba_row = next(r for r in mamba["rows"]
-                     if r["x_dtype"] == "bfloat16" and r["S"] == 512)
+                     if r["x_dtype"] == "bfloat16" and r["S"] == 512
+                     and r["D"] == 8192)
     rglru_row = next(r for r in rglru["rows"]
-                     if r["dtype"] == "float32" and r["S"] == 3300)
+                     if r["dtype"] == "float32" and r["S"] == 3300
+                     and r["D"] == 2560)
     # launches: every full serving run the kernel is on, summed, and for
     # flash the training runs too
     runs += train_runs + mesh_runs
@@ -5617,13 +6424,28 @@ def main() -> int:
             ms=row["ms"], plain_ms=row["plain_ms"],
             bound_ms=row["bound_ms"], bound_by=row["bound_by"],
             library_ms=row["library_ms"]))
+    # the gate's gelu and relu instantiations of both moe_gmm kernels
+    # (ROADMAP Queue 3, F7; no config of the repo has a non-silu MoE, so
+    # no path launches them): their largest errors against ref.py and
+    # their times beside silu's, at qwen3-moe's decode tick (C 4) and its
+    # training experts (C 320), bf16
+    act_rows = {(r["pass"], r["dtype"], r["C"]): r for r in gmm["act_rows"]}
+    for name, key, err in (("moe_gmm", ("forward", "bfloat16", 4),
+                            "max_abs_err"),
+                           ("moe_gmm_bwd", ("backward", "bfloat16", 320),
+                            "max_rel_err")):
+        row = act_rows[key]
+        entry = next(k for k in kernels if k["name"] == name)
+        entry["instantiations"] = [dict(
+            act=act, **{err: max(r.get(f"{act}_{err}", 0.0)
+                                 for r in gmm["act_rows"])},
+            ms=row[f"{act}_ms"], device_ms=row[f"{act}_device_ms"],
+            silu_ms=row["silu_ms"], silu_device_ms=row["silu_device_ms"],
+            E=row["E"], C=row["C"]) for act in GMM_ACTS]
     _emit({"phase_seconds": seconds,
            "total_seconds": time.perf_counter() - start})
     _emit({"kernels": kernels})
-    smi = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-        capture_output=True, text=True, check=True, timeout=60)
-    print(smi.stdout.strip(), flush=True)
+    print(_card(), flush=True)
     _emit({"ok": True, "device": {"platform": "gpu",
                                   "kind": torch.cuda.get_device_name(0),
                                   "count": torch.cuda.device_count()}})

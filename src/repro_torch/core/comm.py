@@ -380,6 +380,34 @@ def reduce_from_parallel(x: torch.Tensor, mesh: Mesh, axis: str
     return _ReduceFromParallel.apply(x, mesh, axis)
 
 
+class _SumToParallel(torch.autograd.Function):
+    """The sum over the axis forward, the sum over the axis backward."""
+
+    @staticmethod
+    def forward(ctx, x, mesh, axis):
+        ctx.mesh, ctx.axis = mesh, axis
+        return all_reduce(x.contiguous().clone(), mesh, (axis,))
+
+    @staticmethod
+    def backward(ctx, g):
+        return (all_reduce(g.contiguous().clone(), ctx.mesh, (ctx.axis,)),
+                None, None)
+
+
+def sum_to_parallel(x: torch.Tensor, mesh: Mesh, axis: str
+                    ) -> torch.Tensor:
+    """The sum over the axis of every rank's partial `x` (a new tensor),
+    read inside a tensor-parallel region: each rank's use of the sum is
+    its own part (mamba's dt, B and C feed the rank's channels alone), so
+    under autograd its cotangent is the sum over the axis of every
+    rank's too, where `reduce_from_parallel` passes it as it is.  One
+    `dist.all_reduce` forward and one backward.  Every rank of the axis's
+    line calls it, and its backward, in one order."""
+    if axis_size(mesh, axis) == 1:
+        return x
+    return _SumToParallel.apply(x, mesh, axis)
+
+
 def all_reduce_max(x: torch.Tensor, mesh: Mesh, axis: str) -> torch.Tensor:
     """The largest of every rank's `x` over the axis, elementwise, outside
     autograd (a new tensor): the running maximum of a logsumexp split
@@ -479,6 +507,40 @@ def all_gather(x: torch.Tensor, mesh: Mesh,
     if not cuts:
         return x.to(dtype)
     return _AllGather.apply(x, mesh, cuts, dtype)
+
+
+class _ReduceScatter(torch.autograd.Function):
+    """`_reduce_scatter_axis` and its transpose, the gather."""
+
+    @staticmethod
+    def forward(ctx, x, mesh, axis, dim):
+        ctx.mesh, ctx.axis, ctx.dim = mesh, axis, dim
+        return _reduce_scatter_axis(x, mesh, axis, dim)
+
+    @staticmethod
+    def backward(ctx, g):
+        return (_gather_axis(g.contiguous(), ctx.mesh, ctx.axis, ctx.dim),
+                None, None, None)
+
+
+def reduce_scatter(x: torch.Tensor, mesh: Mesh, axis: str, dim: int
+                   ) -> torch.Tensor:
+    """The sum over the axis's line of every rank's `x`, this rank's
+    block of it along `dim` (its axis index's, of ``x.shape[dim] / n``):
+    GSPMD's reduce-scatter of a partial sum whose consumer is split over
+    the axis.  Under autograd the backward is the all-gather of the
+    blocks' cotangents along `dim`.  One `dist.reduce_scatter` forward
+    and one `dist.all_gather` backward, staged through host memory as
+    every collective here; every rank of the axis's line calls it, and
+    its backward, in one order."""
+    n = axis_size(mesh, axis)
+    dim = dim % x.dim()
+    if x.shape[dim] % n:
+        raise ValueError(f"dim {dim} of {tuple(x.shape)} does not divide "
+                         f"over {n} ranks")
+    if n == 1:
+        return x
+    return _ReduceScatter.apply(x, mesh, axis, dim)
 
 
 def _rank_main(fn: Callable, rank: int, size: int, store: str,

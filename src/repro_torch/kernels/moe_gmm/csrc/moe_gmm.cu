@@ -4,11 +4,14 @@
 // Replaces the TPU kernel repro/kernels/moe_gmm/kernel.py::_kernel
 // (launched by moe_gmm_fwd) and computes what ref.moe_gmm_ref computes:
 // for every expert e and capacity row c,
-//   out[e, c, :] = (silu(h[e, c] @ Wg[e]) * (h[e, c] @ Wu[e])) @ Wd[e]
-// with h (E, C, D), Wg/Wu (E, D, F), Wd (E, F, D).  Products, the
-// activation and every sum are f32 for f32 and bf16 inputs alike; the
-// output is rounded once to h's type.  Empty capacity rows are computed
-// like any other (the model's dispatch leaves them zero).
+//   out[e, c, :] = (act(h[e, c] @ Wg[e]) * (h[e, c] @ Wu[e])) @ Wd[e]
+// with h (E, C, D), Wg/Wu (E, D, F), Wd (E, F, D) and act the config's
+// activation (models/moe.py:101 of the JAX package): silu, gelu in its tanh
+// form (jax.nn.gelu) or relu, a compile-time parameter of the first
+// pass.  Products, the activation and every sum are f32 for f32 and bf16
+// inputs alike; the output is rounded once to h's type.  Empty capacity
+// rows are computed like any other (the model's dispatch leaves them
+// zero).
 //
 // Bound.  Every expert's three weight matrices are read once: 6 * E * D *
 // F bytes in bf16, 1.208 GB per qwen3-moe layer (E 128, D 2048, F 768),
@@ -25,7 +28,7 @@
 // 22 % of the memory rate.  Here the work is split in two passes, each
 // over (column tile, row tile, expert), so that thousands of blocks fill
 // the card:
-//   1. moe_gmm_gate_up: act[e, c, f] = silu(h @ Wg) * (h @ Wu), written
+//   1. moe_gmm_gate_up: act[e, c, f] = act(h @ Wg) * (h @ Wu), written
 //      as f32 to a scratch (E, C, F) buffer that the wrapper allocates;
 //   2. moe_gmm_down: out[e, c, d] = act @ Wd, rounded once.
 // The activation thus goes through device memory, where the TPU keeps it
@@ -64,7 +67,8 @@
 // D not a multiple of V), or weights not on 16 bytes, take the scalar
 // instantiation (VEC false): the same loop with V guarded scalar loads.
 // Rounding: fmaf explicitly (the library is built with -fmad=false), silu
-// as g / (1 + exp(-g)) in IEEE f32.
+// as g / (1 + exp(-g)), gelu as 0.5 g (1 + tanh(sqrt(2 / pi) (g + 0.044715
+// g^3))), relu as max(g, 0), in IEEE f32.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
@@ -82,6 +86,21 @@ constexpr int kSlices = kWarps * kGroups;  // slices of F in pass 2
 constexpr int kUnroll = 8;                 // weight rows in flight a lane
 constexpr int kChunk = 2048;               // rows of h or act staged at once
 constexpr size_t kDefaultSmem = 48 * 1024;
+
+// The gate's activation (kernel.ACTS): a template argument of pass 1.
+enum Act { kSilu = 0, kGelu = 1, kRelu = 2 };
+
+template <int ACT>
+__device__ __forceinline__ float activate(float g) {
+  if constexpr (ACT == kSilu) {
+    return g / (1.f + expf(-g));
+  } else if constexpr (ACT == kGelu) {
+    constexpr float kC = 0.7978845608028654f;   // sqrt(2 / pi)
+    return 0.5f * g * (1.f + tanhf(kC * (g + 0.044715f * (g * g * g))));
+  } else {
+    return g > 0.f ? g : 0.f;
+  }
+}
 
 template <typename T>
 struct Pack {
@@ -227,7 +246,7 @@ __device__ __forceinline__ void to_shared(float* red, float (&acc)[R][V],
   }
 }
 
-template <typename T, int R, bool VEC>
+template <typename T, int R, bool VEC, int ACT>
 __global__ void __launch_bounds__(kThreads, 2)
 moe_gmm_gate_up(const T* __restrict__ h, const T* __restrict__ wg,
                 const T* __restrict__ wu, float* __restrict__ act, int C,
@@ -276,7 +295,7 @@ moe_gmm_gate_up(const T* __restrict__ h, const T* __restrict__ wg,
       u += smem[((kHalf + w) * R + r) * kCols + cc];
     }
     act[(static_cast<size_t>(e) * C + c0 + r) * F + f0 + cc] =
-        g / (1.f + expf(-g)) * u;
+        activate<ACT>(g) * u;
   }
 }
 
@@ -338,10 +357,21 @@ int launch_one(K kernel, dim3 grid, size_t smem, cudaStream_t st,
   return static_cast<int>(cudaGetLastError());
 }
 
+// Pass 1 with the activation `act` (an Act) and 16-byte loads if vec.
+template <typename T, int R, int ACT>
+int launch_gate_up(bool vec, dim3 grid, size_t smem, cudaStream_t st,
+                   const T* h, const T* wg, const T* wu, float* act, int C,
+                   int D, int F, int row_tiles) {
+  return vec ? launch_one(moe_gmm_gate_up<T, R, true, ACT>, grid, smem, st,
+                          h, wg, wu, act, C, D, F, row_tiles)
+             : launch_one(moe_gmm_gate_up<T, R, false, ACT>, grid, smem, st,
+                          h, wg, wu, act, C, D, F, row_tiles);
+}
+
 template <typename T, int R>
 int launch(const void* h, const void* wg, const void* wu, const void* wd,
-           float* act, void* out, bool vec_gate_up, bool vec_down, int E,
-           int C, int D, int F, cudaStream_t st) {
+           float* act, void* out, int activation, bool vec_gate_up,
+           bool vec_down, int E, int C, int D, int F, cudaStream_t st) {
   constexpr int V = Pack<T>::V, kCols = Pack<T>::kCols;
   constexpr uintptr_t kAlign = 16;
   const bool gu_ok = F % V == 0 &&
@@ -364,11 +394,16 @@ int launch(const void* h, const void* wg, const void* wu, const void* wd,
   const T* dt = static_cast<const T*>(wd);
   const float* at = act;
   T* ot = static_cast<T*>(out);
-  const int err = vec_gate_up
-      ? launch_one(moe_gmm_gate_up<T, R, true>, grid_gu, smem_gu, st, ht, gt,
-                   ut, act, C, D, F, row_tiles)
-      : launch_one(moe_gmm_gate_up<T, R, false>, grid_gu, smem_gu, st, ht,
-                   gt, ut, act, C, D, F, row_tiles);
+  int err = static_cast<int>(cudaErrorInvalidValue);
+  if (activation == kSilu)
+    err = launch_gate_up<T, R, kSilu>(vec_gate_up, grid_gu, smem_gu, st, ht,
+                                      gt, ut, act, C, D, F, row_tiles);
+  else if (activation == kGelu)
+    err = launch_gate_up<T, R, kGelu>(vec_gate_up, grid_gu, smem_gu, st, ht,
+                                      gt, ut, act, C, D, F, row_tiles);
+  else if (activation == kRelu)
+    err = launch_gate_up<T, R, kRelu>(vec_gate_up, grid_gu, smem_gu, st, ht,
+                                      gt, ut, act, C, D, F, row_tiles);
   if (err) return err;
   return vec_down
       ? launch_one(moe_gmm_down<T, R, true>, grid_down, smem_down, st, at,
@@ -379,14 +414,15 @@ int launch(const void* h, const void* wg, const void* wu, const void* wd,
 
 template <typename T>
 int launch_rows(int rows, const void* h, const void* wg, const void* wu,
-                const void* wd, float* act, void* out, bool vec_gate_up,
-                bool vec_down, int E, int C, int D, int F, cudaStream_t st) {
+                const void* wd, float* act, void* out, int activation,
+                bool vec_gate_up, bool vec_down, int E, int C, int D, int F,
+                cudaStream_t st) {
   if (rows == 4)
-    return launch<T, 4>(h, wg, wu, wd, act, out, vec_gate_up, vec_down, E,
-                        C, D, F, st);
+    return launch<T, 4>(h, wg, wu, wd, act, out, activation, vec_gate_up,
+                        vec_down, E, C, D, F, st);
   if (rows == 8)
-    return launch<T, 8>(h, wg, wu, wd, act, out, vec_gate_up, vec_down, E,
-                        C, D, F, st);
+    return launch<T, 8>(h, wg, wu, wd, act, out, activation, vec_gate_up,
+                        vec_down, E, C, D, F, st);
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
@@ -394,26 +430,28 @@ int launch_rows(int rows, const void* h, const void* wg, const void* wu,
 
 extern "C" {
 
-// out (E, C, D) = silu(h @ Wg) * (h @ Wu) @ Wd per expert, all contiguous
-// and of one type: dtype 0 is f32, 1 is bf16.  act is f32 scratch of (E,
-// C, F); rows (4 or 8) the capacity rows a block holds.  vec_gate_up /
+// out (E, C, D) = act(h @ Wg) * (h @ Wu) @ Wd per expert, all contiguous
+// and of one type: dtype 0 is f32, 1 is bf16; activation 0 is silu, 1 gelu
+// (tanh form), 2 relu.  act is f32 scratch of (E, C, F); rows (4 or 8) the
+// capacity rows a block holds.  vec_gate_up /
 // vec_down select 16-byte loads of Wg, Wu / Wd (weight rows a whole
 // number of 16 bytes, the weights on 16 bytes).  Launches both passes on
 // `stream`; returns the first non-zero cudaError_t (0 = success).
 int moe_gmm_launch(const void* h, const void* wg, const void* wu,
-                   const void* wd, void* act, void* out, int dtype, int rows,
-                   int vec_gate_up, int vec_down, int E, int C, int D, int F,
-                   void* stream) {
+                   const void* wd, void* act, void* out, int dtype,
+                   int activation, int rows, int vec_gate_up, int vec_down,
+                   int E, int C, int D, int F, void* stream) {
   if (E < 1 || E > 65535 || C < 1 || D < 1 || F < 1)
     return static_cast<int>(cudaErrorInvalidValue);
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   float* a = static_cast<float*>(act);
   if (dtype == 0)
-    return launch_rows<float>(rows, h, wg, wu, wd, a, out, vec_gate_up,
-                              vec_down, E, C, D, F, st);
+    return launch_rows<float>(rows, h, wg, wu, wd, a, out, activation,
+                              vec_gate_up, vec_down, E, C, D, F, st);
   if (dtype == 1)
     return launch_rows<__nv_bfloat16>(rows, h, wg, wu, wd, a, out,
-                                      vec_gate_up, vec_down, E, C, D, F, st);
+                                      activation, vec_gate_up, vec_down, E,
+                                      C, D, F, st);
   return static_cast<int>(cudaErrorInvalidValue);
 }
 

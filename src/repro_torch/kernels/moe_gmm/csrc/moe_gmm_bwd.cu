@@ -9,12 +9,18 @@
 // autograd cannot see into, so its gradient is a kernel too.  It computes
 // what ref.moe_gmm_bwd_ref computes: for every expert, with h (C, D),
 // Wg/Wu (D, F), Wd (F, D) and the output's gradient dout (C, D),
-//     G = h Wg,  U = h Wu  (recomputed),  A = silu(G) U
+//     G = h Wg,  U = h Wu  (recomputed),  A = act(G) U
 //     dWd = A^T dout,   dA = dout Wd^T
-//     dG = dA U silu'(G),   dU = dA silu(G)
+//     dG = dA U act'(G),   dU = dA act(G)
 //     dWg = h^T dG,  dWu = h^T dU,   dh = dG Wg^T + dU Wu^T
-// every sum in f32, each gradient rounded once to the inputs' type.
-// silu(g) = g s, silu'(g) = s (1 + g (1 - s)), s = 1 / (1 + e^-g).
+// every sum in f32, each gradient rounded once to the inputs' type.  The
+// activation is the config's (models/moe.py:101 of the JAX package), a
+// compile-time parameter of the activation pass (ACT, kernel.ACTS):
+// silu(g) = g s, silu'(g) = s (1 + g (1 - s)), s = 1 / (1 + e^-g);
+// gelu(g) = g (1 + t) / 2, t = tanh(c (g + k g^3)), c = sqrt(2 / pi),
+// k = 0.044715 (jax.nn.gelu's tanh form), gelu'(g) = (1 + t) / 2
+// + g (1 - t^2) c (1 + 3 k g^2) / 2; relu(g) = max(g, 0), relu'(g) = 1
+// where g > 0, else 0 (as jax.grad of jax.nn.relu).
 //
 // Bound.  Eight products of 2 C D F operations an expert: 16 E C D F.  At
 // qwen3-moe's training shape (E 128, C 320 for 4,096 tokens, D 2048, F
@@ -58,7 +64,8 @@
 // Every operand is read either along the summed dimension or across the
 // tile (the template's XK / YK), with neighbouring threads on
 // neighbouring addresses.  Rounding: fmaf explicitly (the library is
-// built with -fmad=false), the sigmoid as 1 / (1 + expf(-g)) in IEEE f32.
+// built with -fmad=false), the sigmoid as 1 / (1 + expf(-g)) and gelu's
+// tanh as tanhf, in IEEE f32.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
@@ -138,8 +145,29 @@ __device__ __forceinline__ void zero(float (&acc)[kPer][kPer]) {
     for (int j = 0; j < kPer; ++j) acc[i][j] = 0.f;
 }
 
+// The gate's activation (kernel.ACTS) and its derivative at g.
+enum Act { kSilu = 0, kGelu = 1, kRelu = 2 };
+
+template <int ACT>
+__device__ __forceinline__ void activate(float g, float& f, float& df) {
+  if constexpr (ACT == kSilu) {
+    const float s = 1.f / (1.f + expf(-g));
+    f = g * s;
+    df = s * (1.f + g * (1.f - s));
+  } else if constexpr (ACT == kGelu) {
+    constexpr float kC = 0.7978845608028654f, kK = 0.044715f;
+    const float t = tanhf(kC * (g + kK * (g * g * g)));
+    f = 0.5f * g * (1.f + t);
+    df = 0.5f * (1.f + t) +
+         0.5f * g * (1.f - t * t) * kC * (1.f + 3.f * kK * (g * g));
+  } else {
+    f = g > 0.f ? g : 0.f;
+    df = g > 0.f ? 1.f : 0.f;
+  }
+}
+
 // Pass 1: G, U, dA of a (C, F) tile of expert blockIdx.z; A, dG, dU out.
-template <typename T>
+template <typename T, int ACT>
 __global__ void __launch_bounds__(kThreads)
 moe_bwd_act(const T* __restrict__ h, const T* __restrict__ wg,
             const T* __restrict__ wu, const T* __restrict__ wd,
@@ -168,12 +196,12 @@ moe_bwd_act(const T* __restrict__ h, const T* __restrict__ wg,
     for (int j = 0; j < kPer; ++j) {
       const int f = n0 + tx * kPer + j;
       if (c >= C || f >= F) continue;
-      const float s = 1.f / (1.f + expf(-g[i][j]));
-      const float silu = g[i][j] * s;
+      float a, da_dg;
+      activate<ACT>(g[i][j], a, da_dg);
       const size_t at = (e * C + c) * F + f;
-      act[at] = silu * u[i][j];
-      dg[at] = da[i][j] * u[i][j] * (s * (1.f + g[i][j] * (1.f - s)));
-      du[at] = da[i][j] * silu;
+      act[at] = a * u[i][j];
+      dg[at] = da[i][j] * u[i][j] * da_dg;
+      du[at] = da[i][j] * a;
     }
   }
 }
@@ -215,7 +243,8 @@ dim3 grid(int M, int N, int E) {
   return dim3((N + kTile - 1) / kTile, (M + kTile - 1) / kTile, E);
 }
 
-// f32: the CUDA-core kernels, f32 scratch
+// f32: the CUDA-core kernels, f32 scratch; pass 1 with activation ACT
+template <int ACT>
 int launch_f32(const float* h, const float* wg, const float* wu,
                const float* wd, const float* dout, float* act, float* dg,
                float* du, float* dh, float* dwg, float* dwu, float* dwd,
@@ -224,8 +253,8 @@ int launch_f32(const float* h, const float* wg, const float* wu,
   const size_t cf = static_cast<size_t>(C) * F;
   const size_t cd = static_cast<size_t>(C) * D;
   const size_t df = static_cast<size_t>(D) * F;
-  moe_bwd_act<T><<<grid(C, F, E), kThreads, 0, st>>>(h, wg, wu, wd, dout,
-                                                     act, dg, du, C, D, F);
+  moe_bwd_act<T, ACT><<<grid(C, F, E), kThreads, 0, st>>>(
+      h, wg, wu, wd, dout, act, dg, du, C, D, F);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
   // dWd (F, D) = A^T dout: X(f, c) = act[c F + f], Y(c, d) = dout[c D + d]
@@ -287,6 +316,7 @@ __device__ __forceinline__ bool vec_of(int vec, int b) {
 // Pass 1: G, U, dA of 64 capacity rows x 128 F columns of expert
 // blockIdx.z (warpgroup w on columns 64 w ..); A, dG, dU out in bf16.
 // vec bits: 0 h, 1 dout, 2 Wg, 3 Wu, 4 Wd.
+template <int ACT>
 __global__ void __launch_bounds__(kWThreads, 1)
 moe_bwd_act_wgmma(const bf16* __restrict__ h, const bf16* __restrict__ wg,
                   const bf16* __restrict__ wu, const bf16* __restrict__ wd,
@@ -343,11 +373,11 @@ moe_bwd_act_wgmma(const bf16* __restrict__ h, const bf16* __restrict__ wg,
     float a[2], dgv[2], duv[2];
 #pragma unroll
     for (int j = 0; j < 2; ++j) {
-      const float s = 1.f / (1.f + expf(-g[i + j]));
-      const float silu = g[i + j] * s;
-      a[j] = silu * u[i + j];
-      dgv[j] = da[i + j] * u[i + j] * (s * (1.f + g[i + j] * (1.f - s)));
-      duv[j] = da[i + j] * silu;
+      float f, df;
+      activate<ACT>(g[i + j], f, df);
+      a[j] = f * u[i + j];
+      dgv[j] = da[i + j] * u[i + j] * df;
+      duv[j] = da[i + j] * f;
     }
     store_pair(act + base, F, C, c, f, a[0], a[1]);
     store_pair(dg + base, F, C, c, f, dgv[0], dgv[1]);
@@ -498,7 +528,8 @@ int vec_bit(const void* p, int ld, int bit) {
 
 int cdiv(int a, int b) { return (a + b - 1) / b; }
 
-// bf16: the wgmma kernels, bf16 scratch
+// bf16: the wgmma kernels, bf16 scratch; pass 1 with activation ACT
+template <int ACT>
 int launch_wgmma(const bf16* h, const bf16* wg, const bf16* wu,
                  const bf16* wd, const bf16* dout, bf16* act, bf16* dg,
                  bf16* du, bf16* dh, bf16* dwg, bf16* dwu, bf16* dwd, int E,
@@ -508,13 +539,14 @@ int launch_wgmma(const bf16* h, const bf16* wg, const bf16* wu,
   constexpr size_t dwgu_bytes = kStages * 4 * kAtomBytes + 1024;
   constexpr size_t dh_bytes = kStages * 3 * kAtomBytes + 1024;
   cudaError_t err;
-  if ((err = allow_smem(moe_bwd_act_wgmma, act_bytes)) != cudaSuccess ||
+  if ((err = allow_smem(moe_bwd_act_wgmma<ACT>, act_bytes)) !=
+          cudaSuccess ||
       (err = allow_smem(moe_bwd_wgrad_wgmma<1>, dwd_bytes)) != cudaSuccess ||
       (err = allow_smem(moe_bwd_wgrad_wgmma<2>, dwgu_bytes)) != cudaSuccess ||
       (err = allow_smem(moe_bwd_dh_wgmma, dh_bytes)) != cudaSuccess)
     return static_cast<int>(err);
-  moe_bwd_act_wgmma<<<dim3(cdiv(F, 2 * kAtom), cdiv(C, kAtom), E), kWThreads,
-                      act_bytes, st>>>(
+  moe_bwd_act_wgmma<ACT><<<dim3(cdiv(F, 2 * kAtom), cdiv(C, kAtom), E),
+                           kWThreads, act_bytes, st>>>(
       h, wg, wu, wd, dout, act, dg, du, C, D, F,
       vec_bit(h, D, 0) | vec_bit(dout, D, 1) | vec_bit(wg, F, 2) |
           vec_bit(wu, F, 3) | vec_bit(wd, D, 4));
@@ -547,36 +579,43 @@ extern "C" {
 // dh (E, C, D), dwg and dwu (E, D, F), dwd (E, F, D) of the gated expert
 // FFN from h, wg, wu, wd and the output's gradient dout (E, C, D), all
 // contiguous and of one type: dtype 0 is f32 (the CUDA cores), 1 is bf16
-// (wgmma).  scratch holds 3 E C F elements (A, dG, dU) of that type.
+// (wgmma); activation 0 is silu, 1 gelu (tanh form), 2 relu.  scratch
+// holds 3 E C F elements (A, dG, dU) of that type.
 // Launches the kernels on `stream` (five for f32, four for bf16); returns
 // the first non-zero cudaError_t (0 = success).
 int moe_gmm_bwd_launch(const void* h, const void* wg, const void* wu,
                        const void* wd, const void* dout, void* scratch,
                        void* dh, void* dwg, void* dwu, void* dwd, int dtype,
-                       int E, int C, int D, int F, void* stream) {
-  if (E < 1 || E > 65535 || C < 1 || D < 1 || F < 1)
+                       int activation, int E, int C, int D, int F,
+                       void* stream) {
+  if (E < 1 || E > 65535 || C < 1 || D < 1 || F < 1 || activation < kSilu ||
+      activation > kRelu)
     return static_cast<int>(cudaErrorInvalidValue);
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   const size_t ecf = static_cast<size_t>(E) * C * F;
   if (dtype == 0) {
     using T = float;
     T* act = static_cast<T*>(scratch);
-    return launch_f32(static_cast<const T*>(h), static_cast<const T*>(wg),
-                      static_cast<const T*>(wu), static_cast<const T*>(wd),
-                      static_cast<const T*>(dout), act, act + ecf,
-                      act + 2 * ecf, static_cast<T*>(dh),
-                      static_cast<T*>(dwg), static_cast<T*>(dwu),
-                      static_cast<T*>(dwd), E, C, D, F, st);
+    const auto run = activation == kSilu   ? launch_f32<kSilu>
+                     : activation == kGelu ? launch_f32<kGelu>
+                                           : launch_f32<kRelu>;
+    return run(static_cast<const T*>(h), static_cast<const T*>(wg),
+               static_cast<const T*>(wu), static_cast<const T*>(wd),
+               static_cast<const T*>(dout), act, act + ecf, act + 2 * ecf,
+               static_cast<T*>(dh), static_cast<T*>(dwg),
+               static_cast<T*>(dwu), static_cast<T*>(dwd), E, C, D, F, st);
   }
   if (dtype == 1) {
     using T = bf16;
     T* act = static_cast<T*>(scratch);
-    return launch_wgmma(static_cast<const T*>(h), static_cast<const T*>(wg),
-                        static_cast<const T*>(wu), static_cast<const T*>(wd),
-                        static_cast<const T*>(dout), act, act + ecf,
-                        act + 2 * ecf, static_cast<T*>(dh),
-                        static_cast<T*>(dwg), static_cast<T*>(dwu),
-                        static_cast<T*>(dwd), E, C, D, F, st);
+    const auto run = activation == kSilu   ? launch_wgmma<kSilu>
+                     : activation == kGelu ? launch_wgmma<kGelu>
+                                           : launch_wgmma<kRelu>;
+    return run(static_cast<const T*>(h), static_cast<const T*>(wg),
+               static_cast<const T*>(wu), static_cast<const T*>(wd),
+               static_cast<const T*>(dout), act, act + ecf, act + 2 * ecf,
+               static_cast<T*>(dh), static_cast<T*>(dwg),
+               static_cast<T*>(dwu), static_cast<T*>(dwd), E, C, D, F, st);
   }
   return static_cast<int>(cudaErrorInvalidValue);
 }

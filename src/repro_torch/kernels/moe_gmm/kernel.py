@@ -10,7 +10,9 @@ The library is built at first use (see
 load width from the shapes alone; the wrapper checks what
 it is given, allocates the scratch and the output with `torch.empty`,
 launches on the current stream without synchronising, counts one launch
-and raises on a non-zero ``cudaError_t``.
+and raises on a non-zero ``cudaError_t``.  The gate's activation
+(``ref.ACTS``: silu, gelu, relu) is a template argument of the first pass
+and of the backward's activation pass, chosen at launch.
 
 `moe_gmm_bwd` binds the backward (``csrc/moe_gmm_bwd.cu`` with
 ``csrc/moe_wgmma.cuh``, a library of its own): dh, dWg, dWu and dWd from
@@ -29,6 +31,7 @@ from typing import NamedTuple
 import torch
 
 from repro_torch.kernels import build_library, launch_counts
+from repro_torch.kernels.moe_gmm.ref import check_act
 
 NAME = "moe_gmm"
 SOURCE = Path(__file__).resolve().parent / "csrc" / "moe_gmm.cu"
@@ -81,7 +84,7 @@ def library() -> ctypes.CDLL:
         ptr, i32 = ctypes.c_void_p, ctypes.c_int
         lib.moe_gmm_launch.argtypes = [
             ptr, ptr, ptr, ptr, ptr, ptr, i32, i32, i32, i32, i32, i32, i32,
-            i32, ptr,
+            i32, i32, ptr,
         ]
         lib.moe_gmm_launch.restype = i32
         _lib = lib
@@ -94,7 +97,7 @@ def bwd_library() -> ctypes.CDLL:
     if _bwd_lib is None:
         lib = build_library(BWD_NAME, [BWD_SOURCE])
         ptr, i32 = ctypes.c_void_p, ctypes.c_int
-        lib.moe_gmm_bwd_launch.argtypes = [ptr] * 10 + [i32] * 5 + [ptr]
+        lib.moe_gmm_bwd_launch.argtypes = [ptr] * 10 + [i32] * 6 + [ptr]
         lib.moe_gmm_bwd_launch.restype = i32
         lib.moe_wgmma_probe.argtypes = [ptr, ptr, ptr, i32, ptr]
         lib.moe_wgmma_probe.restype = i32
@@ -123,8 +126,10 @@ def _check(h, wg, wu, wd) -> None:
 
 
 def moe_gmm_fwd(h: torch.Tensor, wg: torch.Tensor, wu: torch.Tensor,
-                wd: torch.Tensor) -> torch.Tensor:
-    """The expert FFN on the card; returns (E, C, D) in h's dtype."""
+                wd: torch.Tensor, act: str = "silu") -> torch.Tensor:
+    """The expert FFN with the gate's activation `act` (``ACTS``) on the
+    card; returns (E, C, D) in h's dtype."""
+    activation = check_act(act)
     _check(h, wg, wu, wd)
     lib = library()
     e, c, d = h.shape
@@ -139,7 +144,8 @@ def moe_gmm_fwd(h: torch.Tensor, wg: torch.Tensor, wu: torch.Tensor,
         stream = torch.cuda.current_stream(h.device).cuda_stream
         err = lib.moe_gmm_launch(
             h.data_ptr(), wg.data_ptr(), wu.data_ptr(), wd.data_ptr(),
-            act.data_ptr(), out.data_ptr(), DTYPES[h.dtype], p.rows,
+            act.data_ptr(), out.data_ptr(), DTYPES[h.dtype], activation,
+            p.rows,
             int(vec_gate_up), int(vec_down), e, c, d, f, stream)
     if err:
         raise RuntimeError(f"moe_gmm launch failed: cudaError_t {err}")
@@ -148,10 +154,11 @@ def moe_gmm_fwd(h: torch.Tensor, wg: torch.Tensor, wu: torch.Tensor,
 
 
 def moe_gmm_bwd(h: torch.Tensor, wg: torch.Tensor, wu: torch.Tensor,
-                wd: torch.Tensor, dout: torch.Tensor):
+                wd: torch.Tensor, dout: torch.Tensor, act: str = "silu"):
     """The backward on the card: (dh (E, C, D), dwg, dwu (E, D, F), dwd
-    (E, F, D)) in h's dtype from the forward's inputs and the output's
-    gradient dout (E, C, D), of h's dtype."""
+    (E, F, D)) in h's dtype from the forward's inputs, its activation
+    `act` and the output's gradient dout (E, C, D), of h's dtype."""
+    activation = check_act(act)
     _check(h, wg, wu, wd)
     if dout.shape != h.shape or dout.dtype != h.dtype:
         raise ValueError(f"dout {tuple(dout.shape)} {dout.dtype}: expected "
@@ -170,7 +177,7 @@ def moe_gmm_bwd(h: torch.Tensor, wg: torch.Tensor, wu: torch.Tensor,
             h.data_ptr(), wg.data_ptr(), wu.data_ptr(), wd.data_ptr(),
             dout.data_ptr(), scratch.data_ptr(), dh.data_ptr(),
             dwg.data_ptr(), dwu.data_ptr(), dwd.data_ptr(), DTYPES[h.dtype],
-            e, c, d, f, stream)
+            activation, e, c, d, f, stream)
     if err:
         raise RuntimeError(f"moe_gmm_bwd launch failed: cudaError_t {err}")
     launch_counts[BWD_NAME] += 1

@@ -31,8 +31,9 @@ moments, placed as the JAX launcher places them (`models.sharding`,
 ``fsdp_tp``: each matrix over `model` on its parallel dim and over
 `data` on the other, so ``--tp 1`` cuts every matrix over the data
 ranks), gathers them on use and gets each gradient reduce-scattered;
-with ``--tp`` above 1 attention splits by heads, the FFNs by width and
-the embedding and head by vocab over the model ranks where they divide
+with ``--tp`` above 1 attention splits by heads, the FFNs by width, the
+mamba and RG-LRU mixers by channels and the embedding and head by vocab
+over the model ranks where they divide
 (`models.sharding.computes_tp`; those leaves are gathered over `data`
 alone), and each MoE layer's experts are split over the model ranks and
 reached through `rotor_all_to_all`.  On

@@ -15,7 +15,9 @@ leaves and shapes).  Decode writes into those views in place
 On a mesh each rank holds its block of every leaf
 (`models.sharding.cache_slice`), in a `CacheBlocks`, which also tells
 how each K/V leaf is cut over `model`: a block alone does not (512
-positions may be a whole cache or a quarter of 2,048).  `recut` moves a
+positions may be a whole cache or a quarter of 2,048).  The conv, SSM
+and LRU states are the rank's channels where its mixer splits over
+`model`, else whole.  `recut` moves a
 K/V block from one cut to another (a prefill's heads to a slot's
 positions, a short cross source into a longer slot).
 """
@@ -123,24 +125,17 @@ def recut(ts, was: Optional[str], to: Optional[str], length: int,
     return list(ts)
 
 
-def _held_shape(name: str, shape, pctx: ParallelContext) -> tuple:
-    """The shape of a rank's block of the leaf of whole `shape`."""
-    return tuple(len(range(*s.indices(d))) for s, d in
-                 zip(cache_slice(name, shape, pctx), shape))
-
-
 def init_cache(cfg: ModelConfig, B: int, L: int, device=None,
                pctx: Optional[ParallelContext] = None
                ) -> List[Dict[str, torch.Tensor]]:
     """Zero-filled decode state, one dict per layer.  Given a mesh
     `pctx`, a `CacheBlocks` of this rank's block of every leaf
-    (`models.sharding.cache_slice`): the batch over the data axes, the
-    K/V caches by positions or by KV heads over `model`
-    (`models.sharding.cache_spec`); the conv, SSM and LRU states keep
-    their channels whole on every `model` rank, where `cache_spec` cuts
-    them, since the mamba and RG-LRU mixers still gather their weights
-    whole on use (ROADMAP Queue 1 item 7c: the channel splits come
-    first)."""
+    (`models.sharding.cache_slice`, as `models.sharding.cache_spec`
+    places it): the batch over the data axes, the K/V caches by
+    positions or by KV heads over `model`, and the conv, SSM and LRU
+    states by channels over `model` where the width divides, which is
+    where their mixers compute on the rank's channels
+    (`models.sharding.computes_tp`); else whole."""
     from repro_torch.models.transformer import stack_plan
 
     mesh = pctx is not None and pctx.mesh is not None
@@ -150,7 +145,8 @@ def init_cache(cfg: ModelConfig, B: int, L: int, device=None,
     for kind in dict.fromkeys(kinds):
         layers = [i for i, k in enumerate(kinds) if k == kind]
         for name, (shape, dt) in layer_cache_shape(cfg, kind, B, L).items():
-            held = _held_shape(name, shape, pctx) if mesh else shape
+            held = (torch.empty(shape, device="meta")[
+                cache_slice(name, shape, pctx)].shape if mesh else shape)
             stacked = torch.zeros((len(layers),) + held, dtype=dt,
                                   device=device)
             for j, i in enumerate(layers):

@@ -496,8 +496,9 @@ def _blocks(caches: List[Dict[str, torch.Tensor]], cfg: ModelConfig,
     self or cross K/V pair, the rank's heads where its attention splits
     by them, else whole, recut to the cache's cut of its whole shape
     (`models.sharding.kv_split`, `kvcache.recut`: one gather a pair where
-    they differ); the recurrent states as they are (their channels whole,
-    `models.sharding.held_cache_spec`)."""
+    they differ); the recurrent states as they are: the rank's channels
+    where its mixer splits over `model`, as `models.sharding.cache_spec`
+    cuts them, else whole."""
     Hkv = cfg.num_kv_heads
     out, cuts = [], []
     for cache in caches:

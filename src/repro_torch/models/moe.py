@@ -8,11 +8,12 @@ that is thrown away), the per-expert gated FFN, and the gate-weighted
 combine, plus DeepSeekMoE's always-on shared branch (moe.py:179-185).
 Where the JAX package runs three einsums for the routed experts
 ("kernels/moe_gmm mirrors this", moe.py:128-131), the port calls
-`kernels.moe_gmm` — on the card the hand-written Hopper kernel.  That
-kernel computes silu only, so `apply_moe` refuses any other activation
-rather than silently using silu.  The shared branch is three plain
-products outside any kernel in the JAX package, and stays plain
-`torch.matmul` here.
+`kernels.moe_gmm` — on the card the hand-written Hopper kernel — with
+the config's activation (``act_fn(cfg.act)``, moe.py:101: silu, gelu or
+relu, each an instantiation of the kernel) in every branch.  The shared
+branch is three plain products outside any kernel in the JAX package,
+with the same activation (moe.py:182), and stays plain `torch.matmul`
+here.
 
 With a mesh whose model axis has tp > 1 ranks, each rank holds E / tp
 experts (`models.sharding`) and its data shard's rows, and runs the JAX
@@ -146,7 +147,8 @@ def _dispatch_combine_local(
     else:
         h = buf[expert_offset:expert_offset + E_loc]
 
-    out = moe_gmm(h, wg.to(h.dtype), wu.to(h.dtype), wd.to(h.dtype))
+    out = moe_gmm(h, wg.to(h.dtype), wu.to(h.dtype), wd.to(h.dtype),
+                  cfg.act)
 
     if a2a is not None:
         back = a2a(out.reshape(E_loc, n_shards, capacity, D).transpose(0, 1))
@@ -193,9 +195,6 @@ def apply_moe(p, x: torch.Tensor, cfg: ModelConfig,
     1 model ranks, `p` holds this rank's E / tp experts and the experts
     run expert-parallel (the module's docstring).  With `shared_tp`, `p`
     holds this rank's columns of the shared experts' width."""
-    if cfg.act != "silu":
-        raise NotImplementedError(
-            f"act {cfg.act!r}: the moe_gmm kernel computes silu only")
     m = cfg.moe
     B, S, D = x.shape
     E, k = m.num_experts, m.top_k

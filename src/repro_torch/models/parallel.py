@@ -24,18 +24,20 @@ When `mesh` is None the models run on one process (`single_device_ctx`).
 
 The compute is GSPMD's partition of the JAX package's under these
 rules (`models.sharding.computes_tp`): attention split by heads, the
-FFNs and DeepSeek's shared experts by width, the embedding and the head
-by vocab, each block entered through `tp_enter` and left through
-`tp_exit` (Megatron's pair, `core.comm`), so that its leaves are
-gathered over the data axes only under ``fsdp_tp`` and not at all under
-``tp_only``; every other leaf is gathered whole on use.  Activations
-stay replicated over `model` at layer boundaries (the JAX package's
-``act_sharding="dp"``).  ROADMAP Queue 1 item 7c keeps what is left: the
-mamba and RG-LRU mixers' channel splits (they gather on use), serving
-over a mesh, the JAX context's ``grad_sync`` (the GSPMD trainer's rotor
-pod branch) and ``act_sharding="sp"``.  Two of the JAX context's fields
-have no counterpart: ``use_pallas`` (the port picks a kernel or its
-plain version by the device of the tensors it is given,
+FFNs and DeepSeek's shared experts by width, the mamba and RG-LRU
+mixers by channels, the embedding and the head by vocab, each block
+entered through `tp_enter` and left through `tp_exit` (Megatron's pair,
+`core.comm`), so that its leaves are gathered over the data axes only
+under ``fsdp_tp`` and not at all under ``tp_only``; every other leaf is
+gathered whole on use.  Inside a mixer, a partial sum that every
+rank's channels read whole is `tp_sum` (mamba's dt, B and C), and one
+each rank reads its channels of is `tp_scatter` (the RG-LRU's gates).
+Activations stay replicated over `model` at layer boundaries (the JAX
+package's ``act_sharding="dp"``).  ROADMAP Queue 1 item 7c keeps what is
+left: slots over `data`, the JAX context's ``grad_sync`` (the GSPMD
+trainer's rotor pod branch) and ``act_sharding="sp"``.  Two of the JAX
+context's fields have no counterpart: ``use_pallas`` (the port picks a
+kernel or its plain version by the device of the tensors it is given,
 kernels/__init__.py) and ``act_sharding``.
 """
 from __future__ import annotations
@@ -47,7 +49,8 @@ from typing import Optional, Tuple
 import torch
 
 from repro_torch.core.comm import (Mesh, copy_to_parallel,
-                                   reduce_from_parallel)
+                                   reduce_from_parallel, reduce_scatter,
+                                   sum_to_parallel)
 
 LAYOUTS = ("fsdp_tp", "dp_only", "tp_only")
 
@@ -107,3 +110,34 @@ def tp_exit(x: torch.Tensor, tp: Optional[ParallelContext]) -> torch.Tensor:
     if tp is None:
         return x
     return reduce_from_parallel(x, tp.mesh, tp.tp_axis)
+
+
+def tp_sum(x: torch.Tensor, tp: Optional[ParallelContext]) -> torch.Tensor:
+    """A split block's partial `x` summed over ``tp``'s model axis for
+    the block's own use, each rank reading the sum for its part alone,
+    so that its cotangent is summed too (`core.comm.sum_to_parallel`);
+    `x` itself when `tp` is None."""
+    if tp is None:
+        return x
+    return sum_to_parallel(x, tp.mesh, tp.tp_axis)
+
+
+def tp_scatter(x: torch.Tensor, tp: Optional[ParallelContext],
+               dim: int) -> torch.Tensor:
+    """A split block's partial `x` summed over ``tp``'s model axis, this
+    rank's block of it along `dim` (`core.comm.reduce_scatter`); `x`
+    itself when `tp` is None."""
+    if tp is None:
+        return x
+    return reduce_scatter(x, tp.mesh, tp.tp_axis, dim)
+
+
+def split_product(x: torch.Tensor, w: torch.Tensor,
+                  tp: Optional[ParallelContext], combine) -> torch.Tensor:
+    """``x @ w`` in x's dtype; with `tp`, x and w this rank's part of the
+    summed dimension: the rank's partial product in float32, combined
+    over ``tp``'s model axis by `combine` (`tp_exit`, `tp_sum`) in
+    float32 and rounded once to x's dtype, as the whole product is."""
+    if tp is None:
+        return x @ w.to(x.dtype)
+    return combine(x.float() @ w.float(), tp).to(x.dtype)

@@ -11,10 +11,23 @@ on the card) with h0 passed in, where the JAX package folds h0 into
 ``bx[:, 0]`` and runs `lax.associative_scan` (rglru.py:58-66): the same
 function.  Decode is one plain step.  The full block is
     y = W_out( gelu(W_y x) * RG-LRU(conv1d(W_x' x)) ).
+
+With `tp` (the block split over `model` where `lru_width` divides,
+`models.sharding.computes_tp`), as GSPMD partitions the JAX block under
+its rules, a rank computes its own block of the Dl channels: the input
+enters through `tp_enter`, ``w_y`` and ``w_x`` give the rank's columns,
+the conv and ``lambda`` are its channels; the gates' products ``x_r @
+w_a[rows r]`` and ``x_r @ w_i[rows r]`` are partial sums over `model`,
+reduce-scattered in one call on both to the rank's channels
+(`tp_scatter`); the scan runs on those channels (on the card the kernel
+and its backward kernel), and ``w_out``'s rows give a partial output,
+summed by `tp_exit`, each partial product taken and summed in float32
+(`split_product`).  Decode does the same with the rank's block of the
+conv state (B, 3, Dl / tp) and of the LRU state (B, Dl / tp).
 """
 from __future__ import annotations
 
-from typing import Dict, Tuple
+from typing import Dict, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -28,6 +41,8 @@ from repro_torch.models.layers import (
     init_causal_conv,
     storage_dtype,
 )
+from repro_torch.models.parallel import (ParallelContext, split_product,
+                                        tp_enter, tp_exit, tp_scatter)
 
 _C = 8.0
 CONV_KERNEL = 4
@@ -52,10 +67,21 @@ def init_rglru_block(gen: torch.Generator, cfg: ModelConfig) -> Dict:
     }
 
 
-def _gates(p, x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
-    """(a, bx) of the recurrence, float32, from the conv output x."""
-    r = torch.sigmoid((x @ p["w_a"].to(x.dtype)).float())
-    i = torch.sigmoid((x @ p["w_i"].to(x.dtype)).float())
+def _gates(p, x: torch.Tensor, tp: Optional[ParallelContext] = None
+           ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(a, bx) of the recurrence, float32, from the conv output x; with
+    `tp`, x and the gates the rank's channels, the gates' partial
+    products reduce-scattered over `model` in float32."""
+    if tp is None:
+        ga = (x @ p["w_a"].to(x.dtype)).float()
+        gi = (x @ p["w_i"].to(x.dtype)).float()
+    else:   # both partial products in f32, one reduce-scatter
+        x32 = x.float()
+        ga, gi = tp_scatter(torch.stack([x32 @ p["w_a"].float(),
+                                         x32 @ p["w_i"].float()], -2),
+                            tp, -1).unbind(-2)
+    r = torch.sigmoid(ga)
+    i = torch.sigmoid(gi)
     log_a = -_C * F.softplus(p["lambda"]) * r
     a = torch.exp(log_a)
     beta = torch.sqrt(torch.clamp(1.0 - torch.exp(2.0 * log_a), min=1e-12))
@@ -63,22 +89,25 @@ def _gates(p, x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
 
 
 def rglru_block_mix(p, u: torch.Tensor, cfg: ModelConfig,
-                    return_state: bool = False):
-    """Full-sequence recurrent block (prefill).  u: (B, S, D).
+                    return_state: bool = False,
+                    tp: Optional[ParallelContext] = None):
+    """Full-sequence recurrent block (train, prefill).  u: (B, S, D).
 
     With return_state=True also returns (conv_state (B, 3, Dl), the last
     conv inputs right-aligned, zeros first for a prompt shorter than 3
-    (ROADMAP.md Queue 3, R3); lru_state (B, Dl) f32)."""
+    (ROADMAP.md Queue 3, R3); lru_state (B, Dl) f32).  With `tp`, `p`
+    holds the rank's channels (the module's docstring) and the states
+    are its channels' (Dl / tp)."""
     gelu = act_fn("gelu")
+    u = tp_enter(u, tp)
     y_branch = gelu(u @ p["w_y"].to(u.dtype))
     x_pre = u @ p["w_x"].to(u.dtype)
     x, conv_state = apply_causal_conv(p["conv"], x_pre)
-    a, bx = _gates(p, x)
-    h0 = torch.zeros((u.shape[0], cfg.lru_width_), dtype=torch.float32,
+    a, bx = _gates(p, x, tp)
+    h0 = torch.zeros((u.shape[0], x.shape[-1]), dtype=torch.float32,
                      device=u.device)
     hs = rglru_scan(a, bx, h0)
-    out = hs.to(u.dtype) * y_branch
-    out = out @ p["w_out"].to(u.dtype)
+    out = split_product(hs.to(u.dtype) * y_branch, p["w_out"], tp, tp_exit)
     if return_state:
         return out, conv_state, hs[:, -1]
     return out
@@ -90,15 +119,18 @@ def rglru_block_decode(
     cfg: ModelConfig,
     conv_state: torch.Tensor,   # (B, K-1, Dl)
     lru_state: torch.Tensor,    # (B, Dl)
+    tp: Optional[ParallelContext] = None,
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """One step.  Returns (y, the new conv state, the new lru state);
-    the states passed in are not written."""
+    the states passed in are not written.  With `tp`, `p` and both
+    states are the rank's channels'."""
     gelu = act_fn("gelu")
+    u = tp_enter(u, tp)
     y_branch = gelu(u @ p["w_y"].to(u.dtype))
     x = u @ p["w_x"].to(u.dtype)
     x, conv_state = apply_causal_conv(p["conv"], x, conv_state)
-    a, bx = _gates(p, x)
+    a, bx = _gates(p, x, tp)
     h = a[:, 0] * lru_state + bx[:, 0]
     out = h[:, None].to(u.dtype) * y_branch
-    return out @ p["w_out"].to(u.dtype), conv_state, h
+    return split_product(out, p["w_out"], tp, tp_exit), conv_state, h
 

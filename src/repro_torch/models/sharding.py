@@ -19,31 +19,38 @@ the decode state (sharding.py:149-176): the batch over the data axes,
 a K/V cache's positions over `model` from 1,024 on (flash-decoding
 style), else its KV heads, and the recurrent states' channels;
 `cache_slice` gives a rank's block of a leaf, `kv_split` the cut of a
-K/V leaf over `model` that `models.attention`'s decode follows.
+K/V leaf over `model` that `models.attention`'s decode follows.  The
+conv, SSM and LRU states are held as `cache_spec` cuts them: a mixer
+that splits over `model` computes on its channels alone.
 
 `shard_params` cuts a whole parameter tree to this rank's blocks and
 `gather_params` puts the whole tensors back; `local_slice` gives the
 cut for a leaf by name, which `models.model.init_params`,
-`models.convert` and `train.checkpoint` apply to whole tensors.
+`models.convert` and `train.checkpoint` apply to whole tensors.  One
+leaf's block is not the rule's: mamba's ``in_proj`` (D, 2 Di), whose
+column cut over `model` would fall across its [x | z] halves, is held
+as the rank's x columns beside its z columns (`held_columns`), so that
+the split mixer reads it without a wire; whole tensors and checkpoints
+keep the JAX package's column order.
 `on_use` is the compute's side, as GSPMD partitions the JAX package's
 compute under these rules: a layer's blocks gathered on use, their
 backward the reduce-scatter (`core.comm.all_gather`), inside the
 layer's rematerialised body so that no whole weight outlives it.  A
 leaf that `computes_tp` (attention split by heads, the FFNs and the
-shared experts by width, the embedding and the head by vocab) is
-gathered over its data axes only, the FSDP gather, and keeps its
-`model` block, which the modules compute on; under ``tp_only`` it is
-not gathered at all.  Every other leaf is gathered whole; the expert
-leaves keep their E dim split, which the expert-parallel branch of
-`models.moe` consumes as it is.  `replicated_axes` and `sharded_axes`
-name the axes a leaf's gradient and its squares are summed over
-(`train.trainer`).
+shared experts by width, the mamba and RG-LRU mixers by channels, the
+embedding and the head by vocab) is gathered over its data axes only,
+the FSDP gather, and keeps its `model` block, which the modules compute
+on; under ``tp_only`` it is not gathered at all.  Every other leaf is
+gathered whole; the expert leaves keep their E dim split, which the
+expert-parallel branch of `models.moe` consumes as it is.
+`replicated_axes` and `sharded_axes` name the axes a leaf's gradient
+and its squares are summed over (`train.trainer`).
 """
 from __future__ import annotations
 
 import functools
 import math
-from typing import Dict, Optional, Sequence, Tuple, Union
+from typing import Dict, List, Optional, Sequence, Tuple, Union
 
 import torch
 from torch import nn
@@ -203,11 +210,35 @@ def replicated_axes(name: str, shape: Sequence[int], cfg: ModelConfig,
 
 
 def local_slice(name: str, shape: Sequence[int], cfg: ModelConfig,
-                pctx: ParallelContext) -> Tuple[slice, ...]:
-    """This rank's block of the whole leaf `name` of `shape`: along a dim
-    cut over several axes, block ``i_0 n_1 ... + i_1 ...`` of the
-    coordinates' row-major index, the first axis major."""
-    return _block(shape, param_spec(name, shape, cfg, pctx), pctx.mesh)
+                pctx: ParallelContext) -> tuple:
+    """This rank's block of the whole leaf `name` of `shape`, an index
+    for a numpy array or a tensor: along a dim cut over several axes,
+    block ``i_0 n_1 ... + i_1 ...`` of the coordinates' row-major index,
+    the first axis major; for a leaf that `held_columns` reorders, its
+    last entry a list of the block's columns in that order."""
+    cut = _block(shape, param_spec(name, shape, cfg, pctx), pctx.mesh)
+    order = held_columns(name, cfg, pctx)
+    if order is None:
+        return cut
+    return cut[:-1] + (order[cut[-1]],)
+
+
+def held_columns(name: str, cfg: ModelConfig, pctx: ParallelContext
+                 ) -> Optional[List[int]]:
+    """The whole leaf's columns in the order the `model` ranks' blocks
+    lie end to end, where that is not the leaf's own: mamba's ``in_proj``
+    (D, 2 Di) of a mixer that splits over `model` (`computes_tp`), whose
+    rank r holds ``[x_r | z_r]``, its channels' columns of both halves,
+    the input projection of the channels it computes (ssm.py:68-69).
+    None for every other leaf."""
+    parts = name.split(".")
+    if parts[-2:] != ["mixer", "in_proj"] or not computes_tp(name, cfg,
+                                                             pctx):
+        return None
+    di, tp = cfg.d_inner_, pctx.tp_size
+    w = di // tp
+    return [c for r in range(tp) for half in (0, di)
+            for c in range(half + r * w, half + (r + 1) * w)]
 
 
 def _block(shape: Sequence[int], spec: Spec, mesh) -> Tuple[slice, ...]:
@@ -273,24 +304,11 @@ def cache_spec(name: str, shape: Sequence[int],
     return tuple(spec)
 
 
-def held_cache_spec(name: str, shape: Sequence[int],
-                    pctx: ParallelContext) -> Spec:
-    """The cut a rank holds of the leaf: `cache_spec`'s, but the conv,
-    SSM and LRU states keep their channels whole on every `model` rank:
-    the mamba and RG-LRU mixers gather their weights whole on use and
-    compute every channel (ROADMAP Queue 1 item 7c, the channel splits).
-    Their results are the same."""
-    spec = cache_spec(name, shape, pctx)
-    if name in RECURRENT_LEAVES:
-        spec = tuple(None if e == pctx.tp_axis else e for e in spec)
-    return spec
-
-
 def cache_slice(name: str, shape: Sequence[int],
                 pctx: ParallelContext) -> Tuple[slice, ...]:
     """This rank's block of the whole decode-state leaf `name` of
-    `shape` (`held_cache_spec`), as `local_slice` cuts a parameter."""
-    return _block(shape, held_cache_spec(name, shape, pctx), pctx.mesh)
+    `shape` (`cache_spec`), as `local_slice` cuts a parameter."""
+    return _block(shape, cache_spec(name, shape, pctx), pctx.mesh)
 
 
 def kv_split(name: str, shape: Sequence[int],
@@ -335,13 +353,19 @@ def gather_leaf(name: str, t: torch.Tensor, cfg: ModelConfig,
                 pctx: ParallelContext) -> torch.Tensor:
     """The whole tensor of this rank's block `t` of leaf `name`, from
     every rank's (`core.comm.all_gather` over each sharded axis), outside
-    autograd; `t` itself where the leaf is replicated.  Every rank of the
-    mesh calls it."""
+    autograd, in the leaf's own column order (`held_columns`); `t` itself
+    where the leaf is replicated.  Every rank of the mesh calls it."""
     cuts = _cuts(param_spec(name, t.shape, cfg, pctx))
     if not cuts:
         return t
     with torch.no_grad():
-        return all_gather(t.detach(), pctx.mesh, cuts)
+        whole = all_gather(t.detach(), pctx.mesh, cuts)
+        order = held_columns(name, cfg, pctx)
+        if order is not None:
+            out = torch.empty_like(whole)
+            out[..., order] = whole
+            whole = out
+        return whole
 
 
 def gather_params(params: nn.Module, cfg: ModelConfig,
@@ -361,13 +385,21 @@ def gather_params(params: nn.Module, cfg: ModelConfig,
 # the dim each is split on (None: shared by every rank's part, whole):
 # attention by heads (the query heads of a rank contiguous, and so the
 # KV heads of their groups), the FFNs and the shared experts by width,
-# the embedding and the head by vocab
+# the mamba mixer by its d_inner channels and the RG-LRU block by its
+# lru_width channels (a rank's contiguous block; a conv leaf, "conv.w"
+# (C, K) or "conv.b", named by its mixer), the embedding and the head by
+# vocab
 _TP_DIM: Dict[str, Dict[str, Optional[int]]] = {
     "attn": {"wq": 1, "wk": 1, "wv": 1, "wo": 0, "bq": 0, "bk": 0, "bv": 0,
              "q_norm": None, "k_norm": None},
     "ffn": {"w_gate": 1, "w_up": 1, "w_down": 0, "w_in": 1, "b_in": 0,
             "w_out": 0},
     "moe": {"shared_gate": 1, "shared_up": 1, "shared_down": 0},
+    "mixer": {"in_proj": 1, "conv.w": 0, "conv.b": 0, "x_proj": 0,
+              "dt_proj": 1, "dt_bias": 0, "A_log": 0, "D": 0,
+              "out_proj": 0},
+    "rec": {"w_y": 1, "w_x": 1, "conv.w": 0, "conv.b": 0, "w_a": 0,
+            "w_i": 0, "lambda": 0, "w_out": 0},
     "": {"embed": 0, "lm_head": 1},
 }
 _TP_DIM["xattn"] = _TP_DIM["attn"]
@@ -375,11 +407,15 @@ _TP_DIM["xattn"] = _TP_DIM["attn"]
 
 def _tp_dim(name: str) -> Tuple[str, bool, Optional[int]]:
     """(the block of leaf `name`, whether the leaf is one of a block that
-    can split over `model`, the dim it is split on)."""
+    can split over `model`, the dim it is split on); a conv leaf's block
+    is its grandparent, the mixer, as `param_spec` tells ``w_out_rec``."""
     parts = name.split(".")
     block = parts[-2] if len(parts) > 1 else ""
+    leaf = parts[-1]
+    if block == "conv" and len(parts) > 2:
+        block, leaf = parts[-3], f"conv.{leaf}"
     dims = _TP_DIM.get(block, {})
-    return block, parts[-1] in dims, dims.get(parts[-1])
+    return block, leaf in dims, dims.get(leaf)
 
 
 def computes_tp(name: str, cfg: ModelConfig, pctx: ParallelContext) -> bool:
@@ -390,10 +426,13 @@ def computes_tp(name: str, cfg: ModelConfig, pctx: ParallelContext) -> bool:
     resharded, so the layer's attention gathers whole), its own columns
     of the gated or plain FFN's width and of the shared experts' (where
     the width divides ``tp_size``), and its own rows of the vocabulary in
-    the embedding and the head, tied or not (where it divides).  Every
-    other leaf (norms, the router, the experts, which are
-    expert-parallel, the mamba and RG-LRU mixers, the plain FFN's output
-    bias) is gathered whole on use.  False without a mesh and under
+    the embedding and the head, tied or not (where it divides), and its
+    own channels of the mamba mixer (where `d_inner` divides) and of the
+    RG-LRU block (where `lru_width` divides): every leaf of such a mixer,
+    the convs, `A_log`, `D`, `dt_bias` and `lambda` too.  Every other
+    leaf (norms, the router, the experts, which are expert-parallel, the
+    plain FFN's output bias) is gathered whole on use, and so is a mixer
+    whose width does not divide.  False without a mesh and under
     ``dp_only``.  One rule for every module: `use_leaf` gathers such a
     leaf over its data axes only, the modules split their compute by
     it, and `train.trainer.sum_grads` counts its gradient once."""
@@ -403,6 +442,10 @@ def computes_tp(name: str, cfg: ModelConfig, pctx: ParallelContext) -> bool:
         return False
     if block in ("attn", "xattn"):
         return cfg.num_heads % tp == 0 and cfg.num_kv_heads % tp == 0
+    if block == "mixer":
+        return cfg.d_inner_ % tp == 0
+    if block == "rec":
+        return cfg.lru_width_ % tp == 0
     shape = _whole_shapes(_CfgKey(cfg)).get(name)
     return shape is not None and shape[dim] % tp == 0
 
@@ -417,7 +460,8 @@ def use_leaf(name: str, p: torch.Tensor, cfg: ModelConfig,
     where the leaf is replicated, or without a mesh.  A leaf that
     `computes_tp` is gathered over its data axes only and read as this
     rank's `model` block: its block as it holds it, or, where the rules
-    leave it replicated (a bias under 4,096 wide), its part cut here."""
+    leave it replicated (a bias under 4,096 wide, a conv's weights, the
+    RG-LRU's `lambda`), its part cut here."""
     if pctx.mesh is None:
         return p
     spec = param_spec(name, p.shape, cfg, pctx)

@@ -7,11 +7,30 @@ the card is the hand-written Hopper kernel and also returns the final
 state; the JAX package runs a chunked `lax.associative_scan` there
 (ssm.py:98-111), the same function.  Decode carries (conv_state,
 ssm_state) and is one plain torch step, as in the JAX package.
+
+With `tp` (the mixer split over `model` where `d_inner` divides,
+`models.sharding.computes_tp`), as GSPMD partitions the JAX mixer under
+its rules, a rank computes its own block of the d_inner channels: the
+input enters through `tp_enter`, ``in_proj`` is held as the rank's x
+columns beside its z columns (`models.sharding.held_columns`), the conv,
+``A_log``, ``D`` and ``dt_bias`` are the rank's channels, ``x_proj``'s
+rows and ``dt_proj``'s columns too.  The rank's x gives a partial
+(dt_r, B, C) projection, summed over `model` by `tp_sum` (every rank's
+channels read all of it, so its backward sums as well); the scan runs on
+the rank's channels (on the card the kernel, with its chunk states for
+the backward kernel when autograd records), and ``out_proj``'s rows give
+a partial output, summed by `tp_exit`.  Both partial products are taken
+and summed in float32 and rounded once to the compute dtype, as the
+whole product is (`split_product`): rounded a rank at a time, bf16's
+noise moved 8 layers' logits as far from one rank's as bf16 is from
+float32.  Decode does the same with the
+rank's block of the conv state (B, K-1, Di / tp) and of the SSM state
+(B, Di / tp, N).
 """
 from __future__ import annotations
 
 import math
-from typing import Dict, Tuple
+from typing import Dict, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -24,6 +43,8 @@ from repro_torch.models.layers import (
     init_causal_conv,
     storage_dtype,
 )
+from repro_torch.models.parallel import (ParallelContext, split_product,
+                                        tp_enter, tp_exit, tp_sum)
 
 
 def init_mamba(gen: torch.Generator, cfg: ModelConfig) -> Dict:
@@ -47,10 +68,13 @@ def init_mamba(gen: torch.Generator, cfg: ModelConfig) -> Dict:
     }
 
 
-def _ssm_params(p, x: torch.Tensor, cfg: ModelConfig):
-    """dt (B,T,Di), Bmat (B,T,N), Cmat (B,T,N) from the conv output x."""
+def _ssm_params(p, x: torch.Tensor, cfg: ModelConfig,
+                tp: Optional[ParallelContext] = None):
+    """dt (B,T,Di), Bmat (B,T,N), Cmat (B,T,N) from the conv output x;
+    with `tp`, x and dt the rank's channels, the projection of x summed
+    over `model` in float32."""
     R, N = cfg.dt_rank_, cfg.ssm.state_dim
-    dbc = x @ p["x_proj"].to(x.dtype)
+    dbc = split_product(x, p["x_proj"], tp, tp_sum)
     dt_r, Bm, Cm = torch.split(dbc, [R, N, N], dim=-1)
     dt = dt_r @ p["dt_proj"].to(x.dtype)
     dt = F.softplus(dt.float() + p["dt_bias"])
@@ -58,22 +82,26 @@ def _ssm_params(p, x: torch.Tensor, cfg: ModelConfig):
 
 
 def mamba_mix(p, u: torch.Tensor, cfg: ModelConfig,
-              return_state: bool = False):
-    """Full-sequence mixer (prefill).  u: (B, S, D).
+              return_state: bool = False,
+              tp: Optional[ParallelContext] = None):
+    """Full-sequence mixer (train, prefill).  u: (B, S, D).
 
     With return_state=True also returns (conv_state (B, K-1, Di) in u's
     dtype, ssm_state (B, Di, N) f32) for decode.  The conv state is the
     last K-1 conv inputs right-aligned, zeros first for a prompt shorter
-    than K-1 (`layers.apply_causal_conv`; ROADMAP.md Queue 3, R3)."""
+    than K-1 (`layers.apply_causal_conv`; ROADMAP.md Queue 3, R3).  With
+    `tp`, `p` holds the rank's channels (the module's docstring) and the
+    states are its channels' (Di / tp)."""
+    u = tp_enter(u, tp)
     xz = u @ p["in_proj"].to(u.dtype)
     x_pre, z = xz.chunk(2, dim=-1)
     x, conv_state = apply_causal_conv(p["conv"], x_pre)
     x = F.silu(x)
-    dt, Bm, Cm = _ssm_params(p, x, cfg)
+    dt, Bm, Cm = _ssm_params(p, x, cfg, tp)
     A = -torch.exp(p["A_log"])  # (Di, N)
     y, h_last = mamba_scan(x, dt, Bm, Cm, A, p["D"])
     y = y.to(u.dtype) * F.silu(z)
-    out = y @ p["out_proj"].to(u.dtype)
+    out = split_product(y, p["out_proj"], tp, tp_exit)
     if return_state:
         return out, conv_state, h_last
     return out
@@ -85,15 +113,17 @@ def mamba_decode(
     cfg: ModelConfig,
     conv_state: torch.Tensor,   # (B, K-1, Di)
     ssm_state: torch.Tensor,    # (B, Di, N)
+    tp: Optional[ParallelContext] = None,
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Single-token step; O(1) in context length.  Returns (y, the new
     conv state, the new ssm state); the states passed in are not
-    written."""
+    written.  With `tp`, `p` and both states are the rank's channels'."""
+    u = tp_enter(u, tp)
     xz = u @ p["in_proj"].to(u.dtype)
     x, z = xz.chunk(2, dim=-1)
     x, conv_state = apply_causal_conv(p["conv"], x, conv_state)
     x = F.silu(x)
-    dt, Bm, Cm = _ssm_params(p, x, cfg)
+    dt, Bm, Cm = _ssm_params(p, x, cfg, tp)
     A = -torch.exp(p["A_log"])
     dA = torch.exp(dt[:, 0, :, None] * A)                      # (B,Di,N)
     dBx = (dt[:, 0] * x[:, 0].float())[..., None] * Bm[:, 0, None, :]
@@ -101,4 +131,4 @@ def mamba_decode(
     y = torch.einsum("bdn,bn->bd", h, Cm[:, 0])
     y = y + x[:, 0].float() * p["D"]
     y = y[:, None].to(u.dtype) * F.silu(z)
-    return y @ p["out_proj"].to(u.dtype), conv_state, h
+    return split_product(y, p["out_proj"], tp, tp_exit), conv_state, h

@@ -18,12 +18,13 @@ its scanned blocks), "prefill" (full sequence, also returns the decode
 state; an encoder layer returns none) and "decode" (one token against
 the state, which it writes in place).  Trained on a mesh, a layer holds
 this rank's blocks of its weights and gathers them on use; its
-attention, FFN and shared experts compute tensor-parallel over `model`
-where `models.sharding.computes_tp` says so.  Served on a mesh, prefill
-and decode do the same, and decode follows each K/V cache's cut over
-`model` (`kvcache.CacheBlocks.cuts`: by KV heads or by positions,
-`models.attention`); the MoE layer's decode takes the expert-parallel
-local branch (`models.moe`).
+attention, FFN, shared experts and mamba or RG-LRU mixer compute
+tensor-parallel over `model` where `models.sharding.computes_tp` says
+so.  Served on a mesh, prefill and decode do the same, and decode
+follows each K/V cache's cut over `model` (`kvcache.CacheBlocks.cuts`:
+by KV heads or by positions, `models.attention`) and reads and writes a
+split mixer's recurrent states as the rank's channels; the MoE layer's
+decode takes the expert-parallel local branch (`models.moe`).
 """
 from __future__ import annotations
 
@@ -163,26 +164,30 @@ def apply_layer(
 
     h = apply_norm(cfg.norm, p["ln1"], x, upcast=cfg.norm_upcast)
     if kind == "ssm":
+        tp = split("mixer", "in_proj")
         if decode:
             y, cs, ss = S.mamba_decode(p["mixer"], h, cfg, cache["conv"],
-                                       cache["ssm"])
+                                       cache["ssm"], tp)
             new_cache = _write(cache, {"conv": cs, "ssm": ss})
         elif train:
-            y, new_cache = S.mamba_mix(p["mixer"], h, cfg), None
+            y, new_cache = S.mamba_mix(p["mixer"], h, cfg, tp=tp), None
         else:
-            y, cs, ss = S.mamba_mix(p["mixer"], h, cfg, return_state=True)
+            y, cs, ss = S.mamba_mix(p["mixer"], h, cfg, return_state=True,
+                                    tp=tp)
             new_cache = {"conv": cs, "ssm": ss}
         return x + y, aux, new_cache   # the mixer is the whole block
 
     if kind == "rglru":
+        tp = split("rec", "w_y")
         if decode:
             y, cs, hs = R.rglru_block_decode(p["rec"], h, cfg, cache["conv"],
-                                             cache["lru"])
+                                             cache["lru"], tp)
             new_cache = _write(cache, {"conv": cs, "lru": hs})
         elif train:
-            y, new_cache = R.rglru_block_mix(p["rec"], h, cfg), None
+            y, new_cache = R.rglru_block_mix(p["rec"], h, cfg, tp=tp), None
         else:
-            y, cs, hs = R.rglru_block_mix(p["rec"], h, cfg, return_state=True)
+            y, cs, hs = R.rglru_block_mix(p["rec"], h, cfg,
+                                          return_state=True, tp=tp)
             new_cache = {"conv": cs, "lru": hs}
     elif kind == "cross_attn":
         y, new_cache = _cross(p["attn"], h, cfg, ctx, cache,

@@ -17,7 +17,8 @@ The cache is written in place: a prefill's decode state is copied into
 its slot, each leaf by its kind (as the JAX engine's `put`,
 engine.py:82-99): self and cross K/V along the sequence, the rest of the
 slot zeroed (a local-attention ring of length W holds min(L, W)
-entries); conv, SSM and LRU states whole.  The engine keeps each slot's
+entries); conv, SSM and LRU states whole, or on a mesh the rank's
+channels of them.  The engine keeps each slot's
 source length and decode masks the cross cache past it, so a slot
 decodes as a fresh prefill-then-decode does; the JAX engine attends the
 zero padding too (ROADMAP.md Queue 3, R4).  The port's conv states are
@@ -40,8 +41,10 @@ loop on the same queue, with its blocks of the weights
 the context) and of the slots' cache (`kvcache.init_cache` given it),
 and gets the same tokens: the logits come back whole on every rank.  A
 prefill pads its K/V to the slots' length, so that its blocks are the
-slot's; a cross cache whose source is shorter than the slot is gathered
-over `model` and cut again (`_insert`, `kvcache.recut`).  The engine
+slot's, and a split mixer's recurrent states come out as the rank's
+channels, the slot's blocks of them (`models.sharding.cache_spec`); a
+cross cache whose source is shorter than the slot is gathered over
+`model` and cut again (`_insert`, `kvcache.recut`).  The engine
 decodes with the JAX engine's MoE dispatch (the local branch at a
 tick, the all-to-all at a prefill whose length divides tp).  A mesh
 with more than one data rank is refused: the JAX engine cannot prefill an MoE arch there (a

@@ -74,9 +74,11 @@ def whole_state(state, cfg: ModelConfig, pctx: ParallelContext
 
 
 def shard_cut(cfg: ModelConfig, pctx: ParallelContext
-              ) -> Callable[[str, Tuple[int, ...]], Tuple[slice, ...]]:
-    """`restore`'s `cut`: this rank's block of a whole stored leaf."""
-    def cut(key: str, shape: Tuple[int, ...]) -> Tuple[slice, ...]:
+              ) -> Callable[[str, Tuple[int, ...]], tuple]:
+    """`restore`'s `cut`: this rank's block of a whole stored leaf
+    (`models.sharding.local_slice`, mamba's in_proj as the rank's x and z
+    columns)."""
+    def cut(key: str, shape: Tuple[int, ...]) -> tuple:
         name = _leaf_name(key)
         if name is None:
             return tuple(slice(None) for _ in shape)

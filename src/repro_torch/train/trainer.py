@@ -16,7 +16,8 @@ or ``tp_only``).  It takes its rows of the global batch (`shard_batch`,
 by `batch_spec`) and runs autograd of `loss_fn(..., pctx)` on them.  The
 forward computes tensor-parallel over `model` where `models.sharding.
 computes_tp` says so (attention by heads, the FFNs and shared experts by
-width, the embedding and the head by vocab; Megatron's pair, so a
+width, the mamba and RG-LRU mixers by channels, the embedding and the
+head by vocab; Megatron's pair, so a
 `model` rank's autograd gives the gradient of its block once) and
 gathers every other leaf whole on use, GSPMD's inserted all-gather (the
 ``xla`` baseline of trainer.py:3-6), whose backward reduce-scatters the

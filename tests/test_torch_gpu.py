@@ -254,6 +254,28 @@ def test_moe_gmm_matches_plain_version(card, E, C, D, F, dtype):
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("act", ["gelu", "relu"])
+@pytest.mark.parametrize("E,C,D,F", [(2, 16, 16, 32), (4, 13, 300, 260),
+                                     (16, 4, 2048, 768), (16, 14, 2048, 768),
+                                     (2, 14, 301, 259)])
+def test_moe_gmm_takes_the_configs_activation(card, E, C, D, F, act, dtype):
+    """The gelu (tanh form) and relu instantiations of the first pass,
+    vector and scalar loads, 4 and 8 rows a block, against `moe_gmm_ref`
+    with the same activation; one launch each."""
+    h = _normal((E, C, D), 13, card, dtype)
+    wg = _normal((E, D, F), 14, card, dtype, D**-0.5)
+    wu = _normal((E, D, F), 15, card, dtype, D**-0.5)
+    wd = _normal((E, F, D), 16, card, dtype, F**-0.5)
+    launch_counts.clear()
+    got = moe_gmm(h, wg, wu, wd, act)
+    assert launch_counts["moe_gmm"] == 1
+    want = moe_gmm_ref(h, wg, wu, wd, act)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(got.float(), want.float(), **_tol(dtype))
+    assert not torch.equal(got, moe_gmm(h, wg, wu, wd))   # not silu
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_moe_gmm_takes_empty_capacity_rows(card, dtype):
     """A dispatch buffer as the model leaves it: most experts' capacity
     rows all zero, a few rows filled; empty rows give zero output."""
@@ -1048,6 +1070,50 @@ def test_moe_gmm_bwd_matches_plain_autograd(card, case, dtype):
     assert all(torch.equal(a, b) for a, b in zip(got, again))
 
 
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("act", ["gelu", "relu"])
+@pytest.mark.parametrize("case", [(2, 16, 16, 32), (2, 67, 130, 70),
+                                  (4, 128, 256, 256), (2, 70, 75, 45)])
+def test_moe_gmm_bwd_takes_the_configs_activation(card, case, act, dtype):
+    """dh, dWg, dWu, dWd of the gelu and relu instantiations of the
+    activation pass through `moe_gmm`'s autograd function against
+    autograd through `moe_gmm_ref` with the same activation, empty
+    capacity rows giving zero dh.  relu's derivative steps at G = 0:
+    where the plain version's G lies within 2^-16 of sum |h| |Wg| of
+    zero (under 1e-3 of the elements) the kernel's other summation order
+    may take the other side, and dh and dWg may move by that much more
+    (chip_smoke.py's `_relu_steps`)."""
+    E, C, D, F = case
+    h = _normal((E, C, D), 60, card, dtype)
+    h[:, C - C // 4:] = 0
+    ws = [_normal(s, 61 + i, card, dtype, s[1] ** -0.5)
+          for i, s in enumerate(((E, D, F), (E, D, F), (E, F, D)))]
+    dout = _normal((E, C, D), 64, card, dtype)
+    launch_counts.clear()
+    got = _gmm_bwd_grads(lambda *a: moe_gmm(*a, act), h, ws, dout)
+    assert dict(launch_counts) == {"moe_gmm": 1, "moe_gmm_bwd": 1}
+    want = _gmm_bwd_grads(lambda *a: moe_gmm_ref(*a, act), h, ws, dout)
+    torch.cuda.synchronize()
+    allow = [0.0] * 4
+    if act == "relu":
+        h32, g32, u32, d32 = (t.float() for t in (h, *ws))
+        near = torch.einsum("ecd,edf->ecf", h32, g32).abs() <= 2.0**-16 * (
+            torch.einsum("ecd,edf->ecf", h32.abs(), g32.abs()))
+        assert int(near.sum()) <= 1e-3 * near.numel()
+        step = near * (torch.einsum("ecd,efd->ecf", dout.float(), d32)
+                       * torch.einsum("ecd,edf->ecf", h32, u32)).abs()
+        allow[:2] = (torch.einsum("ecf,edf->ecd", step, g32.abs()),
+                     torch.einsum("ecd,ecf->edf", h32.abs(), step))
+    tol = _tol(dtype)["atol"]
+    for name, g, w, a in zip(("dh", "dwg", "dwu", "dwd"), got, want, allow):
+        g, w = g.float(), w.float()
+        bound = tol * float(w.abs().max()) + tol * w.abs() + a
+        assert bool(((g - w).abs() <= bound).all()), (
+            f"{act} {name}: {float((g - w).abs().max())} beyond {tol} of "
+            f"{float(w.abs().max())}")
+    assert not got[0][:, C - C // 4:].any()
+
+
 def _traced_kernels(fn, part: str, reps: int = 10) -> set:
     """Names (template arguments kept) of the kernels holding `part` in
     the profiler's CUDA trace of `reps` calls of `fn`, after a warm call.
@@ -1076,9 +1142,9 @@ def _traced_kernels(fn, part: str, reps: int = 10) -> set:
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_moe_gmm_bwd_runs_wgmma_for_bf16(card, dtype):
     """The profiler's kernel names: bf16 launches the four wgmma kernels
-    alone (the activation pass, the two weight-gradient launches, dh),
-    f32 the CUDA-core ones alone (the activation pass and the tiled
-    products of dWd, dWg, dWu and dh)."""
+    alone (the activation pass, silu's instantiation, the two
+    weight-gradient launches, dh), f32 the CUDA-core ones alone (the
+    activation pass and the tiled products of dWd, dWg, dWu and dh)."""
     from repro_torch.kernels.moe_gmm.kernel import moe_gmm_bwd
 
     E, C, D, F = 2, 70, 128, 96
@@ -1086,10 +1152,10 @@ def test_moe_gmm_bwd_runs_wgmma_for_bf16(card, dtype):
     ws = [_normal(s, 76 + i, card, dtype, s[1] ** -0.5)
           for i, s in enumerate(((E, D, F), (E, D, F), (E, F, D)))]
     dout = _normal((E, C, D), 79, card, dtype)
-    want = ({"moe_bwd_act_wgmma", "moe_bwd_wgrad_wgmma<1>",
+    want = ({"moe_bwd_act_wgmma<0>", "moe_bwd_wgrad_wgmma<1>",
              "moe_bwd_wgrad_wgmma<2>", "moe_bwd_dh_wgmma"}
             if dtype == torch.bfloat16 else
-            {"moe_bwd_act<float>",
+            {"moe_bwd_act<float, 0>",
              "moe_bwd_gemm<float, false, float, false, float>",
              "moe_bwd_gemm<float, true, float, true, float>"})
     assert _traced_kernels(lambda: moe_gmm_bwd(h, *ws, dout),

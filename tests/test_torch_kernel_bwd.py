@@ -130,6 +130,61 @@ def test_moe_gmm_bwd_ref_equals_jax_vjp_and_autograd(case, dtype):
     assert np.abs(dout[:, C - C // 4:]).max() > 0
 
 
+_J_ACTS = {"gelu": jax.nn.gelu, "relu": jax.nn.relu}
+
+
+def _j_gmm_act(act):
+    """The JAX package's expert FFN with the config's activation, as its
+    einsum trio computes it (models/moe.py:128-131), in f32 like its
+    `moe_gmm_ref`."""
+    f = _J_ACTS[act]
+
+    def fn(h, wg, wu, wd):
+        h32 = h.astype(jnp.float32)
+        g = jnp.einsum("ecd,edf->ecf", h32, wg.astype(jnp.float32))
+        u = jnp.einsum("ecd,edf->ecf", h32, wu.astype(jnp.float32))
+        return jnp.einsum("ecf,efd->ecd", f(g) * u,
+                          wd.astype(jnp.float32)).astype(h.dtype)
+    return fn
+
+
+@pytest.mark.parametrize("dtype", list(DTYPES))
+@pytest.mark.parametrize("act", list(_J_ACTS))
+@pytest.mark.parametrize("case", GMM_CASES[:3])
+def test_moe_gmm_act_refs_equal_jax(case, act, dtype):
+    """gelu (tanh form) and relu: `moe_gmm_ref` against the JAX einsum
+    trio with `jax.nn.gelu` / `jax.nn.relu`, and `moe_gmm_bwd_ref` (each
+    activation's derivative, relu's 0 at 0) against its `jax.vjp` and
+    autograd through `moe_gmm_ref`; empty capacity rows give zero dh."""
+    E, C, D, F = case
+    ins, dout = _gmm_inputs(*case, seed=sum(case) + 7, empty=C // 4)
+    pairs = [_pair(a, dtype) for a in ins]
+    tdout, jdout = _pair(dout, dtype)
+    tins, jins = [t for t, _ in pairs], [j for _, j in pairs]
+    jfn = _j_gmm_act(act)
+    _close(moe_gmm_ref(*tins, act=act), jfn(*jins), dtype, "forward")
+    got = moe_gmm_bwd_ref(*tins, tdout, act=act)
+    want = _jax_vjp(jfn, jins, jdout)
+    plain = _autograd(lambda *a: moe_gmm_ref(*a, act=act), tins, [tdout])
+    for name, g, w, p in zip(("dh", "dwg", "dwu", "dwd"), got, want, plain):
+        assert g.dtype == p.dtype and g.shape == p.shape, name
+        _close(g, w, dtype, f"{name} vs jax.vjp")
+        _close(g, p, dtype, f"{name} vs autograd")
+    assert not got[0][:, C - C // 4:].any()
+
+
+def test_moe_gmm_takes_only_its_activations():
+    from repro_torch.kernels.moe_gmm import moe_gmm
+
+    ins, dout = _gmm_inputs(1, 4, 8, 8, seed=2)
+    t = [torch.from_numpy(a) for a in ins]
+    for fn in (moe_gmm, moe_gmm_ref):
+        with pytest.raises(ValueError, match="swish"):
+            fn(*t, act="swish")
+    with pytest.raises(ValueError, match="swish"):
+        moe_gmm_bwd_ref(*t, torch.from_numpy(dout), act="swish")
+
+
 def _rounded_gmm_backward(h, wg, wu, wd, dout):
     """The bf16 backward kernel's arithmetic (B6): G = h Wg, U = h Wu and
     dA = dout Wd^T summed in f32 from the bf16 inputs; A, dG and dU

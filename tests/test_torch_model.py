@@ -235,11 +235,47 @@ class TestBlocks:
         e = torch.tensor([3, 1, 3, 0, 1, 3, 2, 0])
         assert M._rank_within_expert(e, 4).tolist() == [0, 0, 1, 0, 1, 2, 0, 1]
 
-    def test_non_silu_moe_raises(self, model):
-        _, _, tcfg, _, tp = model
-        with pytest.raises(NotImplementedError, match="silu"):
-            M.apply_moe(tp["stack"][0]["moe"], torch.zeros(1, 4, 64),
-                        tcfg.replace(act="gelu"))
+    @pytest.mark.parametrize("arch", [ARCH, "deepseek-moe-16b"])
+    @pytest.mark.parametrize("act", ["gelu", "relu"])
+    def test_non_silu_moe_equals_jax(self, act, arch):
+        """The config's activation in the routed experts (the moe_gmm
+        kernel's plain version) and in deepseek's shared experts: the
+        one-shard `apply_moe` and its gradients (x and every leaf, one
+        seeded cotangent) against `jax.vjp` of the JAX package's in f32,
+        at the kernels' 2e-5 forward and 1e-4 of each gradient's largest
+        value.  The expert-parallel branch's case is in
+        tests/test_torch_tp_recurrent.py, whose JAX side has a mesh."""
+        jcfg = j_reduced(j_get_config(arch)).replace(
+            compute_dtype="float32", act=act)
+        tcfg = reduced_config(get_config(arch)).replace(
+            compute_dtype="float32", act=act)
+        jp = j_init_params(jcfg, jax.random.key(3))
+        layer = len(T.stack_plan(tcfg).prefix)   # the first MoE layer
+        jl = jax.tree.map(lambda a: np.asarray(a[0], np.float32),
+                          jp["stack"]["blocks"]["0"])["moe"]
+        tl = params_from_numpy(tcfg, jax.tree.map(np.asarray, jp),
+                               device="cpu", masters=True)
+        leaves = dict(tl["stack"][layer]["moe"].named_parameters())
+        assert sorted(leaves) == sorted(jl)
+        x, jx = _x((2, 32, 64), "float32", 30)
+        dy = np.random.default_rng(31).normal(size=(2, 32, 64)).astype(
+            np.float32)
+        x.requires_grad_()
+        y, aux = M.apply_moe(leaves, x, tcfg)
+        grads = torch.autograd.grad(y, [x, *leaves.values()],
+                                    torch.from_numpy(dy))
+        (jy, jaux), vjp = jax.vjp(
+            lambda p, a: JM.apply_moe(p, a, jcfg, PCTX), jl, jx)
+        jgp, jgx = vjp((jnp.asarray(dy), jnp.zeros_like(jaux)))
+        _close(y.detach(), jy, "float32", {"float32": dict(atol=2e-5,
+                                                           rtol=2e-5)})
+        np.testing.assert_allclose(float(aux.detach()), float(jaux),
+                                   rtol=1e-5)
+        for name, g in zip(["x", *leaves], grads):
+            want = np.asarray(jgx if name == "x" else jgp[name])
+            scale = max(float(np.abs(want).max()), 1e-30)
+            np.testing.assert_allclose(g.numpy(), want, rtol=1e-4,
+                                       atol=1e-4 * scale, err_msg=name)
 
 
 def _j_dispatch_round_once(x_tok, gates, idx, wg, wu, wd, cfg, capacity):

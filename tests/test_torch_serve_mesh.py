@@ -11,8 +11,8 @@ tests/torch_serve_mesh_cases.py:
   for every leaf of `cache_specs(cfg, B, L)` of all ten configs at full
   size, on (data, model) meshes (1, 2), (1, 4), (2, 2) and (4, 1), at L
   512 and 4,096; `kvcache.init_cache` given a mesh holds each K/V leaf as
-  its block and the recurrent states' channels whole (no compute: the
-  meta device);
+  its block and the recurrent states' channels cut over `model` where
+  their mixer splits (no compute: the meta device);
 * `forward_prefill` and three `forward_decode` steps under the same
   mesh context as the JAX functions: reduced f32 qwen3-moe on (1, 2)
   and (1, 4) (8 / 4 heads there) at a prefill length that divides tp
@@ -70,7 +70,8 @@ from repro_torch.configs.base import get_config, list_archs
 from repro_torch.core.comm import spawn_world
 from repro_torch.models.kvcache import init_cache, layer_cache_shape
 from repro_torch.models.parallel import ParallelContext
-from repro_torch.models.sharding import cache_slice, cache_spec, kv_split
+from repro_torch.models.sharding import (cache_slice, cache_spec,
+                                        computes_tp, kv_split)
 from repro_torch.models.transformer import stack_plan
 from test_torch_fsdp import _norm
 
@@ -321,9 +322,9 @@ def test_cache_spec_equals_jax(arch, mesh, L):
 def test_init_cache_holds_every_leaf_as_its_block(arch, mesh):
     """On the meta device, at full size, B 8, L 4,096, the last rank: each
     K/V leaf is its `cache_slice` block of the whole leaf, by positions or
-    by heads as `kv_split` says; the conv, SSM and LRU states keep their
-    channels whole (their mixers gather on use) and their rows over
-    `data`."""
+    by heads as `kv_split` says; the conv, SSM and LRU states their rows
+    over `data` and their channels over `model` exactly where their mixer
+    computes on the rank's channels (`computes_tp`), else whole."""
     cfg = get_config(arch)
     _, pctx = _stand_in(mesh, rank=mesh[0] * mesh[1] - 1)
     B, L = 8, 4096
@@ -341,7 +342,13 @@ def test_init_cache_holds_every_leaf_as_its_block(arch, mesh):
                 if whole is not None:
                     assert want[whole] * mesh[1] == shape[whole]
             else:
-                assert want[1:] == shape[1:], (kind, name)
+                cdim = 1 if name == "ssm" else len(shape) - 1
+                mixer = "stack.0.mixer.in_proj" if kind == "ssm" else \
+                    f"stack.{kinds.index(kind)}.rec.w_y"
+                n = mesh[1] if computes_tp(mixer, cfg, pctx) else 1
+                assert want[cdim] * n == shape[cdim], (kind, name)
+                assert all(w == s for d, (w, s) in enumerate(zip(want, shape))
+                           if d not in (0, cdim)), (kind, name)
                 assert want[0] * mesh[0] == shape[0]
 
 

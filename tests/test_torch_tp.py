@@ -10,9 +10,11 @@ spawn_world`), over the cases of tests/torch_tp_cases.py:
 * the predicate, with no compute: for all ten configs at full width on
   `model` 2, 4 and 16, every leaf that `models.sharding.computes_tp`
   splits is cut over `model` on its split dim by the JAX package's
-  `param_spec` (or is a bias the rules leave replicated, or a q/k norm
-  scale every head shares), and every leaf of a splittable block that the
-  rules cut over `model` splits, but attention whose heads do not divide;
+  `param_spec` (or is a bias the rules leave replicated, a q/k norm
+  scale every head shares, or a mixer's conv, `D`, `dt_bias` or
+  `lambda`, cut to the rank's channels on use), and every leaf of a
+  splittable block that the rules cut over `model` splits (the mamba and
+  RG-LRU mixers among them), but attention whose heads do not divide;
 * reduced qwen1.5-110b (QKV bias, untied head), deepseek-moe-16b (shared
   experts, a dense first layer, experts over `model`) and
   seamless-m4t-large-v2 (encoder, cross-attention, the plain FFN's
@@ -291,7 +293,10 @@ PREDICATES = [pytest.param(a, tp, id=f"{a}-tp{tp}")
               for a in list_archs() for tp in (2, 4, 16)]
 SPLIT_DIMS = {"wq": 1, "wk": 1, "wv": 1, "wo": 0, "w_gate": 1, "w_up": 1,
               "w_down": 0, "w_in": 1, "w_out": 0, "shared_gate": 1,
-              "shared_up": 1, "shared_down": 0, "embed": 0, "lm_head": 1}
+              "shared_up": 1, "shared_down": 0, "embed": 0, "lm_head": 1,
+              # the mamba mixer by d_inner, the RG-LRU block by lru_width
+              "in_proj": 1, "x_proj": 0, "dt_proj": 1, "out_proj": 0,
+              "A_log": 0, "w_y": 1, "w_x": 1, "w_a": 0, "w_i": 0}
 
 
 @pytest.mark.parametrize("arch,tp", PREDICATES)
@@ -309,17 +314,23 @@ def test_the_leaves_that_compute_tp_are_the_jax_rules_model_cuts(arch, tp):
         assert param_spec(name, shape, cfg, pctx) == spec, name
         parts = name.split(".")
         block, leaf = (parts[-2] if len(parts) > 1 else ""), parts[-1]
+        if block == "conv":   # a mixer's conv, named by its mixer
+            block = parts[-3]
         dim = SPLIT_DIMS.get(leaf)
-        in_block = (block in ("attn", "xattn", "ffn") or name == leaf
+        in_block = (block in ("attn", "xattn", "ffn", "mixer", "rec")
+                    or name == leaf
                     or (block == "moe" and leaf.startswith("shared_")))
         attn = block in ("attn", "xattn")
         if computes_tp(name, cfg, pctx):
             split += 1
             if dim is not None:
                 assert spec[dim] == "model", name
-            else:   # a bias under 4,096 wide, or a q / k norm scale
+            else:   # a bias under 4,096 wide, a q / k norm scale, or a
+                # mixer's leaf cut to the rank's channels on use
                 assert leaf in ("bq", "bk", "bv", "b_in", "q_norm",
-                                "k_norm"), name
+                                "k_norm") or (
+                    block in ("mixer", "rec")
+                    and leaf in ("w", "b", "D", "dt_bias", "lambda")), name
             assert heads or not attn, name
         elif dim is not None and in_block and spec[dim] == "model":
             assert attn and not heads, name

@@ -511,7 +511,8 @@ class TestTrainSteps:
             u = ((bits * 2654435761) >> 13) % 3 - 1
             return y + u * y * torch.finfo(torch.float32).eps / 2
 
-        def gates(p, x):   # R._gates with `exp`
+        def gates(p, x, tp=None):   # R._gates with `exp`, one process
+            assert tp is None
             r = torch.sigmoid((x @ p["w_a"].to(x.dtype)).float())
             i = torch.sigmoid((x @ p["w_i"].to(x.dtype)).float())
             log_a = -R._C * F.softplus(p["lambda"]) * r
